@@ -1,0 +1,255 @@
+"""JAX parameter tree (numpy leaves) -> the port's ``state_dict``.
+
+The JAX package keeps linear kernels as (in, out) and per-block lists
+(``init_fusion``); the port keeps PyTorch's (out, in) and the reference
+checkpoint's names. So this module:
+
+  * transposes every linear ``kernel`` into ``weight``;
+  * reshapes the kernel==stride patch embeddings and the 1x1x1 VGGT
+    projection, stored by the JAX package as matmul kernels, back into
+    their Conv3d weights;
+  * carries convolution kernels over unchanged: the JAX tree already keeps
+    torch's (out, in, ...) layout for them;
+  * renames scale -> weight for norms, and the JAX sub-tree names into the
+    reference's module paths (``text_embedding.fc1`` -> ``text_embedding.0``,
+    ``camera`` -> ``cross_attn.processor``, DPT ``scratch.*``, ...).
+
+Nothing is unstacked: the JAX tree keeps per-block lists.
+
+RoPE column order: the JAX checkpoint converters de-interleave the q/k
+projection columns (``ops/rope.py:permute_qk_out_channels``) so that the
+rotate-half form applies, and the JAX model runs ``apply_rope_half``. This
+module keeps the JAX column order and the port runs ``apply_rope_half``
+too, so a tree carried across from the JAX package needs no permutation. A
+loader of the published torch checkpoints must apply
+``permute_qk_out_channels`` to the DiT self-attention q/k (weights, biases,
+RMS scales) and the bicross m1/m2 projections, as ``convert/wan_dit.py`` and
+``convert/fusion.py`` do.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.fusion.bicross import BicrossConfig
+from ..models.fusion.model import FusionConfig
+from ..models.vggt.aggregator import AggregatorConfig
+from ..models.vggt.model import VGGTConfig
+from ..models.wan.camera import CameraPoseEncoderConfig
+from ..models.wan.dit import WanDiTConfig
+
+
+def _config(cls, obj, **sub):
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+          if f.name not in sub}
+    return cls(**kw, **sub)
+
+
+def fusion_config_from(cfg) -> FusionConfig:
+    """The port's FusionConfig holding the field values of a JAX-package
+    FusionConfig (the two declare the same fields)."""
+    vggt = _config(VGGTConfig, cfg.vggt,
+                   aggregator=_config(AggregatorConfig, cfg.vggt.aggregator))
+    return _config(FusionConfig, cfg, dit=_config(WanDiTConfig, cfg.dit),
+                   vggt=vggt, bicross=_config(BicrossConfig, cfg.bicross))
+
+
+def pose_config_from(cfg) -> CameraPoseEncoderConfig:
+    return _config(CameraPoseEncoderConfig, cfg)
+
+
+def _arr(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+
+
+class _Writer:
+    def __init__(self, shapes: Mapping[str, torch.Size]):
+        self.shapes = shapes
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def put(self, name: str, value) -> None:
+        t = _arr(value)
+        if name in self.shapes and tuple(t.shape) != tuple(self.shapes[name]):
+            t = t.reshape(self.shapes[name])
+        self.sd[name] = t
+
+    def linear(self, name: str, p: Mapping) -> None:
+        self.put(name + ".weight", np.asarray(p["kernel"], np.float32).T)
+        if "bias" in p:
+            self.put(name + ".bias", p["bias"])
+
+    def conv(self, name: str, p: Mapping) -> None:
+        self.put(name + ".weight", p["kernel"])
+        if "bias" in p:
+            self.put(name + ".bias", p["bias"])
+
+    def norm(self, name: str, p: Mapping) -> None:
+        if "scale" in p:
+            self.put(name + ".weight", p["scale"])
+        if "bias" in p:
+            self.put(name + ".bias", p["bias"])
+
+    def mlp(self, name: str, p: Mapping) -> None:
+        """fc1/fc2 -> the reference's Sequential(Linear, act, Linear)."""
+        self.linear(name + ".0", p["fc1"])
+        self.linear(name + ".2", p["fc2"])
+
+
+def _dit(w: _Writer, p: Mapping, pre: str) -> None:
+    w.linear(pre + "patch_embedding", p["patch_embedding"])
+    w.mlp(pre + "text_embedding", p["text_embedding"])
+    w.mlp(pre + "time_embedding", p["time_embedding"])
+    w.linear(pre + "time_projection.1", p["time_projection"])
+    w.linear(pre + "head.head", p["head"]["head"])
+    w.put(pre + "head.modulation", p["head"]["modulation"])
+    if "img_emb" in p:
+        ie = p["img_emb"]
+        w.norm(pre + "img_emb.proj.0", ie["norm_in"])
+        w.linear(pre + "img_emb.proj.1", ie["fc1"])
+        w.linear(pre + "img_emb.proj.3", ie["fc2"])
+        w.norm(pre + "img_emb.proj.4", ie["norm_out"])
+    for i, b in enumerate(p["blocks"]):
+        bp = f"{pre}blocks.{i}."
+        for attn in ("self_attn", "cross_attn"):
+            a = b[attn]
+            for name in ("q", "k", "v", "o", "k_img", "v_img"):
+                if name in a:
+                    w.linear(f"{bp}{attn}.{name}", a[name])
+            for name in ("norm_q", "norm_k", "norm_k_img"):
+                if name in a:
+                    w.norm(f"{bp}{attn}.{name}", a[name])
+        w.norm(bp + "norm3", b["norm3"])
+        w.mlp(bp + "ffn", b["ffn"])
+        w.put(bp + "modulation", b["modulation"])
+        if "camera" in b:
+            cam, cp = b["camera"], bp + "cross_attn.processor."
+            w.linear(cp + "k_proj.group1", cam["k_group1"])
+            w.mlp(cp + "k_proj.group2", cam["k_group2"])
+            w.mlp(cp + "v_proj.group2", cam["v_group2"])
+
+
+def _vggt_block(w: _Writer, p: Mapping, pre: str) -> None:
+    w.norm(pre + "norm1", p["norm1"])
+    w.linear(pre + "attn.qkv", p["attn"]["qkv"])
+    w.linear(pre + "attn.proj", p["attn"]["proj"])
+    for name in ("q_norm", "k_norm"):
+        if name in p["attn"]:
+            w.norm(f"{pre}attn.{name}", p["attn"][name])
+    w.put(pre + "ls1.gamma", p["ls1"]["gamma"])
+    w.norm(pre + "norm2", p["norm2"])
+    w.linear(pre + "mlp.fc1", p["mlp"]["fc1"])
+    w.linear(pre + "mlp.fc2", p["mlp"]["fc2"])
+    w.put(pre + "ls2.gamma", p["ls2"]["gamma"])
+    if "modulation" in p:
+        w.put(pre + "modulation", p["modulation"])
+
+
+def _dpt(w: _Writer, p: Mapping, pre: str) -> None:
+    w.norm(pre + "norm", p["norm"])
+    for i, proj in enumerate(p["projects"]):
+        w.conv(f"{pre}projects.{i}", proj)
+    for i in (0, 1, 3):
+        w.conv(f"{pre}resize_layers.{i}", p[f"resize{i}"])
+    for i, tu in enumerate(p["temporal_upsamplers"]):
+        tp = f"{pre}temporal_upsamplers.{i}."
+        w.conv(tp + "conv2", tu["conv2"])
+        for j, (up, res) in enumerate((("up1", "res1"), ("up2", "res2"))):
+            w.conv(f"{tp}decoder.upsamples.{2 * j}.time_conv",
+                   tu[up]["time_conv"])
+            rp = f"{tp}decoder.upsamples.{2 * j + 1}.residual."
+            w.put(rp + "0.gamma", tu[res]["norm"]["gamma"])
+            w.conv(rp + "2", tu[res]["conv"])
+    sp = pre + "scratch."
+    for i, conv in enumerate(p["layer_rn"]):
+        w.conv(f"{sp}layer{i + 1}_rn", conv)
+    for k in (1, 2, 3, 4):
+        fb, fp = p[f"refinenet{k}"], f"{sp}refinenet{k}."
+        w.conv(fp + "out_conv", fb["out_conv"])
+        for unit in (1, 2):
+            if f"res{unit}_conv1" in fb:
+                w.conv(f"{fp}resConfUnit{unit}.conv1", fb[f"res{unit}_conv1"])
+                w.conv(f"{fp}resConfUnit{unit}.conv2", fb[f"res{unit}_conv2"])
+    w.conv(sp + "output_conv1", p["output_conv1"])
+    w.conv(sp + "output_conv2.0", p["output_conv2_0"])
+    w.conv(sp + "output_conv2.2", p["output_conv2_2"])
+
+
+def _camera_head(w: _Writer, p: Mapping, pre: str) -> None:
+    for i, blk in enumerate(p["trunk"]):
+        _vggt_block(w, blk, f"{pre}trunk.{i}.")
+    w.norm(pre + "token_norm", p["token_norm"])
+    w.norm(pre + "trunk_norm", p["trunk_norm"])
+    w.put(pre + "empty_pose_tokens", p["empty_pose_tokens"])
+    w.linear(pre + "embed_pose", p["embed_pose"])
+    w.linear(pre + "poseLN_modulation.1", p["poseLN_modulation"])
+    w.conv(pre + "camera_time_upsample.expand_channels",
+           p["camera_time_upsample"])
+    w.linear(pre + "pose_branch.fc1", p["pose_branch"]["fc1"])
+    w.linear(pre + "pose_branch.fc2", p["pose_branch"]["fc2"])
+
+
+def _vggt(w: _Writer, p: Mapping, pre: str) -> None:
+    w.linear(pre + "projection_head", p["projection_head"])
+    w.mlp(pre + "time_embedding", p["time_embedding"])
+    w.linear(pre + "time_projection.1", p["time_projection"])
+    agg, ap = p["aggregator"], pre + "aggregator."
+    w.put(ap + "camera_token", agg["camera_token"])
+    w.put(ap + "register_token", agg["register_token"])
+    for kind in ("frame_blocks", "global_blocks"):
+        for i, blk in enumerate(agg[kind]):
+            _vggt_block(w, blk, f"{ap}{kind}.{i}.")
+    w.mlp(ap + "CamTokenProjector.mlp", agg["cam_token_projector"])
+    if "camera_head" in p:
+        _camera_head(w, p["camera_head"], pre + "camera_head.")
+    for head in ("depth_head", "point_head"):
+        if head in p:
+            _dpt(w, p[head], f"{pre}{head}.")
+
+
+def _bicross(w: _Writer, p: Mapping, pre: str) -> None:
+    for name in ("m1_proj", "m2_proj", "values_m1_proj", "values_m2_proj",
+                 "out_m1_proj", "out_m2_proj"):
+        w.linear(f"{pre}cross_attn.{name}", p[name])
+    w.put(pre + "gamma_m1", p["gamma_m1"])
+    w.put(pre + "gamma_m2", p["gamma_m2"])
+
+
+def _shapes(module: nn.Module) -> Dict[str, torch.Size]:
+    return {k: v.shape for k, v in module.state_dict().items()}
+
+
+def fusion_state_dict(params: Mapping, model: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_fusion`` / ``convert_fusion_checkpoint`` tree ({dit, vggt,
+    bicross}) -> f32 state dict of ``FusionModel`` ``model``."""
+    w = _Writer(_shapes(model))
+    _dit(w, params["dit"], "dit.")
+    _vggt(w, params["vggt"], "vggt.")
+    for i, b in enumerate(params["bicross"]):
+        _bicross(w, b, f"bicross.{i}.")
+    return w.sd
+
+
+def pose_encoder_state_dict(params: Mapping, model: nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX camera pose encoder tree (``convert/camera.py:
+    convert_pose_encoder``) -> f32 state dict of ``CameraPoseEncoder``."""
+    w = _Writer(_shapes(model))
+    e1, e2 = params["encode_first"], params["encode_second"]
+    w.conv("controlnet_encode_first.0", e1["conv1"])
+    w.norm("controlnet_encode_first.1", e1["norm1"])
+    w.conv("controlnet_encode_first.2", e1["conv2"])
+    w.norm("controlnet_encode_first.3", e1["norm2"])
+    w.conv("controlnet_encode_second.0", e2["conv1"])
+    w.norm("controlnet_encode_second.1", e2["norm1"])
+    w.linear("patch_embedding", params["patch_embedding"])
+    fc = params["fc"]
+    w.linear("fc.0", fc["fc1"])
+    w.norm("fc.1", fc["norm1"])
+    w.linear("fc.3", fc["fc2"])
+    w.norm("fc.4", fc["norm2"])
+    return w.sd

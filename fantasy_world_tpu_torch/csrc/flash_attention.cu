@@ -1,0 +1,355 @@
+// Flash-attention forward for NVIDIA Hopper (sm_90a): three entry points,
+// one per Pallas TPU kernel on the denoise path of the JAX reference
+// (fantasy_world_tpu/ops/flash_attention.py).
+//
+//   fa_fwd_generic  (HEAD_DIM 96, 128)  replaces _fa_kernel, launched from
+//                   _flash_forward when Lk > block_k: DiT self-attention
+//                   (16317 x 16317, 40 x 128) and both bicross directions
+//                   (16317 <-> 16422, 12 x 96). Online softmax over key tiles.
+//   fa_fwd_onekv    (HEAD_DIM 128)      replaces _fa_kernel_onekv (Lk <= 2048):
+//                   DiT cross-attention against 512 text / 257 CLIP keys and
+//                   the camera-head trunk (81 keys). Exact row max first, then
+//                   sum and P.V with no rescale.
+//   fa_fwd_d64      (HEAD_DIM 64)       replaces _fa_kernel_pair (D <= 64, H
+//                   even): VGGT frame (42 x 782) and global (2 x 16422)
+//                   attention. The TPU kernel packs two 64-wide heads into 128
+//                   lanes; on Hopper 64 is a native MMA width, so this is the
+//                   generic kernel built for HEAD_DIM 64.
+//
+// What bounds them on the card: the DiT self-attention alone is ~436 TFLOP
+// per CFG step, so these kernels are bound by tensor-core math and by the
+// softmax work between the two products, not by device memory (K/V tiles
+// are re-read from L2 by every query tile of a head). The design keeps Q in
+// registers for the whole key sweep, runs both products on the tensor cores
+// through nvcuda::wmma bf16 16x16x16 fragments (mma.sync) with f32
+// accumulators, and keeps the output accumulator in registers; the per-row
+// softmax runs on a 16 x 64 f32 score tile in shared memory, two lanes per
+// row. The accumulator rescale (the online-softmax alpha) and the final 1/l
+// are applied elementwise through an accumulator fragment loaded from a
+// row-broadcast 16 x 16 matrix, which has the same element-to-row mapping as
+// the output fragments whatever the hardware layout is.
+//
+// Numerics follow the TPU kernels: q is multiplied by scale*log2(e) in f32
+// and rounded to bf16, logits are f32 in the exp2 domain, P is rounded to
+// bf16 before P.V, statistics and the accumulator are f32. The ragged key
+// tail is masked on the last tile (OOB keys score -inf and their V rows load
+// as zeros); query rows >= Lq compute on zeros and are not stored.
+//
+// Layout: q/k/v are read in place through their (batch, row, head) strides in
+// elements, with a unit stride on D -- (B, L, H*D) rows with the head's D-wide
+// column slice, so strided views (VGGT's fused qkv, bicross's swapped q/k)
+// need no copy. The output is a contiguous (B, Lq, H, D) bf16 tensor.
+//
+// Each entry point launches on the given stream and returns a cudaError_t
+// (0 on success); it allocates nothing and does not synchronise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <math.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int WARPS = 4;           // warps per block
+constexpr int BQ = 16 * WARPS;     // query rows per block (16 per warp)
+constexpr int BK = 64;             // keys per tile
+constexpr int PAD_H = 8;           // bf16 row padding: 16 bytes
+constexpr int PAD_F = 4;           // f32 row padding: 16 bytes
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int Lq, Lk;
+  long long q_sb, q_sr, q_sh;
+  long long k_sb, k_sr, k_sh;
+  long long v_sb, v_sr, v_sh;
+  long long o_sb, o_sr, o_sh;
+  float qscale;                    // softmax scale * log2(e)
+};
+
+// Shared-memory plan of one block. Every region and every 16-row sub-tile
+// starts on a 32-byte boundary, as wmma loads and stores require.
+template <int D>
+struct Plan {
+  static constexpr int LDH = D + PAD_H;                     // Q, K, V tiles
+  static constexpr int LDS = (D > BK ? D : BK) + PAD_F;     // f32 scratch
+  static constexpr int LDP = BK + PAD_H;                    // P tile
+  static constexpr size_t q_bytes = size_t(BQ) * LDH * 2;
+  static constexpr size_t kv_bytes = size_t(BK) * LDH * 2;
+  static constexpr size_t s_bytes = size_t(WARPS) * 16 * LDS * 4;
+  static constexpr size_t p_bytes = size_t(WARPS) * 16 * LDP * 2;
+  static constexpr size_t a_bytes = size_t(WARPS) * 16 * 16 * 4;
+  static constexpr size_t total = q_bytes + 2 * kv_bytes + s_bytes + p_bytes + a_bytes;
+};
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// rows x D bf16 from global (row stride sr elements) into a padded shared
+// tile; rows at or past `limit` load as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long sr, int row0, int limit) {
+  constexpr int CH = D / 8;        // 16-byte chunks per row
+  for (int i = threadIdx.x; i < BK * CH; i += WARPS * 32) {
+    const int r = i / CH, c = i % CH;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < limit)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sr + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * Plan<D>::LDH + c * 8) = val;
+  }
+}
+
+// The warp's 16 x BK logits S = Q K^T (exp2 domain) into its f32 scratch.
+template <int D>
+__device__ __forceinline__ void score_tile(const FragA (&qf)[D / 16],
+                                           const __nv_bfloat16* sK, float* sS) {
+#pragma unroll
+  for (int n = 0; n < BK / 16; ++n) {
+    FragC sf;
+    wmma::fill_fragment(sf, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      FragBc kf;
+      wmma::load_matrix_sync(kf, sK + n * 16 * Plan<D>::LDH + kk * 16, Plan<D>::LDH);
+      wmma::mma_sync(sf, qf[kk], kf, sf);
+    }
+    wmma::store_matrix_sync(sS + n * 16, sf, Plan<D>::LDS, wmma::mem_row_major);
+  }
+}
+
+// Multiply every output fragment row r by the value each lane pair holds
+// for its row: broadcast through a 16 x 16 accumulator-layout matrix.
+template <int D>
+__device__ __forceinline__ void scale_rows(FragC (&of)[D / 16], float* sA, int r, int par,
+                                           float value) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sA[r * 16 + 2 * j + par] = value;
+  __syncwarp();
+  FragC af;
+  wmma::load_matrix_sync(af, sA, 16, wmma::mem_row_major);
+#pragma unroll
+  for (int d = 0; d < D / 16; ++d)
+#pragma unroll
+    for (int i = 0; i < af.num_elements; ++i) of[d].x[i] *= af.x[i];
+  __syncwarp();
+}
+
+template <int D, bool ONE_KV>
+__global__ void __launch_bounds__(WARPS * 32)
+fa_fwd_kernel(const Params p) {
+  using P = Plan<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + P::q_bytes);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + P::q_bytes + P::kv_bytes);
+  float* sS = reinterpret_cast<float*>(smem + P::q_bytes + 2 * P::kv_bytes) + warp * 16 * P::LDS;
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(
+      smem + P::q_bytes + 2 * P::kv_bytes + P::s_bytes) + warp * 16 * P::LDP;
+  float* sA = reinterpret_cast<float*>(
+      smem + P::q_bytes + 2 * P::kv_bytes + P::s_bytes + P::p_bytes) + warp * 256;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+
+  // Q tile, pre-scaled by scale*log2(e) in f32 and rounded to bf16
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < BQ * CH; i += WARPS * 32) {
+    const int r = i / CH, c = i % CH;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < p.Lq)
+      raw = *reinterpret_cast<const uint4*>(qg + (long long)(q0 + r) * p.q_sr + c * 8);
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h2[j]);
+      h2[j] = __floats2bfloat162_rn(f.x * p.qscale, f.y * p.qscale);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * P::LDH + c * 8) = raw;
+  }
+  __syncthreads();
+  FragA qf[D / 16];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * P::LDH + kk * 16, P::LDH);
+
+  FragC of[D / 16];
+#pragma unroll
+  for (int d = 0; d < D / 16; ++d) wmma::fill_fragment(of[d], 0.0f);
+
+  // lane -> (row r of the warp's 16, column parity): lanes 2r and 2r+1 own
+  // row r and hold identical copies of its running max m and sum l
+  const int r = lane >> 1, par = lane & 1;
+  float m = -INFINITY, l = 0.0f;
+  const int ntiles = (p.Lk + BK - 1) / BK;
+
+  if (ONE_KV) {
+    // pass 1: the exact row max over every key
+    for (int t = 0; t < ntiles; ++t) {
+      __syncthreads();
+      load_tile<D>(sK, kg, p.k_sr, t * BK, p.Lk);
+      __syncthreads();
+      score_tile<D>(qf, sK, sS);
+      __syncwarp();
+      const int valid = min(BK, p.Lk - t * BK);
+#pragma unroll 8
+      for (int j = 0; j < BK / 2; ++j) {
+        const int c = 2 * j + par;
+        if (c < valid) m = fmaxf(m, sS[r * P::LDS + c]);
+      }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    }
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    __syncthreads();
+    load_tile<D>(sK, kg, p.k_sr, t * BK, p.Lk);
+    load_tile<D>(sV, vg, p.v_sr, t * BK, p.Lk);
+    __syncthreads();
+    score_tile<D>(qf, sK, sS);
+    __syncwarp();
+    const int valid = min(BK, p.Lk - t * BK);
+    const float* srow = sS + r * P::LDS;
+    float m_new = m;
+    if (!ONE_KV) {
+      float tmax = -INFINITY;
+#pragma unroll 8
+      for (int j = 0; j < BK / 2; ++j) {
+        const int c = 2 * j + par;
+        if (c < valid) tmax = fmaxf(tmax, srow[c]);
+      }
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      m_new = fmaxf(m, tmax);
+    }
+    float sum = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < BK / 2; ++j) {
+      const int c = 2 * j + par;
+      const float pv = c < valid ? exp2f(srow[c] - m_new) : 0.0f;
+      sum += pv;
+      sP[r * P::LDP + c] = __float2bfloat16(pv);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (ONE_KV) {
+      l += sum;
+      __syncwarp();
+    } else {
+      const float alpha = exp2f(m - m_new);     // 0 on the first tile
+      l = l * alpha + sum;
+      m = m_new;
+      scale_rows<D>(of, sA, r, par, alpha);
+    }
+    // O += P V
+    FragA pf[BK / 16];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wmma::load_matrix_sync(pf[kk], sP + kk * 16, P::LDP);
+#pragma unroll
+    for (int d = 0; d < D / 16; ++d) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        FragBr vf;
+        wmma::load_matrix_sync(vf, sV + kk * 16 * P::LDH + d * 16, P::LDH);
+        wmma::mma_sync(of[d], pf[kk], vf, of[d]);
+      }
+    }
+  }
+
+  // epilogue: O / l, staged through the f32 scratch, rows < Lq stored
+  scale_rows<D>(of, sA, r, par, 1.0f / l);
+#pragma unroll
+  for (int d = 0; d < D / 16; ++d)
+    wmma::store_matrix_sync(sS + d * 16, of[d], P::LDS, wmma::mem_row_major);
+  __syncwarp();
+  const int qrow = q0 + warp * 16 + r;
+  if (qrow < p.Lq) {
+    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + (long long)qrow * p.o_sr;
+    const float* orow = sS + r * P::LDS;
+    for (int c = par * 8; c < D; c += 16) {
+      uint4 out;
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o2[j] = __floats2bfloat162_rn(orow[c + 2 * j], orow[c + 2 * j + 1]);
+      *reinterpret_cast<uint4*>(og + c) = out;
+    }
+  }
+}
+
+template <int D, bool ONE_KV>
+int launch(const Params& p, int B, int H, cudaStream_t stream) {
+  const size_t smem = Plan<D>::total;
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, ONE_KV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Lq + BQ - 1) / BQ, H, B);
+  fa_fwd_kernel<D, ONE_KV><<<grid, WARPS * 32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o, int Lq, int Lk, int H,
+                   int D, long long q_sb, long long q_sr, long long q_sh, long long k_sb,
+                   long long k_sr, long long k_sh, long long v_sb, long long v_sr,
+                   long long v_sh, float qscale) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.q_sb = q_sb; p.q_sr = q_sr; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sr = k_sr; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_sr = v_sr; p.v_sh = v_sh;
+  p.o_sh = D;
+  p.o_sr = (long long)H * D;
+  p.o_sb = (long long)Lq * H * D;
+  p.qscale = qscale;
+  return p;
+}
+
+}  // namespace
+
+#define FA_ARGS                                                                         \
+  const void *q, const void *k, const void *v, void *o, int B, int Lq, int Lk, int H, int D, \
+      long long q_sb, long long q_sr, long long q_sh, long long k_sb, long long k_sr,       \
+      long long k_sh, long long v_sb, long long v_sr, long long v_sh, float qscale,         \
+      void *stream
+#define FA_PARAMS                                                                        \
+  make_params(q, k, v, o, Lq, Lk, H, D, q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, \
+              qscale)
+
+extern "C" {
+
+int fa_fwd_generic(FA_ARGS) {
+  const Params p = FA_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch<128, false>(p, B, H, s);
+  if (D == 96) return launch<96, false>(p, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int fa_fwd_onekv(FA_ARGS) {
+  const Params p = FA_PARAMS;
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  return launch<128, true>(p, B, H, static_cast<cudaStream_t>(stream));
+}
+
+int fa_fwd_d64(FA_ARGS) {
+  const Params p = FA_PARAMS;
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  return launch<64, false>(p, B, H, static_cast<cudaStream_t>(stream));
+}
+
+const char* fa_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"
