@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA device
 
-Phases, each printing one line (any failure raises and exits non-zero):
-  1. build the hand-written attention kernels from ``csrc/`` (nvcc, sm_90a);
-  2. each kernel against its plain PyTorch version on seeded bf16 inputs at
-     the main-path shapes: max abs error (bound 1.5e-2) and CUDA-event
-     times of both;
-  3. a reduced-width slice (every kernel route taken) on the card in bf16
+Phases, each printing one line per check (any failure raises and exits
+non-zero):
+  1. build the hand-written attention kernels from ``csrc/`` (nvcc, sm_90a,
+     one process per source, all at once);
+  2. each forward kernel against its plain PyTorch version on seeded bf16
+     inputs at the denoise shapes: max abs error (bound 1.5e-2) and
+     CUDA-event times of both;
+  3. the stats forward, dq and dk/dv against their plain versions at the
+     training shapes (batch 1): max abs errors of o, m2, l, dq, dk, dv,
+     times of each kernel and its plain version;
+  4. a reduced-width denoise (every kernel route taken) on the card in bf16
      against the same weights on the CPU in f32 through the plain versions;
-  4. the full-width, full-depth Wan2.1-I2V-14B-480P fusion denoise
+  5. reduced-width training on the card in bf16 against the CPU in f32:
+     two LoRA steps (losses, factor gradients; every stats-forward and
+     backward kernel at D 64, 96 and 128 launched) and one full
+     fine-tuning step (loss, gradients);
+  6. the full-width, full-depth Wan2.1-I2V-14B-480P fusion denoise
      (``FusionConfig()``, 336x592, 81 frames, 3 steps, geometry heads on the
      last) from random weights: shapes, finiteness, launch counts, seconds
-     per step and peak memory.
+     per step and peak memory;
+  7. two full-width LoRA training steps (rank 16, per-block recompute,
+     batch 1) on the same model: finite losses, moved factors, an unchanged
+     base, exact launch counts, seconds per step and peak memory.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import os
 import subprocess
@@ -29,15 +43,28 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {"generic": "fantasy_world_tpu/ops/flash_attention.py:85",
-            "onekv": "fantasy_world_tpu/ops/flash_attention.py:163",
-            "d64": "fantasy_world_tpu/ops/flash_attention.py:199"}
+BWD_SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention_bwd.cu"
+JAX_FA = "fantasy_world_tpu/ops/flash_attention.py"
+REPLACES = {"generic": f"{JAX_FA}:85", "onekv": f"{JAX_FA}:163",
+            "d64": f"{JAX_FA}:199", "bwd_dq": f"{JAX_FA}:470",
+            "bwd_dkv": f"{JAX_FA}:507"}
 # bf16 P before P.V bounds kernel-vs-plain differences on unit-variance
 # inputs
 KERNEL_TOL = 1.5e-2
+# m2 and l: f32 on both sides from the same bf16 logits, summation order
+# only; relative to max(1, |m2|) and to l (>= 1)
+STATS_RTOL = 1e-4
+# dq, dk, dv relative to max(1, max |reference|): the same bf16 rounding
+# points for ds and p, so f32 summation order, rare one-ulp flips of a bf16
+# ds or p, and the bf16 rounding of the result (2^-9)
+BWD_RTOL = 1e-2
 # reduced slice, card bf16 vs CPU f32: bf16 rounding through 3 DiT blocks,
 # 2 VGGT block pairs and the heads over 2 steps; relative L2 error
 SLICE_TOL = 5e-2
+# reduced training, card bf16 vs CPU f32: the loss and the gradients
+# (relative L2 over all of them) carry the forward's bf16 rounding plus the
+# backward's, through 3 DiT blocks, 2 VGGT block pairs and bicross
+TRAIN_TOL = 5e-2
 
 # name, (B, Lq, H, D), Lk, kernel -- the main path's attentions with the
 # CFG pair as batch 2
@@ -53,7 +80,18 @@ SHAPES = [
 ]
 # the shape whose time stands for each kernel in the JSON line
 HEADLINE = {"generic": "dit_self", "onekv": "dit_cross_text",
-            "d64": "vggt_global"}
+            "d64": "vggt_global", "bwd_dq": "dit_self",
+            "bwd_dkv": "dit_self"}
+# the training step's attentions, batch 1 (no CFG pair)
+TRAIN_SHAPES = [
+    ("dit_self", (1, 16317, 40, 128), 16317, "generic"),
+    ("dit_cross_text", (1, 16317, 40, 128), 512, "onekv"),
+    ("dit_cross_clip", (1, 16317, 40, 128), 257, "onekv"),
+    ("bicross_video_to_geometry", (1, 16317, 12, 96), 16422, "generic"),
+    ("bicross_geometry_to_video", (1, 16422, 12, 96), 16317, "generic"),
+    ("vggt_frame", (21, 782, 16, 64), 782, "d64"),
+    ("vggt_global", (1, 16422, 16, 64), 16422, "d64"),
+]
 
 
 def say(phase: str, **fields) -> None:
@@ -119,6 +157,84 @@ def phase_kernels(device):
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return per_kernel
+
+
+def _max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def phase_train_kernels(device, per_kernel):
+    """Stats forward, dq and dk/dv against their plain versions at the
+    training shapes; adds the stats and backward numbers to per_kernel."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(1)
+    for k in ("bwd_dq", "bwd_dkv"):
+        per_kernel[k] = {"max_abs_err": 0.0}
+    for name, (B, Lq, H, D), Lk, kernel in TRAIN_SHAPES:
+        if fa.route(H, D, Lk) != kernel:
+            raise AssertionError(f"{name} routes to {fa.route(H, D, Lk)}")
+        q = torch.randn((B, Lq, H, D), generator=g, device=device).bfloat16()
+        k = torch.randn((B, Lk, H, D), generator=g, device=device).bfloat16()
+        v = torch.randn((B, Lk, H, D), generator=g, device=device).bfloat16()
+        do = torch.randn((B, Lq, H, D), generator=g, device=device
+                         ).bfloat16()
+        scale = D ** -0.5
+        o, m2, l = fa.flash_attention_stats(q, k, v)
+        ro, rm2, rl = fa.attention_plain_stats(q, k, v, scale)
+        lse2 = m2 + torch.log2(l)
+        dq, delta = fa.launch_bwd_dq(q, k, v, o, lse2, do, scale)
+        dk, dv = fa.launch_bwd_dkv(q, k, v, lse2, do, delta, scale)
+        ref = fa.attention_backward_plain(q, k, v, o, lse2, do, scale)
+        torch.cuda.synchronize()
+        errs = {"o": _max_err(o, ro), "m2": _max_err(m2, rm2),
+                "l": _max_err(l, rl)}
+        rel = {"m2": ((m2 - rm2).abs() / rm2.abs().clamp_min(1)).max().item(),
+               "l": ((l - rl).abs() / rl).max().item()}
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            errs[gname] = _max_err(got, want)
+            largest = want.float().abs().max().item()
+            rel[gname] = errs[gname] / max(1.0, largest)
+        del ref, ro, rm2, rl
+        ms = {"stats": time_ms(lambda: fa.flash_attention_stats(q, k, v), 5),
+              "dq": time_ms(lambda: fa.launch_bwd_dq(q, k, v, o, lse2, do,
+                                                      scale), 5),
+              "dkv": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, lse2, do,
+                                                        delta, scale), 5)}
+        plain = {
+            "stats": time_ms(lambda: fa.attention_plain_stats(q, k, v, scale),
+                             3),
+            "dq": time_ms(lambda: fa.attention_backward_plain(
+                q, k, v, o, lse2, do, scale, want_dkv=False), 3),
+            "dkv": time_ms(lambda: fa.attention_backward_plain(
+                q, k, v, o, lse2, do, scale, want_dq=False), 3)}
+        unit = B * H * Lq * Lk * D / 1e9
+        say("train_kernel", shape=name, kernel=kernel, D=D,
+            max_abs_err="|".join(f"{n}:{e:.3e}" for n, e in errs.items()),
+            **{f"{n}_ms": f"{ms[n]:.3f}" for n in ms},
+            **{f"{n}_plain_ms": f"{plain[n]:.3f}" for n in plain},
+            tflops=f"stats:{4 * unit / ms['stats']:.1f}|dq:"
+                   f"{6 * unit / ms['dq']:.1f}|dkv:{8 * unit / ms['dkv']:.1f}")
+        bad = [n for n, bound in (("o", KERNEL_TOL),) if errs[n] > bound]
+        bad += [n for n in ("m2", "l") if not rel[n] <= STATS_RTOL]
+        bad += [n for n in ("dq", "dk", "dv") if not rel[n] <= BWD_RTOL]
+        if bad:
+            raise AssertionError(f"{name}: {bad} beyond their bounds: "
+                                 f"abs {errs}, relative {rel}")
+        fwd = per_kernel[kernel]
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["o"])
+        if name == HEADLINE[kernel]:
+            fwd["stats_ms"] = ms["stats"]
+            fwd["stats_plain_ms"] = plain["stats"]
+        for kname, part, grads in (("bwd_dq", "dq", ("dq",)),
+                                   ("bwd_dkv", "dkv", ("dk", "dv"))):
+            pk = per_kernel[kname]
+            pk["max_abs_err"] = max([pk["max_abs_err"]]
+                                    + [errs[n] for n in grads])
+            if name == HEADLINE[kname]:
+                pk["ms"], pk["plain_ms"] = ms[part], plain[part]
+        del q, k, v, do, o, m2, l, lse2, dq, delta, dk, dv
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +344,14 @@ def expected_launches(cfg, steps):
     """Kernel launches of a denoise: per step DiT self (generic), bicross
     both ways (generic), DiT cross text + CLIP (onekv), VGGT frame + global
     (d64); the camera-head trunk (onekv) on the last step."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
     n_irg = len(cfg.xattn_set())
     trunk = 4 * cfg.vggt.camera_head.trunk_depth
-    return {"generic": steps * (cfg.dit.num_layers + 2 * n_irg),
-            "onekv": steps * 2 * cfg.dit.num_layers + trunk,
-            "d64": steps * 2 * cfg.num_irg}
+    out = {k: 0 for k in fa.LAUNCHES}
+    out.update(generic=steps * (cfg.dit.num_layers + 2 * n_irg),
+               onekv=steps * 2 * cfg.dit.num_layers + trunk,
+               d64=steps * 2 * cfg.num_irg)
+    return out
 
 
 def phase_small_slice(device):
@@ -284,6 +403,168 @@ def phase_small_slice(device):
     if bad:
         raise AssertionError(f"reduced slice disagrees with the CPU path "
                              f"beyond {SLICE_TOL}: {bad}")
+
+
+def expected_train_launches(cfg, steps, remat=True):
+    """Kernel launches of ``steps`` training steps (no heads): per forward
+    pass the stats forward of every attention -- DiT self and both bicross
+    directions (generic), DiT cross text + CLIP (onekv), VGGT frame + global
+    (d64) -- twice under per-block recompute; per backward dq and dk/dv of
+    every attention the loss reaches, counted at the head dim its kernel
+    runs at. The geometry tokens after the last IRG block feed only the
+    heads, which the loss does not run, so the last bicross's
+    geometry-side attention gets no gradient and no backward."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    n_x = len(cfg.xattn_set())
+    n_dit, n_irg = cfg.dit.num_layers, cfg.num_irg
+    passes = steps * (2 if remat else 1)
+    out = {k: 0 for k in fa.LAUNCHES}
+    out.update(generic_stats=passes * (n_dit + 2 * n_x),
+               onekv_stats=passes * 2 * n_dit, d64_stats=passes * 2 * n_irg)
+    vggt = cfg.vggt.aggregator.block_cfg
+    big = fa.ONEKV_MAX_LK + 1
+    for D, n in ((fa.kernel_dim(cfg.dit.num_heads, cfg.dit.head_dim, big),
+                  3 * n_dit),
+                 (fa.kernel_dim(cfg.bicross.num_heads, cfg.bicross.head_dim,
+                                big),
+                  2 * n_x - ((n_irg - 1) in cfg.xattn_set())),
+                 (fa.kernel_dim(vggt.num_heads, vggt.head_dim, big),
+                  2 * n_irg)):
+        for k in ("bwd_dq", "bwd_dkv"):
+            out[f"{k}_{D}"] += steps * n
+    return out
+
+
+def train_batches(dit_cfg, height, width, num_frames, n, seed,
+                  text_len=16):
+    """``n`` seeded flow-matching batches (numpy, f32) at a latent
+    geometry: clean latents, noise, a schedule sigma and timestep, umT5 and
+    CLIP conditioning, y and Plucker features of the DiT's widths."""
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    f, lh, lw = (num_frames - 1) // 4 + 1, height // 8, width // 8
+    tokens = f * (lh // 2) * (lw // 2)
+    sched = FlowMatchScheduler().set_timesteps(1000)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        idx = int(rng.integers(0, len(sched.sigmas)))
+        b = {"clean_latents": rng.standard_normal((1, 16, f, lh, lw)),
+             "noise": rng.standard_normal((1, 16, f, lh, lw)),
+             "sigma": float(sched.sigmas[idx]),
+             "timestep": np.full((1,), float(sched.timesteps[idx])),
+             "context": rng.standard_normal((1, text_len,
+                                             dit_cfg.text_dim)) * 0.1,
+             "clip_feature": rng.standard_normal(
+                 (1, 257, dit_cfg.clip_feature_dim)) * 0.1,
+             "y": rng.standard_normal((1, dit_cfg.in_dim - 16, f, lh, lw)),
+             "plucker_fea": rng.standard_normal(
+                 (1, tokens, dit_cfg.plucker_dim)) * 0.1}
+        out.append({k: v if isinstance(v, float) else
+                    np.asarray(v, np.float32) for k, v in b.items()})
+    return out
+
+
+def _to(batch, device):
+    import torch
+    return {k: v if isinstance(v, float) else torch.as_tensor(v,
+                                                              device=device)
+            for k, v in batch.items()}
+
+
+def _rel_l2(got, want):
+    import torch
+    g = torch.cat([t.flatten().double() for t in got])
+    w = torch.cat([t.flatten().double() for t in want])
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+def phase_small_train(device):
+    """Two LoRA steps and one full fine-tuning step of the reduced model,
+    on the card in bf16 (kernels) and on the CPU in f32 (plain versions),
+    from the same weights, factors and batches."""
+    import torch
+    from fantasy_world_tpu_torch.cli.train import _optimizer
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.training.lora import (init_lora, lora_state,
+                                                       make_lora_train_step)
+    from fantasy_world_tpu_torch.training.step import make_train_step
+    fcfg, _ = small_configs()
+    batches = train_batches(fcfg.dit, 256, 384, 21, 2, seed=9)
+    g = torch.Generator("cpu").manual_seed(7)
+    base = build(lambda: FusionModel(fcfg), device="cpu",
+                 dtype=torch.float32, generator=g)
+    wake_zero_inits(base, g)
+    init_lora(base, 4, generator=torch.Generator("cpu").manual_seed(8))
+    with torch.no_grad():                 # nonzero up: both factors learn
+        for n, t in lora_state(base).items():
+            if n.endswith(".up"):
+                t.normal_(0.0, 0.02, generator=g)
+    sd = base.state_dict()
+
+    def model_on(dev, dtype, lora):
+        m = build(lambda: FusionModel(fcfg), device=dev, dtype=dtype)
+        if lora:
+            init_lora(m, 4, generator=torch.Generator(dev).manual_seed(8))
+        m.load_state_dict({k: v for k, v in sd.items()
+                           if lora or ".lora." not in k})
+        return m
+
+    opt_args = argparse.Namespace(lr=1e-3, warmup=1, weight_decay=1e-4)
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        before = dict(fa.LAUNCHES)
+        m = model_on(dev, dtype, lora=True)
+        state = lora_state(m)
+        names = sorted(state)
+        opt, sched = _optimizer(opt_args, [state[n] for n in names])
+        step = make_lora_train_step(m, opt, sched, remat=True)
+        losses, grads = [], []
+        for b in batches:
+            losses.append(float(step(_to(b, dev))))
+            grads.append([state[n].grad.float().cpu() for n in names])
+        launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        del m, state, opt, sched, step
+        # one full fine-tuning step from the same weights, no adapters
+        full = model_on(dev, dtype, lora=False)
+        params = [p for _, p in sorted(full.named_parameters())]
+        opt = torch.optim.AdamW(params, lr=1e-4, eps=1e-8)
+        full_loss = float(make_train_step(full, opt, remat=True)(
+            _to(batches[0], dev)))
+        runs[dev] = {"losses": losses, "grads": grads, "launches": launches,
+                     "full_loss": full_loss,
+                     "full_grads": [p.grad.float().cpu() for p in params]}
+        del full, params, opt
+        gc.collect()
+    cpu, card = runs["cpu"], runs[device]
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"the CPU run launched kernels: "
+                             f"{cpu['launches']}")
+    idle = [k for k, n in card["launches"].items()
+            if n == 0 and (k.endswith("_stats") or k.startswith("bwd_"))]
+    if idle:
+        raise AssertionError(f"reduced training launched no {idle}")
+    checks = {f"loss{i}": abs(a - b) / abs(b)
+              for i, (a, b) in enumerate(zip(card["losses"], cpu["losses"]))}
+    checks.update({f"lora_grads{i}": _rel_l2(a, b) for i, (a, b) in
+                   enumerate(zip(card["grads"], cpu["grads"]))})
+    checks["full_loss"] = (abs(card["full_loss"] - cpu["full_loss"])
+                           / abs(cpu["full_loss"]))
+    checks["full_grads"] = _rel_l2(card["full_grads"], cpu["full_grads"])
+    say("small_train", losses_card="|".join(f"{x:.5f}" for x in
+                                            card["losses"]),
+        losses_cpu="|".join(f"{x:.5f}" for x in cpu["losses"]),
+        full_loss=f"{card['full_loss']:.5f}|{cpu['full_loss']:.5f}",
+        device_vs_cpu_rel=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                      checks.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in card["launches"].items()
+                             if v}).replace(" ", ""))
+    bad = {k: v for k, v in checks.items() if not v <= TRAIN_TOL}
+    if bad:
+        raise AssertionError(f"reduced training disagrees with the CPU "
+                             f"beyond {TRAIN_TOL}: {bad}")
 
 
 def phase_full_slice(device, steps=3, seed=1024):
@@ -338,6 +619,84 @@ def phase_full_slice(device, steps=3, seed=1024):
                           ).replace(" ", ""))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    del lat, pred, got
+    return launches, pipe, cond, plucker_fea
+
+
+def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
+                     latent_fhw=(21, 42, 74)):
+    """LoRA rank 16 with per-block recompute on the full-width model the
+    denoise ran: ``steps`` steps at batch 1, lr 1e-4, warm-up 1."""
+    import torch
+    from fantasy_world_tpu_torch.cli.train import _optimizer
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    from fantasy_world_tpu_torch.training.lora import (init_lora, lora_state,
+                                                       make_lora_train_step)
+    from fantasy_world_tpu_torch.training.step import sample_training_inputs
+    fusion, cfg = pipe.fusion, pipe.cfg
+    params = dict(fusion.named_parameters())
+    # base tensors whose bytes must not change: every 1/8th of the list,
+    # from the first DiT embedding to the last bicross
+    names = sorted(params)
+    frozen = {n: params[n].detach().clone()
+              for n in names[::max(1, len(names) // 8)]}
+    init_lora(fusion, 16, generator=torch.Generator(device).manual_seed(seed))
+    state = lora_state(fusion)
+    opt, sched = _optimizer(argparse.Namespace(lr=1e-4, warmup=1,
+                                               weight_decay=1e-4),
+                            list(state.values()))
+    step = make_lora_train_step(fusion, opt, sched, remat=True)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    fm = FlowMatchScheduler().set_timesteps(1000)
+    shape = (1, cfg.dit.out_dim, *latent_fhw)
+    batches = []
+    for _ in range(steps):
+        clean = torch.randn(shape, generator=gen, device=device)
+        noise, sigma, t = sample_training_inputs(gen, fm, shape)
+        batches.append({"clean_latents": clean, "noise": noise,
+                        "sigma": sigma,
+                        "timestep": torch.full((1,), t, device=device),
+                        "context": cond[0].to(device),
+                        "clip_feature": cond[2].to(device),
+                        "y": cond[3].to(device), "plucker_fea": plucker_fea})
+    n_factors = sum(t.numel() for t in state.values())
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses = []
+    events[0].record()
+    for i, batch in enumerate(batches):
+        losses.append(step(batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    step_s = [events[i].elapsed_time(events[i + 1]) / 1e3
+              for i in range(steps)]
+    moved = sum(int(t.count_nonzero()) for n, t in state.items()
+                if n.endswith(".up"))
+    changed = [n for n, t in frozen.items() if not torch.equal(params[n], t)]
+    want = expected_train_launches(cfg, steps)
+    say("full_train", steps=steps, rank=16, lora_params=n_factors,
+        losses="|".join(f"{x:.5f}" for x in losses),
+        step_seconds="|".join(f"{x:.3f}" for x in step_s),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        up_nonzero=moved, base_unchanged=not changed,
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if moved == 0:
+        raise AssertionError("no up factor moved in two steps")
+    if changed:
+        raise AssertionError(f"LoRA training changed base tensors {changed}")
+    if launches != want:
+        raise AssertionError(f"training launch counts {launches} != {want}")
     return launches
 
 
@@ -350,6 +709,7 @@ def main() -> int:
         sys.path.insert(0, REPO)
     # fails here, before any output, when the port is not beside the script
     import fantasy_world_tpu_torch.pipelines.wan_video  # noqa: F401
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -363,15 +723,35 @@ def main() -> int:
 
     phase_build()
     per_kernel = phase_kernels(device)
+    phase_train_kernels(device, per_kernel)
     phase_small_slice(device)
-    launches = phase_full_slice(device)
+    phase_small_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    denoise, pipe, cond, plucker_fea = phase_full_slice(device)
+    train = phase_full_train(device, pipe, cond, plucker_fea)
 
-    kernels = [{"name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": per_kernel[k]["max_abs_err"],
-                "ms": per_kernel[k]["ms"],
-                "plain_ms": per_kernel[k]["plain_ms"]}
-               for k in ("generic", "onekv", "d64")]
+    kernels = []
+    for k in fa.ROUTES:
+        pk = per_kernel[k]
+        kernels.append({
+            "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[k],
+            "launches": denoise[k] + train[f"{k}_stats"],
+            "denoise_launches": denoise[k],
+            "stats_launches": train[f"{k}_stats"],
+            "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+            "plain_ms": pk["plain_ms"], "stats_ms": pk["stats_ms"],
+            "stats_plain_ms": pk["stats_plain_ms"]})
+    for k in ("bwd_dq", "bwd_dkv"):
+        pk = per_kernel[k]
+        kernels.append({
+            "name": f"fa_{k}", "route": "cuda", "source": BWD_SOURCE,
+            "replaces": REPLACES[k],
+            "launches": sum(train[f"{k}_{d}"] for d in fa.BWD_D),
+            "launches_by_head_dim": {d: train[f"{k}_{d}"] for d in fa.BWD_D},
+            "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+            "plain_ms": pk["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ checkpoint's names. So this module:
     reference's module paths (``text_embedding.fc1`` -> ``text_embedding.0``,
     ``camera`` -> ``cross_attn.processor``, DPT ``scratch.*``, ...).
 
-Nothing is unstacked: the JAX tree keeps per-block lists.
+Nothing is unstacked in the model tree: the JAX tree keeps per-block lists.
+LoRA factors are the exception: the JAX trainer stacks them per scan
+segment, and ``lora_state_dict`` unstacks them onto the per-block modules.
 
 RoPE column order: the JAX checkpoint converters de-interleave the q/k
 projection columns (``ops/rope.py:permute_qk_out_channels``) so that the
@@ -29,7 +31,7 @@ RMS scales) and the bicross m1/m2 projections, as ``convert/wan_dit.py`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -253,3 +255,49 @@ def pose_encoder_state_dict(params: Mapping, model: nn.Module
     w.linear("fc.3", fc["fc2"])
     w.norm("fc.4", fc["norm2"])
     return w.sd
+
+
+def dit_scan_segments(cfg: FusionConfig) -> List[Tuple[str, int]]:
+    """(JAX scan-tree prefix, first DiT block) of every segment that holds
+    DiT blocks: the PCB prefix split where the camera adapters end
+    (``pcb/{j}``), then the IRG runs split where the coupling or the
+    adapters change (``irg/{j}/dit``) -- ``prepare_scan_params``'s
+    layout."""
+    si, ae = cfg.start_index, cfg.dit.camera_adapter_end
+    cut = min(ae, si)
+    pcb = [(0, cut), (cut, si)] if 0 < cut < si else [(0, si)]
+    segs = [(f"pcb/{j}", lo) for j, (lo, _) in enumerate(pcb)]
+    xa, prev, j = cfg.xattn_set(), None, -1
+    for i in range(cfg.num_irg):
+        key = (i in xa, cfg.dit.has_adapter(si + i))
+        if key != prev:
+            j += 1
+            segs.append((f"irg/{j}/dit", si + i))
+            prev = key
+    return segs
+
+
+_LORA_LAYER = {"fc1": "0", "fc2": "2"}
+
+
+def lora_state_dict(lora: Mapping, model: nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_lora`` factors {scan path: {"down": (L, d_in, r), "up":
+    (L, r, d_out)}} -> f32 tensors under the port's adapter names
+    (``dit.blocks.{i}.{component}.{layer}.lora.down`` (r, d_in) and
+    ``.up`` (d_out, r)), one per block of each stacked segment. Also maps a
+    tree of the same structure, such as the factors' gradients."""
+    segs = dict(dit_scan_segments(model.cfg))
+    out: Dict[str, torch.Tensor] = {}
+    for path, entry in lora.items():
+        prefix, comp, layer, leaf = path.rsplit("/", 3)
+        if leaf != "kernel" or prefix not in segs:
+            raise KeyError(f"not a DiT LoRA path: {path}")
+        down = np.asarray(entry["down"], np.float32)
+        up = np.asarray(entry["up"], np.float32)
+        for i in range(down.shape[0]):
+            name = (f"dit.blocks.{segs[prefix] + i}.{comp}."
+                    f"{_LORA_LAYER.get(layer, layer)}.lora")
+            out[name + ".down"] = _arr(down[i].T)
+            out[name + ".up"] = _arr(up[i].T)
+    return out

@@ -20,11 +20,16 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """x @ W^T (+ b): product accumulated in f32, bias added in f32, result
     cast to x.dtype (``core/params.py:linear``). Same-dtype inputs go to
     F.linear, whose bias add is fused into the f32 epilogue of the matmul;
-    an f32 layer under a lower-precision x computes in f32 and casts back."""
+    an f32 layer under a lower-precision x computes in f32 and casts back.
+    A layer carrying a ``lora`` adapter (``training/lora.py``) adds its
+    low-rank term."""
     if layer.weight.dtype == x.dtype:
-        return F.linear(x, layer.weight, layer.bias)
-    b = None if layer.bias is None else layer.bias.float()
-    return F.linear(x.float(), layer.weight.float(), b).to(x.dtype)
+        y = F.linear(x, layer.weight, layer.bias)
+    else:
+        b = None if layer.bias is None else layer.bias.float()
+        y = F.linear(x.float(), layer.weight.float(), b).to(x.dtype)
+    lora = layer._modules.get("lora")
+    return y if lora is None else y + lora(x)
 
 
 class RMSNorm(nn.Module):

@@ -35,6 +35,16 @@
 // tail is masked on the last tile (OOB keys score -inf and their V rows load
 // as zeros); query rows >= Lq compute on zeros and are not stored.
 //
+// Statistics (the with_stats output of _fa_kernel / _fa_kernel_onekv, what
+// the training forward saves for the backward): given non-null m2 and l,
+// each entry point also stores, per query row, the base-2 row max
+// m2 = max_k s2 and the sum l = sum_k exp2(s2 - m2) as contiguous
+// (B, Lq, H) f32 -- one store per row in the epilogue, where the TPU kernel
+// writes a lane-replicated (BQ, 128) block (a Mosaic limit). The TPU's
+// zero-pad correction of l and its 2^-23 clamp are not needed: the tail is
+// masked, not zero-padded. The D-64 build keeps its native width with
+// stats; the TPU pads it to 128 and takes the generic kernel.
+//
 // Layout: q/k/v are read in place through their (batch, row, head) strides in
 // elements, with a unit stride on D -- (B, L, H*D) rows with the head's D-wide
 // column slice, so strided views (VGGT's fused qkv, bicross's swapped q/k)
@@ -43,28 +53,19 @@
 // Each entry point launches on the given stream and returns a cudaError_t
 // (0 on success); it allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <math.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "fa_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;           // warps per block
-constexpr int BQ = 16 * WARPS;     // query rows per block (16 per warp)
-constexpr int BK = 64;             // keys per tile
-constexpr int PAD_H = 8;           // bf16 row padding: 16 bytes
-constexpr int PAD_F = 4;           // f32 row padding: 16 bytes
+using namespace fa;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* m2;                       // (B, Lq, H) row max, base 2; null: no stats
+  float* l;                        // (B, Lq, H) row sum
   int Lq, Lk;
   long long q_sb, q_sr, q_sh;
   long long k_sb, k_sr, k_sh;
@@ -87,26 +88,6 @@ struct Plan {
   static constexpr size_t a_bytes = size_t(WARPS) * 16 * 16 * 4;
   static constexpr size_t total = q_bytes + 2 * kv_bytes + s_bytes + p_bytes + a_bytes;
 };
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows x D bf16 from global (row stride sr elements) into a padded shared
-// tile; rows at or past `limit` load as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long sr, int row0, int limit) {
-  constexpr int CH = D / 8;        // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CH; i += WARPS * 32) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sr + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Plan<D>::LDH + c * 8) = val;
-  }
-}
 
 // The warp's 16 x BK logits S = Q K^T (exp2 domain) into its f32 scratch.
 template <int D>
@@ -164,20 +145,7 @@ fa_fwd_kernel(const Params p) {
   const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
 
   // Q tile, pre-scaled by scale*log2(e) in f32 and rounded to bf16
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BQ * CH; i += WARPS * 32) {
-    const int r = i / CH, c = i % CH;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Lq)
-      raw = *reinterpret_cast<const uint4*>(qg + (long long)(q0 + r) * p.q_sr + c * 8);
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      h2[j] = __floats2bfloat162_rn(f.x * p.qscale, f.y * p.qscale);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * P::LDH + c * 8) = raw;
-  }
+  load_tile<D, true>(sQ, qg, p.q_sr, q0, p.Lq, p.qscale);
   __syncthreads();
   FragA qf[D / 16];
 #pragma unroll
@@ -271,17 +239,12 @@ fa_fwd_kernel(const Params p) {
   for (int d = 0; d < D / 16; ++d)
     wmma::store_matrix_sync(sS + d * 16, of[d], P::LDS, wmma::mem_row_major);
   __syncwarp();
+  store_rows<D>(p.o + b * p.o_sb + h * p.o_sh, sS, q0 + warp * 16, p.Lq, p.o_sr, lane);
   const int qrow = q0 + warp * 16 + r;
-  if (qrow < p.Lq) {
-    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + (long long)qrow * p.o_sr;
-    const float* orow = sS + r * P::LDS;
-    for (int c = par * 8; c < D; c += 16) {
-      uint4 out;
-      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o2[j] = __floats2bfloat162_rn(orow[c + 2 * j], orow[c + 2 * j + 1]);
-      *reinterpret_cast<uint4*>(og + c) = out;
-    }
+  if (p.m2 != nullptr && par == 0 && qrow < p.Lq) {
+    const long long i = ((long long)b * p.Lq + qrow) * gridDim.y + h;
+    p.m2[i] = m;
+    p.l[i] = l;
   }
 }
 
@@ -296,7 +259,8 @@ int launch(const Params& p, int B, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v, void* o, int Lq, int Lk, int H,
+Params make_params(const void* q, const void* k, const void* v, void* o, void* m2, void* l,
+                   int Lq, int Lk, int H,
                    int D, long long q_sb, long long q_sr, long long q_sh, long long k_sb,
                    long long k_sr, long long k_sh, long long v_sb, long long v_sr,
                    long long v_sh, float qscale) {
@@ -305,6 +269,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int Lq,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.m2 = static_cast<float*>(m2);
+  p.l = static_cast<float*>(l);
   p.Lq = Lq;
   p.Lk = Lk;
   p.q_sb = q_sb; p.q_sr = q_sr; p.q_sh = q_sh;
@@ -320,12 +286,13 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int Lq,
 }  // namespace
 
 #define FA_ARGS                                                                         \
-  const void *q, const void *k, const void *v, void *o, int B, int Lq, int Lk, int H, int D, \
+  const void *q, const void *k, const void *v, void *o, void *m2, void *l, int B, int Lq,  \
+      int Lk, int H, int D,                                                                 \
       long long q_sb, long long q_sr, long long q_sh, long long k_sb, long long k_sr,       \
       long long k_sh, long long v_sb, long long v_sr, long long v_sh, float qscale,         \
       void *stream
 #define FA_PARAMS                                                                        \
-  make_params(q, k, v, o, Lq, Lk, H, D, q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, \
+  make_params(q, k, v, o, m2, l, Lq, Lk, H, D, q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, \
               qscale)
 
 extern "C" {

@@ -7,16 +7,24 @@ coupled by bidirectional cross-modal attention. The JAX package scans
 leaf-stacked block trees; here the per-layer ``nn.ModuleList``s are walked
 in a Python loop. CFG runs as one batch of two.
 
+``remat`` recomputes each PCB block, and each IRG body as one unit (frame
+block, both attention halves, bicross, both FFN halves), on the backward
+pass -- the granularity of the JAX package's per-block ``jax.checkpoint``
+-- so training keeps only the block inputs alive between the forward and
+the backward.
+
 State-dict layout: ``dit.*`` (WanModel names), ``vggt.*`` (VGGT names, the
 IRG global blocks in ``vggt.aggregator.global_blocks``), ``bicross.{i}.*``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import rope as rope_ops
 from ..vggt.model import VGGT, VGGTConfig
@@ -41,6 +49,15 @@ class FusionConfig:
         if self.cross_attention_list is None:
             return frozenset(range(self.num_irg))
         return frozenset(self.cross_attention_list)
+
+
+def _run(fn, *args, remat: bool):
+    """fn(*args), recomputed on the backward pass under ``remat``. The
+    blocks draw no random numbers, so no RNG state is kept."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class FusionModel(nn.Module):
@@ -75,7 +92,8 @@ class FusionModel(nn.Module):
         return x, ctx, t, t_mod, (f, h, w), ropes, rope_bi_dit, rope_bi_agg
 
     def run_stack(self, x, ctx, t_mod, timestep, ropes, rope_bi_dit,
-                  rope_bi_agg, fhw, plucker_fea, collect_inters: bool):
+                  rope_bi_agg, fhw, plucker_fea, collect_inters: bool,
+                  remat: bool = False):
         """PCB prefix, geometry branch input, interleaved IRG loop. Returns
         (x, per-layer (B, S, P, 2C) intermediates | None)."""
         cfg = self.cfg
@@ -87,9 +105,11 @@ class FusionModel(nn.Module):
         si = cfg.start_index
 
         for i in range(si):
-            x = blocks[i](x, ctx, t_mod, cos_d, sin_d,
-                          plucker_fea=plucker_fea,
-                          apply_pose=apply_pose and cfg.dit.has_adapter(i))
+            x = _run(functools.partial(
+                blocks[i], context=ctx, t_mod=t_mod, rope_cos=cos_d,
+                rope_sin=sin_d, plucker_fea=plucker_fea,
+                apply_pose=apply_pose and cfg.dit.has_adapter(i)),
+                x, remat=remat)
 
         agg = self.vggt.aggregator
         patch_tokens, e0 = self.vggt.process_wan_input(
@@ -107,13 +127,12 @@ class FusionModel(nn.Module):
                            for t in rope_f)
 
         xattn = cfg.xattn_set()
-        inters: List[torch.Tensor] = []
-        for i in range(cfg.num_irg):
-            dblk = blocks[si + i]
+
+        def irg_body(i, x, tokens):
+            dblk, gblk = blocks[si + i], agg.global_blocks[i]
             has_ad = apply_pose and cfg.dit.has_adapter(si + i)
             tokens = agg.frame_blocks[i](tokens.view(B * S, P, C), rope_f, e0)
             frame_inter = tokens.view(B, S, P, C)
-            gblk = agg.global_blocks[i]
             x_agg = tokens.view(B, S * P, C)
             if i in xattn:
                 x, mod_dit = dblk.attn_half(x, ctx, t_mod, cos_d, sin_d,
@@ -127,23 +146,31 @@ class FusionModel(nn.Module):
                 x = dblk(x, ctx, t_mod, cos_d, sin_d,
                          plucker_fea=plucker_fea, apply_pose=has_ad)
                 x_agg = gblk(x_agg, rope_g, e0)
+            inter = (torch.cat([frame_inter, x_agg.view(B, S, P, C)], dim=-1)
+                     if collect_inters else None)
+            return x, x_agg, inter
+
+        inters: List[torch.Tensor] = []
+        for i in range(cfg.num_irg):
+            x, tokens, inter = _run(functools.partial(irg_body, i), x,
+                                    tokens, remat=remat)
             if collect_inters:
-                inters.append(torch.cat([frame_inter,
-                                         x_agg.view(B, S, P, C)], dim=-1))
-            tokens = x_agg
+                inters.append(inter)
         return x, (inters if collect_inters else None)
 
     def joint_forward(self, latents, timestep, context, clip_feature=None,
-                      y=None, plucker_fea=None, return_prediction=False):
+                      y=None, plucker_fea=None, return_prediction=False,
+                      remat=False):
         """One denoise evaluation. latents (B, 16, f, h', w'); timestep
         (B,); context (B, 512, text_dim); clip_feature (B, 257, 1280);
         y (B, 20, f, h', w'); plucker_fea (B, L, plucker_dim).
-        Returns (noise_pred (B, 16, f, h', w'), prediction dict | None)."""
+        Returns (noise_pred (B, 16, f, h', w'), prediction dict | None).
+        ``remat``: recompute each block on the backward pass."""
         (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
             self.forward_prologue(latents, timestep, context, clip_feature, y)
         x, inters = self.run_stack(x, ctx, t_mod, timestep, ropes,
                                    rope_bi_dit, rope_bi_agg, fhw, plucker_fea,
-                                   return_prediction)
+                                   return_prediction, remat)
         f, h, w = fhw
         noise_pred = self.dit.unpatchify(self.dit.head(x, t), fhw)
         if not return_prediction:

@@ -10,11 +10,22 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_stats
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: Optional[float] = None) -> torch.Tensor:
     """Dense bidirectional attention; q: (B, Lq, H, D), k/v: (B, Lk, H, D)
-    -> (B, Lq, H, D) in q.dtype, softmax statistics in f32."""
+    -> (B, Lq, H, D) in q.dtype, softmax statistics in f32. Differentiable
+    (the flash-attention backward kernels on the card)."""
     return flash_attention(q, k, v, scale=scale)
+
+
+def attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: Optional[float] = None):
+    """Attention that also returns its softmax statistics: (o, m2, l) with
+    m2/l (B, Lq, H) f32 in the base-2 domain -- s2 = log2(e)*scale*(q.k),
+    m2 = max_k s2, l = sum_k exp2(s2 - m2). Partial results over key shards
+    merge exactly: m = max(m_a, m_b), w_x = l_x * exp2(m_x - m),
+    o = (w_a*o_a + w_b*o_b) / (w_a + w_b). Forward only."""
+    return flash_attention_stats(q, k, v, scale=scale)

@@ -53,7 +53,7 @@ def test_plain_attention_matches_jax(lq, lk, h, d, block_k, route):
                                atol=ATOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(xla), rtol=0,
                                atol=ATOL)
-    assert fa.LAUNCHES == {"generic": 0, "onekv": 0, "d64": 0}
+    assert not any(fa.LAUNCHES.values())
 
 
 def test_plain_attention_chunks_queries():

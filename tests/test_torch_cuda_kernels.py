@@ -15,6 +15,14 @@ pytestmark = pytest.mark.cuda
 # P to bf16 at the same points, so they differ only by f32 summation order
 # and the bf16 rounding of the output.
 TOL = 1.5e-2
+# Statistics are f32 on both sides from the same bf16 logits: only the
+# summation order of l and exp2 differ (relative, l >= 1).
+STATS_RTOL = 1e-4
+# Gradients, relative to the largest |gradient| (at least 1): the kernels
+# and the plain version round ds and p to bf16 at the same points, so they
+# differ by f32 summation order, an occasional one-ulp flip of a bf16 ds or
+# p, and the bf16 rounding of the result (2^-9 relative).
+BWD_RTOL = 1e-2
 
 
 @pytest.fixture
@@ -86,3 +94,67 @@ def test_kernel_rejects_what_it_does_not_take(device):
         fa.launch("d64", q, k, v, 0.1)
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+
+
+@pytest.mark.parametrize("B,Lq,H,D,Lk,kernel", SMALL)
+def test_stats_kernel_matches_plain(device, B, Lq, H, D, Lk, kernel):
+    q, k, v = _qkv((B, Lq, H, D), Lk, device, seed=1)
+    before = fa.LAUNCHES[f"{kernel}_stats"]
+    o, m2, l = fa.flash_attention_stats(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[f"{kernel}_stats"] == before + 1
+    ro, rm2, rl = fa.attention_plain_stats(q, k, v, D ** -0.5)
+    assert m2.shape == l.shape == (B, Lq, H) and m2.dtype == torch.float32
+    assert (o.float() - ro.float()).abs().max().item() <= TOL
+    torch.testing.assert_close(m2, rm2, rtol=STATS_RTOL, atol=STATS_RTOL)
+    torch.testing.assert_close(l, rl, rtol=STATS_RTOL, atol=0)
+
+
+def _bwd_err(got, ref):
+    return max((g.float() - r.float()).abs().max().item()
+               / max(1.0, r.float().abs().max().item())
+               for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("B,Lq,H,D,Lk,kernel", SMALL)
+def test_backward_kernels_match_plain(device, B, Lq, H, D, Lk, kernel):
+    """dq and dk/dv at ragged shapes in both axes, every head dim (padded
+    ones through the route's kernel width)."""
+    q, k, v = _qkv((B, Lq, H, D), Lk, device, seed=2)
+    do = torch.randn((B, Lq, H, D), device=device).bfloat16()
+    o, m2, l = fa.flash_attention_stats(q, k, v)
+    lse2 = m2 + torch.log2(l)
+    dk_ = fa.kernel_dim(H, D, Lk)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_backward(q, k, v, o, lse2, do, D ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[f"bwd_dq_{dk_}"] == before[f"bwd_dq_{dk_}"] + 1
+    assert fa.LAUNCHES[f"bwd_dkv_{dk_}"] == before[f"bwd_dkv_{dk_}"] + 1
+    ref = fa.attention_backward_plain(q, k, v, o, lse2, do, D ** -0.5)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g).all())
+    assert _bwd_err(got, ref) <= BWD_RTOL
+
+
+def test_autograd_through_strided_views(device):
+    """The training path: grads of a fused-qkv view (VGGT) through the
+    FlashAttention Function equal the plain backward's, and the Function
+    launched the stats forward and both backward kernels."""
+    B, L, H, D = 1, 300, 4, 64
+    g = torch.Generator(device=device).manual_seed(4)
+    qkv = torch.randn((B, L, 3, H, D), generator=g, device=device
+                      ).bfloat16().requires_grad_()
+    do = torch.randn((B, L, H, D), generator=g, device=device).bfloat16()
+    fa.reset_launch_counts()
+    out = fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["d64_stats"] == 1 and fa.LAUNCHES["d64"] == 0
+    assert fa.LAUNCHES["bwd_dq_64"] == fa.LAUNCHES["bwd_dkv_64"] == 1
+    q, k, v = (qkv.detach()[:, :, i] for i in range(3))
+    o, m2, l = fa.attention_plain_stats(q, k, v, D ** -0.5)
+    ref = fa.attention_backward_plain(q, k, v, o, m2 + torch.log2(l), do,
+                                      D ** -0.5)
+    got = [qkv.grad[:, :, i] for i in range(3)]
+    assert _bwd_err(got, ref) <= BWD_RTOL
