@@ -19,24 +19,35 @@ non-zero):
      two LoRA steps (losses, factor gradients; every stats-forward and
      backward kernel at D 64, 96 and 128 launched) and one full
      fine-tuning step (loss, gradients);
-  6. the full-width, full-depth Wan2.1-I2V-14B-480P fusion denoise
+  6. the trainer's entry point, ``cli.train --synthetic --lora_rank 4`` at
+     its demo config: 2 steps saved, then resumed to step 3 (finite
+     losses, both checkpoints, the stats and backward kernels launched);
+  7. the full-width, full-depth Wan2.1-I2V-14B-480P fusion denoise
      (``FusionConfig()``, 336x592, 81 frames, 3 steps, geometry heads on the
      last) from random weights: shapes, finiteness, launch counts, seconds
      per step and peak memory;
-  7. two full-width LoRA training steps (rank 16, per-block recompute,
+  8. two full-width LoRA training steps (rank 16, per-block recompute,
      batch 1) on the same model: finite losses, moved factors, an unchanged
      base, exact launch counts, seconds per step and peak memory.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
+
+    python3 chip_smoke.py --profile DIR
+
+also runs a third full-width training step under ``torch.profiler`` and
+writes its device-time breakdown by kernel family, its idle share and a
+gzipped Chrome trace into DIR.
 """
 from __future__ import annotations
 
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -201,13 +212,14 @@ def phase_train_kernels(device, per_kernel):
                                                       scale), 5),
               "dkv": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, lse2, do,
                                                         delta, scale), 5)}
+        # the plain backward computes dq, dk and dv in one pass: it stands
+        # beside the sum of the two kernels
         plain = {
             "stats": time_ms(lambda: fa.attention_plain_stats(q, k, v, scale),
                              3),
-            "dq": time_ms(lambda: fa.attention_backward_plain(
-                q, k, v, o, lse2, do, scale, want_dkv=False), 3),
-            "dkv": time_ms(lambda: fa.attention_backward_plain(
-                q, k, v, o, lse2, do, scale, want_dq=False), 3)}
+            "bwd": time_ms(lambda: fa.attention_backward_plain(
+                q, k, v, o, lse2, do, scale), 3)}
+        ms["bwd"] = ms["dq"] + ms["dkv"]
         unit = B * H * Lq * Lk * D / 1e9
         say("train_kernel", shape=name, kernel=kernel, D=D,
             max_abs_err="|".join(f"{n}:{e:.3e}" for n, e in errs.items()),
@@ -232,7 +244,8 @@ def phase_train_kernels(device, per_kernel):
             pk["max_abs_err"] = max([pk["max_abs_err"]]
                                     + [errs[n] for n in grads])
             if name == HEADLINE[kname]:
-                pk["ms"], pk["plain_ms"] = ms[part], plain[part]
+                pk["ms"], pk["plain_ms"] = ms[part], plain["bwd"]
+                pk["backward_ms"] = ms["bwd"]
         del q, k, v, do, o, m2, l, lse2, dq, delta, dk, dv
         torch.cuda.empty_cache()
 
@@ -567,6 +580,43 @@ def phase_small_train(device):
                              f"beyond {TRAIN_TOL}: {bad}")
 
 
+def phase_train_cli():
+    """``python -m fantasy_world_tpu_torch.cli.train`` as a user calls it,
+    on the card: LoRA rank 4 at the synthetic demo config (dim 128, 2
+    blocks), 2 steps with a checkpoint, then a resume to step 3. The demo's
+    attentions take the onekv route (DiT, one 128-wide head, 32 to 257
+    keys) and the d64 route (VGGT and bicross heads of 8 and 24, padded to
+    64)."""
+    from fantasy_world_tpu_torch.cli.train import main as train_main
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    routes = ("onekv_stats", "d64_stats", "bwd_dq_64", "bwd_dq_128",
+              "bwd_dkv_64", "bwd_dkv_128")
+    with tempfile.TemporaryDirectory() as ckpt:
+        def argv(steps):
+            return ["--synthetic", "--steps", str(steps), "--lora_rank", "4",
+                    "--warmup", "1", "--lr", "1e-3", "--log_every", "1",
+                    "--checkpoint_dir", ckpt]
+        runs = []
+        for steps in (2, 3):
+            fa.reset_launch_counts()
+            loss = train_main(argv(steps))
+            runs.append((loss, dict(fa.LAUNCHES)))
+        saved = sorted(os.listdir(ckpt))
+    say("train_cli", losses="|".join(f"{loss:.5f}" for loss, _ in runs),
+        checkpoints="|".join(saved),
+        launches="|".join(json.dumps({k: v for k, v in n.items() if v}
+                                     ).replace(" ", "") for _, n in runs))
+    for (loss, launches), steps in zip(runs, (2, 1)):
+        if not (loss is not None and math.isfinite(loss)):
+            raise AssertionError(f"train CLI: final loss {loss}")
+        idle = [k for k in routes if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"train CLI ({steps} steps) launched no "
+                                 f"{idle}")
+    if saved != ["step_00000002", "step_00000003"]:
+        raise AssertionError(f"train CLI checkpoints {saved}")
+
+
 def phase_full_slice(device, steps=3, seed=1024):
     import torch
     from fantasy_world_tpu_torch.core.params import build
@@ -623,10 +673,77 @@ def phase_full_slice(device, steps=3, seed=1024):
     return launches, pipe, cond, plucker_fea
 
 
+# kernel families of the profiled training step: the first family whose
+# pattern is in a kernel's name takes it
+FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
+            ("attention bwd dq", ("fa_bwd_dq",)),
+            ("attention fwd (stats)", ("fa_fwd",)),
+            ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
+                                 "nvjet")),
+            ("reduction", ("reduce",)),
+            ("elementwise", ("elementwise", "vectorized", "unrolled",
+                             "copy", "fill", "memcpy", "memset")))
+
+
+def profile_train_step(step, batch, unprofiled_s, out_dir):
+    """One more training step under ``torch.profiler`` (CPU and CUDA): the
+    device's busy time (the union of its kernel intervals) by kernel
+    family, the idle share against the unprofiled CUDA-event step time and
+    against the profiled wall time, written with a gzipped Chrome trace to
+    ``out_dir``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, families = [], {name: [0.0, 0] for name, _ in FAMILIES}
+    families["other"] = [0.0, 0]
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        name = ev.name.lower()
+        fam = next((f for f, pats in FAMILIES
+                    if any(p in name for p in pats)), "other")
+        families[fam][0] += (end - start) / 1e6
+        families[fam][1] += 1
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += (end - max(start, reach)) / 1e6
+            reach = end
+    out = {"unprofiled_step_s": unprofiled_s, "profiled_wall_s": wall,
+           "device_busy_s": busy,
+           "idle_share": 1 - busy / unprofiled_s,
+           "idle_share_under_profiler": 1 - busy / wall,
+           "families": {f: {"device_s": t, "launches": n}
+                        for f, (t, n) in sorted(families.items(),
+                                                key=lambda x: -x[1][0])}}
+    with open(os.path.join(out_dir, "train_step_breakdown.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json.gz"))
+    say("profile_train", unprofiled_step_s=f"{unprofiled_s:.3f}",
+        profiled_wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.3f}",
+        idle_share=f"{out['idle_share']:.4f}",
+        idle_share_under_profiler=f"{out['idle_share_under_profiler']:.4f}",
+        families=json.dumps({f: round(v["device_s"], 3) for f, v in
+                             out["families"].items()}).replace(" ", ""))
+
+
 def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
-                     latent_fhw=(21, 42, 74)):
+                     latent_fhw=(21, 42, 74), profile_dir=None):
     """LoRA rank 16 with per-block recompute on the full-width model the
-    denoise ran: ``steps`` steps at batch 1, lr 1e-4, warm-up 1."""
+    denoise ran: ``steps`` steps at batch 1, lr 1e-4, warm-up 1; with
+    ``profile_dir``, one more step under the profiler."""
     import torch
     from fantasy_world_tpu_torch.cli.train import _optimizer
     from fantasy_world_tpu_torch.ops import flash_attention as fa
@@ -697,11 +814,18 @@ def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
         raise AssertionError(f"LoRA training changed base tensors {changed}")
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
+    if profile_dir:
+        profile_train_step(step, batches[-1], float(np.mean(step_s)),
+                           profile_dir)
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="profile a third full-width training step into DIR")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -726,10 +850,12 @@ def main() -> int:
     phase_train_kernels(device, per_kernel)
     phase_small_slice(device)
     phase_small_train(device)
+    phase_train_cli()
     gc.collect()
     torch.cuda.empty_cache()
     denoise, pipe, cond, plucker_fea = phase_full_slice(device)
-    train = phase_full_train(device, pipe, cond, plucker_fea)
+    train = phase_full_train(device, pipe, cond, plucker_fea,
+                             profile_dir=args.profile)
 
     kernels = []
     for k in fa.ROUTES:
@@ -751,7 +877,8 @@ def main() -> int:
             "launches": sum(train[f"{k}_{d}"] for d in fa.BWD_D),
             "launches_by_head_dim": {d: train[f"{k}_{d}"] for d in fa.BWD_D},
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
-            "plain_ms": pk["plain_ms"]})
+            "plain_ms": pk["plain_ms"], "plain_covers": "dq, dk and dv",
+            "backward_ms": pk["backward_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

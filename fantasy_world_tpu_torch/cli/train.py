@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -205,7 +206,9 @@ def _unported(args) -> None:
                          "the port; use --synthetic")
 
 
-def run(args) -> None:
+def run(args) -> Optional[float]:
+    """Train; returns the final loss (None when the checkpoint is already
+    at --steps)."""
     from ..core.params import build
     from ..models.fusion.model import FusionModel
     from ..training.lora import init_lora, lora_state, make_lora_train_step
@@ -239,7 +242,7 @@ def run(args) -> None:
     if start >= args.steps:
         print(f"train done: checkpoint already at step {start} "
               f">= --steps {args.steps}")
-        return
+        return None
     make = make_lora_train_step if args.lora_rank > 0 else make_train_step
     step_fn = make(model, opt, sched, remat=not args.no_remat)
     batches = _synthetic_batches(args, device)
@@ -249,10 +252,11 @@ def run(args) -> None:
                            start, log)
     print(f"train done: {args.steps - start} step(s), final loss "
           f"{loss_val:.5f}")
+    return loss_val
 
 
-def main(argv=None) -> None:
-    run(parse_args(argv))
+def main(argv=None) -> Optional[float]:
+    return run(parse_args(argv))
 
 
 if __name__ == "__main__":

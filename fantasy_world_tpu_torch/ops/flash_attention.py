@@ -164,16 +164,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse2: torch.Tensor, do: torch.Tensor,
-                             scale: float, *, chunk_elems: int = 1 << 27,
-                             want_dq: bool = True, want_dkv: bool = True):
+                             scale: float, *, chunk_elems: int = 1 << 27):
     """What the two backward kernels compute, in plain PyTorch, with their
     rounding points: s2 from q scaled and rounded as in the forward,
     p = exp2(s2 - lse2), dp = do.v^T, delta = rowsum(do * o) in f32,
     ds = p (dp - delta); dq = scale * bf16(ds).k, dk = scale * bf16(ds)^T.q
     with the unscaled q, dv = bf16(p)^T.do -- "bf16" being the inputs'
-    dtype. Returns (dq, dk, dv) in the inputs' dtypes; ``want_dq`` /
-    ``want_dkv`` False skip the work of the one kernel or the other (its
-    outputs are None), to time each on its own.
+    dtype. Returns (dq, dk, dv) in the inputs' dtypes.
 
     Chunked over query rows like the forward, dk/dv accumulated in f32
     across chunks."""
@@ -195,15 +192,11 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
         delta = (doc * _acc(o[:, sl].permute(0, 2, 1, 3))).sum(
             dim=-1, keepdim=True)
         ds = _acc((p * (dp - delta)).to(q.dtype))
-        if want_dq:
-            dq[:, sl] = (torch.matmul(ds, kt) * scale).permute(
-                0, 2, 1, 3).to(q.dtype)
-        if want_dkv:
-            dk += torch.matmul(ds.transpose(-1, -2), qc)
-            dv += torch.matmul(_acc(p.to(v.dtype)).transpose(-1, -2), doc)
-    if not want_dkv:
-        return dq, None, None
-    return (dq if want_dq else None,
+        dq[:, sl] = (torch.matmul(ds, kt) * scale).permute(
+            0, 2, 1, 3).to(q.dtype)
+        dk += torch.matmul(ds.transpose(-1, -2), qc)
+        dv += torch.matmul(_acc(p.to(v.dtype)).transpose(-1, -2), doc)
+    return (dq,
             (dk * scale).permute(0, 2, 1, 3).to(k.dtype).contiguous(),
             dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 

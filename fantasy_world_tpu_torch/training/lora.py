@@ -43,16 +43,16 @@ _TARGET_LAYERS = {"self_attn": ("q", "k", "v", "o"),
 
 class LoRA(nn.Module):
     """The low-rank term of one adapted linear: (alpha/rank) (x down^T) up^T,
-    computed in x's dtype (the factors are cast to it)."""
+    computed in x's dtype (the f32 factors are cast to it)."""
 
     def __init__(self, d_in: int, d_out: int, rank: int, alpha: float,
-                 device, dtype: torch.dtype = torch.float32):
+                 device):
         super().__init__()
         self.scale = alpha / rank
         self.down = nn.Parameter(torch.empty((rank, d_in), device=device,
-                                             dtype=dtype))
+                                             dtype=torch.float32))
         self.up = nn.Parameter(torch.zeros((d_out, rank), device=device,
-                                           dtype=dtype))
+                                           dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.linear(x, self.down.to(x.dtype))
@@ -79,19 +79,20 @@ def target_layers(model: nn.Module,
 
 def init_lora(model: nn.Module, rank: int = 16, *,
               generator: torch.Generator, alpha: float = 1.0,
-              targets: Tuple[str, ...] = DEFAULT_TARGETS,
-              dtype: torch.dtype = torch.float32) -> List[nn.Parameter]:
+              targets: Tuple[str, ...] = DEFAULT_TARGETS
+              ) -> List[nn.Parameter]:
     """Freeze every parameter of ``model`` and attach a rank-``rank``
-    adapter to each targeted linear, on the layer's device. Returns the
-    factors (the trainable parameters), down before up, layer by layer."""
+    adapter with f32 factors to each targeted linear, on the layer's
+    device. Returns the factors (the trainable parameters), down before up,
+    layer by layer."""
     model.requires_grad_(False)
     factors: List[nn.Parameter] = []
     for _, layer in target_layers(model, targets):
         lora = LoRA(layer.in_features, layer.out_features, rank, alpha,
-                    layer.weight.device, dtype)
+                    layer.weight.device)
         with torch.no_grad():
             down = torch.randn(lora.down.shape, generator=generator,
-                               device=generator.device, dtype=dtype)
+                               device=generator.device)
             lora.down.copy_(down * layer.in_features ** -0.5)
         layer.lora = lora
         factors += [lora.down, lora.up]

@@ -211,13 +211,13 @@ def test_lora_forward_matches_jax(setup):
     assert _rel(base.numpy(), want) > 100 * RTOL     # the adapters act
 
 
-@pytest.fixture(scope="module")
-def jax_lora_run(setup):
+def _jax_lora_steps(setup, up_std):
     """Two steps of the JAX LoRA trainer with the CLI's optimizer (warm-up
-    1: lr 0 then lr): losses, factor gradients and factors after each."""
+    1: lr 0 then lr) from factors with up ~ N(0, up_std): losses, factor
+    gradients and factors after each."""
     opt = jax_optimizer(argparse.Namespace(lr=1e-3, warmup=1,
                                            weight_decay=1e-4))
-    lora = _jax_lora(setup)
+    lora = _jax_lora(setup, up_std)
     state = opt.init(lora)
     frozen = (setup["lite"], setup["scan"])
     step = jax.jit(jlora.make_lora_train_step(setup["cfg"], opt,
@@ -240,9 +240,22 @@ def jax_lora_run(setup):
     return out
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_lora_two_steps_match_jax(setup, jax_lora_run, remat):
-    ref = jax_lora_run
+@pytest.fixture(scope="module")
+def jax_lora_run(setup):
+    """From JAX's init_lora: up = 0."""
+    return _jax_lora_steps(setup, 0.0)
+
+
+@pytest.fixture(scope="module")
+def jax_lora_run_up(setup):
+    """From nonzero up factors, so down has a gradient too."""
+    return _jax_lora_steps(setup, 0.1)
+
+
+def _two_lora_steps(setup, ref, remat, zero_up):
+    """The port's two LoRA steps from ``ref``'s factors, held to ``ref``:
+    losses, both factors' gradients and updates; the base stays frozen.
+    With ``zero_up`` down's gradient is exactly 0 in both trainers."""
     model = _port_lora(setup, ref["lora0"])
     trainable = lora_state(model)
     opt, sched = _optimizer(argparse.Namespace(lr=1e-3, warmup=1,
@@ -252,28 +265,44 @@ def test_lora_two_steps_match_jax(setup, jax_lora_run, remat):
     base = {n: p.clone() for n, p in model.named_parameters()
             if ".lora." not in n}
     fa.reset_launch_counts()
-    prev = {n: p.detach().clone() for n, p in trainable.items()}
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    prev = dict(start)
     for i, batch in enumerate(setup["torch_batches"]):
         loss = float(step(batch))
         assert loss == pytest.approx(ref["loss"][i], rel=RTOL)
         want_g = lora_state_dict(ref["grads"][i], model)
         want_p = lora_state_dict(ref["lora"][i], model)
         for name, p in trainable.items():
-            if name.endswith(".down"):
+            if zero_up and name.endswith(".down"):
                 # up = 0 through both steps: down's gradient is exactly 0
                 assert not p.grad.any() and not want_g[name].any(), name
             else:
+                assert want_g[name].any(), name
                 assert _rel(p.grad, want_g[name]) <= RTOL, name
             _check_update(name, p.detach(), want_p[name], prev[name],
                           want_g[name], 1e-3, 1e-4)
             if i == 0:                                # lr 0 on step 0
                 assert torch.equal(p.detach(), prev[name]), name
             prev[name] = p.detach().clone()
-    assert any(p.any() for n, p in trainable.items() if n.endswith(".up"))
+    for part in (".up",) if zero_up else (".up", ".down"):
+        assert any(not torch.equal(p.detach(), start[n])
+                   for n, p in trainable.items() if n.endswith(part)), part
     for n, p in model.named_parameters():             # frozen base
         if ".lora." not in n:
             assert torch.equal(p, base[n]), n
     assert not any(fa.LAUNCHES.values())               # plain versions
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lora_two_steps_match_jax(setup, jax_lora_run, remat):
+    _two_lora_steps(setup, jax_lora_run, remat, zero_up=True)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lora_two_steps_nonzero_up_match_jax(setup, jax_lora_run_up, remat):
+    """Both factors learn: down's gradient and update are held to JAX's
+    as up's are."""
+    _two_lora_steps(setup, jax_lora_run_up, remat, zero_up=False)
 
 
 def test_full_finetune_step_matches_jax(setup):
