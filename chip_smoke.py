@@ -9,10 +9,14 @@ non-zero):
      one process per source, all at once);
   2. each forward kernel against its plain PyTorch version on seeded bf16
      inputs at the denoise shapes: max abs error (bound 1.5e-2) and
-     CUDA-event times of both;
+     CUDA-event times of both, beside the yardsticks: the bound (the
+     larger of FLOP at the bf16 peak and bytes at the HBM rate), the share
+     of it reached, ``scaled_dot_product_attention``'s time on the same
+     inputs per pinned backend (flash, cuDNN), launches per denoise step;
   3. the stats forward, dq and dk/dv against their plain versions at the
      training shapes (batch 1): max abs errors of o, m2, l, dq, dk, dv,
-     times of each kernel and its plain version;
+     times of each kernel and its plain version, the same yardsticks (the
+     library's backward computes dq, dk and dv in one call);
   4. a reduced-width denoise (every kernel route taken) on the card in bf16
      against the same weights on the CPU in f32 through the plain versions;
   5. reduced-width training on the card in bf16 against the CPU in f32:
@@ -34,9 +38,11 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --profile DIR
 
-also runs a third full-width training step under ``torch.profiler`` and
-writes its device-time breakdown by kernel family, its idle share and a
-gzipped Chrome trace into DIR.
+also runs one more full-depth denoise step (after the timed ones) and a
+third full-width training step under ``torch.profiler``, and writes for
+each its device-time breakdown by kernel family and by attention kernel,
+its idle share against the unprofiled step and a gzipped Chrome trace into
+DIR (``denoise_step_breakdown.json``, ``train_step_breakdown.json``).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -54,6 +61,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention.cu"
+SM90_SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention_sm90.cu"
+SOURCES = {"generic": SM90_SOURCE, "onekv": SOURCE, "d64": SM90_SOURCE}
 BWD_SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention_bwd.cu"
 JAX_FA = "fantasy_world_tpu/ops/flash_attention.py"
 REPLACES = {"generic": f"{JAX_FA}:85", "onekv": f"{JAX_FA}:163",
@@ -127,21 +136,133 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+# published dense peaks of one H100 SXM: bf16 tensor cores, HBM3
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# FLOP per B*H*Lq*Lk*D of each kernel: the forward's two products; dq's
+# three (S, dP, dS.K); dk/dv's four (S, dP, dS^T.Q, P^T.dO)
+FLOP_UNITS = {"fwd": 4, "stats": 4, "dq": 6, "dkv": 8}
+
+
+def attention_bound(kind, B, Lq, Lk, H, D):
+    """The least time the card could take for one attention kernel call:
+    the larger of its FLOP at the bf16 peak and its bytes (each input read
+    once, each output written once) at the HBM rate. bf16 tensors: q, k, v,
+    o, do, dq, dk, dv; f32 (B, Lq, H) rows: m2, l, lse2, delta.
+    Returns {"flop", "bytes", "bound_ms", "bound_by"}."""
+    q, kv, row = 2 * B * Lq * H * D, 2 * B * Lk * H * D, 4 * B * Lq * H
+    nbytes = {"fwd": 2 * q + 2 * kv,              # q k v -> o
+              "stats": 2 * q + 2 * kv + 2 * row,  # q k v -> o m2 l
+              "dq": 4 * q + 2 * kv + 2 * row,     # q k v o do lse2 -> dq delta
+              "dkv": 2 * q + 4 * kv + 2 * row,   # q k v do lse2 delta -> dk dv
+              }[kind]
+    flop = FLOP_UNITS[kind] * B * H * Lq * Lk * D
+    t_flop, t_bytes = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_flop, t_bytes),
+            "bound_by": "operations" if t_flop >= t_bytes else "bytes"}
+
+
+def shape_launches(cfg):
+    """Launches per denoise step (without the last step's heads) of each
+    attention shape in ``SHAPES``."""
+    n_dit, n_x, n_irg = cfg.dit.num_layers, len(cfg.xattn_set()), cfg.num_irg
+    return {"dit_self": n_dit, "dit_cross_text": n_dit,
+            "dit_cross_clip": n_dit, "bicross_video_to_geometry": n_x,
+            "bicross_geometry_to_video": n_x, "vggt_frame": n_irg,
+            "vggt_global": n_irg, "camera_trunk": 0}
+
+
+def time_sdpa(q, k, v, reps, do=None):
+    """The yardstick: one ``scaled_dot_product_attention`` call on the
+    (B, H, L, D) views of q, k, v, per pinned backend -- the forward, or
+    with ``do`` the backward alone (dq, dk and dv of a forward taken
+    once). {backend: ms, or None where the backend refuses the shape}.
+    The port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    pinned = {"flash": SDPBackend.FLASH_ATTENTION,
+              "cudnn": SDPBackend.CUDNN_ATTENTION}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {}
+    for name, backend in pinned.items():
+        try:
+            with sdpa_kernel([backend]):
+                if do is None:
+                    out[name] = time_ms(
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        reps)
+                    continue
+                leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+                o = F.scaled_dot_product_attention(*leaves)
+                dot = do.transpose(1, 2)
+                out[name] = time_ms(lambda: torch.autograd.grad(
+                    o, leaves, dot, retain_graph=True), reps)
+                del o, leaves
+        except RuntimeError as e:         # the backend lacks this shape
+            say("sdpa", backend=name, refused=str(e).splitlines()[0][:80])
+            out[name] = None
+    return out
+
+
+def best_library(times):
+    """(ms, backend) of the fastest backend that ran, or (None, None)."""
+    ran = {k: v for k, v in times.items() if v is not None}
+    if not ran:
+        return None, None
+    name = min(ran, key=ran.get)
+    return ran[name], name
+
+
+def yardsticks(kind, shape, ms, library):
+    """bound_ms, bound_by, share and the library's time and backend of
+    one kernel call at ``shape`` = (B, Lq, Lk, H, D)."""
+    b = attention_bound(kind, *shape)
+    lib_ms, backend = best_library(library)
+    return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "share": b["bound_ms"] / ms, "library_ms": lib_ms,
+            "library_backend": backend,
+            "library_ms_by_backend": library}
+
+
+def _fmt(x, spec=".3f"):
+    return "null" if x is None else format(x, spec)
+
+
+def ptxas_summary(log: str) -> str:
+    """'kernel<D>:registers:spill bytes' for each kernel in nvcc's -Xptxas -v
+    output."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '\w*?(fa_\w+?)ILi(\d+)E",
+                          line)
+        if found:
+            name = f"{found.group(1)}<{found.group(2)}>"
+            kernels[name] = ["?", 0]
+        elif name and "bytes spill" in line:
+            kernels[name][1] = sum(int(n) for n in
+                                   re.findall(r"(\d+) bytes spill", line))
+        elif name and "Used" in line:
+            kernels[name][0] = line.split("Used")[1].split("reg")[0].strip()
+    return "|".join(f"{n}:{r}:{s}" for n, (r, s) in kernels.items())
+
+
 def phase_build():
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
     fa.build_kernels()
-    regs = [line.split("Used")[1].split(",")[0].strip()
-            for line in fa.build_log().splitlines() if "Used" in line]
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
-        ptxas_registers="|".join(regs) or "cached")
+        kernel_registers_spills=ptxas_summary(fa.build_log()) or "cached")
 
 
 def phase_kernels(device):
     import torch
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(0)
-    per_kernel = {k: {"max_abs_err": 0.0} for k in fa.ROUTES}
+    per_step = shape_launches(FusionConfig())
+    per_kernel = {k: {"max_abs_err": 0.0, "by_shape": [],
+                      "launches_per_denoise_step": 0} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
             raise AssertionError(f"{name} routes to {fa.route(H, D, Lk)}")
@@ -155,18 +276,35 @@ def phase_kernels(device):
         err = (out.float() - ref.float()).abs().max().item()
         ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
         plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, scale), 3)
+        y = yardsticks("fwd", (B, Lq, Lk, H, D), ms, time_sdpa(q, k, v, 5))
         flop = 4 * B * H * Lq * Lk * D
         say("kernel", shape=name, kernel=kernel, max_abs_err=f"{err:.3e}",
             ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-            tflops=f"{flop / ms / 1e9:.1f}")
+            tflops=f"{flop / ms / 1e9:.1f}",
+            bound_ms=f"{y['bound_ms']:.4f}", bound_by=y["bound_by"],
+            share=f"{y['share']:.4f}",
+            library_ms="|".join(f"{b}:{_fmt(t)}" for b, t in
+                                y["library_ms_by_backend"].items()),
+            launches_per_denoise_step=per_step[name])
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{name}: max abs error {err} > {KERNEL_TOL}")
         pk = per_kernel[kernel]
         pk["max_abs_err"] = max(pk["max_abs_err"], err)
+        pk["launches_per_denoise_step"] += per_step[name]
+        pk["by_shape"].append({"shape": name, "ms": ms, "plain_ms": plain_ms,
+                               "launches_per_denoise_step": per_step[name],
+                               **y})
         if name == HEADLINE[kernel]:
-            pk["ms"], pk["plain_ms"] = ms, plain_ms
+            pk.update(ms=ms, plain_ms=plain_ms, **y)
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+    step = {k: a - b for (k, a), b in zip(
+        expected_launches(FusionConfig(), 2).items(),
+        expected_launches(FusionConfig(), 1).values())}
+    if any(per_kernel[k]["launches_per_denoise_step"] != step[k]
+           for k in fa.ROUTES):
+        raise AssertionError(f"shape_launches disagrees with "
+                             f"expected_launches: {step}")
     return per_kernel
 
 
@@ -181,7 +319,8 @@ def phase_train_kernels(device, per_kernel):
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(1)
     for k in ("bwd_dq", "bwd_dkv"):
-        per_kernel[k] = {"max_abs_err": 0.0}
+        per_kernel[k] = {"max_abs_err": 0.0, "by_shape": [],
+                         "launches_per_denoise_step": 0}
     for name, (B, Lq, H, D), Lk, kernel in TRAIN_SHAPES:
         if fa.route(H, D, Lk) != kernel:
             raise AssertionError(f"{name} routes to {fa.route(H, D, Lk)}")
@@ -220,13 +359,28 @@ def phase_train_kernels(device, per_kernel):
             "bwd": time_ms(lambda: fa.attention_backward_plain(
                 q, k, v, o, lse2, do, scale), 3)}
         ms["bwd"] = ms["dq"] + ms["dkv"]
+        # the library's forward stands beside the stats forward, its
+        # backward (dq, dk and dv in one call) beside each backward kernel
+        lib_fwd = time_sdpa(q, k, v, 5)
+        lib_bwd = time_sdpa(q, k, v, 3, do=do)
+        dims = (B, Lq, Lk, H, D)
+        ys = {"stats": yardsticks("stats", dims, ms["stats"], lib_fwd),
+              "dq": yardsticks("dq", dims, ms["dq"], lib_bwd),
+              "dkv": yardsticks("dkv", dims, ms["dkv"], lib_bwd)}
         unit = B * H * Lq * Lk * D / 1e9
         say("train_kernel", shape=name, kernel=kernel, D=D,
             max_abs_err="|".join(f"{n}:{e:.3e}" for n, e in errs.items()),
             **{f"{n}_ms": f"{ms[n]:.3f}" for n in ms},
             **{f"{n}_plain_ms": f"{plain[n]:.3f}" for n in plain},
             tflops=f"stats:{4 * unit / ms['stats']:.1f}|dq:"
-                   f"{6 * unit / ms['dq']:.1f}|dkv:{8 * unit / ms['dkv']:.1f}")
+                   f"{6 * unit / ms['dq']:.1f}|dkv:{8 * unit / ms['dkv']:.1f}",
+            bound_ms="|".join(f"{n}:{y['bound_ms']:.4f}"
+                              for n, y in ys.items()),
+            share="|".join(f"{n}:{y['share']:.4f}" for n, y in ys.items()),
+            library_fwd_ms="|".join(f"{b}:{_fmt(t)}"
+                                    for b, t in lib_fwd.items()),
+            library_bwd_ms="|".join(f"{b}:{_fmt(t)}"
+                                    for b, t in lib_bwd.items()))
         bad = [n for n, bound in (("o", KERNEL_TOL),) if errs[n] > bound]
         bad += [n for n in ("m2", "l") if not rel[n] <= STATS_RTOL]
         bad += [n for n in ("dq", "dk", "dv") if not rel[n] <= BWD_RTOL]
@@ -235,6 +389,9 @@ def phase_train_kernels(device, per_kernel):
                                  f"abs {errs}, relative {rel}")
         fwd = per_kernel[kernel]
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["o"])
+        fwd.setdefault("stats_by_shape", []).append(
+            {"shape": name, "ms": ms["stats"], "plain_ms": plain["stats"],
+             **ys["stats"]})
         if name == HEADLINE[kernel]:
             fwd["stats_ms"] = ms["stats"]
             fwd["stats_plain_ms"] = plain["stats"]
@@ -243,9 +400,11 @@ def phase_train_kernels(device, per_kernel):
             pk = per_kernel[kname]
             pk["max_abs_err"] = max([pk["max_abs_err"]]
                                     + [errs[n] for n in grads])
+            pk["by_shape"].append({"shape": name, "D": D, "ms": ms[part],
+                                   "plain_ms": plain["bwd"], **ys[part]})
             if name == HEADLINE[kname]:
-                pk["ms"], pk["plain_ms"] = ms[part], plain["bwd"]
-                pk["backward_ms"] = ms["bwd"]
+                pk.update(ms=ms[part], plain_ms=plain["bwd"],
+                          backward_ms=ms["bwd"], **ys[part])
         del q, k, v, do, o, m2, l, lse2, dq, delta, dk, dv
         torch.cuda.empty_cache()
 
@@ -617,7 +776,7 @@ def phase_train_cli():
         raise AssertionError(f"train CLI checkpoints {saved}")
 
 
-def phase_full_slice(device, steps=3, seed=1024):
+def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
     import torch
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import (FusionConfig,
@@ -670,14 +829,45 @@ def phase_full_slice(device, steps=3, seed=1024):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     del lat, pred, got
+    if profile_dir:
+        profile_step("denoise", denoise_step(pipe, cond, plucker_fea, height,
+                                             width, frames, seed),
+                     float(np.mean(step_s[:-1])), profile_dir)
     return launches, pipe, cond, plucker_fea
 
 
-# kernel families of the profiled training step: the first family whose
-# pattern is in a kernel's name takes it
+def denoise_step(pipe, cond, plucker_fea, height, width, frames, seed):
+    """One denoise step as ``FantasyWorldPipeline.denoise`` runs it
+    between the first and the last: the CFG pair's joint forward (no
+    heads), the CFG combine and the Euler update."""
+    import torch
+    cfg, dev, dtype = pipe.cfg, pipe.device, pipe.dtype
+    f = (frames - 1) // 4 + 1
+    lat = pipe.generate_noise((1, cfg.dit.out_dim, f, height // 8,
+                               width // 8), seed).to(dev, dtype)
+
+    def pair(a, b=None):
+        return torch.cat([a, a if b is None else b]).to(dev, dtype)
+
+    ctx, clip2, y2, pl2 = (pair(cond[0], cond[1]), pair(cond[2]),
+                           pair(cond[3]), pair(plucker_fea))
+    t = torch.full((2,), 500.0, dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def step():
+        noise, _ = pipe.fusion.joint_forward(torch.cat([lat] * 2), t, ctx,
+                                             clip2, y2, plucker_fea=pl2)
+        pos, neg = noise[:1].float(), noise[1:].float()
+        return (lat.float() - 0.02 * (neg + 5.0 * (pos - neg))).to(dtype)
+    return step
+
+
+# kernel families of a profiled step: the first family whose pattern is in
+# a kernel's name takes it
 FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
             ("attention bwd dq", ("fa_bwd_dq",)),
-            ("attention fwd (stats)", ("fa_fwd",)),
+            ("attention fwd wgmma (generic, d64)", ("fa_fwd_wgmma",)),
+            ("attention fwd mma.sync (onekv)", ("fa_fwd",)),
             ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                  "nvjet")),
             ("reduction", ("reduce",)),
@@ -685,12 +875,12 @@ FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
                              "copy", "fill", "memcpy", "memset")))
 
 
-def profile_train_step(step, batch, unprofiled_s, out_dir):
-    """One more training step under ``torch.profiler`` (CPU and CUDA): the
-    device's busy time (the union of its kernel intervals) by kernel
+def profile_step(tag, fn, unprofiled_s, out_dir):
+    """One more step (``fn()``) under ``torch.profiler`` (CPU and CUDA):
+    the device's busy time (the union of its kernel intervals) by kernel
     family, the idle share against the unprofiled CUDA-event step time and
-    against the profiled wall time, written with a gzipped Chrome trace to
-    ``out_dir``."""
+    against the profiled wall time, written as ``<tag>_step_breakdown.json``
+    with a gzipped Chrome trace to ``out_dir``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -699,11 +889,12 @@ def profile_train_step(step, batch, unprofiled_s, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, families = [], {name: [0.0, 0] for name, _ in FAMILIES}
     families["other"] = [0.0, 0]
+    kernels = {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -714,6 +905,11 @@ def profile_train_step(step, batch, unprofiled_s, out_dir):
                     if any(p in name for p in pats)), "other")
         families[fam][0] += (end - start) / 1e6
         families[fam][1] += 1
+        kname = re.search(r"fa_(fwd|bwd)\w*(<[^>]*>)?", ev.name)
+        if kname:
+            kern = kernels.setdefault(kname.group(0), [0.0, 0])
+            kern[0] += (end - start) / 1e6
+            kern[1] += 1
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, reach = 0.0, float("-inf")
@@ -727,16 +923,23 @@ def profile_train_step(step, batch, unprofiled_s, out_dir):
            "idle_share_under_profiler": 1 - busy / wall,
            "families": {f: {"device_s": t, "launches": n}
                         for f, (t, n) in sorted(families.items(),
-                                                key=lambda x: -x[1][0])}}
-    with open(os.path.join(out_dir, "train_step_breakdown.json"), "w") as f:
+                                                key=lambda x: -x[1][0])},
+           "attention_kernels": {k: {"device_s": t, "launches": n}
+                                 for k, (t, n) in sorted(
+                                     kernels.items(), key=lambda x: -x[1][0])}}
+    with open(os.path.join(out_dir, f"{tag}_step_breakdown.json"), "w") as f:
         json.dump(out, f, indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json.gz"))
-    say("profile_train", unprofiled_step_s=f"{unprofiled_s:.3f}",
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"{tag}_step_trace.json.gz"))
+    say(f"profile_{tag}", unprofiled_step_s=f"{unprofiled_s:.3f}",
         profiled_wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.3f}",
         idle_share=f"{out['idle_share']:.4f}",
         idle_share_under_profiler=f"{out['idle_share_under_profiler']:.4f}",
         families=json.dumps({f: round(v["device_s"], 3) for f, v in
-                             out["families"].items()}).replace(" ", ""))
+                             out["families"].items()}).replace(" ", ""),
+        attention=json.dumps({k: round(v["device_s"], 3) for k, v in
+                              out["attention_kernels"].items()}
+                             ).replace(" ", ""))
 
 
 def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
@@ -815,8 +1018,8 @@ def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
     if profile_dir:
-        profile_train_step(step, batches[-1], float(np.mean(step_s)),
-                           profile_dir)
+        profile_step("train", lambda: step(batches[-1]),
+                     float(np.mean(step_s)), profile_dir)
     return launches
 
 
@@ -824,7 +1027,8 @@ def main(argv=None) -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="profile a third full-width training step into DIR")
+                   help="profile one more full-depth denoise step and a "
+                        "third full-width training step into DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -853,22 +1057,27 @@ def main(argv=None) -> int:
     phase_train_cli()
     gc.collect()
     torch.cuda.empty_cache()
-    denoise, pipe, cond, plucker_fea = phase_full_slice(device)
+    denoise, pipe, cond, plucker_fea = phase_full_slice(
+        device, profile_dir=args.profile)
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
 
+    yard = ("bound_ms", "bound_by", "share", "library_ms", "library_backend",
+            "library_ms_by_backend", "launches_per_denoise_step", "by_shape")
     kernels = []
     for k in fa.ROUTES:
         pk = per_kernel[k]
         kernels.append({
-            "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCE,
+            "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
             "launches": denoise[k] + train[f"{k}_stats"],
             "denoise_launches": denoise[k],
             "stats_launches": train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
-            "plain_ms": pk["plain_ms"], "stats_ms": pk["stats_ms"],
-            "stats_plain_ms": pk["stats_plain_ms"]})
+            "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
+            "stats_ms": pk["stats_ms"],
+            "stats_plain_ms": pk["stats_plain_ms"],
+            "stats_by_shape": pk["stats_by_shape"]})
     for k in ("bwd_dq", "bwd_dkv"):
         pk = per_kernel[k]
         kernels.append({
@@ -878,6 +1087,7 @@ def main(argv=None) -> int:
             "launches_by_head_dim": {d: train[f"{k}_{d}"] for d in fa.BWD_D},
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], "plain_covers": "dq, dk and dv",
+            "library_covers": "dq, dk and dv", **{n: pk[n] for n in yard},
             "backward_ms": pk["backward_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Flow-matching fine-tuning of the fusion model (``cli/train.py``).
 
     python -m fantasy_world_tpu_torch.cli.train --synthetic --steps 2 \
-        --demo_dim 64 --demo_layers 2 [--lora_rank 4] [--checkpoint_dir D]
+        --demo_dim 64 --demo_layers 2 [--lora_rank 4] [--checkpoint_dir D] \
+        [--device cpu]
 
 The loop of the JAX trainer on one device: full fine-tuning
 (``training/step.py``) or, with ``--lora_rank N``, rank-N adapters on the
@@ -10,8 +11,9 @@ recompute unless ``--no_remat``; AdamW with a linear warm-up from 0;
 save/resume of (trainable parameters, optimizer, schedule, step) with
 ``torch.save`` into ``step_%08d`` directories; a non-finite-loss guard;
 metrics and an optional ``torch.profiler`` trace. It runs on the card
-when there is one (bf16, through the kernels) and on the CPU otherwise
-(f32, the plain versions).
+(``--device cuda``, the default: bf16, through the kernels) and on the CPU
+only when asked (``--device cpu``: f32, the plain versions); without a
+card and without ``--device cpu`` it exits.
 
 ``--synthetic`` draws random batches at a reduced demo config, from the
 same numpy stream as the JAX trainer, so both see identical batches; a
@@ -42,6 +44,9 @@ def parse_args(argv=None):
     p.add_argument("--wan_ckpt_path", type=str, default=None)
     p.add_argument("--model_ckpt", type=str, default=None)
     p.add_argument("--tokenizer_path", type=str, default=None)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda: bf16 through the kernels; cpu: f32 through "
+                        "the plain versions")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--weight_decay", type=float, default=1e-4)
@@ -218,7 +223,10 @@ def run(args) -> Optional[float]:
 
     _unported(args)
     log = get_logger("train")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the trainer runs on the card; "
+                         "pass --device cpu to train on the CPU")
+    device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = demo_config(dim=args.demo_dim, layers=args.demo_layers,
                       start_index=args.demo_start_index,

@@ -1,4 +1,4 @@
-// Pieces shared by the flash-attention forward (flash_attention.cu) and
+// Pieces shared by the one-key-block forward (flash_attention.cu) and the
 // backward (flash_attention_bwd.cu) kernels: the tile geometry, the WMMA
 // fragment types and the global -> shared tile loads.
 //

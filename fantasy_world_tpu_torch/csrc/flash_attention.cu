@@ -1,56 +1,46 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a): three entry points,
-// one per Pallas TPU kernel on the denoise path of the JAX reference
-// (fantasy_world_tpu/ops/flash_attention.py).
+// Flash-attention forward for NVIDIA Hopper (sm_90a) over one key block:
+// the counterpart of the Pallas kernel _fa_kernel_onekv
+// (fantasy_world_tpu/ops/flash_attention.py, Lk <= 2048).
 //
-//   fa_fwd_generic  (HEAD_DIM 96, 128)  replaces _fa_kernel, launched from
-//                   _flash_forward when Lk > block_k: DiT self-attention
-//                   (16317 x 16317, 40 x 128) and both bicross directions
-//                   (16317 <-> 16422, 12 x 96). Online softmax over key tiles.
-//   fa_fwd_onekv    (HEAD_DIM 128)      replaces _fa_kernel_onekv (Lk <= 2048):
-//                   DiT cross-attention against 512 text / 257 CLIP keys and
-//                   the camera-head trunk (81 keys). Exact row max first, then
-//                   sum and P.V with no rescale.
-//   fa_fwd_d64      (HEAD_DIM 64)       replaces _fa_kernel_pair (D <= 64, H
-//                   even): VGGT frame (42 x 782) and global (2 x 16422)
-//                   attention. The TPU kernel packs two 64-wide heads into 128
-//                   lanes; on Hopper 64 is a native MMA width, so this is the
-//                   generic kernel built for HEAD_DIM 64.
+//   fa_fwd_onekv    (HEAD_DIM 128)      DiT cross-attention against 512 text /
+//                   257 CLIP keys and the camera-head trunk (81 keys). Exact
+//                   row max first, then sum and P.V with no rescale.
 //
-// What bounds them on the card: the DiT self-attention alone is ~436 TFLOP
-// per CFG step, so these kernels are bound by tensor-core math and by the
-// softmax work between the two products, not by device memory (K/V tiles
-// are re-read from L2 by every query tile of a head). The design keeps Q in
-// registers for the whole key sweep, runs both products on the tensor cores
-// through nvcuda::wmma bf16 16x16x16 fragments (mma.sync) with f32
-// accumulators, and keeps the output accumulator in registers; the per-row
-// softmax runs on a 16 x 64 f32 score tile in shared memory, two lanes per
-// row. The accumulator rescale (the online-softmax alpha) and the final 1/l
-// are applied elementwise through an accumulator fragment loaded from a
-// row-broadcast 16 x 16 matrix, which has the same element-to-row mapping as
-// the output fragments whatever the hardware layout is.
+// (The online-softmax routes, fa_fwd_generic and fa_fwd_d64, are the TMA and
+// wgmma kernel in flash_attention_sm90.cu.)
 //
-// Numerics follow the TPU kernels: q is multiplied by scale*log2(e) in f32
+// What bounds it on the card: at 257-512 keys DiT cross-attention is
+// 0.17-0.34 TFLOP per CFG step, so it is bound by tensor-core math and by the
+// softmax work between the two products, not by device memory. The design
+// keeps Q in registers for the whole key sweep, runs both products on the
+// tensor cores through nvcuda::wmma bf16 16x16x16 fragments (mma.sync) with
+// f32 accumulators, and keeps the output accumulator in registers; the
+// per-row softmax runs on a 16 x 64 f32 score tile in shared memory, two
+// lanes per row. The final 1/l is applied elementwise through an accumulator
+// fragment loaded from a row-broadcast 16 x 16 matrix, which has the same
+// element-to-row mapping as the output fragments whatever the hardware
+// layout is.
+//
+// Numerics follow the TPU kernel: q is multiplied by scale*log2(e) in f32
 // and rounded to bf16, logits are f32 in the exp2 domain, P is rounded to
 // bf16 before P.V, statistics and the accumulator are f32. The ragged key
 // tail is masked on the last tile (OOB keys score -inf and their V rows load
 // as zeros); query rows >= Lq compute on zeros and are not stored.
 //
-// Statistics (the with_stats output of _fa_kernel / _fa_kernel_onekv, what
-// the training forward saves for the backward): given non-null m2 and l,
-// each entry point also stores, per query row, the base-2 row max
-// m2 = max_k s2 and the sum l = sum_k exp2(s2 - m2) as contiguous
-// (B, Lq, H) f32 -- one store per row in the epilogue, where the TPU kernel
-// writes a lane-replicated (BQ, 128) block (a Mosaic limit). The TPU's
-// zero-pad correction of l and its 2^-23 clamp are not needed: the tail is
-// masked, not zero-padded. The D-64 build keeps its native width with
-// stats; the TPU pads it to 128 and takes the generic kernel.
+// Statistics (the with_stats output of _fa_kernel_onekv): given non-null m2
+// and l, the entry point also stores, per query row, the base-2 row max
+// m2 = max_k s2 and the sum l = sum_k exp2(s2 - m2) as contiguous (B, Lq, H)
+// f32 -- one store per row in the epilogue, where the TPU kernel writes a
+// lane-replicated (BQ, 128) block (a Mosaic limit). The TPU's zero-pad
+// correction of l and its 2^-23 clamp are not needed: the tail is masked,
+// not zero-padded.
 //
 // Layout: q/k/v are read in place through their (batch, row, head) strides in
 // elements, with a unit stride on D -- (B, L, H*D) rows with the head's D-wide
-// column slice, so strided views (VGGT's fused qkv, bicross's swapped q/k)
-// need no copy. The output is a contiguous (B, Lq, H, D) bf16 tensor.
+// column slice, so strided views need no copy. The output is a contiguous
+// (B, Lq, H, D) bf16 tensor.
 //
-// Each entry point launches on the given stream and returns a cudaError_t
+// The entry point launches on the given stream and returns a cudaError_t
 // (0 on success); it allocates nothing and does not synchronise.
 
 #include "fa_common.cuh"
@@ -124,7 +114,7 @@ __device__ __forceinline__ void scale_rows(FragC (&of)[D / 16], float* sA, int r
   __syncwarp();
 }
 
-template <int D, bool ONE_KV>
+template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 fa_fwd_kernel(const Params p) {
   using P = Plan<D>;
@@ -162,24 +152,23 @@ fa_fwd_kernel(const Params p) {
   float m = -INFINITY, l = 0.0f;
   const int ntiles = (p.Lk + BK - 1) / BK;
 
-  if (ONE_KV) {
-    // pass 1: the exact row max over every key
-    for (int t = 0; t < ntiles; ++t) {
-      __syncthreads();
-      load_tile<D>(sK, kg, p.k_sr, t * BK, p.Lk);
-      __syncthreads();
-      score_tile<D>(qf, sK, sS);
-      __syncwarp();
-      const int valid = min(BK, p.Lk - t * BK);
+  // pass 1: the exact row max over every key
+  for (int t = 0; t < ntiles; ++t) {
+    __syncthreads();
+    load_tile<D>(sK, kg, p.k_sr, t * BK, p.Lk);
+    __syncthreads();
+    score_tile<D>(qf, sK, sS);
+    __syncwarp();
+    const int valid = min(BK, p.Lk - t * BK);
 #pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = 2 * j + par;
-        if (c < valid) m = fmaxf(m, sS[r * P::LDS + c]);
-      }
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    for (int j = 0; j < BK / 2; ++j) {
+      const int c = 2 * j + par;
+      if (c < valid) m = fmaxf(m, sS[r * P::LDS + c]);
     }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
   }
 
+  // pass 2: sum and P V with the exact max, no rescale
   for (int t = 0; t < ntiles; ++t) {
     __syncthreads();
     load_tile<D>(sK, kg, p.k_sr, t * BK, p.Lk);
@@ -189,35 +178,16 @@ fa_fwd_kernel(const Params p) {
     __syncwarp();
     const int valid = min(BK, p.Lk - t * BK);
     const float* srow = sS + r * P::LDS;
-    float m_new = m;
-    if (!ONE_KV) {
-      float tmax = -INFINITY;
-#pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = 2 * j + par;
-        if (c < valid) tmax = fmaxf(tmax, srow[c]);
-      }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      m_new = fmaxf(m, tmax);
-    }
     float sum = 0.0f;
 #pragma unroll 8
     for (int j = 0; j < BK / 2; ++j) {
       const int c = 2 * j + par;
-      const float pv = c < valid ? exp2f(srow[c] - m_new) : 0.0f;
+      const float pv = c < valid ? exp2f(srow[c] - m) : 0.0f;
       sum += pv;
       sP[r * P::LDP + c] = __float2bfloat16(pv);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (ONE_KV) {
-      l += sum;
-      __syncwarp();
-    } else {
-      const float alpha = exp2f(m - m_new);     // 0 on the first tile
-      l = l * alpha + sum;
-      m = m_new;
-      scale_rows<D>(of, sA, r, par, alpha);
-    }
+    l += sum + __shfl_xor_sync(0xffffffffu, sum, 1);
+    __syncwarp();
     // O += P V
     FragA pf[BK / 16];
 #pragma unroll
@@ -248,14 +218,14 @@ fa_fwd_kernel(const Params p) {
   }
 }
 
-template <int D, bool ONE_KV>
+template <int D>
 int launch(const Params& p, int B, int H, cudaStream_t stream) {
   const size_t smem = Plan<D>::total;
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, ONE_KV>,
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.Lq + BQ - 1) / BQ, H, B);
-  fa_fwd_kernel<D, ONE_KV><<<grid, WARPS * 32, smem, stream>>>(p);
+  fa_fwd_kernel<D><<<grid, WARPS * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -297,24 +267,10 @@ Params make_params(const void* q, const void* k, const void* v, void* o, void* m
 
 extern "C" {
 
-int fa_fwd_generic(FA_ARGS) {
-  const Params p = FA_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128, false>(p, B, H, s);
-  if (D == 96) return launch<96, false>(p, B, H, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 int fa_fwd_onekv(FA_ARGS) {
   const Params p = FA_PARAMS;
   if (D != 128) return (int)cudaErrorInvalidValue;
-  return launch<128, true>(p, B, H, static_cast<cudaStream_t>(stream));
-}
-
-int fa_fwd_d64(FA_ARGS) {
-  const Params p = FA_PARAMS;
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  return launch<64, false>(p, B, H, static_cast<cudaStream_t>(stream));
+  return launch<128>(p, B, H, static_cast<cudaStream_t>(stream));
 }
 
 const char* fa_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

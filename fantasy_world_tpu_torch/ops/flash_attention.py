@@ -9,8 +9,11 @@ The CUDA entry points in ``csrc/`` replace every Pallas kernel of
   * else Lk <= 2048     -> ``onekv``   (``_fa_kernel_onekv``)
   * else                -> ``generic`` (``_fa_kernel``)
 
-and each forward kernel can also store the softmax statistics (m2, l) of
-its rows (the ``with_stats`` output of ``_fa_kernel``/``_fa_kernel_onekv``).
+``generic`` and ``d64`` are one TMA and wgmma template
+(``csrc/flash_attention_sm90.cu``), ``onekv`` an mma.sync kernel
+(``csrc/flash_attention.cu``). Each forward kernel can also store the
+softmax statistics (m2, l) of its rows (the ``with_stats`` output of
+``_fa_kernel``/``_fa_kernel_onekv``).
 The backward is ``fa_bwd_dq`` then ``fa_bwd_dkv`` (``_fa_bwd_dq_kernel``,
 ``_fa_bwd_dkv_kernel``), built for head dims 64, 96 and 128.
 
@@ -58,11 +61,17 @@ BWD_D = (64, 96, 128)
 BWD_KERNELS = ("bwd_dq", "bwd_dkv")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# the library that holds each entry point
-_LIBRARY = {**{s: "flash_attention" for s in (*_SYMBOL.values(),
-                                               "fa_error_string")},
+# the library that holds each entry point: the TMA/wgmma online-softmax
+# forward, the one-key-block forward (and the error strings), the backward
+_LIBRARY = {"fa_fwd_generic": "flash_attention_sm90",
+            "fa_fwd_d64": "flash_attention_sm90",
+            "fa_fwd_onekv": "flash_attention",
+            "fa_error_string": "flash_attention",
             "fa_bwd_dq": "flash_attention_bwd",
             "fa_bwd_dkv": "flash_attention_bwd"}
+# flash_attention_sm90.cu returns this plus the CUresult of a tensor map it
+# could not encode
+_ENCODE_ERROR = 1 << 20
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
@@ -289,6 +298,9 @@ def build_log() -> str:
 def _call(sym: str, *args) -> None:
     libs = build_kernels()
     rc = getattr(libs[_LIBRARY[sym]], sym)(*args)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"{sym} failed: cuTensorMapEncodeTiled returned "
+                           f"CUresult {rc - _ENCODE_ERROR}")
     if rc != 0:
         msg = libs[_LIBRARY["fa_error_string"]].fa_error_string(rc).decode()
         raise RuntimeError(f"{sym} failed: {msg} ({rc})")

@@ -43,16 +43,29 @@ def _qkv(shape_q, lk, device, seed=0):
 
 
 # (B, Lq, H, D, Lk, expected route): ragged tails in both axes, every
-# kernel, every padded head dim
+# kernel, every padded head dim; generic and d64 at and around their
+# 128-row query blocks and 128-key tiles (1, 127, 128, 129, 255 rows)
 SMALL = [
     (1, 1, 2, 64, 1, "d64"),
+    (1, 127, 2, 64, 127, "d64"),
+    (1, 128, 2, 64, 128, "d64"),
+    (2, 129, 2, 64, 129, "d64"),
+    (1, 255, 2, 64, 255, "d64"),
+    (1, 1, 2, 64, 255, "d64"),
+    (1, 255, 2, 64, 1, "d64"),
     (2, 200, 4, 64, 300, "d64"),
     (1, 129, 2, 48, 65, "d64"),            # D padded 48 -> 64
     (2, 130, 3, 128, 81, "onekv"),
     (1, 70, 2, 128, 2048, "onekv"),
     (1, 33, 3, 80, 257, "onekv"),          # D padded 80 -> 128
+    (1, 1, 2, 128, 2049, "generic"),
+    (1, 127, 2, 128, 2175, "generic"),
+    (1, 128, 2, 128, 2176, "generic"),
+    (1, 129, 1, 128, 2177, "generic"),
+    (2, 255, 1, 128, 2303, "generic"),
     (1, 257, 2, 96, 2100, "generic"),
-    (1, 100, 1, 128, 2049, "generic"),
+    (1, 2300, 2, 96, 4100, "generic"),     # Lq != Lk, both orders
+    (1, 4100, 2, 96, 2300, "generic"),
     (1, 65, 3, 72, 2200, "generic"),       # D padded 72 -> 96
 ]
 
@@ -63,26 +76,31 @@ def test_kernel_matches_plain(device, B, Lq, H, D, Lk, kernel):
     q, k, v = _qkv((B, Lq, H, D), Lk, device)
     before = fa.LAUNCHES[kernel]
     out = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES[kernel] == before + 1
+    assert fa.LAUNCHES[kernel] == before + 2
+    assert torch.equal(out, again)             # no order-dependent sums
     ref = fa.attention_plain(q, k, v, D ** -0.5)
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL, err
 
 
-def test_kernel_reads_strided_views(device):
-    """v as a view of a fused qkv projection (VGGT) and swapped q/k roles
-    (bicross): no copies, same result as contiguous inputs."""
-    B, L, H, D = 2, 150, 4, 64
+@pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic")])
+def test_kernel_reads_strided_views(device, D, kernel):
+    """q, k, v as views of a fused qkv projection (VGGT) and swapped q/k
+    roles (bicross): no copies, same result as contiguous inputs."""
+    B, L, H = 2, 150, 4
     g = torch.Generator(device=device).manual_seed(3)
     qkv = torch.randn((B, L, 3, H, D), generator=g, device=device).bfloat16()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    out = fa.flash_attention(q, k, v)
-    ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    scale = D ** -0.5
+    out = fa.launch(kernel, q, k, v, scale)
+    ref = fa.launch(kernel, q.contiguous(), k.contiguous(), v.contiguous(),
+                    scale)
     assert torch.equal(out, ref)
-    out_t = fa.flash_attention(k, q, v)
-    ref_t = fa.attention_plain(k, q, v, D ** -0.5)
+    out_t = fa.launch(kernel, k, q, v, scale)
+    ref_t = fa.attention_plain(k, q, v, scale)
     assert (out_t.float() - ref_t.float()).abs().max().item() <= TOL
 
 

@@ -26,7 +26,7 @@ def _args(ckpt_dir, steps, *extra):
             "--demo_dim", "64", "--demo_layers", "2",
             "--demo_start_index", "1", "--warmup", "1", "--lr", "1e-4",
             "--save_every", "100", "--log_every", "1",
-            "--checkpoint_dir", str(ckpt_dir), *extra]
+            "--checkpoint_dir", str(ckpt_dir), "--device", "cpu", *extra]
 
 
 def _final_loss(out):
@@ -92,6 +92,18 @@ def test_train_cli_lora_mode(tmp_path, capsys):
 def test_unported_modes_exit(tmp_path, extra, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         main(_args(tmp_path / "x", 1) + extra)
+
+
+def test_train_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path,
+                                                         monkeypatch):
+    """Without a CUDA device and without --device cpu the trainer exits
+    and names --device cpu; it never picks the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in _args(tmp_path / "x", 1) if a not in ("--device",
+                                                             "cpu")]
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(argv)
+    assert not (tmp_path / "x").exists()
 
 
 def test_synthetic_batches_match_jax_trainer():
