@@ -273,6 +273,4 @@ int fa_fwd_onekv(FA_ARGS) {
   return launch<128>(p, B, H, static_cast<cudaStream_t>(stream));
 }
 
-const char* fa_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
 }  // extern "C"

@@ -69,7 +69,9 @@
 // The output is a contiguous (B, Lq, H, D) bf16 tensor. Each entry point
 // launches on the given stream and returns 0, a cudaError_t, or
 // FA_ENCODE_ERROR + the CUresult of a tensor map that failed to encode; it
-// allocates nothing and does not synchronise.
+// allocates nothing and does not synchronise. fa_error_string names any
+// nonzero return of the attention entry points, these and those of
+// flash_attention.cu and flash_attention_bwd.cu (cudaError_t only).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,6 +79,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -602,6 +605,14 @@ int fa_fwd_generic(FA_ARGS) {
 int fa_fwd_d64(FA_ARGS) {
   if (D != 64) return (int)cudaErrorInvalidValue;
   return launch<64>(FA_FORWARD);
+}
+
+const char* fa_error_string(int err) {
+  if (err < FA_ENCODE_ERROR) return cudaGetErrorString((cudaError_t)err);
+  static thread_local char msg[64];
+  snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled returned CUresult %d",
+           err - FA_ENCODE_ERROR);
+  return msg;
 }
 
 }  // extern "C"

@@ -62,16 +62,14 @@ BWD_KERNELS = ("bwd_dq", "bwd_dkv")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # the library that holds each entry point: the TMA/wgmma online-softmax
-# forward, the one-key-block forward (and the error strings), the backward
+# forward (and the error strings of every entry point), the one-key-block
+# forward, the backward
 _LIBRARY = {"fa_fwd_generic": "flash_attention_sm90",
             "fa_fwd_d64": "flash_attention_sm90",
             "fa_fwd_onekv": "flash_attention",
-            "fa_error_string": "flash_attention",
+            "fa_error_string": "flash_attention_sm90",
             "fa_bwd_dq": "flash_attention_bwd",
             "fa_bwd_dkv": "flash_attention_bwd"}
-# flash_attention_sm90.cu returns this plus the CUresult of a tensor map it
-# could not encode
-_ENCODE_ERROR = 1 << 20
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
@@ -298,9 +296,6 @@ def build_log() -> str:
 def _call(sym: str, *args) -> None:
     libs = build_kernels()
     rc = getattr(libs[_LIBRARY[sym]], sym)(*args)
-    if rc >= _ENCODE_ERROR:
-        raise RuntimeError(f"{sym} failed: cuTensorMapEncodeTiled returned "
-                           f"CUresult {rc - _ENCODE_ERROR}")
     if rc != 0:
         msg = libs[_LIBRARY["fa_error_string"]].fa_error_string(rc).decode()
         raise RuntimeError(f"{sym} failed: {msg} ({rc})")

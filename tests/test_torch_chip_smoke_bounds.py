@@ -1,7 +1,7 @@
 """The yardstick arithmetic of ``chip_smoke.py`` on the CPU: the least time
 the card could take for each attention kernel call (FLOP at the bf16 peak
-against bytes at the HBM rate), and the launches per denoise step that each
-kernel row carries."""
+against bytes at the HBM rate), the configuration's layers per denoise step
+of each shape, the library yardstick and the forward's error bound."""
 import os
 import subprocess
 import sys
@@ -54,11 +54,11 @@ def test_attention_bound_counts_each_tensor_once():
 
 
 def test_shape_launches_agree_with_expected_launches():
-    """Per denoise step, the launches of the shapes of each route sum to
+    """Per denoise step, the layers of the shapes of each route sum to
     what one more step adds to ``expected_launches``."""
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     cfg = FusionConfig()
-    per_shape = cs.shape_launches(cfg)
+    per_shape = cs.layers_per_step(cfg)
     assert set(per_shape) == {name for name, *_ in cs.SHAPES}
     one, two = cs.expected_launches(cfg, 1), cs.expected_launches(cfg, 2)
     for kernel in ("generic", "onekv", "d64"):
@@ -102,6 +102,53 @@ def test_ptxas_summary_reads_registers_and_spills():
 
 
 def test_best_library_takes_the_fastest_backend_that_ran():
-    assert cs.best_library({"flash": 30.5, "cudnn": 19.0}) == (19.0, "cudnn")
-    assert cs.best_library({"flash": 2.0, "cudnn": None}) == (2.0, "flash")
-    assert cs.best_library({"flash": None, "cudnn": None}) == (None, None)
+    dims = (2, 16317, 16317, 40, 128)
+    for library, want in (({"flash": 30.5, "cudnn": 19.0}, 19.0),
+                          ({"flash": 2.0, "cudnn": None}, 2.0),
+                          ({"flash": None, "cudnn": None}, None)):
+        y = cs.yardsticks("fwd", dims, 20.0, library)
+        assert y["library_ms"] == want
+        assert y["library_ms_by_backend"] == library
+    # 10.905 TFLOP in 20 ms; the bound 11.027 ms
+    assert y["tflops"] == pytest.approx(545.2, rel=1e-3)
+    assert y["share"] == pytest.approx(11.027 / 20.0, rel=1e-4)
+
+
+@pytest.mark.parametrize("peak,tol", [
+    (0.078125, 0.078125 / 64),   # many keys: |o| small, two ulps of it
+    (0.5, 0.5 / 64),
+    (4.0, cs.KERNEL_TOL),   # few keys: never more than the absolute bound
+])
+def test_out_tol_is_two_ulps_of_the_largest_output(peak, tol):
+    import torch
+    ref = torch.tensor([[0.001, -peak], [peak / 3, 0.0]], dtype=torch.bfloat16)
+    assert cs.out_tol(ref) == pytest.approx(tol)
+
+
+@pytest.mark.parametrize("fault", ["tail_dropped", "v_panel_swapped"])
+def test_out_tol_catches_key_and_value_faults(fault):
+    """At DiT self-attention's 16,317 keys |o| is ~0.013, under KERNEL_TOL:
+    a kernel that skips the 61-key tail tile, or reads one 64-column V
+    panel of one key tile from the next tile, stays under KERNEL_TOL but
+    not under out_tol."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    B, Lq, H, D, Lk = 1, 256, 2, 128, 16317
+    q, k, v = (torch.randn((B, n, H, D), generator=g).bfloat16()
+               for n in (Lq, Lk, Lk))
+
+    def attention(k, v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+        return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1),
+                            v.float()).bfloat16()
+
+    ref = attention(k, v)
+    if fault == "tail_dropped":
+        bad = attention(k[:, :127 * 128], v[:, :127 * 128])
+    else:
+        v2 = v.clone()
+        v2[:, 640:768, :, 64:] = v[:, 768:896, :, 64:]
+        bad = attention(k, v2)
+    err = (bad.float() - ref.float()).abs().max().item()
+    assert err < cs.KERNEL_TOL
+    assert err > 2 * cs.out_tol(ref)
