@@ -15,7 +15,8 @@ non-zero):
      ``scaled_dot_product_attention``'s time on the same inputs per pinned
      backend (flash, cuDNN), the shape's layers per denoise step;
   3. the stats forward, dq and dk/dv against their plain versions at the
-     training shapes (batch 1): max abs errors of o, m2, l, dq, dk, dv,
+     training shapes (batch 1): max abs errors of o, m2, l, dq, dk, dv (dq,
+     dk, dv bound by two bf16 ulps of the largest gradient, ``grad_tol``),
      times of each kernel and its plain version, the same yardsticks (the
      library's backward computes dq, dk and dv in one call);
   4. a reduced-width denoise (every kernel route taken) on the card in bf16
@@ -83,10 +84,20 @@ OUT_RTOL = 2 ** -6
 # m2 and l: f32 on both sides from the same bf16 logits, summation order
 # only; relative to max(1, |m2|) and to l (>= 1)
 STATS_RTOL = 1e-4
-# dq, dk, dv relative to max(1, max |reference|): the same bf16 rounding
-# points for ds and p, so f32 summation order, rare one-ulp flips of a bf16
-# ds or p, and the bf16 rounding of the result (2^-9)
+# dq, dk, dv: the same bf16 rounding points for ds and p, so f32 summation
+# order, rare one-ulp flips of a bf16 ds or p, and one-ulp flips of the bf16
+# result, at most 2^-7 of the largest |gradient|. The bound (grad_tol) is
+# two such ulps, OUT_RTOL * max |reference|, and never looser than
+# BWD_RTOL * max(1, max |reference|). That alone would be blind at the long
+# shapes: at 16k queries and keys every gradient is ~0.1-0.2 at most, so 8
+# lost query rows of one tile, 8 lost keys, a skipped tail tile or a do
+# panel read from the wrong tile (1.0-1.9e-2) would pass it. Nor is it
+# ever tighter than GRAD_ATOL: where a gradient vanishes analytically (one
+# key: the softmax passes no gradient to its logits, so dq = dk = 0) both
+# sides hold only f32 cancellation noise, up to 4e-6 at 255 queries (the
+# plain version in f32 against f64).
 BWD_RTOL = 1e-2
+GRAD_ATOL = 1e-4
 # reduced slice, card bf16 vs CPU f32: bf16 rounding through 3 DiT blocks,
 # 2 VGGT block pairs and the heads over 2 steps; relative L2 error
 SLICE_TOL = 5e-2
@@ -126,6 +137,14 @@ TRAIN_SHAPES = [
 def out_tol(ref) -> float:
     """The bound on max |o - ref| of a forward kernel (see OUT_RTOL)."""
     return min(KERNEL_TOL, OUT_RTOL * ref.float().abs().max().item())
+
+
+def grad_tol(ref) -> float:
+    """The bound on max |g - ref| of a backward kernel's gradient (see
+    BWD_RTOL)."""
+    largest = ref.float().abs().max().item()
+    return max(GRAD_ATOL, min(BWD_RTOL * max(1.0, largest),
+                              OUT_RTOL * largest))
 
 
 def say(phase: str, **fields) -> None:
@@ -338,10 +357,10 @@ def phase_train_kernels(device, per_kernel):
         o_tol = out_tol(ro)
         rel = {"m2": ((m2 - rm2).abs() / rm2.abs().clamp_min(1)).max().item(),
                "l": ((l - rl).abs() / rl).max().item()}
+        g_tol = {}
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             errs[gname] = _max_err(got, want)
-            largest = want.float().abs().max().item()
-            rel[gname] = errs[gname] / max(1.0, largest)
+            g_tol[gname] = grad_tol(want)
         del ref, ro, rm2, rl
         ms = {"stats": time_ms(lambda: fa.flash_attention_stats(q, k, v), 5),
               "dq": time_ms(lambda: fa.launch_bwd_dq(q, k, v, o, lse2, do,
@@ -367,6 +386,7 @@ def phase_train_kernels(device, per_kernel):
         say("train_kernel", shape=name, kernel=kernel, D=D,
             max_abs_err="|".join(f"{n}:{e:.3e}" for n, e in errs.items()),
             o_bound=f"{o_tol:.3e}",
+            grad_bound="|".join(f"{n}:{t:.3e}" for n, t in g_tol.items()),
             **{f"{n}_ms": f"{ms[n]:.3f}" for n in ms},
             **{f"{n}_plain_ms": f"{plain[n]:.3f}" for n in plain},
             tflops="|".join(f"{n}:{y['tflops']:.1f}" for n, y in ys.items()),
@@ -379,11 +399,11 @@ def phase_train_kernels(device, per_kernel):
                                     for b, t in lib_bwd.items()))
         bad = [] if errs["o"] <= o_tol else ["o"]
         bad += [n for n in ("m2", "l") if not rel[n] <= STATS_RTOL]
-        bad += [n for n in ("dq", "dk", "dv") if not rel[n] <= BWD_RTOL]
+        bad += [n for n in ("dq", "dk", "dv") if not errs[n] <= g_tol[n]]
         if bad:
             raise AssertionError(f"{name}: {bad} beyond their bounds: "
-                                 f"abs {errs} (o bound {o_tol}), relative "
-                                 f"{rel}")
+                                 f"abs {errs} (o bound {o_tol}, gradient "
+                                 f"bounds {g_tol}), relative {rel}")
         fwd = per_kernel[kernel]
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["o"])
         fwd.setdefault("stats_by_shape", []).append(
@@ -398,7 +418,10 @@ def phase_train_kernels(device, per_kernel):
             pk["max_abs_err"] = max([pk["max_abs_err"]]
                                     + [errs[n] for n in grads])
             pk["by_shape"].append({"shape": name, "D": D, "ms": ms[part],
-                                   "plain_ms": plain["bwd"], **ys[part]})
+                                   "plain_ms": plain["bwd"],
+                                   "max_abs_err": {n: errs[n] for n in grads},
+                                   "err_bound": {n: g_tol[n] for n in grads},
+                                   **ys[part]})
             if name == HEADLINE[kname]:
                 pk.update(ms=ms[part], plain_ms=plain["bwd"],
                           backward_ms=ms["bwd"], **ys[part])
@@ -870,6 +893,13 @@ FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
                              "copy", "fill", "memcpy", "memset")))
 
 
+def family(kernel_name: str) -> str:
+    """The family of ``FAMILIES`` that a device kernel's name falls in."""
+    name = kernel_name.lower()
+    return next((f for f, pats in FAMILIES if any(p in name for p in pats)),
+                "other")
+
+
 def profile_step(tag, drive, unprofiled_s, out_dir):
     """One more step under ``torch.profiler`` (CPU and CUDA): ``drive(begin,
     end)`` runs it and calls ``begin()`` and ``end()`` around it, each of
@@ -905,9 +935,7 @@ def profile_step(tag, drive, unprofiled_s, out_dir):
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        name = ev.name.lower()
-        fam = next((f for f, pats in FAMILIES
-                    if any(p in name for p in pats)), "other")
+        fam = family(ev.name)
         families[fam][0] += (end - start) / 1e6
         families[fam][1] += 1
         kname = re.search(r"fa_(fwd|bwd)\w*(<[^>]*>)?", ev.name)

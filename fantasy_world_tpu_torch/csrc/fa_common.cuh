@@ -1,6 +1,7 @@
-// Pieces shared by the one-key-block forward (flash_attention.cu) and the
-// backward (flash_attention_bwd.cu) kernels: the tile geometry, the WMMA
-// fragment types and the global -> shared tile loads.
+// Pieces of the one-key-block forward (flash_attention.cu), the port's last
+// mma.sync kernel: the tile geometry, the WMMA fragment types and the
+// global -> shared tile loads. (The TMA/wgmma kernels share
+// sm90_common.cuh instead.)
 //
 // Every kernel runs WARPS warps per block; a warp owns 16 rows of the
 // block's 64-row tile, and the tile it sweeps over is 64 rows too. Shared

@@ -70,34 +70,32 @@
 // launches on the given stream and returns 0, a cudaError_t, or
 // FA_ENCODE_ERROR + the CUresult of a tensor map that failed to encode; it
 // allocates nothing and does not synchronise. fa_error_string names any
-// nonzero return of the attention entry points, these and those of
-// flash_attention.cu and flash_attention_bwd.cu (cudaError_t only).
+// nonzero return of the attention entry points: these, those of
+// flash_attention_bwd.cu (which encode tensor maps the same way) and those
+// of flash_attention.cu (cudaError_t only).
+//
+// The PTX layer (mbarriers, TMA, wgmma, descriptors, tensor-map encoding)
+// is sm90_common.cuh, shared with the backward.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90_common.cuh"
 
-#include <math.h>
-#include <stdint.h>
 #include <stdio.h>
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128;                // query rows per block
 constexpr int BN = 128;                // keys per tile
 constexpr int STAGES = 2;              // K/V ring depth
 constexpr int CONSUMER_WARPS = 8;      // two warpgroups
 constexpr int THREADS = 128 * 3;       // producer warpgroup + two consumers
-constexpr int FA_ENCODE_ERROR = 1 << 20;
 
 template <int D>
-struct Cfg {
-  static constexpr int PW = D % 64 == 0 ? 64 : 32;   // columns per panel
-  static constexpr int NP = D / PW;                  // panels per tile
-  static constexpr int SWZ = PW * 2;                 // bytes per panel row = swizzle span
-  static constexpr uint64_t LAYOUT = SWZ == 128 ? 1 : 2;   // wgmma: B128 or B64
-  static constexpr int Q_PANEL = BM * SWZ;
-  static constexpr int KV_PANEL = BN * SWZ;
+struct Cfg : Panels<D> {
+  using P = Panels<D>;
+  static constexpr int Q_PANEL = BM * P::SWZ;
+  static constexpr int KV_PANEL = BN * P::SWZ;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;
   static constexpr int BAR_OFFSET = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -113,156 +111,6 @@ struct Params {
   int4 q_pos, k_pos, v_pos;        // coordinate slot (1-3) of head, row, batch
   float qscale;                    // softmax scale * log2(e)
 };
-
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads of accumulator registers above the
-// wgmma wait (the wgmma asm names them as outputs already at issue).
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout (bits 62-63). The swizzle atoms of
-// every tile start on 1024-byte boundaries, so base_offset stays 0.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-#define FA_F8(d, i)                                                                           \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FA_REGS32                                                                             \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define FA_REGS48                                                                             \
-  FA_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-#define FA_REGS64                                                                             \
-  FA_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// d[64] (+)= A(smem, 64 x 16, K-major) * B(smem, 128 x 16, K-major)^T
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_REGS64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24), FA_F8(d, 32), FA_F8(d, 40),
-        FA_F8(d, 48), FA_F8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[N/2] += A(registers, 64 x 16 bf16) * B(smem, 16 x N, MN-major)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {" FA_REGS48
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24), FA_F8(d, 32), FA_F8(d, 40)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24), FA_F8(d, 32), FA_F8(d, 40),
-        FA_F8(d, 48), FA_F8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The coordinate in map slot `slot` (1-3), given where head, row and batch
-// landed.
-__device__ __forceinline__ int pick(int slot, int4 pos, int h, int row, int b) {
-  return pos.x == slot ? h : (pos.y == slot ? row : b);
-}
 
 // ---------------------------------------------------------------------------
 // the kernel
@@ -382,7 +230,7 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk * 16 / C::PW) * C::Q_PANEL + (kk * 16 % C::PW) * 2;
       const uint32_t koff = (kk * 16 / C::PW) * C::KV_PANEL + (kk * 16 % C::PW) * 2;
-      wgmma_ss_n128(sc, make_desc(q_addr + off, 16, SBO, C::LAYOUT),
+      wgmma_ss<BN>(sc, make_desc(q_addr + off, 16, SBO, C::LAYOUT),
                     make_desc(k_addr + koff, 16, SBO, C::LAYOUT), kk > 0);
     }
     wg_commit();
@@ -434,13 +282,7 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     // P in bf16: the S accumulator of keys 16 kk .. 16 kk + 15 is the
     // register A fragment of the kk-th k16 step
     uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    pack_a<BN>(pa, sc);
 
     // O += P V: V (keys x D, D contiguous) is the transposed B operand;
     // LBO steps over the PW-column panels of D, SBO over 8-key groups
@@ -490,70 +332,8 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and launch
+// host side: launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// A 4-d bf16 tensor map over (D, and head, row, batch ordered by stride),
-// box (PW columns, `rows` rows) under the swizzle of PW; `pos` gets the slot
-// (1-3) of head, row and batch. Size-1 dims go last with a stride past the
-// others' extent (any stride would do; TMA wants a valid one).
-int encode(CUtensorMap* map, int4* pos, const void* ptr, int D, int pw, int rows,
-           const long long (&size)[3], const long long (&stride)[3]) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return FA_ENCODE_ERROR + CUDA_ERROR_NOT_FOUND;
-  long long extent = D;
-  for (int i = 0; i < 3; ++i)
-    if (size[i] > 1 && stride[i] * size[i] > extent) extent = stride[i] * size[i];
-  long long st[3];
-  int order[3] = {0, 1, 2};
-  for (int i = 0; i < 3; ++i) st[i] = size[i] > 1 ? stride[i] : extent;
-  for (int i = 0; i < 3; ++i)        // three elements: insertion sort by stride
-    for (int j = i; j > 0 && st[order[j]] < st[order[j - 1]]; --j) {
-      const int tmp = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)pw, 1, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  int slot[3];
-  for (int i = 0; i < 3; ++i) {
-    const int which = order[i];        // 0 head, 1 row, 2 batch
-    dims[i + 1] = (cuuint64_t)size[which];
-    strides[i] = (cuuint64_t)st[which] * 2;
-    if (which == 1) box[i + 1] = rows;
-    slot[which] = i + 1;
-  }
-  *pos = make_int4(slot[0], slot[1], slot[2], 0);
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : FA_ENCODE_ERROR + (int)res;
-}
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* m2, void* l, int B,
@@ -561,6 +341,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* m2, void*
            long long k_sr, long long k_sh, long long v_sb, long long v_sr, long long v_sh,
            float qscale, cudaStream_t stream) {
   using C = Cfg<D>;
+  // a runtime call first: it makes the device's context current on this
+  // thread, which cuTensorMapEncodeTiled needs
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap tq, tk, tv;
   Params p;
   int err;
@@ -575,9 +360,6 @@ int launch(const void* q, const void* k, const void* v, void* o, void* m2, void*
   p.Lk = Lk;
   p.H = H;
   p.qscale = qscale;
-  cudaError_t e = cudaFuncSetAttribute(fa_fwd_wgmma<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lq + BM - 1) / BM, H, B);
   fa_fwd_wgmma<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
@@ -608,10 +390,10 @@ int fa_fwd_d64(FA_ARGS) {
 }
 
 const char* fa_error_string(int err) {
-  if (err < FA_ENCODE_ERROR) return cudaGetErrorString((cudaError_t)err);
+  if (err < sm90::FA_ENCODE_ERROR) return cudaGetErrorString((cudaError_t)err);
   static thread_local char msg[64];
   snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled returned CUresult %d",
-           err - FA_ENCODE_ERROR);
+           err - sm90::FA_ENCODE_ERROR);
   return msg;
 }
 

@@ -15,7 +15,9 @@ The CUDA entry points in ``csrc/`` replace every Pallas kernel of
 softmax statistics (m2, l) of its rows (the ``with_stats`` output of
 ``_fa_kernel``/``_fa_kernel_onekv``).
 The backward is ``fa_bwd_dq`` then ``fa_bwd_dkv`` (``_fa_bwd_dq_kernel``,
-``_fa_bwd_dkv_kernel``), built for head dims 64, 96 and 128.
+``_fa_bwd_dkv_kernel``), built for head dims 64, 96 and 128 on the same TMA
+and wgmma design (``csrc/flash_attention_bwd.cu``; both share
+``csrc/sm90_common.cuh``).
 
 ``flash_attention`` differentiates like ``_flash_diff``: when grad mode is
 on and an input requires grad it runs ``FlashAttention`` -- the stats
@@ -62,8 +64,9 @@ BWD_KERNELS = ("bwd_dq", "bwd_dkv")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # the library that holds each entry point: the TMA/wgmma online-softmax
-# forward (and the error strings of every entry point), the one-key-block
-# forward, the backward
+# forward (and the error strings of every entry point, tensor-map encode
+# failures of the backward included), the one-key-block forward, the
+# TMA/wgmma backward
 _LIBRARY = {"fa_fwd_generic": "flash_attention_sm90",
             "fa_fwd_d64": "flash_attention_sm90",
             "fa_fwd_onekv": "flash_attention",

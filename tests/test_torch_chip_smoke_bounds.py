@@ -152,3 +152,125 @@ def test_out_tol_catches_key_and_value_faults(fault):
     err = (bad.float() - ref.float()).abs().max().item()
     assert err < cs.KERNEL_TOL
     assert err > 2 * cs.out_tol(ref)
+
+
+@pytest.mark.parametrize("peak,tol", [
+    (0.078125, 0.078125 / 64),   # long shapes: two ulps of the largest
+    (0.5, 0.5 / 64),
+    (4.0, 4.0 * cs.BWD_RTOL),    # never looser than 1e-2 of max(1, peak)
+    (1e-7, cs.GRAD_ATOL),        # a vanishing gradient: f32 noise floor
+])
+def test_grad_tol_is_two_ulps_of_the_largest_gradient(peak, tol):
+    import torch
+    ref = torch.tensor([[0.001 * peak, -peak], [peak / 3, 0.0]],
+                       dtype=torch.bfloat16)
+    assert cs.grad_tol(ref) == pytest.approx(tol, rel=1e-2)
+
+
+@pytest.mark.parametrize("largest,err", [(0.13, 4.9e-4), (2.0, 1.6e-2)])
+def test_grad_tol_holds_one_ulp_kernel_errors(largest, err):
+    """The kernels' errors are one bf16 ulp of the largest gradient: 4.9e-4
+    at DiT self-attention (largest ~0.13), 1.6e-2 where it is ~2."""
+    import torch
+    assert err <= cs.grad_tol(torch.tensor([largest, -largest / 2]))
+
+
+@pytest.fixture(scope="module")
+def long_backward():
+    """DiT self-attention's 16,317 queries and keys at one head (D 128):
+    seeded bf16 inputs, the plain stats forward and the plain backward."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+    L, D = 16317, 128
+    q, k, v, do = (torch.randn((1, L, 1, D), generator=g).bfloat16()
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, m2, l = fa.attention_plain_stats(q, k, v, scale, chunk_elems=1 << 24)
+    lse2 = m2 + torch.log2(l)
+
+    def backward(q=q, k=k, v=v, o=o, lse2=lse2, do=do):
+        return dict(zip(("dq", "dk", "dv"), fa.attention_backward_plain(
+            q, k, v, o, lse2, do, scale, chunk_elems=1 << 24)))
+
+    return {"q": q, "k": k, "v": v, "o": o, "lse2": lse2, "do": do,
+            "backward": backward, "ref": backward()}
+
+
+def _fault(case, fault):
+    """The gradients a tile-sized fault of a backward kernel would give,
+    and which of them it corrupts."""
+    q, k, v, o, lse2, do = (case[n] for n in ("q", "k", "v", "o", "lse2",
+                                              "do"))
+    bwd = case["backward"]
+    if fault == "query_rows_lost":        # dk/dv: 8 rows of query tile 10
+        keep = list(range(640)) + list(range(648, q.shape[1]))
+        return bwd(q=q[:, keep], o=o[:, keep], lse2=lse2[:, keep],
+                   do=do[:, keep]), ("dk", "dv")
+    if fault == "keys_lost":              # dq: 8 keys of key tile 10
+        keep = list(range(640)) + list(range(648, k.shape[1]))
+        return bwd(k=k[:, keep], v=v[:, keep]), ("dq",)
+    if fault == "tail_tile_skipped":      # dk/dv: the 61-query tail tile
+        n = 254 * 64
+        return bwd(q=q[:, :n], o=o[:, :n], lse2=lse2[:, :n],
+                   do=do[:, :n]), ("dk", "dv")
+    # dv: one 64-column panel of the tail tile's do from the tile before
+    do2 = do.clone()
+    do2[:, 16256:16317, :, 64:] = do[:, 16192:16253, :, 64:]
+    return bwd(do=do2), ("dv",)
+
+
+@pytest.mark.parametrize("fault", ["query_rows_lost", "keys_lost",
+                                   "tail_tile_skipped", "do_panel_swapped"])
+def test_grad_tol_catches_tile_faults(long_backward, fault):
+    """At 16,317 queries and keys every gradient is below 0.1, so the
+    former bound, 1e-2 absolute, passed tile-sized faults by 1.05-1.9x;
+    grad_tol (two bf16 ulps of the largest gradient) catches each by more
+    than 4x."""
+    bad, hit = _fault(long_backward, fault)
+    for name in hit:
+        ref = long_backward["ref"][name]
+        err = (bad[name].float() - ref.float()).abs().max().item()
+        assert err > 4 * cs.grad_tol(ref), (name, err, cs.grad_tol(ref))
+
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN55_GLOBAL__N__4b6cd109_22_flash_attention_bwd_cu_fb55a1a516fa_bwd_"
+     "dkv_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParamsE",
+     "fa_bwd_dkv_wgmma<128>:168:16"),
+    ("_ZN55_GLOBAL__N__4b6cd109_22_flash_attention_bwd_cu_fb55a1a515fa_bwd_"
+     "dq_wgmmaILi96EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParamsE",
+     "fa_bwd_dq_wgmma<96>:168:16"),
+])
+def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
+    """The TMA/wgmma backward kernels' build lines, as ptxas prints them
+    (an advisory about injected warpgroup.arrive names the kernel too, and
+    must not open an entry of its own)."""
+    log = "\n".join([
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line "
+        f"8389 by compiler to allow use of registers in GMMA in function "
+        f"'{mangled}'",
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {mangled}",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 2 barriers, 8 bytes "
+        "cumulative stack size"])
+    assert cs.ptxas_summary(log) == want
+
+
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::fa_bwd_dkv_wgmma<128>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
+     "namespace)::BwdParams)", "attention bwd dkv"),
+    ("void (anonymous namespace)::fa_bwd_dq_wgmma<64>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
+     "namespace)::BwdParams)", "attention bwd dq"),
+    ("void (anonymous namespace)::fa_fwd_wgmma<96>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
+     "attention fwd wgmma (generic, d64)"),
+    ("void (anonymous namespace)::fa_fwd_kernel<128>((anonymous "
+     "namespace)::Params)", "attention fwd mma.sync (onekv)"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "matmul (cuBLAS)"),
+])
+def test_profile_families_attribute_the_attention_kernels(name, family):
+    assert cs.family(name) == family
