@@ -13,7 +13,8 @@ non-zero):
      beside the yardsticks: the bound (the larger of FLOP at the bf16 peak
      and bytes at the HBM rate), the share of it reached,
      ``scaled_dot_product_attention``'s time on the same inputs per pinned
-     backend (flash, cuDNN), the shape's layers per denoise step;
+     backend (flash, cuDNN), the shape's layers per denoise step, and at
+     the onekv shapes the online-softmax kernel's time (``online_ms``);
   3. the stats forward, dq and dk/dv against their plain versions at the
      training shapes (batch 1): max abs errors of o, m2, l, dq, dk, dv (dq,
      dk, dv bound by two bf16 ulps of the largest gradient, ``grad_tol``),
@@ -41,12 +42,14 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --profile DIR
 
-also runs the 3-step denoise again with its second step under
-``torch.profiler`` (started and stopped from the pipeline's progress
-callback) and a third full-width training step under it, and writes for
-each its device-time breakdown by kernel family and by attention kernel,
-its idle share against the same unprofiled step and a gzipped Chrome trace
-into DIR (``denoise_step_breakdown.json``, ``train_step_breakdown.json``).
+also runs the 3-step denoise again with its second step and its last step
+(the one with the heads) under ``torch.profiler`` (started and stopped
+from the pipeline's progress callback) and a third full-width training
+step under it, and writes for each its device-time breakdown by kernel
+family and by attention kernel, its idle share against the same
+unprofiled step and a gzipped Chrome trace into DIR
+(``denoise_step_breakdown.json``, ``denoise_heads_step_breakdown.json``,
+``train_step_breakdown.json``).
 """
 from __future__ import annotations
 
@@ -64,9 +67,10 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention.cu"
 SM90_SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention_sm90.cu"
-SOURCES = {"generic": SM90_SOURCE, "onekv": SOURCE, "d64": SM90_SOURCE}
+SOURCES = {"generic": SM90_SOURCE,
+           "onekv": "fantasy_world_tpu_torch/csrc/flash_attention_onekv.cu",
+           "d64": SM90_SOURCE}
 BWD_SOURCE = "fantasy_world_tpu_torch/csrc/flash_attention_bwd.cu"
 JAX_FA = "fantasy_world_tpu/ops/flash_attention.py"
 REPLACES = {"generic": f"{JAX_FA}:85", "onekv": f"{JAX_FA}:163",
@@ -302,9 +306,14 @@ def phase_kernels(device):
         ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
         plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, scale), 3)
         y = yardsticks("fwd", (B, Lq, Lk, H, D), ms, time_sdpa(q, k, v, 5))
+        # beside onekv, the online-softmax kernel on the same inputs: a
+        # yardstick the main path never takes (it routes by Lk)
+        if kernel == "onekv":
+            y["online_ms"] = time_ms(
+                lambda: fa.launch("generic", q, k, v, scale), 5)
         say("kernel", shape=name, kernel=kernel, max_abs_err=f"{err:.3e}",
             bound=f"{tol:.3e}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-            tflops=f"{y['tflops']:.1f}",
+            online_ms=_fmt(y.get("online_ms")), tflops=f"{y['tflops']:.1f}",
             bound_ms=f"{y['bound_ms']:.4f}", bound_by=y["bound_by"],
             share=f"{y['share']:.4f}",
             library_ms="|".join(f"{b}:{_fmt(t)}" for b, t in
@@ -872,11 +881,19 @@ def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
                              f"configuration's layers {configured}")
     del lat, pred, got
     if profile_dir:
-        # the same step of a second run, the profiler started and stopped
-        # from the callback; the unprofiled step 1 above is its yardstick
-        def drive(begin, end):
-            run(lambda i, n: begin() if i == 1 else end() if i == 2 else None)
-        profile_step("denoise", drive, step_s[1], profile_dir)
+        # the same steps of a second run, the profiler started and stopped
+        # from the callback: the second step, and the last with the heads;
+        # the unprofiled steps above are their yardsticks
+        mid = ProfiledStep("denoise", step_s[1], profile_dir)
+        heads = ProfiledStep("denoise_heads", step_s[2], profile_dir)
+        marks = {1: (mid.begin,), 2: (mid.end, heads.begin), 3: (heads.end,)}
+
+        def profiled(i, n):
+            for mark in marks.get(i, ()):
+                mark()
+        run(profiled)
+        mid.report()
+        heads.report()
     return launches, per_step, pipe, cond, plucker_fea
 
 
@@ -884,8 +901,8 @@ def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
 # a kernel's name takes it
 FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
             ("attention bwd dq", ("fa_bwd_dq",)),
+            ("attention fwd wgmma (onekv)", ("fa_fwd_onekv",)),
             ("attention fwd wgmma (generic, d64)", ("fa_fwd_wgmma",)),
-            ("attention fwd mma.sync (onekv)", ("fa_fwd",)),
             ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                  "nvjet")),
             ("reduction", ("reduce",)),
@@ -900,79 +917,86 @@ def family(kernel_name: str) -> str:
                 "other")
 
 
-def profile_step(tag, drive, unprofiled_s, out_dir):
-    """One more step under ``torch.profiler`` (CPU and CUDA): ``drive(begin,
-    end)`` runs it and calls ``begin()`` and ``end()`` around it, each of
-    which synchronises the device first. Writes the device's busy time (the
-    union of its kernel intervals) by kernel family, the idle share against
-    the unprofiled CUDA-event time of the same step and against the
-    profiled wall time as ``<tag>_step_breakdown.json``, with a gzipped
-    Chrome trace, to ``out_dir``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(out_dir, exist_ok=True)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    mark = {}
+class ProfiledStep:
+    """One step under ``torch.profiler`` (CPU and CUDA): ``begin()`` and
+    ``end()`` around it, each of which synchronises the device first, then
+    ``report()``, which writes the device's busy time (the union of its
+    kernel intervals) by kernel family and by attention kernel, the idle
+    share against the unprofiled CUDA-event time of the same step and
+    against the profiled wall time as ``<tag>_step_breakdown.json``, with a
+    gzipped Chrome trace, to ``out_dir``."""
 
-    def begin():
+    def __init__(self, tag, unprofiled_s, out_dir):
+        from torch.profiler import ProfilerActivity, profile
+        self.tag, self.unprofiled_s, self.out_dir = tag, unprofiled_s, out_dir
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def begin(self):
+        import torch
         torch.cuda.synchronize()
-        prof.start()
-        mark["t0"] = time.perf_counter()
+        self.prof.start()
+        self.t0 = time.perf_counter()
 
-    def end():
+    def end(self):
+        import torch
         torch.cuda.synchronize()
-        mark["wall"] = time.perf_counter() - mark["t0"]
-        prof.stop()
+        self.wall = time.perf_counter() - self.t0
+        self.prof.stop()
 
-    drive(begin, end)
-    wall = mark["wall"]
-    spans, families = [], {name: [0.0, 0] for name, _ in FAMILIES}
-    families["other"] = [0.0, 0]
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        spans.append((start, end))
-        fam = family(ev.name)
-        families[fam][0] += (end - start) / 1e6
-        families[fam][1] += 1
-        kname = re.search(r"fa_(fwd|bwd)\w*(<[^>]*>)?", ev.name)
-        if kname:
-            kern = kernels.setdefault(kname.group(0), [0.0, 0])
-            kern[0] += (end - start) / 1e6
-            kern[1] += 1
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    busy, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy += (end - max(start, reach)) / 1e6
-            reach = end
-    out = {"unprofiled_step_s": unprofiled_s, "profiled_wall_s": wall,
-           "device_busy_s": busy,
-           "idle_share": 1 - busy / unprofiled_s,
-           "idle_share_under_profiler": 1 - busy / wall,
-           "families": {f: {"device_s": t, "launches": n}
-                        for f, (t, n) in sorted(families.items(),
-                                                key=lambda x: -x[1][0])},
-           "attention_kernels": {k: {"device_s": t, "launches": n}
-                                 for k, (t, n) in sorted(
-                                     kernels.items(), key=lambda x: -x[1][0])}}
-    with open(os.path.join(out_dir, f"{tag}_step_breakdown.json"), "w") as f:
-        json.dump(out, f, indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          f"{tag}_step_trace.json.gz"))
-    say(f"profile_{tag}", unprofiled_step_s=f"{unprofiled_s:.3f}",
-        profiled_wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.3f}",
-        idle_share=f"{out['idle_share']:.4f}",
-        idle_share_under_profiler=f"{out['idle_share_under_profiler']:.4f}",
-        families=json.dumps({f: round(v["device_s"], 3) for f, v in
-                             out["families"].items()}).replace(" ", ""),
-        attention=json.dumps({k: round(v["device_s"], 3) for k, v in
-                              out["attention_kernels"].items()}
-                             ).replace(" ", ""))
+    def report(self):
+        from torch.autograd import DeviceType
+        os.makedirs(self.out_dir, exist_ok=True)
+        tag, unprofiled_s, wall = self.tag, self.unprofiled_s, self.wall
+        spans, families = [], {name: [0.0, 0] for name, _ in FAMILIES}
+        families["other"] = [0.0, 0]
+        kernels = {}
+        for ev in self.prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            start, end = ev.time_range.start, ev.time_range.end
+            spans.append((start, end))
+            fam = family(ev.name)
+            families[fam][0] += (end - start) / 1e6
+            families[fam][1] += 1
+            kname = re.search(r"fa_(fwd|bwd)\w*(<[^>]*>)?", ev.name)
+            if kname:
+                kern = kernels.setdefault(kname.group(0), [0.0, 0])
+                kern[0] += (end - start) / 1e6
+                kern[1] += 1
+        if not spans:
+            raise AssertionError("the profiler recorded no device activity")
+        busy, reach = 0.0, float("-inf")
+        for start, end in sorted(spans):
+            if end > reach:
+                busy += (end - max(start, reach)) / 1e6
+                reach = end
+        out = {"unprofiled_step_s": unprofiled_s, "profiled_wall_s": wall,
+               "device_busy_s": busy,
+               "idle_share": 1 - busy / unprofiled_s,
+               "idle_share_under_profiler": 1 - busy / wall,
+               "families": {f: {"device_s": t, "launches": n}
+                            for f, (t, n) in sorted(families.items(),
+                                                    key=lambda x: -x[1][0])},
+               "attention_kernels": {k: {"device_s": t, "launches": n}
+                                     for k, (t, n) in sorted(
+                                         kernels.items(),
+                                         key=lambda x: -x[1][0])}}
+        with open(os.path.join(self.out_dir, f"{tag}_step_breakdown.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+        self.prof.export_chrome_trace(os.path.join(
+            self.out_dir, f"{tag}_step_trace.json.gz"))
+        say(f"profile_{tag}", unprofiled_step_s=f"{unprofiled_s:.3f}",
+            profiled_wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.3f}",
+            idle_share=f"{out['idle_share']:.4f}",
+            idle_share_under_profiler=(
+                f"{out['idle_share_under_profiler']:.4f}"),
+            families=json.dumps({f: round(v["device_s"], 3) for f, v in
+                                 out["families"].items()}).replace(" ", ""),
+            attention=json.dumps({k: round(v["device_s"], 3) for k, v in
+                                  out["attention_kernels"].items()}
+                                 ).replace(" ", ""))
 
 
 def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
@@ -1051,11 +1075,11 @@ def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
     if profile_dir:
-        def drive(begin, end):
-            begin()
-            step(batches[-1])
-            end()
-        profile_step("train", drive, float(np.mean(step_s)), profile_dir)
+        prof = ProfiledStep("train", float(np.mean(step_s)), profile_dir)
+        prof.begin()
+        step(batches[-1])
+        prof.end()
+        prof.report()
     return launches
 
 
@@ -1063,9 +1087,9 @@ def main(argv=None) -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="profile the second step of one more full-depth "
-                        "denoise and a third full-width training step "
-                        "into DIR")
+                   help="profile the second and the last step of one more "
+                        "full-depth denoise and a third full-width training "
+                        "step into DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

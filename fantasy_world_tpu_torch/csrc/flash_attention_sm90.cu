@@ -12,7 +12,8 @@
 //                   lanes; on Hopper 64 is a native wgmma width, so this is
 //                   the same template built for HEAD_DIM 64.
 //
-// (fa_fwd_onekv, the one-key-block kernel, stays in flash_attention.cu.)
+// (fa_fwd_onekv, the one-key-block kernel, is flash_attention_onekv.cu: the
+// same layer, two passes over the keys and no rescale.)
 //
 // What bounds it on the card: 4 * Lq * Lk * D FLOP per (batch, head) against
 // (2 Lq + 2 Lk) * D * 2 bytes -- thousands of FLOP per byte at the denoise
@@ -70,12 +71,13 @@
 // launches on the given stream and returns 0, a cudaError_t, or
 // FA_ENCODE_ERROR + the CUresult of a tensor map that failed to encode; it
 // allocates nothing and does not synchronise. fa_error_string names any
-// nonzero return of the attention entry points: these, those of
-// flash_attention_bwd.cu (which encode tensor maps the same way) and those
-// of flash_attention.cu (cudaError_t only).
+// nonzero return of the attention entry points: these and those of
+// flash_attention_onekv.cu and flash_attention_bwd.cu, which encode tensor
+// maps the same way.
 //
 // The PTX layer (mbarriers, TMA, wgmma, descriptors, tensor-map encoding)
-// is sm90_common.cuh, shared with the backward.
+// is sm90_common.cuh, shared with the one-key-block forward and the
+// backward.
 
 #include "sm90_common.cuh"
 

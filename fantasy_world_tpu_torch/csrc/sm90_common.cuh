@@ -1,13 +1,15 @@
 // The PTX layer of the TMA/wgmma attention kernels for NVIDIA Hopper
-// (sm_90a), shared by the forward (flash_attention_sm90.cu) and the backward
-// (flash_attention_bwd.cu):
+// (sm_90a), shared by the forwards (flash_attention_sm90.cu,
+// flash_attention_onekv.cu) and the backward (flash_attention_bwd.cu):
 //
-//   * mbarriers and 4-d TMA tile loads into shared memory;
+//   * mbarriers, 4-d TMA tile loads into shared memory and tile stores
+//     from it;
 //   * warpgroup MMA (wgmma): fence / commit / wait, shared-memory matrix
 //     descriptors, m64nNk16 bf16 products with f32 accumulators -- both
 //     operands from shared memory (wgmma_ss, N 64 and 128, both K-major), or
 //     A from registers and B from shared memory as a transposed (MN-major)
-//     operand (wgmma_rs, N 64, 96 and 128);
+//     operand (wgmma_rs, N 64, 96 and 128) or a K-major one (wgmma_rs_k64);
+//     ldmatrix of register A fragments;
 //   * ex2.approx and bf16 packing of the accumulator layout;
 //   * the host-side tensor-map encoding over (D, and head, row, batch
 //     ordered by stride), so strided views load without a copy, and the
@@ -90,6 +92,23 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// One box of shared memory into a 4-d tensor map (rows past the extent are
+// not written), as one bulk group; tma_store_wait returns once the copies
+// this thread started have read their shared memory.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -194,6 +213,28 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24), FA_F8(d, 32), FA_F8(d, 40),
         FA_F8(d, 48), FA_F8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d[32] (+)= A(registers, 64 x 16 bf16) * B(smem, 64 x 16, K-major)^T
+__device__ __forceinline__ void wgmma_rs_k64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : FA_F8(d, 0), FA_F8(d, 8), FA_F8(d, 16), FA_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l addressing row l % 8
+// of matrix l / 8: with matrices (rows 0-7, cols 0-7), (8-15, 0-7),
+// (0-7, 8-15), (8-15, 8-15) of a warp's 16 x 16 tile, the register A
+// fragment of one k16 step of a wgmma.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {

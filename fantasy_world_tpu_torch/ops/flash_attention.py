@@ -10,8 +10,9 @@ The CUDA entry points in ``csrc/`` replace every Pallas kernel of
   * else                -> ``generic`` (``_fa_kernel``)
 
 ``generic`` and ``d64`` are one TMA and wgmma template
-(``csrc/flash_attention_sm90.cu``), ``onekv`` an mma.sync kernel
-(``csrc/flash_attention.cu``). Each forward kernel can also store the
+(``csrc/flash_attention_sm90.cu``); ``onekv`` is a TMA and wgmma kernel of
+its own (``csrc/flash_attention_onekv.cu``) that finds the exact row max in
+a first pass and rescales nothing. Each forward kernel can also store the
 softmax statistics (m2, l) of its rows (the ``with_stats`` output of
 ``_fa_kernel``/``_fa_kernel_onekv``).
 The backward is ``fa_bwd_dq`` then ``fa_bwd_dkv`` (``_fa_bwd_dq_kernel``,
@@ -44,7 +45,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,16 +64,6 @@ BWD_D = (64, 96, 128)
 BWD_KERNELS = ("bwd_dq", "bwd_dkv")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# the library that holds each entry point: the TMA/wgmma online-softmax
-# forward (and the error strings of every entry point, tensor-map encode
-# failures of the backward included), the one-key-block forward, the
-# TMA/wgmma backward
-_LIBRARY = {"fa_fwd_generic": "flash_attention_sm90",
-            "fa_fwd_d64": "flash_attention_sm90",
-            "fa_fwd_onekv": "flash_attention",
-            "fa_error_string": "flash_attention_sm90",
-            "fa_bwd_dq": "flash_attention_bwd",
-            "fa_bwd_dkv": "flash_attention_bwd"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
@@ -82,7 +73,8 @@ LAUNCHES: Dict[str, int] = {
     k: 0 for k in (*ROUTES, *(f"{r}_stats" for r in ROUTES),
                    *(f"{b}_{d}" for b in BWD_KERNELS for d in BWD_D))}
 
-_LIBS: Optional[Dict[str, ctypes.CDLL]] = None
+# every entry point, {symbol: function}, once built and bound
+_ENTRY_POINTS: Optional[Dict[str, Callable]] = None
 _BUILD_LOG = ""
 _LOCK = threading.Lock()
 
@@ -227,7 +219,21 @@ def _nvcc() -> str:
     return found
 
 
-def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
+def _resolve(libs: Dict[str, ctypes.CDLL], sym: str) -> Callable:
+    """The entry point ``sym`` of whichever library exports it (libraries
+    by name, the first that has it), so a tree may move an entry point from
+    one source to another."""
+    for name in sorted(libs):
+        fn = getattr(libs[name], sym, None)
+        if fn is not None:
+            return fn
+    raise RuntimeError(f"no kernel library exports {sym} (searched "
+                       f"{', '.join(sorted(libs)) or 'none'})")
+
+
+def _bind(libs: Dict[str, ctypes.CDLL]) -> Dict[str, Callable]:
+    """Every entry point, resolved across ``libs`` and typed: {symbol:
+    function}."""
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     fwd = [vp] * 6 + [i32] * 5 + [i64] * 9 + [f32, vp]
@@ -237,20 +243,23 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
                 "fa_bwd_dkv": [vp] * 8 + [i32] * 5 + [i64] * 12
                 + [f32, f32, vp],
                 "fa_error_string": [i32]}
+    fns = {}
     for sym, args in argtypes.items():
-        fn = getattr(libs[_LIBRARY[sym]], sym)
+        fn = fns[sym] = _resolve(libs, sym)
         fn.argtypes = args
         fn.restype = ctypes.c_char_p if sym == "fa_error_string" \
             else ctypes.c_int
+    return fns
 
 
-def build_kernels() -> Dict[str, ctypes.CDLL]:
+def build_kernels() -> Dict[str, Callable]:
     """Compile (once per hash of ``csrc/``) and load the kernel libraries:
-    one nvcc per ``.cu`` source, all started together."""
-    global _LIBS, _BUILD_LOG
+    one nvcc per ``.cu`` source, all started together. Returns every entry
+    point, {symbol: function}, from whichever library exports it."""
+    global _ENTRY_POINTS, _BUILD_LOG
     with _LOCK:
-        if _LIBS is not None:
-            return _LIBS
+        if _ENTRY_POINTS is not None:
+            return _ENTRY_POINTS
         files = sorted(p for p in CSRC.iterdir()
                        if p.suffix in (".cu", ".cuh"))
         digest = hashlib.sha256()
@@ -284,10 +293,9 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
             for stem, (tmp, _) in procs.items():
                 os.replace(tmp, todo[stem])
             _BUILD_LOG = "".join(logs)
-        libs = {stem: ctypes.CDLL(str(path)) for stem, path in paths.items()}
-        _bind(libs)
-        _LIBS = libs
-        return libs
+        _ENTRY_POINTS = _bind({stem: ctypes.CDLL(str(path))
+                       for stem, path in paths.items()})
+        return _ENTRY_POINTS
 
 
 def build_log() -> str:
@@ -297,10 +305,10 @@ def build_log() -> str:
 
 
 def _call(sym: str, *args) -> None:
-    libs = build_kernels()
-    rc = getattr(libs[_LIBRARY[sym]], sym)(*args)
+    fns = build_kernels()
+    rc = fns[sym](*args)
     if rc != 0:
-        msg = libs[_LIBRARY["fa_error_string"]].fa_error_string(rc).decode()
+        msg = fns["fa_error_string"](rc).decode()
         raise RuntimeError(f"{sym} failed: {msg} ({rc})")
 
 

@@ -24,6 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("fwd", (42, 782, 782, 16, 64), 0.10520, 0.10637, "operations"),
     # DiT cross-attention against 512 text keys
     ("fwd", (2, 16317, 512, 40, 128), 0.34219, 0.34600, "operations"),
+    # against 257 CLIP keys: q in and o out, 668 of 679 MB, bind
+    ("fwd", (2, 16317, 257, 40, 128), 0.17176, 0.20265, "bytes"),
     # the camera-head trunk: 81 tokens, bound by bytes
     ("fwd", (2, 81, 81, 16, 128), 1.07495e-4, 7.9230e-4, "bytes"),
     # training, batch 1: the backward kernels' 6 and 8 units
@@ -241,9 +243,13 @@ def test_grad_tol_catches_tile_faults(long_backward, fault):
     ("_ZN55_GLOBAL__N__4b6cd109_22_flash_attention_bwd_cu_fb55a1a515fa_bwd_"
      "dq_wgmmaILi96EEEv14CUtensorMap_stS1_S1_S1_NS_9BwdParamsE",
      "fa_bwd_dq_wgmma<96>:168:16"),
+    ("_ZN57_GLOBAL__N__3b9c8d21_24_flash_attention_onekv_cu_5e2a7f1018fa_fwd_"
+     "onekv_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE",
+     "fa_fwd_onekv_wgmma<128>:168:16"),
 ])
 def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
-    """The TMA/wgmma backward kernels' build lines, as ptxas prints them
+    """The TMA/wgmma backward and one-key-block kernels' build lines, as
+    ptxas prints them
     (an advisory about injected warpgroup.arrive names the kernel too, and
     must not open an entry of its own)."""
     log = "\n".join([
@@ -268,8 +274,9 @@ def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
     ("void (anonymous namespace)::fa_fwd_wgmma<96>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
      "attention fwd wgmma (generic, d64)"),
-    ("void (anonymous namespace)::fa_fwd_kernel<128>((anonymous "
-     "namespace)::Params)", "attention fwd mma.sync (onekv)"),
+    ("void (anonymous namespace)::fa_fwd_onekv_wgmma<128>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
+     "namespace)::Params)", "attention fwd wgmma (onekv)"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "matmul (cuBLAS)"),
 ])
 def test_profile_families_attribute_the_attention_kernels(name, family):

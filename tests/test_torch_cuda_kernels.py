@@ -93,10 +93,12 @@ def test_kernel_matches_plain(device, B, Lq, H, D, Lk, kernel):
     assert _out_err(out, ref) <= 1
 
 
-@pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic")])
+@pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic"),
+                                      (128, "onekv")])
 def test_kernel_reads_strided_views(device, D, kernel):
-    """q, k, v as views of a fused qkv projection (VGGT) and swapped q/k
-    roles (bicross): no copies, same result as contiguous inputs."""
+    """q, k, v as views of a fused qkv projection (VGGT, the camera trunk)
+    and swapped q/k roles (bicross): no copies, same result as contiguous
+    inputs."""
     B, L, H = 2, 150, 4
     g = torch.Generator(device=device).manual_seed(3)
     qkv = torch.randn((B, L, 3, H, D), generator=g, device=device).bfloat16()
@@ -109,6 +111,50 @@ def test_kernel_reads_strided_views(device, D, kernel):
     out_t = fa.launch(kernel, k, q, v, scale)
     ref_t = fa.attention_plain(k, q, v, scale)
     assert _out_err(out_t, ref_t) <= 1
+
+
+# the edges of onekv's 128-row query blocks and 64-key tiles, and of its
+# eight K slots (512 keys: every tile keeps its slot; 513: a streamed ring)
+ONEKV_LQ = (1, 127, 128, 129, 255)
+ONEKV_LK = (1, 63, 64, 65, 127, 128, 129, 256, 257, 511, 512, 513, 2048)
+
+
+@pytest.mark.parametrize("D", (128, 80))
+@pytest.mark.parametrize("Lk", ONEKV_LK)
+@pytest.mark.parametrize("Lq", ONEKV_LQ)
+def test_onekv_tile_edges(device, Lq, Lk, D):
+    """onekv (D 80 padded to 128) at and around its tiles and its
+    shared-memory limit (batch 2, 2 heads): two calls bit-equal, within
+    out_tol of the plain version."""
+    assert fa.route(2, D, Lk) == "onekv"
+    q, k, v = _qkv((2, Lq, 2, D), Lk, device, seed=Lq * 10000 + Lk)
+    before = fa.LAUNCHES["onekv"]
+    out = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["onekv"] == before + 2
+    assert torch.equal(out, again)
+    ref = fa.attention_plain(q, k, v, D ** -0.5)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _out_err(out, ref) <= 1
+
+
+@pytest.mark.parametrize("D", (128, 80))
+@pytest.mark.parametrize("Lk", ONEKV_LK)
+@pytest.mark.parametrize("Lq", ONEKV_LQ)
+def test_onekv_stats_tile_edges(device, Lq, Lk, D):
+    """The stats forward of onekv at the same shapes: o within out_tol, m2
+    and l within STATS_RTOL of the plain version."""
+    q, k, v = _qkv((2, Lq, 2, D), Lk, device, seed=Lq * 10000 + Lk + 1)
+    before = fa.LAUNCHES["onekv_stats"]
+    o, m2, l = fa.flash_attention_stats(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["onekv_stats"] == before + 1
+    ro, rm2, rl = fa.attention_plain_stats(q, k, v, D ** -0.5)
+    assert m2.shape == l.shape == (2, Lq, 2) and m2.dtype == torch.float32
+    assert _out_err(o, ro) <= 1
+    torch.testing.assert_close(m2, rm2, rtol=STATS_RTOL, atol=STATS_RTOL)
+    torch.testing.assert_close(l, rl, rtol=STATS_RTOL, atol=0)
 
 
 def test_kernel_rejects_what_it_does_not_take(device):
