@@ -22,6 +22,10 @@ non-zero):
      library's backward computes dq, dk and dv in one call);
   4. a reduced-width denoise (every kernel route taken) on the card in bf16
      against the same weights on the CPU in f32 through the plain versions;
+     then the reduced clip the same way: ``FantasyWorldSampler.
+     generate_video`` and ``export`` with reduced umT5, CLIP (2 heads of 80,
+     onekv) and VAE (latents, prediction and float decode within SLICE_TOL,
+     exact launch counts with CLIP's);
   5. reduced-width training on the card in bf16 against the CPU in f32:
      two LoRA steps (losses, factor gradients; every stats-forward and
      backward kernel at D 64, 96 and 128 launched) and one full
@@ -34,7 +38,12 @@ non-zero):
      last) from random weights: shapes, finiteness, launch counts (in all,
      and of the second step, which must match the configuration's layers),
      seconds per step and peak memory;
-  8. two full-width LoRA training steps (rank 16, per-block recompute,
+  8. the whole clip on that model: umT5-XXL, CLIP ViT-H and the Wan VAE
+     at full width, ``generate_video`` at 336x592, 81 frames, 2 steps, and
+     ``export``: each stage's seconds and peak memory, the launches (CLIP's
+     31 onekv among them), the output shapes, finiteness; the encoders are
+     freed after;
+  9. two full-width LoRA training steps (rank 16, per-block recompute,
      batch 1) on the same model: finite losses, moved factors, an unchanged
      base, exact launch counts, seconds per step and peak memory.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
@@ -121,6 +130,9 @@ SHAPES = [
     ("vggt_frame", (42, 782, 16, 64), 782, "d64"),
     ("vggt_global", (2, 16422, 16, 64), 16422, "d64"),
     ("camera_trunk", (2, 81, 16, 128), 81, "onekv"),
+    # CLIP's self-attention, once per image: 16 heads of 80 (onekv pads D
+    # to 128)
+    ("clip_self", (1, 257, 16, 80), 257, "onekv"),
 ]
 # the shape whose time stands for each kernel in the JSON line
 HEADLINE = {"generic": "dit_self", "onekv": "dit_cross_text",
@@ -201,13 +213,14 @@ def attention_bound(kind, B, Lq, Lk, H, D):
 
 def layers_per_step(cfg):
     """The configuration's count of each attention shape in ``SHAPES`` per
-    denoise step (without the last step's heads): what each shape adds to
-    its route's launches, which ``phase_full_slice`` measures."""
+    denoise step (without the last step's heads, and CLIP, which runs once
+    per image): what each shape adds to its route's launches, which
+    ``phase_full_slice`` measures."""
     n_dit, n_x, n_irg = cfg.dit.num_layers, len(cfg.xattn_set()), cfg.num_irg
     return {"dit_self": n_dit, "dit_cross_text": n_dit,
             "dit_cross_clip": n_dit, "bicross_video_to_geometry": n_x,
             "bicross_geometry_to_video": n_x, "vggt_frame": n_irg,
-            "vggt_global": n_irg, "camera_trunk": 0}
+            "vggt_global": n_irg, "camera_trunk": 0, "clip_self": 0}
 
 
 def time_sdpa(q, k, v, reps, do=None):
@@ -309,8 +322,12 @@ def phase_kernels(device):
         # beside onekv, the online-softmax kernel on the same inputs: a
         # yardstick the main path never takes (it routes by Lk)
         if kernel == "onekv":
+            dg = fa.kernel_dim(H, D, fa.ONEKV_MAX_LK + 1)
+            qg, kg, vg = (torch.nn.functional.pad(t, (0, dg - D))
+                          for t in (q, k, v))
             y["online_ms"] = time_ms(
-                lambda: fa.launch("generic", q, k, v, scale), 5)
+                lambda: fa.launch("generic", qg, kg, vg, scale), 5)
+            del qg, kg, vg
         say("kernel", shape=name, kernel=kernel, max_abs_err=f"{err:.3e}",
             bound=f"{tol:.3e}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
             online_ms=_fmt(y.get("online_ms")), tflops=f"{y['tflops']:.1f}",
@@ -541,10 +558,12 @@ def check_outputs(cfg, latents, prediction, height, width, num_frames):
     return got
 
 
-def expected_launches(cfg, steps):
+def expected_launches(cfg, steps, clip=None):
     """Kernel launches of a denoise: per step DiT self (generic), bicross
     both ways (generic), DiT cross text + CLIP (onekv), VGGT frame + global
-    (d64); the camera-head trunk (onekv) on the last step."""
+    (d64); the camera-head trunk (onekv) on the last step. With ``clip`` (a
+    CLIPVisionConfig), the image encoder's self-attention too: one launch
+    per block it runs (all but the last) on its route."""
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     n_irg = len(cfg.xattn_set())
     trunk = 4 * cfg.vggt.camera_head.trunk_depth
@@ -552,6 +571,10 @@ def expected_launches(cfg, steps):
     out.update(generic=steps * (cfg.dit.num_layers + 2 * n_irg),
                onekv=steps * 2 * cfg.dit.num_layers + trunk,
                d64=steps * 2 * cfg.num_irg)
+    if clip is not None:
+        route = fa.route(clip.num_heads, clip.dim // clip.num_heads,
+                         clip.num_patches + 1)
+        out[route] += clip.num_layers - 1
     return out
 
 
@@ -603,6 +626,173 @@ def phase_small_slice(device):
     bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
     if bad:
         raise AssertionError(f"reduced slice disagrees with the CPU path "
+                             f"beyond {SLICE_TOL}: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# the clip around the denoise: prompt, image, camera, decode, export
+# ---------------------------------------------------------------------------
+
+PROMPT = "a scenic mountain valley with a river at dawn"
+NEG_PROMPT = "blurred details, static, overexposed"
+EXAMPLE_IMAGE = os.path.join(REPO, "examples", "images", "input_image.png")
+
+
+def small_clip_configs():
+    """Reduced umT5, CLIP and VAE beside ``small_configs()``: umT5 4 x 16
+    over the DiT's 64-wide context; CLIP 3 blocks of 2 heads of 80 (onekv,
+    D padded to 128), whose 160-wide tokens the DiT takes; the VAE at width
+    16. Returns the (fusion, pose, t5, clip, vae) configs."""
+    import dataclasses
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
+    from fantasy_world_tpu_torch.models.wan.vae import VAEConfig
+    fusion, pose = small_configs()
+    t5 = T5Config(vocab=512, dim=fusion.dit.text_dim, dim_attn=64,
+                  dim_ffn=128, num_heads=4, num_layers=2)
+    clip = CLIPVisionConfig(dim=160, num_heads=2, num_layers=3)
+    fusion = dataclasses.replace(fusion, dit=dataclasses.replace(
+        fusion.dit, clip_feature_dim=clip.dim))
+    return fusion, pose, t5, clip, VAEConfig(dim=16, z_dim=fusion.dit.out_dim)
+
+
+def install_tokenizer(pipe, vocab: int, workdir: str) -> str:
+    """A WordLevel tokenizer over the prompts' words, written to
+    ``workdir`` in the HF layout, for the pipeline's own ``tokenize`` to
+    load (AutoTokenizer from a local path). Returns its name for the phase
+    line."""
+    words = sorted(set(f"{PROMPT} {NEG_PROMPT}".lower().replace(
+        ",", " ").split()))
+    ids = {"[PAD]": 0, "[UNK]": 1, **{w: 2 + i for i, w in
+                                       enumerate(words)}}
+    if len(ids) > vocab:
+        raise ValueError(f"{len(ids)} words for a vocabulary of {vocab}")
+    special = {"single_word": False, "lstrip": False, "rstrip": False,
+               "normalized": False, "special": True}
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "tokenizer.json"), "w") as fh:
+        json.dump({"version": "1.0", "truncation": None, "padding": None,
+                   "added_tokens": [{"id": 0, "content": "[PAD]", **special},
+                                    {"id": 1, "content": "[UNK]", **special}],
+                   "normalizer": {"type": "Lowercase"},
+                   "pre_tokenizer": {"type": "Whitespace"},
+                   "post_processor": None, "decoder": None,
+                   "model": {"type": "WordLevel", "vocab": ids,
+                             "unk_token": "[UNK]"}}, fh)
+    with open(os.path.join(workdir, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "pad_token": "[PAD]", "unk_token": "[UNK]",
+                   "model_max_length": 512}, fh)
+    pipe.tokenizer_path = workdir
+    return "transformers-wordlevel"
+
+
+def clip_inputs(height, width, num_frames):
+    """The clip's image, ``examples/images/input_image.png`` as (H, W, 3) in
+    [0, 1] (read with Pillow), and the example camera path."""
+    from fantasy_world_tpu_torch.hostops.camera import load_camera_json
+    from fantasy_world_tpu_torch.sampler import read_image
+    cams = load_camera_json(os.path.join(REPO, "examples", "cameras",
+                                         "camera_data.json"),
+                            (height, width), num_frames)
+    return read_image(EXAMPLE_IMAGE), cams
+
+
+def saved_as(path: str) -> str:
+    return "mp4" if path.endswith(".mp4") else "npy"
+
+
+def phase_small_clip(device):
+    """``FantasyWorldSampler.generate_video`` and ``export`` at reduced
+    widths, on the card in bf16 (kernels) and on the CPU in f32 (plain
+    versions) from the same weights: the latents, the prediction and the
+    float decode within SLICE_TOL, exact launch counts with CLIP's."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVision
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
+    t_phase = time.perf_counter()
+    fcfg, pcfg, t5c, clipc, vaec = small_clip_configs()
+    ctors = {"fusion": (FusionModel, fcfg), "pose": (CameraPoseEncoder, pcfg),
+             "t5": (T5Encoder, t5c), "clip": (CLIPVision, clipc),
+             "vae": (WanVAE, vaec)}
+    height, width, frames, steps = 256, 384, 21, 2
+    g = torch.Generator("cpu").manual_seed(11)
+    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                        generator=g) for n, (c, cfg) in ctors.items()}
+    wake_zero_inits(weights["fusion"], g)
+    image, cams = clip_inputs(height, width, frames)
+    out_root = os.path.join(REPO, "build", "clip_export")
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        mods = weights
+        if dev != "cpu":
+            mods = {}
+            for n, (c, cfg) in ctors.items():
+                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+                mods[n].load_state_dict(weights[n].state_dict())
+        pipe = FantasyWorldPipeline(mods["fusion"], mods["pose"],
+                                    t5=mods["t5"], clip=mods["clip"],
+                                    vae=mods["vae"])
+        tok = install_tokenizer(pipe, t5c.vocab,
+                                os.path.join(out_root, "tokenizer"))
+        decode, seen = pipe.decode_video, {}
+
+        def record(latents, **kw):
+            seen["latents"] = latents
+            return decode(latents, **kw)
+        pipe.decode_video = record
+        fa.reset_launch_counts()
+        video, pred = FantasyWorldSampler(pipe).generate_video(
+            PROMPT, NEG_PROMPT, image=image, camera_params=cams,
+            using_scale=True, seed=3, height=height, width=width,
+            num_frames=frames, sample_steps=steps)
+        launches = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            dec = pipe.vae.decode(seen["latents"])
+        paths = FantasyWorldSampler.export(
+            video, pred, os.path.join(out_root, str(dev)), stride=8)
+        got = check_outputs(fcfg, seen["latents"],
+                            {k: torch.from_numpy(v) for k, v in pred.items()},
+                            height, width, frames)
+        outs[str(dev)] = {"t": {k: v.float().cpu() for k, v in got.items()},
+                          "decode": dec.float().cpu(), "video": video,
+                          "launches": launches, "paths": paths}
+        del mods, pipe, dec
+    shutil.rmtree(out_root, ignore_errors=True)
+    cpu, card = outs["cpu"], outs[str(device)]
+    errs = {k: _rel_l2([card["t"][k]], [cpu["t"][k]]) for k in cpu["t"]}
+    errs["decode"] = _rel_l2([card["decode"]], [cpu["decode"]])
+    want = expected_launches(fcfg, steps, clip=clipc)
+    say("small_clip", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        tokenizer=tok, image="example_png",
+        video_file=saved_as(card["paths"]["video"]),
+        ply=os.path.basename(card["paths"]["ply"]),
+        video_shape="x".join(map(str, card["video"].shape)),
+        video_max_level_diff=int(np.abs(card["video"].astype(int)
+                                        - cpu["video"].astype(int)).max()),
+        device_vs_cpu_rel_l2=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                         errs.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in card["launches"].items()
+                             if v}).replace(" ", ""))
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"the CPU run launched {cpu['launches']}")
+    if card["launches"] != want:
+        raise AssertionError(f"small clip launches {card['launches']} != "
+                             f"{want}")
+    if card["video"].shape != (frames, height, width, 3):
+        raise AssertionError(f"video shape {card['video'].shape}")
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"the reduced clip disagrees with the CPU path "
                              f"beyond {SLICE_TOL}: {bad}")
 
 
@@ -897,6 +1087,113 @@ def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
     return launches, per_step, pipe, cond, plucker_fea
 
 
+def phase_full_clip(device, pipe, steps=2, seed=1024):
+    """The whole clip at full width on the fusion model and pose encoder of
+    ``phase_full_slice``: umT5-XXL, CLIP ViT-H and the Wan VAE built on the
+    card from a seed, then ``generate_video`` at 336x592, 81 frames,
+    ``steps`` steps (the heads on the last), and ``export``. Prints each
+    stage's seconds (CUDA events) and peak GB, the launches, the output
+    shapes and that every output is finite; frees the encoders after."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.wan.clip import (CLIPVision,
+                                                         CLIPVisionConfig)
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config, T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import VAEConfig, WanVAE
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
+    cfg = pipe.cfg
+    height, width, frames = 336, 592, 81
+    t_phase = t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    enc = {"t5": build(lambda: T5Encoder(T5Config()), device=device,
+                       dtype=torch.bfloat16, generator=g),
+           "clip": build(lambda: CLIPVision(CLIPVisionConfig()),
+                         device=device, dtype=torch.bfloat16, generator=g),
+           "vae": build(lambda: WanVAE(VAEConfig()), device=device,
+                        dtype=torch.bfloat16, generator=g)}
+    torch.cuda.synchronize()
+    say("full_clip_build", seconds=f"{time.perf_counter() - t0:.2f}",
+        **{f"{n}_params": sum(p.numel() for p in m.parameters())
+           for n, m in enc.items()},
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    cpipe = FantasyWorldPipeline(pipe.fusion, pipe.pose_encoder, **enc)
+    out_dir = os.path.join(REPO, "build", "clip_export", "full")
+    tok = install_tokenizer(cpipe, T5Config().vocab,
+                            os.path.join(out_dir, "tokenizer"))
+    t0 = time.perf_counter()
+    cpipe.tokenize(PROMPT)            # the tokenizer loads on first use
+    tokenizer_load_s = time.perf_counter() - t0
+    image, cams = clip_inputs(height, width, frames)
+    marks = []
+
+    def mark(name, *_):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    mark("start")
+    video, pred = FantasyWorldSampler(cpipe).generate_video(
+        PROMPT, NEG_PROMPT, image=image, camera_params=cams,
+        using_scale=True, seed=seed, height=height, width=width,
+        num_frames=frames, sample_steps=steps, stage_callback=mark,
+        progress_callback=lambda i, n: mark(f"denoise_step{i}"))
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    stage_s = {name: marks[i - 1][1].elapsed_time(ev) / 1e3
+               for i, (name, ev, _) in enumerate(marks) if i}
+    peak_gb = {name: peak / 1e9 for name, _, peak in marks[1:]}
+    t0 = time.perf_counter()
+    paths = FantasyWorldSampler.export(video, pred, out_dir)
+    stage_s["export"] = time.perf_counter() - t0
+    want_shapes = expected_shapes(cfg, height, width, frames)
+    shapes = {"video": list(video.shape), **{k: list(v.shape)
+                                             for k, v in pred.items()}}
+    finite = all(np.isfinite(v).all() for v in pred.values())
+    ply_bytes = os.path.getsize(paths["ply"])
+    shutil.rmtree(os.path.dirname(out_dir), ignore_errors=True)
+    mid = [stage_s[f"denoise_step{i}"] for i in range(1, steps)]
+    fixed = sum(v for k, v in stage_s.items() if not k.startswith("denoise"))
+    reckoned = fixed + 49 * float(np.mean(mid)) + stage_s[
+        f"denoise_step{steps}"]
+    want = expected_launches(cfg, steps, clip=CLIPVisionConfig())
+    say("full_clip", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        steps=steps, tokenizer=tok, image="example_png",
+        tokenizer_load_s=f"{tokenizer_load_s:.2f}",
+        video_file=saved_as(paths["video"]), ply_bytes=ply_bytes,
+        stage_seconds=json.dumps({k: round(v, 3) for k, v in
+                                  stage_s.items()}).replace(" ", ""),
+        stage_peak_gb=json.dumps({k: round(v, 2) for k, v in
+                                  peak_gb.items()}).replace(" ", ""),
+        reckoned_50_step_clip_s=f"{reckoned:.1f}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""),
+        clip_onekv_launches=CLIPVisionConfig().num_layers - 1,
+        shapes=json.dumps(shapes).replace(" ", ""), finite=finite)
+    if video.shape != (frames, height, width, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"video {video.shape} {video.dtype}")
+    for key, shape in want_shapes.items():
+        if key != "latents" and tuple(pred[key].shape) != shape:
+            raise AssertionError(f"{key}: shape {pred[key].shape} != {shape}")
+    if not finite:
+        raise AssertionError("the full clip's prediction is not finite")
+    if launches != want:
+        raise AssertionError(f"full clip launches {launches} != {want}")
+    del enc, cpipe, video, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # kernel families of a profiled step: the first family whose pattern is in
 # a kernel's name takes it
 FAMILIES = (("attention bwd dkv", ("fa_bwd_dkv",)),
@@ -1099,6 +1396,7 @@ def main(argv=None) -> int:
     # fails here, before any output, when the port is not beside the script
     import fantasy_world_tpu_torch.pipelines.wan_video  # noqa: F401
     from fantasy_world_tpu_torch.ops import flash_attention as fa
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1114,12 +1412,14 @@ def main(argv=None) -> int:
     per_kernel = phase_kernels(device)
     phase_train_kernels(device, per_kernel)
     phase_small_slice(device)
+    phase_small_clip(device)
     phase_small_train(device)
     phase_train_cli()
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
         device, profile_dir=args.profile)
+    clip_run = phase_full_clip(device, pipe)
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
 
@@ -1131,8 +1431,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": denoise[k] + train[f"{k}_stats"],
+            "launches": denoise[k] + clip_run[k] + train[f"{k}_stats"],
             "denoise_launches": denoise[k],
+            "clip_run_launches": clip_run[k],
             "launches_per_denoise_step": per_step[k],
             "stats_launches": train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
@@ -1153,6 +1454,7 @@ def main(argv=None) -> int:
             "plain_ms": pk["plain_ms"], "plain_covers": "dq, dk and dv",
             "library_covers": "dq, dk and dv", **{n: pk[n] for n in yard},
             "backward_ms": pk["backward_ms"]})
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,149 @@
+"""FantasyWorld-Wan2.1 inference in PyTorch, with the reference's flags
+(``cli/infer_wan21.py``): image + camera JSON + prompt -> ``video.mp4`` and
+``recon_confthresh{c}.ply``.
+
+    python -m fantasy_world_tpu_torch.cli.infer_wan21 \\
+        --wan_ckpt_path DIR --model_ckpt model.pth --image_path in.png \\
+        --camera_json_path cams.json --prompt "..." --output_dir out
+
+``--wan_ckpt_path`` holds the reference layout (``convert/checkpoint.py``).
+It runs bf16 on the card (``--device cuda``, the default) and f32 through
+the kernels' plain versions on the CPU only with ``--device cpu``; without
+a card and without ``--device cpu`` it exits. ``--auto_download`` fetches
+nothing: missing checkpoint files end the run with their names. The flags
+of options not ported yet (``--moge_ckpt``, ``--quant``,
+``--tea_cache_l1_thresh``, ``--mesh_*``, ``--ulysses``, ``--segment_size``,
+``--gen_ckpt_path``, ``--profile_dir``) end the run with the flag's name
+when set.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+# flag -> the value that leaves the option off; anything else is refused
+NOT_PORTED = {"moge_ckpt": None, "quant": None, "tea_cache_l1_thresh": None,
+              "mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
+              "ulysses": False, "segment_size": None, "gen_ckpt_path": None,
+              "profile_dir": None}
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("yes", "true", "t", "1")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="FantasyWorld inference on one "
+                                            "GPU (PyTorch)")
+    p.add_argument("--wan_ckpt_path", type=str, required=True)
+    p.add_argument("--model_ckpt", type=str, required=True)
+    p.add_argument("--image_path", type=str, required=True)
+    p.add_argument("--camera_json_path", type=str, required=True)
+    p.add_argument("--prompt", type=str, required=True)
+    p.add_argument("--neg_prompt", type=str, default=(
+        "Bright tones, overexposed, static, blurred details, subtitles, "
+        "style, works, paintings, images, static, overall gray, worst "
+        "quality, low quality, JPEG compression residue, ugly, incomplete, "
+        "extra fingers, poorly drawn hands, poorly drawn faces, deformed, "
+        "disfigured, misshapen limbs, fused fingers, still picture, messy "
+        "background, three legs, many people in the background, walking "
+        "backwards"))
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--fps", type=int, default=16)
+    p.add_argument("--sample_steps", type=int, default=50)
+    p.add_argument("--seed", type=int, default=1024)
+    p.add_argument("--using_scale", type=str2bool, default=True)
+    p.add_argument("--height", type=int, default=336)
+    p.add_argument("--width", type=int, default=592)
+    p.add_argument("--frames", type=int, default=81)
+    p.add_argument("--conf_threshold", type=float, default=1.0)
+    p.add_argument("--stride", type=int, default=4)
+    p.add_argument("--tokenizer_path", type=str, default=None,
+                   help="umT5 tokenizer dir (defaults to "
+                        "<wan_ckpt_path>/google/umt5-xxl if present)")
+    p.add_argument("--auto_download", type=str2bool, default=True,
+                   help="accepted; nothing is fetched, and missing "
+                        "checkpoint files end the run")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda: bf16 through the hand-written kernels; cpu: "
+                        "f32 through their plain versions")
+    g = p.add_argument_group("not ported yet (setting one exits)")
+    g.add_argument("--moge_ckpt", type=str, default=None)
+    g.add_argument("--quant", type=str, default=None,
+                   choices=["int8", "fp8"])
+    g.add_argument("--tea_cache_l1_thresh", type=float, default=None)
+    g.add_argument("--profile_dir", type=str, default=None)
+    g.add_argument("--mesh_data", type=int, default=1)
+    g.add_argument("--mesh_seq", type=int, default=1)
+    g.add_argument("--mesh_model", type=int, default=1)
+    g.add_argument("--ulysses", type=str2bool, default=False)
+    g.add_argument("--segment_size", type=int, default=None)
+    g.add_argument("--gen_ckpt_path", type=str, default=None)
+    return p.parse_args(argv)
+
+
+def check_args(args) -> None:
+    """Exit (SystemExit, naming the cause) for a flag of an option that is
+    not ported, for missing checkpoint files, and for ``--device cuda``
+    without a card."""
+    import torch
+
+    from ..convert.checkpoint import missing_files
+    for flag, off in NOT_PORTED.items():
+        if getattr(args, flag) != off:
+            what = ("MoGe scale normalization is not ported yet"
+                    if flag == "moge_ckpt" else "not ported yet")
+            raise SystemExit(f"--{flag}: {what}")
+    missing = missing_files(args.wan_ckpt_path, args.model_ckpt)
+    if missing:
+        raise SystemExit("checkpoint files missing (nothing is downloaded): "
+                         + ", ".join(missing))
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run f32 on "
+                         "the CPU")
+
+
+def run(args) -> dict:
+    """The clip; returns {"frames", "prediction", "video": path written,
+    "ply": path written}."""
+    import torch
+
+    from ..hostops.camera import cameras_json_to_camera_list
+    from ..sampler import FantasyWorldSampler, read_image
+
+    check_args(args)
+    device = torch.device(args.device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    with open(args.camera_json_path) as fh:
+        cameras = cameras_json_to_camera_list(
+            json.load(fh), image_size=(args.height, args.width))
+    sampler = FantasyWorldSampler.from_checkpoint(
+        args.wan_ckpt_path, args.model_ckpt, device=device, dtype=dtype,
+        tokenizer_path=args.tokenizer_path)
+    image = read_image(args.image_path)
+    t0 = time.perf_counter()
+    video, prediction = sampler.generate_video(
+        prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
+        camera_params=cameras, using_scale=args.using_scale, seed=args.seed,
+        height=args.height, width=args.width, num_frames=args.frames,
+        sample_steps=args.sample_steps)
+    dt = time.perf_counter() - t0
+    print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
+          f"({dt / args.sample_steps:.2f} s/step) on {args.device}")
+    paths = sampler.export(video, prediction, args.output_dir, fps=args.fps,
+                           conf_threshold=args.conf_threshold,
+                           stride=args.stride)
+    print(f"outputs written to {args.output_dir}")
+    return {"frames": video, "prediction": prediction, **paths}
+
+
+def main(argv=None):
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,4 +1,5 @@
-"""JAX parameter tree (numpy leaves) -> the port's ``state_dict``.
+"""JAX parameter tree (numpy leaves) -> the port's ``state_dict``: the
+fusion model, the camera pose encoder, LoRA factors, umT5, CLIP and the VAE.
 
 The JAX package keeps linear kernels as (in, out) and per-block lists
 (``init_fusion``); the port keeps PyTorch's (out, in) and the reference
@@ -31,7 +32,7 @@ RMS scales) and the bicross m1/m2 projections, as ``convert/wan_dit.py`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +44,13 @@ from ..models.vggt.aggregator import AggregatorConfig
 from ..models.vggt.model import VGGTConfig
 from ..models.wan.camera import CameraPoseEncoderConfig
 from ..models.wan.dit import WanDiTConfig
+from ..models.wan.vae import (VAEConfig, decoder_upsample_plan,
+                              encoder_downsample_plan)
 
 
 def _config(cls, obj, **sub):
     kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
-          if f.name not in sub}
+          if f.name not in sub and hasattr(obj, f.name)}
     return cls(**kw, **sub)
 
 
@@ -60,8 +63,24 @@ def fusion_config_from(cfg) -> FusionConfig:
                    vggt=vggt, bicross=_config(BicrossConfig, cfg.bicross))
 
 
-def pose_config_from(cfg) -> CameraPoseEncoderConfig:
-    return _config(CameraPoseEncoderConfig, cfg)
+def pose_config_from(cfg, params: Optional[Mapping] = None
+                     ) -> CameraPoseEncoderConfig:
+    """The port's config of a JAX camera pose encoder: the JAX config's
+    fields, and the conv widths of its parameter tree when one is given
+    (the JAX config has none; ``convert/camera.py`` reads them off the
+    checkpoint)."""
+    if params is None:
+        return _config(CameraPoseEncoderConfig, cfg)
+    e1, e2 = params["encode_first"], params["encode_second"]
+    hidden = tuple(int(np.shape(c["kernel"])[0]) for c in
+                   (e1["conv1"], e1["conv2"], e2["conv1"]))
+    return _config(CameraPoseEncoderConfig, cfg, hidden=hidden)
+
+
+def encoder_config_from(cls, cfg):
+    """The port's ``cls`` (T5Config, CLIPVisionConfig, VAEConfig) holding
+    the field values of the JAX package's config of the same name."""
+    return _config(cls, cfg)
 
 
 def _arr(x) -> torch.Tensor:
@@ -254,6 +273,94 @@ def pose_encoder_state_dict(params: Mapping, model: nn.Module
     w.norm("fc.1", fc["norm1"])
     w.linear("fc.3", fc["fc2"])
     w.norm("fc.4", fc["norm2"])
+    return w.sd
+
+
+def t5_state_dict(params: Mapping, model: nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_t5`` / ``convert_t5`` tree -> f32 state dict of
+    ``T5Encoder``."""
+    w = _Writer(_shapes(model))
+    w.put("token_embedding.weight", params["token_embedding"])
+    for i, b in enumerate(params["blocks"]):
+        bp = f"blocks.{i}."
+        w.norm(bp + "norm1", b["norm1"])
+        for name in "qkvo":
+            w.linear(f"{bp}attn.{name}", b["attn"][name])
+        w.put(bp + "pos_embedding.embedding.weight", b["pos_embedding"])
+        w.norm(bp + "norm2", b["norm2"])
+        w.linear(bp + "ffn.gate.0", b["ffn"]["gate"])
+        w.linear(bp + "ffn.fc1", b["ffn"]["fc1"])
+        w.linear(bp + "ffn.fc2", b["ffn"]["fc2"])
+    w.norm("norm", params["norm"])
+    return w.sd
+
+
+def clip_state_dict(params: Mapping, model: nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_clip_vision`` / ``convert_clip_vision`` tree -> f32 state
+    dict of ``CLIPVision`` (the patch matmul kernel back into its conv)."""
+    w = _Writer(_shapes(model))
+    w.linear("patch_embedding", params["patch_embedding"])
+    w.put("cls_embedding", params["cls_embedding"])
+    w.put("pos_embedding", params["pos_embedding"])
+    w.norm("pre_norm", params["pre_norm"])
+    for i, b in enumerate(params["blocks"]):
+        bp = f"transformer.{i}."
+        w.norm(bp + "norm1", b["norm1"])
+        w.linear(bp + "attn.to_qkv", b["attn"]["to_qkv"])
+        w.linear(bp + "attn.proj", b["attn"]["proj"])
+        w.norm(bp + "norm2", b["norm2"])
+        w.linear(bp + "mlp.0", b["mlp"]["fc1"])
+        w.linear(bp + "mlp.2", b["mlp"]["fc2"])
+    return w.sd
+
+
+def _vae_res(w: _Writer, p: Mapping, pre: str) -> None:
+    w.put(pre + ".residual.0.gamma", p["norm1"]["gamma"])
+    w.conv(pre + ".residual.2", p["conv1"])
+    w.put(pre + ".residual.3.gamma", p["norm2"]["gamma"])
+    w.conv(pre + ".residual.6", p["conv2"])
+    if "shortcut" in p:
+        w.conv(pre + ".shortcut", p["shortcut"])
+
+
+def _vae_attn(w: _Writer, p: Mapping, pre: str) -> None:
+    w.put(pre + ".norm.gamma", p["norm"]["gamma"])
+    w.conv(pre + ".to_qkv", p["to_qkv"])
+    w.conv(pre + ".proj", p["proj"])
+
+
+def _vae_coder(w: _Writer, p: Mapping, pre: str, plan) -> None:
+    w.conv(pre + "conv1", p["conv1"])
+    seq = "downsamples" if pre == "encoder." else "upsamples"
+    for i, ((kind, _), q) in enumerate(zip(plan, p[seq])):
+        name = f"{pre}{seq}.{i}"
+        if kind == "res":
+            _vae_res(w, q, name)
+        elif kind == "attn":
+            _vae_attn(w, q, name)
+        else:
+            w.conv(name + ".resample.1", q["resample_conv"])
+            if "time_conv" in q:
+                w.conv(name + ".time_conv", q["time_conv"])
+    _vae_res(w, p["middle_res1"], pre + "middle.0")
+    _vae_attn(w, p["middle_attn"], pre + "middle.1")
+    _vae_res(w, p["middle_res2"], pre + "middle.2")
+    w.put(pre + "head.0.gamma", p["head_norm"]["gamma"])
+    w.conv(pre + "head.2", p["head_conv"])
+
+
+def vae_state_dict(params: Mapping, model: nn.Module
+                   ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_wan_vae`` / ``convert_wan_vae`` tree -> f32 state dict of
+    ``WanVAE`` (the JAX tree keeps torch's conv layout)."""
+    cfg: VAEConfig = model.cfg
+    w = _Writer(_shapes(model))
+    _vae_coder(w, params["encoder"], "encoder.", encoder_downsample_plan(cfg))
+    w.conv("conv1", params["conv1"])
+    w.conv("conv2", params["conv2"])
+    _vae_coder(w, params["decoder"], "decoder.", decoder_upsample_plan(cfg))
     return w.sd
 
 

@@ -131,17 +131,12 @@ def ray_condition(K: np.ndarray, c2w: np.ndarray, H: int, W: int
     return plucker.reshape(V, H, W, 6)
 
 
-def plucker_from_cameras(cams: List[Camera], image_size_hw: Tuple[int, int]
-                         ) -> np.ndarray:
-    """Camera list -> Plucker video (1, S, H, W, 6) without scene-scale
-    normalization (the sampler's ``prepare_camera(using_scale=False)``):
-    pose encoding round trip, relative poses, intrinsics multiplied by the
-    image size again as the reference was trained."""
+def plucker_from_pose_encoding(pose_enc: np.ndarray,
+                               image_size_hw: Tuple[int, int]) -> np.ndarray:
+    """pose_enc (S, 9) -> Plucker video (1, S, H, W, 6): relative poses with
+    a zero-translation first frame, and the intrinsics multiplied by the
+    image size again, as the reference was trained."""
     H, W = image_size_hw
-    intr = np.stack([[[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1]]
-                     for c in cams]).astype(np.float32)
-    extr = np.stack([c.w2c_mat for c in cams]).astype(np.float32)
-    pose_enc = extri_intri_to_pose_encoding(extr[:, :3, :], intr, (H, W))
     extr, intr = pose_encoding_to_extri_intri(pose_enc, (H, W))
     cams = []
     for ext, Kc in zip(extr, intr):
@@ -152,6 +147,25 @@ def plucker_from_cameras(cams: List[Camera], image_size_hw: Tuple[int, int]
     K = np.asarray([[c.fx * W, c.fy * H, c.cx * W, c.cy * H] for c in cams],
                    np.float32)
     return ray_condition(K, get_relative_pose(cams), H, W)[None]
+
+
+def camera_matrices(cams: List[Camera]) -> Tuple[np.ndarray, np.ndarray]:
+    """Camera list -> (extrinsics (S, 4, 4) w2c, intrinsics (S, 3, 3)),
+    f32."""
+    intr = np.stack([[[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1]]
+                     for c in cams]).astype(np.float32)
+    extr = np.stack([c.w2c_mat for c in cams]).astype(np.float32)
+    return extr, intr
+
+
+def plucker_from_cameras(cams: List[Camera], image_size_hw: Tuple[int, int]
+                         ) -> np.ndarray:
+    """Camera list -> Plucker video (1, S, H, W, 6) without scene-scale
+    normalization (the sampler's ``prepare_camera(using_scale=False)``)."""
+    extr, intr = camera_matrices(cams)
+    return plucker_from_pose_encoding(
+        extri_intri_to_pose_encoding(extr[:, :3, :], intr, image_size_hw),
+        image_size_hw)
 
 
 def load_camera_json(path: str, image_size: Tuple[int, int],

@@ -5,10 +5,10 @@ GroupNorm stages, each followed by 2x temporal average pooling (81 -> 41 ->
 Plucker features the per-layer AdaLN adapters consume.
 
 State-dict names are the reference CameraPoseEncoder's
-(``controlnet_encode_first.0``, ..., ``fc.4``). The reference's conv widths
-are not recorded in this repository: ``HIDDEN_CHANNELS`` stands in for
-them, and a real-checkpoint loader must match it to the checkpoint's
-shapes.
+(``controlnet_encode_first.0``, ..., ``fc.4``). The three 1x1-conv widths
+are the config's ``hidden``; the loaders take them from the checkpoint's
+tensors (``convert/checkpoint.py:pose_config_from_state_dict``,
+``convert/from_jax.py:pose_config_from``), as the JAX converter does.
 """
 from __future__ import annotations
 
@@ -23,9 +23,6 @@ from ...core.params import linear
 from ...ops.causal_conv import conv2d
 from ...ops.norms import layer_norm
 
-HIDDEN_CHANNELS = 128
-
-
 @dataclasses.dataclass(frozen=True)
 class CameraPoseEncoderConfig:
     in_channels: int = 6          # plucker; 4 for rgb_conf; 12 for 'all'
@@ -33,6 +30,8 @@ class CameraPoseEncoderConfig:
     dim: int = 5120
     context_dim: int = 2048
     patch_size: Tuple[int, int, int] = (1, 2, 2)
+    # output widths of encode_first's two convs and encode_second's conv
+    hidden: Tuple[int, int, int] = (128, 128, 128)
 
     @property
     def start_channels(self) -> int:
@@ -70,13 +69,13 @@ class CameraPoseEncoder(nn.Module):
     def __init__(self, cfg: CameraPoseEncoderConfig):
         super().__init__()
         self.cfg = cfg
-        c0, c = cfg.start_channels, HIDDEN_CHANNELS
+        c0, (c1, c2, c3) = cfg.start_channels, cfg.hidden
         self.controlnet_encode_first = nn.Sequential(
-            nn.Conv2d(c0, c, 1), nn.GroupNorm(2, c), nn.Conv2d(c, c, 1),
-            nn.GroupNorm(2, c), nn.ReLU())
+            nn.Conv2d(c0, c1, 1), nn.GroupNorm(2, c1), nn.Conv2d(c1, c2, 1),
+            nn.GroupNorm(2, c2), nn.ReLU())
         self.controlnet_encode_second = nn.Sequential(
-            nn.Conv2d(c, c, 1), nn.GroupNorm(2, c), nn.ReLU())
-        self.patch_embedding = nn.Conv3d(c, cfg.dim, cfg.patch_size,
+            nn.Conv2d(c2, c3, 1), nn.GroupNorm(2, c3), nn.ReLU())
+        self.patch_embedding = nn.Conv3d(c3, cfg.dim, cfg.patch_size,
                                          cfg.patch_size)
         self.fc = nn.Sequential(
             nn.Linear(cfg.dim, cfg.context_dim),

@@ -1,6 +1,7 @@
 """Convolutions and the Wan temporal upsampling stage of the DPT heads
-(``ops/causal_conv.py``): plain ``torch.nn.functional.conv*``, as the JAX
-package left them to XLA.
+(``ops/causal_conv.py``), which the Wan VAE (``models/wan/vae.py``) builds
+on: plain ``torch.nn.functional.conv*``, as the JAX package left them to
+XLA.
 
 Full-sequence equivalents of the reference's streamed causal convs: frame 0
 bypasses each temporal 2x upsample, frames 1..T-1 go through a zero-history
@@ -56,10 +57,11 @@ def resample_up3d(time_conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm_channel(gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """RMS norm over channels (dim 1) * sqrt(C) * gamma (C, 1, 1, 1); f32
-    statistics, the rescale in x.dtype."""
-    ss = x.float().square().sum(dim=1, keepdim=True)
-    inv = x.shape[1] ** 0.5 / torch.clamp(ss.sqrt(), min=1e-12)
+    """RMS norm over channels (dim 1) * sqrt(C) * gamma ((C, 1, 1, 1) over
+    video, (C, 1, 1) over images); the channel norm in f32 without an f32
+    copy of x, the rescale in x.dtype."""
+    n = torch.linalg.vector_norm(x, dim=1, keepdim=True, dtype=torch.float32)
+    inv = x.shape[1] ** 0.5 / torch.clamp(n, min=1e-12)
     return x * inv.to(x.dtype) * gamma.to(x.dtype)
 
 

@@ -134,3 +134,23 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
         dtype=torch.float32, device=position.device)
     sinusoid = position.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=1)
+
+
+def deinterleave_indices(head_dim: int) -> np.ndarray:
+    """Channel permutation per head, out[j] = in[idx[j]] with
+    idx = [0, 2, 4, ..., 1, 3, 5, ...]: interleaved RoPE pairs -> the
+    rotate-half layout."""
+    return np.concatenate([np.arange(0, head_dim, 2),
+                           np.arange(1, head_dim, 2)])
+
+
+def permute_qk_out_channels(arr: np.ndarray, head_dim: int, axis: int = -1
+                            ) -> np.ndarray:
+    """Permute a weight, bias or scale along its output-channel axis by the
+    per-head de-interleave; the axis holds heads * head_dim channels, heads
+    contiguous."""
+    arr = np.asarray(arr)
+    n = arr.shape[axis]
+    idx = (np.arange(0, n, head_dim)[:, None]
+           + deinterleave_indices(head_dim)[None, :]).reshape(-1)
+    return np.take(arr, idx, axis=axis)

@@ -1,0 +1,194 @@
+"""FantasyWorldSampler (``sampler.py``) in PyTorch: the user-facing
+``generate_video`` API over ``pipelines/wan_video.py``.
+
+Built from modules already on their device (``FantasyWorldSampler(pipe)``)
+or from the reference checkpoint layout (``from_checkpoint``);
+``generate_video(prompt, neg_prompt, image, camera_params, ...)`` returns
+the uint8 frames and the geometry prediction, ``generate_videos`` runs a
+batch of clips in one denoise, and ``export`` writes the MP4 and the
+colored PLY.
+
+Not ported here: the mesh, Ulysses, TeaCache and segmented-denoise
+arguments, and MoGe, whose place is the ``moge_infer`` callable.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .cli.moge_scale import moge_scale_normalize
+from .hostops.camera import (camera_matrices, extri_intri_to_pose_encoding,
+                             plucker_from_pose_encoding)
+from .pipelines.wan_video import FantasyWorldPipeline
+
+
+def image_pm1(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, 3) in [0, 1] -> (height, width, 3) f32 in [-1, 1], through
+    8-bit and PIL's default resize as the reference does. PIL is imported
+    only to resize: at the target size its resize returns a copy."""
+    q = (image * 255).astype(np.uint8)
+    if q.shape[:2] != (height, width):
+        from PIL import Image
+        q = np.asarray(Image.fromarray(q).resize((width, height)))
+    return (q / 255.0 * 2 - 1).astype(np.float32)
+
+
+def read_image(path: str) -> np.ndarray:
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB")) / 255.0
+
+
+class FantasyWorldSampler:
+    """Wan2.1 FantasyWorld sampler over a ``FantasyWorldPipeline``.
+
+    ``stage_callback(name)``, where given, runs after each conditioning
+    stage and the decode are queued ("camera", "clip", "vae_encode",
+    "t5_pos", "t5_neg", "vae_decode"); ``progress_callback(done, total)``
+    after each denoise step."""
+
+    def __init__(self, pipe: FantasyWorldPipeline,
+                 moge_infer: Optional[Callable] = None):
+        self.pipe = pipe
+        self.moge_infer = moge_infer
+
+    @classmethod
+    def from_checkpoint(cls, wan_ckpt_path: str, model_ckpt: str, *,
+                        device, dtype: torch.dtype = torch.bfloat16,
+                        tokenizer_path: Optional[str] = None
+                        ) -> "FantasyWorldSampler":
+        from .convert.checkpoint import load_pipeline
+        return cls(load_pipeline(wan_ckpt_path, model_ckpt, device=device,
+                                 dtype=dtype, tokenizer_path=tokenizer_path))
+
+    # -- conditioning -------------------------------------------------------
+
+    def prepare_camera(self, camera_params: List, image: np.ndarray,
+                       height: int, width: int, using_scale: bool = True
+                       ) -> np.ndarray:
+        """Camera list -> Plucker video (1, S, H, W, 6), scale-normalized
+        first when ``using_scale``."""
+        extr, intr = camera_matrices(camera_params)
+        if using_scale:
+            extr = moge_scale_normalize(image, extr, intr,
+                                        moge_infer=self.moge_infer)
+        pose_enc = extri_intri_to_pose_encoding(extr[:, :3, :], intr,
+                                                (height, width))
+        return plucker_from_pose_encoding(pose_enc, (height, width))
+
+    def _condition(self, prompt, image, camera_params, using_scale, height,
+                   width, num_frames, stage):
+        """Plucker features, CLIP tokens, y and the positive context of one
+        clip."""
+        pipe = self.pipe
+        img = image_pm1(image, height, width)
+        plucker_fea = None
+        if camera_params is not None:
+            plucker_fea = pipe.encode_plucker(self.prepare_camera(
+                camera_params, image, height, width, using_scale))
+        stage("camera")
+        clip_feature = pipe.encode_clip(img)
+        stage("clip")
+        y = pipe.encode_y(img, num_frames, height, width)
+        stage("vae_encode")
+        ctx = pipe.encode_prompt(prompt)
+        stage("t5_pos")
+        return plucker_fea, clip_feature, y, ctx
+
+    # -- generation ---------------------------------------------------------
+
+    def generate_video(self, prompt: str, neg_prompt: str = "",
+                       image: Optional[np.ndarray] = None,
+                       image_path: Optional[str] = None,
+                       camera_params: Optional[List] = None,
+                       using_scale: bool = True, seed: Optional[int] = 1024,
+                       height: int = 336, width: int = 592,
+                       num_frames: int = 81, sample_steps: int = 50,
+                       cfg_scale: float = 5.0, progress_callback=None,
+                       stage_callback=None
+                       ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """image (H, W, 3) in [0, 1], or image_path -> (uint8 frames
+        (T, H, W, 3), geometry prediction {name: f32 numpy})."""
+        stage = stage_callback or (lambda name: None)
+        if image is None:
+            image = read_image(image_path)
+        pl, clip, y, ctx_pos = self._condition(
+            prompt, image, camera_params, using_scale, height, width,
+            num_frames, stage)
+        ctx_neg = self.pipe.encode_prompt(neg_prompt)
+        stage("t5_neg")
+        latents, prediction = self.pipe.denoise(
+            ctx_pos, ctx_neg, clip, y, height, width, num_frames=num_frames,
+            num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
+            plucker_fea=pl, progress_callback=progress_callback)
+        video = self.pipe.decode_video(latents)
+        stage("vae_decode")
+        return video, {k: v.float().cpu().numpy()
+                       for k, v in (prediction or {}).items()}
+
+    def generate_videos(self, prompts: List[str],
+                        images: Optional[List[np.ndarray]] = None,
+                        image_paths: Optional[List[str]] = None,
+                        camera_params: Optional[List[List]] = None,
+                        neg_prompt: str = "", using_scale: bool = True,
+                        seeds: Optional[List[int]] = None,
+                        height: int = 336, width: int = 592,
+                        num_frames: int = 81, sample_steps: int = 50,
+                        cfg_scale: float = 5.0, progress_callback=None
+                        ) -> List[Tuple[np.ndarray, Dict[str, np.ndarray]]]:
+        """B clips in one denoise (a CFG batch of 2B); conditioning and the
+        decode run per clip. Row i is ``generate_video(prompts[i], ...,
+        seed=seeds[i])`` (seeds default to 0..B-1)."""
+        B = len(prompts)
+        if images is None:
+            images = [read_image(p) for p in image_paths]
+        seeds = list(range(B)) if seeds is None else list(seeds)
+        if len(images) != B or len(seeds) != B:
+            raise ValueError(f"{B} prompts, {len(images)} images, "
+                             f"{len(seeds)} seeds")
+        # the negative prompt is the same for every clip: encoded once
+        ctx_n = self.pipe.encode_prompt(neg_prompt)
+        rows = [self._condition(prompts[i], images[i],
+                                None if camera_params is None
+                                else camera_params[i], using_scale, height,
+                                width, num_frames, lambda name: None)
+                for i in range(B)]
+        pls, clips, ys, ctx_p = (list(c) for c in zip(*rows))
+        latents, prediction = self.pipe.denoise(
+            torch.cat(ctx_p), torch.cat([ctx_n] * B),
+            None if clips[0] is None else torch.cat(clips), torch.cat(ys),
+            height, width, num_frames=num_frames,
+            num_inference_steps=sample_steps, cfg_scale=cfg_scale,
+            seed=seeds,
+            plucker_fea=None if pls[0] is None else torch.cat(pls),
+            progress_callback=progress_callback)
+        return [(self.pipe.decode_video(latents[i:i + 1]),
+                 {k: v[i:i + 1].float().cpu().numpy()
+                  for k, v in (prediction or {}).items()})
+                for i in range(B)]
+
+    # -- export -------------------------------------------------------------
+
+    @staticmethod
+    def export(video: np.ndarray, prediction: Dict[str, np.ndarray],
+               output_dir: str, fps: int = 16, conf_threshold: float = 1.0,
+               stride: int = 4) -> Dict[str, str]:
+        """video.mp4 (or its .npy) and ``recon_confthresh{c}.ply`` in
+        output_dir; returns {"video": path, "ply": path or None}."""
+        from .hostops.export import (get_pointclouds,
+                                     save_colored_pointcloud_ply, save_video)
+        os.makedirs(output_dir, exist_ok=True)
+        out = {"video": save_video(video, os.path.join(output_dir,
+                                                       "video.mp4"), fps=fps),
+               "ply": None}
+        if prediction:
+            points = get_pointclouds(prediction, fix_first_frame=True)
+            valid = prediction["depth_conf"][0] >= conf_threshold
+            out["ply"] = os.path.join(output_dir,
+                                      f"recon_confthresh{conf_threshold}.ply")
+            save_colored_pointcloud_ply(points, video.astype(np.float32),
+                                        out["ply"], stride=stride,
+                                        valid_mask=valid)
+        return out

@@ -281,3 +281,105 @@ def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
 ])
 def test_profile_families_attribute_the_attention_kernels(name, family):
     assert cs.family(name) == family
+
+
+def test_attention_bound_at_clip_self_attention():
+    """CLIP's self-attention, by hand: one image, 257 queries and keys, 16
+    heads. At the kernel's padded D 128: 4 * 16 * 257^2 * 128 = 541,073,408
+    FLOP (0.547 us at 989 TFLOP/s) against 4 * 2 * 257 * 16 * 128 =
+    4,210,688 bytes (1.2569 us at 3.35 TB/s): bound by bytes. At the
+    function's own D 80, which chip_smoke reports: 338,170,880 FLOP and
+    2,631,680 bytes, 0.7856 us."""
+    b = cs.attention_bound("fwd", 1, 257, 257, 16, 128)
+    assert b["flop"] == 541_073_408 and b["bytes"] == 4_210_688
+    assert b["bound_ms"] == pytest.approx(4_210_688 / 3.35e12 * 1e3)
+    assert b["bound_ms"] == pytest.approx(1.2569e-3, rel=1e-4)
+    assert b["bound_by"] == "bytes"
+    b80 = cs.attention_bound("fwd", 1, 257, 257, 16, 80)
+    assert b80["flop"] == 338_170_880 and b80["bytes"] == 2_631_680
+    assert b80["bound_ms"] == pytest.approx(7.8558e-4, rel=1e-4)
+    assert ("clip_self", (1, 257, 16, 80), 257, "onekv") in cs.SHAPES
+
+
+def test_expected_launches_count_clip():
+    """CLIP runs 31 of its 32 blocks once per clip, each one onekv launch,
+    beside the denoise's."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    cfg = FusionConfig()
+    plain = cs.expected_launches(cfg, 2)
+    with_clip = cs.expected_launches(cfg, 2, clip=CLIPVisionConfig())
+    assert with_clip == dict(plain, onekv=plain["onekv"] + 31)
+    assert with_clip["onekv"] == 2 * 80 + 16 + 31
+
+
+def test_small_clip_configs_route_clip_to_onekv():
+    """The reduced CLIP keeps heads of 80 over 257 keys, so it takes onekv
+    as the full one does, and its tokens are the width the DiT takes."""
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    fusion, _, t5, clip, vae = cs.small_clip_configs()
+    for c in (clip, CLIPVisionConfig()):
+        assert c.dim // c.num_heads == 80 and c.num_patches + 1 == 257
+        assert fa.route(c.num_heads, 80, 257) == "onekv"
+        assert fa.kernel_dim(c.num_heads, 80, 257) == 128
+    assert fusion.dit.clip_feature_dim == clip.dim
+    assert fusion.dit.text_dim == t5.dim and vae.z_dim == fusion.dit.out_dim
+    assert cs.expected_launches(fusion, 2, clip=clip)["onekv"] == \
+        cs.expected_launches(fusion, 2)["onekv"] + clip.num_layers - 1
+
+
+def test_small_clip_launch_contract(monkeypatch, tmp_path):
+    """The reduced clip through ``FantasyWorldSampler.generate_video`` on the
+    CPU, every attention recorded by the route it takes on the card: the
+    counts chip_smoke's small_clip phase holds the card to."""
+    import torch
+    import fantasy_world_tpu_torch.ops.attention as att
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    seen = {k: 0 for k in fa.LAUNCHES}
+
+    def record(q, k, v, *, scale=None):
+        seen[fa.route(q.shape[2], q.shape[3], k.shape[1])] += 1
+        return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    monkeypatch.setattr(att, "flash_attention", record)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        _small_clip_on_cpu(seen, str(tmp_path))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _small_clip_on_cpu(seen, workdir):
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVision
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
+    fcfg, pcfg, t5c, clipc, vaec = cs.small_clip_configs()
+    g = torch.Generator().manual_seed(0)
+    mods = [build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                  generator=g)
+            for c, cfg in ((FusionModel, fcfg), (CameraPoseEncoder, pcfg),
+                           (T5Encoder, t5c), (CLIPVision, clipc),
+                           (WanVAE, vaec))]
+    pipe = FantasyWorldPipeline(mods[0], mods[1], t5=mods[2], clip=mods[3],
+                                vae=mods[4])
+    # the pipeline's own tokenize, through transformers' AutoTokenizer
+    assert cs.install_tokenizer(pipe, t5c.vocab, workdir) == \
+        "transformers-wordlevel"
+    h, w, nf = 256, 384, 21
+    image, cams = cs.clip_inputs(h, w, nf)
+    video, pred = FantasyWorldSampler(pipe).generate_video(
+        cs.PROMPT, cs.NEG_PROMPT, image=image, camera_params=cams, seed=0,
+        height=h, width=w, num_frames=nf, sample_steps=1)
+    assert video.shape == (nf, h, w, 3)
+    assert seen == cs.expected_launches(fcfg, 1, clip=clipc)
+    assert all(seen[r] for r in fa.ROUTES)

@@ -157,6 +157,27 @@ def test_onekv_stats_tile_edges(device, Lq, Lk, D):
     torch.testing.assert_close(l, rl, rtol=STATS_RTOL, atol=0)
 
 
+@pytest.mark.parametrize("Lq", (256, 257, 258))
+def test_onekv_at_clip_self_attention(device, Lq):
+    """CLIP's self-attention (one image, 16 heads of 80 over 257 keys) and
+    the query counts around it: onekv and its stats forward within out_tol
+    (o) and STATS_RTOL (m2, l) of the plain version."""
+    assert fa.route(16, 80, 257) == "onekv"
+    q, k, v = _qkv((1, Lq, 16, 80), 257, device, seed=Lq)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v)
+    o, m2, l = fa.flash_attention_stats(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["onekv"] == before["onekv"] + 1
+    assert fa.LAUNCHES["onekv_stats"] == before["onekv_stats"] + 1
+    ro, rm2, rl = fa.attention_plain_stats(q, k, v, 80 ** -0.5)
+    assert out.shape == ro.shape == (1, Lq, 16, 80)
+    assert _out_err(out, ro) <= 1 and _out_err(o, ro) <= 1
+    assert m2.shape == l.shape == (1, Lq, 16)
+    torch.testing.assert_close(m2, rm2, rtol=STATS_RTOL, atol=STATS_RTOL)
+    torch.testing.assert_close(l, rl, rtol=STATS_RTOL, atol=0)
+
+
 def test_kernel_rejects_what_it_does_not_take(device):
     q, k, v = _qkv((1, 16, 2, 128), 16, device)
     with pytest.raises(TypeError):

@@ -1,6 +1,8 @@
 """Each module of the port's denoise slice against its JAX counterpart: the
 same seeded numpy inputs and the same weights (a JAX ``init_fusion`` tree
 carried across with ``convert/from_jax.py``), in f32 on the CPU."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -83,13 +85,19 @@ def env():
     model.load_state_dict(fusion_state_dict(params, model), strict=True)
     # the pose encoder has no JAX init: its JAX tree comes from the port's
     # random state dict through the JAX package's converter, then back
+    # at conv widths other than the default 128: the port takes them from
+    # the JAX tree
     g = torch.Generator().manual_seed(1)
-    pose_src = build(lambda: CameraPoseEncoder(pose_config_from(POSE_CFG)),
+    src_cfg = dataclasses.replace(pose_config_from(POSE_CFG),
+                                  hidden=(96, 64, 80))
+    pose_src = build(lambda: CameraPoseEncoder(src_cfg),
                      device="cpu", dtype=torch.float32, generator=g)
     pose_tree = convert_pose_encoder(
         {"pe." + k: v.numpy() for k, v in pose_src.state_dict().items()},
         "pe.")
-    pose = build(lambda: CameraPoseEncoder(pose_config_from(POSE_CFG)),
+    pose_cfg = pose_config_from(POSE_CFG, pose_tree)
+    assert pose_cfg.hidden == (96, 64, 80)
+    pose = build(lambda: CameraPoseEncoder(pose_cfg),
                  device="cpu", dtype=torch.float32)
     pose.load_state_dict(pose_encoder_state_dict(pose_tree, pose), strict=True)
     return {"p": params, "m": model, "pose_tree": pose_tree, "pose": pose}
