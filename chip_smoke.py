@@ -38,14 +38,25 @@ non-zero):
      last) from random weights: shapes, finiteness, launch counts (in all,
      and of the second step, which must match the configuration's layers),
      seconds per step and peak memory;
-  8. the whole clip on that model: umT5-XXL, CLIP ViT-H and the Wan VAE
-     at full width, ``generate_video`` at 336x592, 81 frames, 2 steps, and
+  8. the whole clip on that model: umT5-XXL, CLIP ViT-H, the Wan VAE and
+     MoGe-2 (DINOv2-L, its scene-scale normalization of the camera path) at
+     full width, ``generate_video`` at 336x592, 81 frames, 2 steps, and
      ``export``: each stage's seconds and peak memory, the launches (CLIP's
-     31 onekv among them), the output shapes, finiteness; the encoders are
-     freed after;
+     31 onekv and MoGe's 24 d64 among them), the output shapes, finiteness;
+     CLIP is freed after, umT5 and the VAE kept for step 10;
   9. two full-width LoRA training steps (rank 16, per-block recompute,
      batch 1) on the same model: finite losses, moved factors, an unchanged
-     base, exact launch counts, seconds per step and peak memory.
+     base, exact launch counts, seconds per step and peak memory;
+ 10. the Wan2.2-Fun-A14B-Control-Camera clip at full width and depth
+     (``Wan22Sampler.generate_video`` at 480x832, 81 frames, 2 steps: t =
+     1000 on the high expert, t ~ 833 on the low one with the heads), the
+     Wan2.1 model freed first, umT5 and the VAE shared, the low expert in
+     pinned host memory until the swap: each stage's seconds and peak
+     memory, the launches, the output shapes, finiteness.
+Between steps 4 and 5, ``small_wan22``: the Wan2.2 sampler at reduced widths
+(two experts, one swapped in through the host, MoGe, the end image), 3
+steps with the boundary between the second and the third, on the card
+against the CPU.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -53,12 +64,14 @@ Imports nothing of JAX.
 
 also runs the 3-step denoise again with its second step and its last step
 (the one with the heads) under ``torch.profiler`` (started and stopped
-from the pipeline's progress callback) and a third full-width training
-step under it, and writes for each its device-time breakdown by kernel
-family and by attention kernel, its idle share against the same
-unprofiled step and a gzipped Chrome trace into DIR
+from the pipeline's progress callback), a third full-width training step
+under it, and the Wan2.2 clip again with its two steps under it (the high
+expert's, and the low one's with the heads), and writes for each its
+device-time breakdown by kernel family and by attention kernel, its idle
+share against the same unprofiled step and a gzipped Chrome trace into DIR
 (``denoise_step_breakdown.json``, ``denoise_heads_step_breakdown.json``,
-``train_step_breakdown.json``).
+``train_step_breakdown.json``, ``wan22_denoise_step_breakdown.json``,
+``wan22_denoise_heads_step_breakdown.json``).
 """
 from __future__ import annotations
 
@@ -133,6 +146,19 @@ SHAPES = [
     # CLIP's self-attention, once per image: 16 heads of 80 (onekv pads D
     # to 128)
     ("clip_self", (1, 257, 16, 80), 257, "onekv"),
+    # Wan2.2 at 480x832, 81 frames: 21 x 30 x 52 video tokens; 30 x 52 + 5
+    # geometry tokens a frame; text keys only (no CLIP branch)
+    ("wan22_dit_self", (2, 32760, 40, 128), 32760, "generic"),
+    ("wan22_dit_cross_text", (2, 32760, 40, 128), 512, "onekv"),
+    ("wan22_bicross_video_to_geometry", (2, 32760, 12, 96), 32865,
+     "generic"),
+    ("wan22_bicross_geometry_to_video", (2, 32865, 12, 96), 32760,
+     "generic"),
+    ("wan22_vggt_frame", (42, 1565, 16, 64), 1565, "d64"),
+    ("wan22_vggt_global", (2, 32865, 16, 64), 32865, "d64"),
+    # MoGe's DINOv2-L, once per clip: the example 592x336 image at 3600
+    # tokens is a 45 x 79 patch grid plus the class token
+    ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64"),
 ]
 # the shape whose time stands for each kernel in the JSON line
 HEADLINE = {"generic": "dit_self", "onekv": "dit_cross_text",
@@ -213,14 +239,22 @@ def attention_bound(kind, B, Lq, Lk, H, D):
 
 def layers_per_step(cfg):
     """The configuration's count of each attention shape in ``SHAPES`` per
-    denoise step (without the last step's heads, and CLIP, which runs once
-    per image): what each shape adds to its route's launches, which
-    ``phase_full_slice`` measures."""
+    denoise step (without the last step's heads, and CLIP and MoGe, which
+    run once per image): what each shape adds to its route's launches,
+    which ``phase_full_slice`` measures. A Wan2.2 configuration (the
+    control adapter) counts the ``wan22_`` shapes, a Wan2.1 one the
+    others."""
     n_dit, n_x, n_irg = cfg.dit.num_layers, len(cfg.xattn_set()), cfg.num_irg
-    return {"dit_self": n_dit, "dit_cross_text": n_dit,
-            "dit_cross_clip": n_dit, "bicross_video_to_geometry": n_x,
-            "bicross_geometry_to_video": n_x, "vggt_frame": n_irg,
-            "vggt_global": n_irg, "camera_trunk": 0, "clip_self": 0}
+    counts = {"dit_self": n_dit, "dit_cross_text": n_dit,
+              "bicross_video_to_geometry": n_x,
+              "bicross_geometry_to_video": n_x, "vggt_frame": n_irg,
+              "vggt_global": n_irg}
+    if cfg.dit.has_image_input:
+        counts["dit_cross_clip"] = n_dit
+    prefix = "wan22_" if cfg.dit.add_control_adapter else ""
+    out = {name: 0 for name, *_ in SHAPES}
+    out.update({prefix + name: n for name, n in counts.items()})
+    return out
 
 
 def time_sdpa(q, k, v, reps, do=None):
@@ -302,8 +336,10 @@ def phase_kernels(device):
     import torch
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
     g = torch.Generator(device=device).manual_seed(0)
-    layers = layers_per_step(FusionConfig())
+    layers = {k: v + layers_per_step(wan22_fusion_config())[k]
+              for k, v in layers_per_step(FusionConfig()).items()}
     per_kernel = {k: {"max_abs_err": 0.0, "by_shape": []} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
@@ -558,24 +594,42 @@ def check_outputs(cfg, latents, prediction, height, width, num_frames):
     return got
 
 
-def expected_launches(cfg, steps, clip=None):
+def expected_launches(cfg, steps, clip=None, moge=None):
     """Kernel launches of a denoise: per step DiT self (generic), bicross
-    both ways (generic), DiT cross text + CLIP (onekv), VGGT frame + global
-    (d64); the camera-head trunk (onekv) on the last step. With ``clip`` (a
-    CLIPVisionConfig), the image encoder's self-attention too: one launch
-    per block it runs (all but the last) on its route."""
+    both ways (generic), DiT cross text, and CLIP where the model takes it
+    (onekv), VGGT frame + global (d64); the camera-head trunk (onekv) on the
+    last step. With ``clip`` (a CLIPVisionConfig), the image encoder's
+    self-attention too: one launch per block it runs (all but the last) on
+    its route. With ``moge`` (a MoGeConfig and its token count), DINOv2's:
+    one per block."""
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     n_irg = len(cfg.xattn_set())
     trunk = 4 * cfg.vggt.camera_head.trunk_depth
+    cross = 2 if cfg.dit.has_image_input else 1
     out = {k: 0 for k in fa.LAUNCHES}
     out.update(generic=steps * (cfg.dit.num_layers + 2 * n_irg),
-               onekv=steps * 2 * cfg.dit.num_layers + trunk,
+               onekv=steps * cross * cfg.dit.num_layers + trunk,
                d64=steps * 2 * cfg.num_irg)
     if clip is not None:
         route = fa.route(clip.num_heads, clip.dim // clip.num_heads,
                          clip.num_patches + 1)
         out[route] += clip.num_layers - 1
+    if moge is not None:
+        mcfg, tokens = moge
+        enc = mcfg.encoder
+        out[fa.route(enc.num_heads, enc.dim // enc.num_heads, tokens)] += \
+            enc.depth
     return out
+
+
+def moge_tokens(cfg, image_hw, resolution_level=9):
+    """DINOv2's sequence length for an (H, W) image at the resolution level
+    ``moge_infer`` uses: the patch grid of its token budget plus the class
+    token."""
+    h, w = image_hw
+    lo, hi = cfg.num_tokens_range
+    n = int(lo + (resolution_level / 9) * (hi - lo))
+    return int((n / (w / h)) ** 0.5) * int((n * (w / h)) ** 0.5) + 1
 
 
 def phase_small_slice(device):
@@ -794,6 +848,135 @@ def phase_small_clip(device):
     if bad:
         raise AssertionError(f"the reduced clip disagrees with the CPU path "
                              f"beyond {SLICE_TOL}: {bad}")
+
+
+def small_wan22_configs():
+    """Reduced widths of the Wan2.2 path: the DiT, VGGT and bicross of
+    ``small_configs()`` with the Wan2.2 options (no CLIP branch, the
+    control adapter on 24 Plucker channels, no per-layer camera adapters),
+    the umT5 and VAE of ``small_clip_configs()``, and a MoGe whose DINOv2
+    has 2 heads of 64 (d64) in 4 blocks, over narrow conv stacks. Returns
+    the (fusion, t5, vae, moge) configs."""
+    import dataclasses
+    from fantasy_world_tpu_torch.models.moge.model import (DINOv2Config,
+                                                           MoGeConfig)
+    fusion, _, t5, _, vae = small_clip_configs()
+    fusion = dataclasses.replace(fusion, dit=dataclasses.replace(
+        fusion.dit, has_image_input=False, add_control_adapter=True,
+        in_dim_control_adapter=24, camera_adapter_end=0))
+    moge = MoGeConfig(encoder=DINOv2Config(dim=128, depth=4, num_heads=2),
+                      intermediate_layers=(0, 1, 2, 3), dim_proj_out=64,
+                      dim_res_blocks=(64, 32, 16, 16, 8),
+                      scale_head_dims=(128, 64, 64, 1))
+    return fusion, t5, vae, moge
+
+
+def phase_small_wan22(device):
+    """``Wan22Sampler.generate_video`` at reduced widths with MoGe and an
+    end image, 3 steps (t ~ 1000 and 909 on the high expert, t ~ 715 on
+    the low one with the heads), on the card in bf16 -- the low expert in
+    pinned host memory until the swap -- and on the CPU in f32 from the
+    same weights: the latents, the prediction and the float decode within
+    SLICE_TOL, exact launch counts with MoGe's."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.moge.model import MoGe
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import (WanVAE,
+                                                        vae_decode_tiled)
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser, pin_to_host)
+    from fantasy_world_tpu_torch.sampler import Wan22Sampler
+    t_phase = time.perf_counter()
+    fcfg, t5c, vaec, mcfg = small_wan22_configs()
+    ctors = {"high": (FusionModel, fcfg), "low": (FusionModel, fcfg),
+             "t5": (T5Encoder, t5c), "vae": (WanVAE, vaec),
+             "moge": (MoGe, mcfg)}
+    height, width, frames, steps = 256, 384, 21, 3
+    g = torch.Generator("cpu").manual_seed(13)
+    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                        generator=g) for n, (c, cfg) in ctors.items()}
+    for n in ("high", "low"):
+        wake_zero_inits(weights[n], g)
+    image, cams = clip_inputs(height, width, frames)
+    end = np.ascontiguousarray(image[::-1])
+    out_root = os.path.join(REPO, "build", "wan22_export")
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        mods = weights
+        if dev != "cpu":
+            mods = {}
+            for n, (c, cfg) in ctors.items():
+                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+                mods[n].load_state_dict(weights[n].state_dict())
+            pin_to_host(mods["low"])
+        pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"])
+        install_tokenizer(pipe, t5c.vocab, os.path.join(out_root, "tok"))
+        decode, seen, stages = pipe.decode_video, {}, []
+
+        def record(latents, **kw):
+            seen["latents"] = latents
+            return decode(latents, **kw)
+        pipe.decode_video = record
+        fa.reset_launch_counts()
+        sampler = Wan22Sampler(pipe, DualModelDenoiser(mods["high"],
+                                                       mods["low"]),
+                               mods["moge"])
+        video, pred = sampler.generate_video(
+            PROMPT, NEG_PROMPT, image=image, end_image=end,
+            camera_params=cams, seed=3, height=height, width=width,
+            num_frames=frames, sample_steps=steps,
+            stage_callback=stages.append)
+        launches = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            dec = vae_decode_tiled(pipe.vae, seen["latents"])
+        paths = Wan22Sampler.export(video, pred,
+                                    os.path.join(out_root, str(dev)),
+                                    stride=8)
+        got = check_outputs(fcfg, seen["latents"],
+                            {k: torch.from_numpy(v) for k, v in pred.items()},
+                            height, width, frames)
+        outs[str(dev)] = {"t": {k: v.float().cpu() for k, v in got.items()},
+                          "decode": dec.float().cpu(), "video": video,
+                          "launches": launches, "paths": paths,
+                          "stages": stages}
+        del mods, pipe, sampler, dec
+    shutil.rmtree(out_root, ignore_errors=True)
+    cpu, card = outs["cpu"], outs[str(device)]
+    errs = {k: _rel_l2([card["t"][k]], [cpu["t"][k]]) for k in cpu["t"]}
+    errs["decode"] = _rel_l2([card["decode"]], [cpu["decode"]])
+    want = expected_launches(fcfg, steps, moge=(mcfg, moge_tokens(
+        mcfg, image.shape[:2])))
+    say("small_wan22", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        tokenizer="transformers-wordlevel", image="example_png",
+        end_image="example_png_flipped", stages="|".join(card["stages"]),
+        video_file=saved_as(card["paths"]["video"]),
+        video_shape="x".join(map(str, card["video"].shape)),
+        video_max_level_diff=int(np.abs(card["video"].astype(int)
+                                        - cpu["video"].astype(int)).max()),
+        device_vs_cpu_rel_l2=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                         errs.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in card["launches"].items()
+                             if v}).replace(" ", ""))
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"the CPU run launched {cpu['launches']}")
+    if card["launches"] != want:
+        raise AssertionError(f"small wan22 launches {card['launches']} != "
+                             f"{want}")
+    if card["stages"].count("swap") != 1 or "swap" in cpu["stages"]:
+        raise AssertionError(f"expert swaps: card {card['stages']}, cpu "
+                             f"{cpu['stages']}")
+    if card["video"].shape != (frames, height, width, 3):
+        raise AssertionError(f"video shape {card['video'].shape}")
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"the reduced Wan2.2 clip disagrees with the "
+                             f"CPU path beyond {SLICE_TOL}: {bad}")
 
 
 def expected_train_launches(cfg, steps, remat=True):
@@ -1089,14 +1272,17 @@ def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
 
 def phase_full_clip(device, pipe, steps=2, seed=1024):
     """The whole clip at full width on the fusion model and pose encoder of
-    ``phase_full_slice``: umT5-XXL, CLIP ViT-H and the Wan VAE built on the
-    card from a seed, then ``generate_video`` at 336x592, 81 frames,
-    ``steps`` steps (the heads on the last), and ``export``. Prints each
-    stage's seconds (CUDA events) and peak GB, the launches, the output
-    shapes and that every output is finite; frees the encoders after."""
+    ``phase_full_slice``: umT5-XXL, CLIP ViT-H, the Wan VAE and MoGe-2
+    built on the card from a seed, then ``generate_video`` at 336x592, 81
+    frames, ``steps`` steps (the heads on the last), and ``export``. Prints
+    each stage's seconds (CUDA events) and peak GB, the launches, the
+    output shapes and that every output is finite; frees CLIP and MoGe
+    after. Returns the launches and {"t5", "vae"}, which the Wan2.2 clip
+    shares."""
     import shutil
     import torch
     from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.moge.model import MoGe, MoGeConfig
     from fantasy_world_tpu_torch.models.wan.clip import (CLIPVision,
                                                          CLIPVisionConfig)
     from fantasy_world_tpu_torch.models.wan.t5 import T5Config, T5Encoder
@@ -1115,10 +1301,12 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
                          device=device, dtype=torch.bfloat16, generator=g),
            "vae": build(lambda: WanVAE(VAEConfig()), device=device,
                         dtype=torch.bfloat16, generator=g)}
+    moge = build(lambda: MoGe(MoGeConfig()), device=device,
+                 dtype=torch.bfloat16, generator=g)
     torch.cuda.synchronize()
     say("full_clip_build", seconds=f"{time.perf_counter() - t0:.2f}",
         **{f"{n}_params": sum(p.numel() for p in m.parameters())
-           for n, m in enc.items()},
+           for n, m in dict(enc, moge=moge).items()},
         weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
     cpipe = FantasyWorldPipeline(pipe.fusion, pipe.pose_encoder, **enc)
     out_dir = os.path.join(REPO, "build", "clip_export", "full")
@@ -1142,7 +1330,7 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     mark("start")
-    video, pred = FantasyWorldSampler(cpipe).generate_video(
+    video, pred = FantasyWorldSampler(cpipe, moge=moge).generate_video(
         PROMPT, NEG_PROMPT, image=image, camera_params=cams,
         using_scale=True, seed=seed, height=height, width=width,
         num_frames=frames, sample_steps=steps, stage_callback=mark,
@@ -1165,7 +1353,8 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
     fixed = sum(v for k, v in stage_s.items() if not k.startswith("denoise"))
     reckoned = fixed + 49 * float(np.mean(mid)) + stage_s[
         f"denoise_step{steps}"]
-    want = expected_launches(cfg, steps, clip=CLIPVisionConfig())
+    want = expected_launches(cfg, steps, clip=CLIPVisionConfig(), moge=(
+        MoGeConfig(), moge_tokens(MoGeConfig(), image.shape[:2])))
     say("full_clip", seconds=f"{time.perf_counter() - t_phase:.2f}",
         steps=steps, tokenizer=tok, image="example_png",
         tokenizer_load_s=f"{tokenizer_load_s:.2f}",
@@ -1178,6 +1367,8 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
         launches=json.dumps({k: v for k, v in launches.items() if v}
                             ).replace(" ", ""),
         clip_onekv_launches=CLIPVisionConfig().num_layers - 1,
+        moge_d64_launches=MoGeConfig().encoder.depth,
+        moge_tokens=moge_tokens(MoGeConfig(), image.shape[:2]),
         shapes=json.dumps(shapes).replace(" ", ""), finite=finite)
     if video.shape != (frames, height, width, 3) or video.dtype != np.uint8:
         raise AssertionError(f"video {video.shape} {video.dtype}")
@@ -1188,7 +1379,162 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
         raise AssertionError("the full clip's prediction is not finite")
     if launches != want:
         raise AssertionError(f"full clip launches {launches} != {want}")
-    del enc, cpipe, video, pred
+    if "moge" not in stage_s:
+        raise AssertionError("the full clip ran no MoGe stage")
+    shared = {"t5": enc["t5"], "vae": enc["vae"]}
+    del enc, cpipe, moge, video, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shared
+
+
+def host_available_gb() -> float:
+    """MemAvailable of /proc/meminfo, in GB."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_full_wan22(device, shared, steps=2, seed=1024, profile_dir=None):
+    """The Wan2.2-Fun-A14B-Control-Camera clip at full width and depth:
+    two experts of ``wan22_fusion_config()`` and MoGe-2 built from a seed,
+    the low expert moved to pinned host memory, umT5 and the VAE of the
+    Wan2.1 clip shared; ``Wan22Sampler.generate_video`` at 480x832, 81
+    frames, ``steps`` steps (2: t = 1000 on the high expert, t ~ 833 on
+    the low one, swapped in, with the heads), tiled VAE encode and decode,
+    and ``export``. Prints each stage's seconds and peak GB, the launches,
+    the output shapes and that every output is finite. With
+    ``profile_dir``, the clip runs again with its two steps under the
+    profiler, started and stopped from the sampler's callbacks."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.moge.model import MoGe, MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser, pin_to_host)
+    from fantasy_world_tpu_torch.sampler import Wan22Sampler
+    cfg = wan22_fusion_config()
+    height, width, frames = 480, 832, 81
+    t_phase = t0 = time.perf_counter()
+    host_gb = host_available_gb()
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+
+    def expert():
+        m = build(lambda: FusionModel(cfg), device=device,
+                  dtype=torch.bfloat16, generator=g)
+        wake_zero_inits(m, g)
+        return m
+    low = expert()
+    torch.cuda.synchronize()
+    t_pin = time.perf_counter()
+    pin_to_host(low)
+    pin_s = time.perf_counter() - t_pin
+    high = expert()
+    moge = build(lambda: MoGe(MoGeConfig()), device=device,
+                 dtype=torch.bfloat16, generator=g)
+    torch.cuda.synchronize()
+    say("full_wan22_build", seconds=f"{time.perf_counter() - t0:.2f}",
+        host_available_gb_before=f"{host_gb:.1f}",
+        host_available_gb_after=f"{host_available_gb():.1f}",
+        expert_params=sum(p.numel() for p in high.parameters()),
+        pin_low_expert_s=f"{pin_s:.2f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    pipe = FantasyWorldPipeline(t5=shared["t5"], vae=shared["vae"])
+    out_dir = os.path.join(REPO, "build", "wan22_export", "full")
+    install_tokenizer(pipe, T5Config().vocab, os.path.join(out_dir, "tok"))
+    pipe.tokenize(PROMPT)             # the tokenizer loads on first use
+    image, cams = clip_inputs(height, width, frames)
+    den = DualModelDenoiser(high, low)
+    marks = []
+
+    def mark(name, *_):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    mark("start")
+    video, pred = Wan22Sampler(pipe, den, moge).generate_video(
+        PROMPT, NEG_PROMPT, image=image, camera_params=cams, seed=seed,
+        height=height, width=width, num_frames=frames, sample_steps=steps,
+        stage_callback=mark,
+        progress_callback=lambda i, n: mark(f"denoise_step{i}"))
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    stage_s = {name: marks[i - 1][1].elapsed_time(ev) / 1e3
+               for i, (name, ev, _) in enumerate(marks) if i}
+    peak_gb = {name: peak / 1e9 for name, _, peak in marks[1:]}
+    t0 = time.perf_counter()
+    paths = Wan22Sampler.export(video, pred, out_dir, conf_threshold=1.5)
+    stage_s["export"] = time.perf_counter() - t0
+    shapes = {"video": list(video.shape), **{k: list(v.shape)
+                                             for k, v in pred.items()}}
+    finite = all(np.isfinite(v).all() for v in pred.values())
+    ply_bytes = os.path.getsize(paths["ply"])
+    shutil.rmtree(os.path.dirname(out_dir), ignore_errors=True)
+    mid = [stage_s[f"denoise_step{i}"] for i in range(1, steps)]
+    fixed = sum(v for k, v in stage_s.items() if not k.startswith("denoise"))
+    reckoned = fixed + 49 * float(np.mean(mid)) + stage_s[
+        f"denoise_step{steps}"]
+    tokens = moge_tokens(MoGeConfig(), image.shape[:2])
+    want = expected_launches(cfg, steps, moge=(MoGeConfig(), tokens))
+    on_card = {h: str(den._device_of(m)) for h, m in den.experts.items()}
+    say("full_wan22", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        steps=steps, tokenizer="transformers-wordlevel", image="example_png",
+        video_file=saved_as(paths["video"]), ply_bytes=ply_bytes,
+        stage_seconds=json.dumps({k: round(v, 3) for k, v in
+                                  stage_s.items()}).replace(" ", ""),
+        stage_peak_gb=json.dumps({k: round(v, 2) for k, v in
+                                  peak_gb.items()}).replace(" ", ""),
+        reckoned_50_step_clip_s=f"{reckoned:.1f}",
+        expert_devices=f"high:{on_card[True]}|low:{on_card[False]}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""),
+        moge_tokens=tokens, shapes=json.dumps(shapes).replace(" ", ""),
+        finite=finite)
+    if video.shape != (frames, height, width, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"video {video.shape} {video.dtype}")
+    for key, shape in expected_shapes(cfg, height, width, frames).items():
+        if key != "latents" and tuple(pred[key].shape) != shape:
+            raise AssertionError(f"{key}: shape {pred[key].shape} != {shape}")
+    if not finite:
+        raise AssertionError("the Wan2.2 clip's prediction is not finite")
+    if launches != want:
+        raise AssertionError(f"Wan2.2 clip launches {launches} != {want}")
+    if list(stage_s).count("swap") != 1 or on_card[True] != "cpu" \
+            or on_card[False] == "cpu":
+        raise AssertionError(f"expert swap: stages {list(stage_s)}, "
+                             f"devices {on_card}")
+    if profile_dir:
+        # each step from right after its expert's control tokens to its
+        # progress callback; the unprofiled steps above are the yardsticks
+        prof = {True: ProfiledStep("wan22_denoise", stage_s["denoise_step1"],
+                                   profile_dir),
+                False: ProfiledStep("wan22_denoise_heads",
+                                    stage_s["denoise_step2"], profile_dir)}
+        begin = {"control_adapter_high": prof[True].begin,
+                 "control_adapter_low": prof[False].begin}
+        Wan22Sampler(pipe, den, moge).generate_video(
+            PROMPT, NEG_PROMPT, image=image, camera_params=cams, seed=seed,
+            height=height, width=width, num_frames=frames, sample_steps=steps,
+            stage_callback=lambda name: begin.get(name, lambda: None)(),
+            progress_callback=lambda i, n: prof[i == 1].end())
+        for p in prof.values():
+            p.report()
+    del den, high, low, moge, pipe, video, pred
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1385,8 +1731,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="profile the second and the last step of one more "
-                        "full-depth denoise and a third full-width training "
-                        "step into DIR")
+                        "full-depth denoise, a third full-width training "
+                        "step and both steps of one more Wan2.2 clip into "
+                        "DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1413,15 +1760,21 @@ def main(argv=None) -> int:
     phase_train_kernels(device, per_kernel)
     phase_small_slice(device)
     phase_small_clip(device)
+    phase_small_wan22(device)
     phase_small_train(device)
     phase_train_cli()
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
         device, profile_dir=args.profile)
-    clip_run = phase_full_clip(device, pipe)
+    clip_run, shared = phase_full_clip(device, pipe)
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
+    # the Wan2.1 model makes room for the experts
+    del pipe, cond, plucker_fea
+    gc.collect()
+    torch.cuda.empty_cache()
+    wan22 = phase_full_wan22(device, shared, profile_dir=args.profile)
 
     yard = ("tflops", "bound_ms", "bound_by", "share", "library_ms",
             "library_ms_by_backend", "by_shape")
@@ -1431,9 +1784,11 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": denoise[k] + clip_run[k] + train[f"{k}_stats"],
+            "launches": (denoise[k] + clip_run[k] + train[f"{k}_stats"]
+                         + wan22[k]),
             "denoise_launches": denoise[k],
             "clip_run_launches": clip_run[k],
+            "wan22_clip_launches": wan22[k],
             "launches_per_denoise_step": per_step[k],
             "stats_launches": train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],

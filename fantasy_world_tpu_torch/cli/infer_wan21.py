@@ -6,25 +6,27 @@
         --wan_ckpt_path DIR --model_ckpt model.pth --image_path in.png \\
         --camera_json_path cams.json --prompt "..." --output_dir out
 
-``--wan_ckpt_path`` holds the reference layout (``convert/checkpoint.py``).
-It runs bf16 on the card (``--device cuda``, the default) and f32 through
-the kernels' plain versions on the CPU only with ``--device cpu``; without
-a card and without ``--device cpu`` it exits. ``--auto_download`` fetches
-nothing: missing checkpoint files end the run with their names. The flags
-of options not ported yet (``--moge_ckpt``, ``--quant``,
-``--tea_cache_l1_thresh``, ``--mesh_*``, ``--ulysses``, ``--segment_size``,
-``--gen_ckpt_path``, ``--profile_dir``) end the run with the flag's name
-when set.
+``--wan_ckpt_path`` holds the reference layout (``convert/checkpoint.py``);
+``--moge_ckpt``, a MoGe-2 checkpoint, scales the camera path by the
+image's predicted depth (``--using_scale``). It runs bf16 on the card
+(``--device cuda``, the default) and f32 through the kernels' plain
+versions on the CPU only with ``--device cpu``; without a card and without
+``--device cpu`` it exits. ``--auto_download`` fetches nothing: missing
+checkpoint files end the run with their names. The flags of options not
+ported yet (``--quant``, ``--tea_cache_l1_thresh``, ``--mesh_*``,
+``--ulysses``, ``--segment_size``, ``--gen_ckpt_path``, ``--profile_dir``)
+end the run with the flag's name when set.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 # flag -> the value that leaves the option off; anything else is refused
-NOT_PORTED = {"moge_ckpt": None, "quant": None, "tea_cache_l1_thresh": None,
+NOT_PORTED = {"quant": None, "tea_cache_l1_thresh": None,
               "mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
               "ulysses": False, "segment_size": None, "gen_ckpt_path": None,
               "profile_dir": None}
@@ -68,11 +70,13 @@ def parse_args(argv=None):
     p.add_argument("--auto_download", type=str2bool, default=True,
                    help="accepted; nothing is fetched, and missing "
                         "checkpoint files end the run")
+    p.add_argument("--moge_ckpt", type=str, default=None,
+                   help="MoGe-2 checkpoint for the scene-scale "
+                        "normalization")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
     g = p.add_argument_group("not ported yet (setting one exits)")
-    g.add_argument("--moge_ckpt", type=str, default=None)
     g.add_argument("--quant", type=str, default=None,
                    choices=["int8", "fp8"])
     g.add_argument("--tea_cache_l1_thresh", type=float, default=None)
@@ -86,25 +90,29 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_args(args) -> None:
+def check_common(args, missing) -> None:
     """Exit (SystemExit, naming the cause) for a flag of an option that is
-    not ported, for missing checkpoint files, and for ``--device cuda``
-    without a card."""
+    not ported, a missing MoGe checkpoint, missing checkpoint files
+    (``missing``), and ``--device cuda`` without a card."""
     import torch
 
-    from ..convert.checkpoint import missing_files
     for flag, off in NOT_PORTED.items():
         if getattr(args, flag) != off:
-            what = ("MoGe scale normalization is not ported yet"
-                    if flag == "moge_ckpt" else "not ported yet")
-            raise SystemExit(f"--{flag}: {what}")
-    missing = missing_files(args.wan_ckpt_path, args.model_ckpt)
+            raise SystemExit(f"--{flag}: not ported yet")
+    if args.moge_ckpt is not None and not os.path.isfile(args.moge_ckpt):
+        raise SystemExit(f"--moge_ckpt: no MoGe checkpoint at "
+                         f"{args.moge_ckpt}")
     if missing:
         raise SystemExit("checkpoint files missing (nothing is downloaded): "
                          + ", ".join(missing))
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run f32 on "
                          "the CPU")
+
+
+def check_args(args) -> None:
+    from ..convert.checkpoint import missing_files
+    check_common(args, missing_files(args.wan_ckpt_path, args.model_ckpt))
 
 
 def run(args) -> dict:
@@ -123,7 +131,7 @@ def run(args) -> dict:
             json.load(fh), image_size=(args.height, args.width))
     sampler = FantasyWorldSampler.from_checkpoint(
         args.wan_ckpt_path, args.model_ckpt, device=device, dtype=dtype,
-        tokenizer_path=args.tokenizer_path)
+        tokenizer_path=args.tokenizer_path, moge_ckpt=args.moge_ckpt)
     image = read_image(args.image_path)
     t0 = time.perf_counter()
     video, prediction = sampler.generate_video(

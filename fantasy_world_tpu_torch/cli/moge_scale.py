@@ -1,10 +1,10 @@
 """Scene-scale normalization of the camera path (``cli/moge_scale.py``).
 
 With a ``moge_infer`` callable (image (H, W, 3) in [0, 1] -> {"depth",
-optionally "mask"}), frame 0's predicted depth sets the scale the camera
-translations are divided by. Without one -- MoGe is not ported yet -- it
-warns and only rebases the path on its first camera, as the JAX package
-does when no MoGe weights are installed.
+optionally "mask"}; ``models/moge/infer.py`` over a loaded model), frame
+0's predicted depth sets the scale the camera translations are divided by.
+Without one it warns and only rebases the path on its first camera, as
+the JAX package does when no MoGe weights are installed.
 """
 from __future__ import annotations
 

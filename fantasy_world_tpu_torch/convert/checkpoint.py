@@ -28,6 +28,14 @@ into memory.
 An optional ``configs.json`` in ``wan_ckpt_path`` ({"fusion", "t5",
 "clip", "vae"}: each a config's ``dataclasses.asdict``) gives the
 architecture; without one the production configs apply.
+
+The Wan2.2-Fun-A14B-Control-Camera layout (``load_wan22``) holds the two
+experts' base DiTs under ``high_noise_model/`` and ``low_noise_model/``,
+their Reward-LoRAs under ``PAI/Wan2.2-Fun-Reward-LoRAs/``, the shared
+``Wan2.1_VAE.pth`` and umT5 ``.pth``, and one fusion ``.pth`` per expert.
+Each expert is its base DiT with its LoRA merged at 0.55
+(``convert/lora.py``), then the fusion file overlaid as above, with the
+same q/k permutation.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from ..models.fusion.model import FusionConfig, FusionModel
 from ..models.wan.camera import CameraPoseEncoder, CameraPoseEncoderConfig
 from ..models.wan.clip import CLIPVision, CLIPVisionConfig
 from ..models.wan.t5 import T5Config, T5Encoder
+from ..models.wan.dit import WanDiTConfig
 from ..models.wan.vae import VAEConfig, WanVAE
 from ..ops.rope import permute_qk_out_channels
 
@@ -55,6 +64,15 @@ CLIP_FILE = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
 T5_FILE = "models_t5_umt5-xxl-enc-bf16.pth"
 CONFIGS_FILE = "configs.json"
 POSE_PREFIX = "camera_condition.pose_encoder."
+EXPERT_SHARDS = {True: "high_noise_model/diffusion_pytorch_model*.safetensors",
+                 False: "low_noise_model/diffusion_pytorch_model*.safetensors"}
+LORA_DIR = os.path.join("PAI", "Wan2.2-Fun-Reward-LoRAs")
+EXPERT_LORAS = {
+    True: os.path.join(LORA_DIR, "Wan2.2-Fun-A14B-InP-high-noise-HPS2.1"
+                                 ".safetensors"),
+    False: os.path.join(LORA_DIR, "Wan2.2-Fun-A14B-InP-low-noise-HPS2.1"
+                                  ".safetensors")}
+LORA_MULTIPLIER = 0.55
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
               "F16": torch.float16, "BF16": torch.bfloat16,
@@ -106,8 +124,8 @@ def read_shards(paths: List[str]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def dit_shards(wan_ckpt_path: str) -> List[str]:
-    return sorted(glob.glob(os.path.join(wan_ckpt_path, DIT_SHARDS)))
+def dit_shards(wan_ckpt_path: str, pattern: str = DIT_SHARDS) -> List[str]:
+    return sorted(glob.glob(os.path.join(wan_ckpt_path, pattern)))
 
 
 def missing_files(wan_ckpt_path: str, model_ckpt: str) -> List[str]:
@@ -121,9 +139,31 @@ def missing_files(wan_ckpt_path: str, model_ckpt: str) -> List[str]:
     return missing
 
 
+def missing_files_wan22(wan_ckpt_path: str, model_ckpt_high: str,
+                        model_ckpt_low: str) -> List[str]:
+    """The checkpoint files that ``load_wan22`` needs and cannot find."""
+    missing = [os.path.join(wan_ckpt_path, pat)
+               for pat in EXPERT_SHARDS.values()
+               if not dit_shards(wan_ckpt_path, pat)]
+    return missing + [p for p in [model_ckpt_high, model_ckpt_low] + [
+        os.path.join(wan_ckpt_path, f) for f in
+        (*EXPERT_LORAS.values(), VAE_FILE, T5_FILE)]
+        if not os.path.isfile(p)]
+
+
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------
+
+def wan22_fusion_config() -> FusionConfig:
+    """Wan2.2-Fun-A14B-Control-Camera FantasyWorld: no CLIP branch, the
+    control adapter on 24 Plucker channels, no per-layer camera
+    adapters."""
+    return FusionConfig(dit=WanDiTConfig(
+        has_image_input=False, require_vae_embedding=True,
+        add_control_adapter=True, in_dim_control_adapter=24,
+        camera_adapter_end=0), camera_control=True)
+
 
 def config_from_dict(default, values: Mapping):
     """``default`` (a config instance) with the fields in ``values``
@@ -141,10 +181,11 @@ def config_from_dict(default, values: Mapping):
     return dataclasses.replace(default, **kw)
 
 
-def read_configs(wan_ckpt_path: str) -> Dict[str, object]:
+def read_configs(wan_ckpt_path: str,
+                 fusion: FusionConfig = FusionConfig()) -> Dict[str, object]:
     """{"fusion", "t5", "clip", "vae"} configs: ``configs.json``'s fields
-    over the production defaults."""
-    defaults = {"fusion": FusionConfig(), "t5": T5Config(),
+    over the production defaults (``fusion`` for the fusion model)."""
+    defaults = {"fusion": fusion, "t5": T5Config(),
                 "clip": CLIPVisionConfig(), "vae": VAEConfig()}
     path = os.path.join(wan_ckpt_path, CONFIGS_FILE)
     if not os.path.isfile(path):
@@ -284,3 +325,58 @@ def load_pipeline(wan_ckpt_path: str, model_ckpt: str, *, device,
         tokenizer_path = cand if os.path.isdir(cand) else None
     return FantasyWorldPipeline(fusion, pose, t5=t5, clip=clip, vae=vae,
                                 tokenizer_path=tokenizer_path)
+
+
+def expert_state_dict(wan_ckpt_path: str, high: bool, model_ckpt: str,
+                      cfg: FusionConfig) -> Dict[str, torch.Tensor]:
+    """One Wan2.2 expert: its base DiT shards with its Reward-LoRA merged,
+    the fusion checkpoint overlaid -> {FusionModel name: tensor}."""
+    from .lora import merge_lora_into_state_dict
+    base = read_shards(dit_shards(wan_ckpt_path, EXPERT_SHARDS[high]))
+    base = merge_lora_into_state_dict(
+        base, read_safetensors(os.path.join(wan_ckpt_path,
+                                            EXPERT_LORAS[high])),
+        multiplier=LORA_MULTIPLIER, verbose=True)
+    return fusion_state_dict_from(base, read_pth(model_ckpt), cfg)
+
+
+def load_wan22(wan_ckpt_path: str, model_ckpt_high: str, model_ckpt_low: str,
+               *, device, dtype: torch.dtype = torch.bfloat16,
+               tokenizer_path: Optional[str] = None,
+               timestep_boundary: float = 900.0):
+    """The Wan2.2 layout -> (a ``FantasyWorldPipeline`` with umT5 and the
+    VAE, a ``DualModelDenoiser``), all in ``dtype``. On a card the high
+    expert is built there and the low one in pinned host memory, to trade
+    places at the boundary; on the CPU both are built there."""
+    from ..pipelines.wan_video import FantasyWorldPipeline
+    from ..pipelines.wan_video_22 import DualModelDenoiser, pin_to_host
+    cfgs = read_configs(wan_ckpt_path, wan22_fusion_config())
+    missing = missing_files_wan22(wan_ckpt_path, model_ckpt_high,
+                                  model_ckpt_low)
+    if missing:
+        raise FileNotFoundError(f"checkpoint files missing: {missing}")
+    device = torch.device(device)
+
+    def make(ctor, cfg, dev=device):
+        return build(lambda: ctor(cfg), device=dev, dtype=dtype)
+
+    experts = {}
+    for high, ckpt in ((True, model_ckpt_high), (False, model_ckpt_low)):
+        on_card = high or device.type == "cpu"
+        model = make(FusionModel, cfgs["fusion"],
+                     device if on_card else "cpu")
+        load_into(model, expert_state_dict(wan_ckpt_path, high, ckpt,
+                                           cfgs["fusion"]),
+                  "high expert" if high else "low expert")
+        experts[high] = model if on_card else pin_to_host(model)
+    vae = load_into(make(WanVAE, cfgs["vae"]), _strip(
+        read_pth(os.path.join(wan_ckpt_path, VAE_FILE)), ("model.",)), "vae")
+    t5 = load_into(make(T5Encoder, cfgs["t5"]),
+                   read_pth(os.path.join(wan_ckpt_path, T5_FILE)), "t5")
+    if tokenizer_path is None:
+        cand = os.path.join(wan_ckpt_path, "google", "umt5-xxl")
+        tokenizer_path = cand if os.path.isdir(cand) else None
+    pipe = FantasyWorldPipeline(t5=t5, vae=vae, tokenizer_path=tokenizer_path)
+    return pipe, DualModelDenoiser(experts[True], experts[False],
+                                   timestep_boundary)
+

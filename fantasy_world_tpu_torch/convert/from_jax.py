@@ -133,6 +133,14 @@ def _dit(w: _Writer, p: Mapping, pre: str) -> None:
         w.linear(pre + "img_emb.proj.1", ie["fc1"])
         w.linear(pre + "img_emb.proj.3", ie["fc2"])
         w.norm(pre + "img_emb.proj.4", ie["norm_out"])
+    if "control_adapter" in p:
+        ca = p["control_adapter"]
+        w.conv(pre + "control_adapter.conv", ca["conv"])
+        for i, rb in enumerate(ca["residual_blocks"]):
+            w.conv(f"{pre}control_adapter.residual_blocks.{i}.conv1",
+                   rb["conv1"])
+            w.conv(f"{pre}control_adapter.residual_blocks.{i}.conv2",
+                   rb["conv2"])
     for i, b in enumerate(p["blocks"]):
         bp = f"{pre}blocks.{i}."
         for attn in ("self_attn", "cross_attn"):
@@ -408,3 +416,42 @@ def lora_state_dict(lora: Mapping, model: nn.Module
             out[name + ".down"] = _arr(down[i].T)
             out[name + ".up"] = _arr(up[i].T)
     return out
+
+
+def _moge_conv_stack(w: _Writer, p: Mapping, pre: str) -> None:
+    for i, conv in enumerate(p["input_blocks"]):
+        if conv is not None:
+            w.conv(f"{pre}input_blocks.{i}", conv)
+    for i, blocks in enumerate(p["res_blocks"]):
+        for j, rb in enumerate(blocks):
+            w.conv(f"{pre}res_blocks.{i}.{j}.layers.2", rb["conv1"])
+            w.conv(f"{pre}res_blocks.{i}.{j}.layers.5", rb["conv2"])
+    for i, conv in enumerate(p["output_blocks"]):
+        if conv is not None:
+            w.conv(f"{pre}output_blocks.{i}", conv)
+    for i, r in enumerate(p["resamplers"]):
+        if "deconv" in r:
+            w.conv(f"{pre}resamplers.{i}.0", r["deconv"])
+        w.conv(f"{pre}resamplers.{i}.1", r["conv"])
+
+
+def moge_state_dict(params: Mapping, model: nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_moge`` / ``convert_moge`` tree -> f32 state dict of
+    ``MoGe`` (the patch matmul kernel back into its conv)."""
+    w = _Writer(_shapes(model))
+    bb, pre = params["encoder"]["backbone"], "encoder.backbone."
+    w.linear(pre + "patch_embed.proj", bb["patch_embed"])
+    w.put(pre + "cls_token", bb["cls_token"])
+    w.put(pre + "pos_embed", bb["pos_embed"])
+    for i, blk in enumerate(bb["blocks"]):
+        _vggt_block(w, blk, f"{pre}blocks.{i}.")
+    w.norm(pre + "norm", bb["norm"])
+    for i, conv in enumerate(params["encoder"]["output_projections"]):
+        w.conv(f"encoder.output_projections.{i}", conv)
+    for head in ("neck", "points_head", "mask_head", "normal_head"):
+        if head in params:
+            _moge_conv_stack(w, params[head], head + ".")
+    for key, fc in params["scale_head"].items():
+        w.linear(f"scale_head.{2 * int(key[2:])}", fc)
+    return w.sd

@@ -69,8 +69,10 @@ class FusionModel(nn.Module):
         self.bicross = nn.ModuleList([Bicross(cfg.bicross)
                                       for _ in range(cfg.num_irg)])
 
-    def forward_prologue(self, latents, timestep, context, clip_feature, y):
-        """Embeddings, patchify and the three RoPE tables."""
+    def forward_prologue(self, latents, timestep, context, clip_feature, y,
+                         control_tokens=None):
+        """Embeddings, patchify (plus the control-camera tokens) and the
+        three RoPE tables."""
         cfg, dit = self.cfg, self.dit
         t, t_mod = dit.time_embed(timestep)
         ctx = dit.text_embed(context)
@@ -79,7 +81,7 @@ class FusionModel(nn.Module):
             x_in = torch.cat([latents, y], dim=1)
         if cfg.dit.has_image_input and clip_feature is not None:
             ctx = torch.cat([dit.img_emb(clip_feature), ctx], dim=1)
-        x, (f, h, w) = dit.patchify(x_in)
+        x, (f, h, w) = dit.patchify(x_in, control_tokens)
         dev = x.device
         ropes = rope_ops.cos_sin_half_from_angles(
             rope_ops.build_angles_3d(cfg.dit.head_dim, f, h, w), dev)
@@ -160,14 +162,17 @@ class FusionModel(nn.Module):
 
     def joint_forward(self, latents, timestep, context, clip_feature=None,
                       y=None, plucker_fea=None, return_prediction=False,
-                      remat=False):
+                      remat=False, control_tokens=None):
         """One denoise evaluation. latents (B, 16, f, h', w'); timestep
         (B,); context (B, 512, text_dim); clip_feature (B, 257, 1280);
-        y (B, 20, f, h', w'); plucker_fea (B, L, plucker_dim).
+        y (B, 20, f, h', w'); plucker_fea (B, L, plucker_dim);
+        control_tokens (1 or B, L, dim), the Wan2.2 control-camera adapter's
+        output (``WanDiT.control_adapter_tokens``).
         Returns (noise_pred (B, 16, f, h', w'), prediction dict | None).
         ``remat``: recompute each block on the backward pass."""
         (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
-            self.forward_prologue(latents, timestep, context, clip_feature, y)
+            self.forward_prologue(latents, timestep, context, clip_feature, y,
+                                  control_tokens)
         x, inters = self.run_stack(x, ctx, t_mod, timestep, ropes,
                                    rope_bi_dit, rope_bi_agg, fhw, plucker_fea,
                                    return_prediction, remat)

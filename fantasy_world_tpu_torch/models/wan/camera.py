@@ -110,3 +110,40 @@ class CameraPoseEncoder(nn.Module):
         x = layer_norm(linear(x, fc[0]), fc[1].weight, fc[1].bias, 1e-5)
         x = F.gelu(x.float()).to(x.dtype)
         return layer_norm(linear(x, fc[3]), fc[4].weight, fc[4].bias, 1e-5)
+
+
+class AdapterResidualBlock(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(dim, dim, 3, padding=1)
+        self.conv2 = nn.Conv2d(dim, dim, 3, padding=1)
+
+    def forward(self, x):
+        r = F.relu(conv2d(self.conv1, x))
+        return x + conv2d(self.conv2, r)
+
+
+class SimpleAdapter(nn.Module):
+    """The Wan2.2 control-camera adapter (``simple_adapter_apply``):
+    pixel-unshuffle by ``downscale``, a stride-2 2x2 conv to the DiT width,
+    then residual blocks of two 3x3 convs (cuDNN). Names are the
+    reference's (``conv``, ``residual_blocks.0.conv1``, ...)."""
+
+    def __init__(self, in_dim: int, out_dim: int, downscale: int = 8,
+                 num_residual_blocks: int = 1):
+        super().__init__()
+        self.downscale = downscale
+        self.conv = nn.Conv2d(in_dim * downscale ** 2, out_dim, 2, stride=2)
+        self.residual_blocks = nn.ModuleList([
+            AdapterResidualBlock(out_dim) for _ in range(num_residual_blocks)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, F, H, W) control-camera latents -> (B, out_dim, F,
+        H / 16, W / 16)."""
+        B, C, Fr, H, W = x.shape
+        h = x.transpose(1, 2).reshape(B * Fr, C, H, W)
+        h = conv2d(self.conv, F.pixel_unshuffle(h, self.downscale),
+                   stride=(2, 2), padding=(0, 0))
+        for rb in self.residual_blocks:
+            h = rb(h)
+        return h.view(B, Fr, *h.shape[1:]).transpose(1, 2)

@@ -25,6 +25,7 @@ from ...core.params import RMSNorm, linear, normal_
 from ...ops import rope as rope_ops
 from ...ops.attention import dot_product_attention
 from ...ops.norms import layer_norm, layer_norm_modulate, rms_norm
+from .camera import SimpleAdapter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,9 +282,9 @@ class WanDiT(nn.Module):
 
     def __init__(self, cfg: WanDiTConfig):
         super().__init__()
-        if cfg.has_image_pos_emb or cfg.add_control_adapter \
-                or cfg.seperated_timestep:
-            raise NotImplementedError("options off the Wan2.1 denoise path")
+        if cfg.has_image_pos_emb or cfg.seperated_timestep:
+            raise NotImplementedError("options off the Wan2.1 and Wan2.2 "
+                                      "control-camera paths")
         self.cfg = cfg
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim,
                                          cfg.patch_size, cfg.patch_size)
@@ -300,6 +301,9 @@ class WanDiT(nn.Module):
         self.head = Head(cfg)
         if cfg.has_image_input:
             self.img_emb = ImageEmbedding(cfg.clip_feature_dim, cfg.dim)
+        if cfg.add_control_adapter:
+            self.control_adapter = SimpleAdapter(cfg.in_dim_control_adapter,
+                                                 cfg.dim)
 
     def time_embed(self, timestep: torch.Tensor):
         """timestep (B,) -> t (B, dim), t_mod (B, 6, dim)."""
@@ -313,10 +317,19 @@ class WanDiT(nn.Module):
     def text_embed(self, context):
         return _gelu_tanh_mlp(self.text_embedding, context)
 
-    def patchify(self, x):
+    def control_adapter_tokens(self, control_camera_latents):
+        """The Wan2.2 control-camera adapter in token space, (B, f*h*w,
+        dim). It sees only the camera path, so a clip evaluates it once per
+        expert and hands the result to every step (``control_tokens``)."""
+        ctrl = self.control_adapter(control_camera_latents)
+        return ctrl.permute(0, 2, 3, 4, 1).reshape(ctrl.shape[0], -1,
+                                                   self.cfg.dim)
+
+    def patchify(self, x, control_tokens=None):
         """(B, C, F, H, W) -> tokens (B, f*h*w, dim) + grid (f, h, w): the
         kernel==stride Conv3d as a reshape and a matmul, patch features in
-        (c, dt, dy, dx) order."""
+        (c, dt, dy, dx) order; ``control_tokens`` (batch 1 or B) added to
+        the patch embedding."""
         pt, ph, pw = self.cfg.patch_size
         B, C, Fr, H, W = x.shape
         f, h, w = Fr // pt, H // ph, W // pw
@@ -326,6 +339,8 @@ class WanDiT(nn.Module):
         weight = self.patch_embedding.weight
         tokens = F.linear(x, weight.reshape(weight.shape[0], -1).to(x.dtype),
                           self.patch_embedding.bias.to(x.dtype))
+        if control_tokens is not None:
+            tokens = tokens + control_tokens
         return tokens, (f, h, w)
 
     def unpatchify(self, x, grid):

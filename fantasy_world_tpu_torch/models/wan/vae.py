@@ -356,6 +356,19 @@ def vae_decode_tiled(vae: WanVAE, latents: torch.Tensor,
                        out_T=latents.shape[2] * 4 - 3, clamp=True)
 
 
+def vae_encode_tiled(vae: WanVAE, video: torch.Tensor,
+                     tile_size=REFERENCE_TILE[0],
+                     tile_stride=REFERENCE_TILE[1]) -> torch.Tensor:
+    """Spatially tiled encode (``vae_encode_tiled``); tile size and stride
+    in latent pixels, as the reference's public API takes them."""
+    up = 8
+    return tiled_blend(vae.encode, video,
+                       (tile_size[0] * up, tile_size[1] * up),
+                       (tile_stride[0] * up, tile_stride[1] * up),
+                       out_scale=1 / up, out_C=vae.cfg.z_dim,
+                       out_T=(video.shape[2] + 3) // 4, clamp=False)
+
+
 def tile_plan(tile_size: Optional[Tuple[int, int]],
               tile_stride: Optional[Tuple[int, int]]):
     """The reference grid when neither is given; both, or an error."""

@@ -11,7 +11,7 @@ PyTorch: conditioning -> denoise -> decode.
     reference's tiled one, to uint8 frames.
 
 Not ported here: TeaCache, segmented/resumable loops, sliding windows,
-multi-device meshes, the end-image mask and the Wan2.2 VAE.
+multi-device meshes and the Wan2.2 TI2V VAE.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from ..models.fusion.model import FusionModel
 from ..models.wan.camera import CameraPoseEncoder
 from ..models.wan.clip import CLIPVision, preprocess_image
 from ..models.wan.t5 import T5Encoder
-from ..models.wan.vae import WanVAE, tile_plan, vae_decode_tiled
+from ..models.wan.vae import (WanVAE, tile_plan, vae_decode_tiled,
+                               vae_encode_tiled)
 from ..schedulers.flow_match import FlowMatchScheduler
 
 
@@ -131,21 +132,27 @@ class FantasyWorldPipeline:
 
     @torch.no_grad()
     def encode_y(self, image: np.ndarray, num_frames: int, height: int,
-                 width: int) -> torch.Tensor:
+                 width: int, end_image: Optional[np.ndarray] = None,
+                 tiled: bool = False) -> torch.Tensor:
         """image (H, W, 3) in [-1, 1] -> y (1, 4 + z, f, h, w): the mask of
-        the first latent frame and the VAE latent of the video that holds
-        the image, then num_frames - 1 zero frames."""
+        the given frames and the VAE latent of the video that holds the
+        image, zero frames, and ``end_image`` (same form) as the last frame
+        when given. ``tiled`` encodes over the reference's tile grid."""
         img = self._image(image)
         msk = np.ones((1, num_frames, height // 8, width // 8), np.float32)
         msk[:, 1:] = 0
+        frames = [img.transpose(0, 1),
+                  img.new_zeros((3, num_frames - 1, height, width))]
+        if end_image is not None:
+            msk[:, -1:] = 1
+            frames[1][:, -1] = self._image(end_image)[0]
         msk = np.concatenate([msk[:, 0:1].repeat(4, axis=1), msk[:, 1:]],
                              axis=1)
         msk = msk.reshape(1, msk.shape[1] // 4, 4, height // 8, width // 8)
         msk = msk.transpose(0, 2, 1, 3, 4)[0]                # (4, f, h, w)
-        video = torch.cat([img.transpose(0, 1),
-                           img.new_zeros((3, num_frames - 1, height, width))],
-                          dim=1)[None]
-        lat = self.vae.encode(video.to(self.dtype))[0]
+        video = torch.cat(frames, dim=1)[None].to(self.dtype)
+        lat = (vae_encode_tiled(self.vae, video) if tiled
+               else self.vae.encode(video))[0]
         return torch.cat([torch.as_tensor(msk, dtype=lat.dtype,
                                           device=lat.device), lat])[None]
 

@@ -1,20 +1,25 @@
-"""FantasyWorldSampler (``sampler.py``) in PyTorch: the user-facing
-``generate_video`` API over ``pipelines/wan_video.py``.
+"""The samplers (``sampler.py``) in PyTorch: the user-facing
+``generate_video`` API of the Wan2.1 FantasyWorld model
+(``FantasyWorldSampler``, over ``pipelines/wan_video.py``) and of
+Wan2.2-Fun-A14B-Control-Camera (``Wan22Sampler``, over
+``pipelines/wan_video_22.py``).
 
-Built from modules already on their device (``FantasyWorldSampler(pipe)``)
-or from the reference checkpoint layout (``from_checkpoint``);
+Each is built from modules already on their device or from the reference
+checkpoint layout (``from_checkpoint``), optionally with a MoGe model for
+the scene-scale normalization of the camera path;
 ``generate_video(prompt, neg_prompt, image, camera_params, ...)`` returns
-the uint8 frames and the geometry prediction, ``generate_videos`` runs a
-batch of clips in one denoise, and ``export`` writes the MP4 and the
-colored PLY.
+the uint8 frames and the geometry prediction, and ``export`` writes the
+MP4 and the colored PLY. ``FantasyWorldSampler.generate_videos`` runs a
+batch of clips in one denoise.
 
 Not ported here: the mesh, Ulysses, TeaCache and segmented-denoise
-arguments, and MoGe, whose place is the ``moge_infer`` callable.
+arguments.
 """
 from __future__ import annotations
 
+import functools
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +27,11 @@ import torch
 from .cli.moge_scale import moge_scale_normalize
 from .hostops.camera import (camera_matrices, extri_intri_to_pose_encoding,
                              plucker_from_pose_encoding)
+from .models.moge.infer import moge_infer
+from .models.moge.model import MoGe
 from .pipelines.wan_video import FantasyWorldPipeline
+from .pipelines.wan_video_22 import (DualModelDenoiser,
+                                     control_camera_latents_from_plucker)
 
 
 def image_pm1(image: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -45,35 +54,45 @@ class FantasyWorldSampler:
     """Wan2.1 FantasyWorld sampler over a ``FantasyWorldPipeline``.
 
     ``stage_callback(name)``, where given, runs after each conditioning
-    stage and the decode are queued ("camera", "clip", "vae_encode",
-    "t5_pos", "t5_neg", "vae_decode"); ``progress_callback(done, total)``
-    after each denoise step."""
+    stage and the decode are queued ("moge" when a MoGe model scales the
+    camera path, "camera", "clip", "vae_encode", "t5_pos", "t5_neg",
+    "vae_decode"); ``progress_callback(done, total)`` after each denoise
+    step."""
 
     def __init__(self, pipe: FantasyWorldPipeline,
-                 moge_infer: Optional[Callable] = None):
+                 moge: Optional[MoGe] = None):
         self.pipe = pipe
-        self.moge_infer = moge_infer
+        self.moge = moge
 
     @classmethod
     def from_checkpoint(cls, wan_ckpt_path: str, model_ckpt: str, *,
                         device, dtype: torch.dtype = torch.bfloat16,
-                        tokenizer_path: Optional[str] = None
+                        tokenizer_path: Optional[str] = None,
+                        moge_ckpt: Optional[str] = None
                         ) -> "FantasyWorldSampler":
         from .convert.checkpoint import load_pipeline
+        from .convert.moge import load_moge
         return cls(load_pipeline(wan_ckpt_path, model_ckpt, device=device,
-                                 dtype=dtype, tokenizer_path=tokenizer_path))
+                                 dtype=dtype, tokenizer_path=tokenizer_path),
+                   None if moge_ckpt is None else load_moge(
+                       moge_ckpt, device=device, dtype=dtype))
 
     # -- conditioning -------------------------------------------------------
 
     def prepare_camera(self, camera_params: List, image: np.ndarray,
-                       height: int, width: int, using_scale: bool = True
-                       ) -> np.ndarray:
+                       height: int, width: int, using_scale: bool = True,
+                       stage=None) -> np.ndarray:
         """Camera list -> Plucker video (1, S, H, W, 6), scale-normalized
-        first when ``using_scale``."""
+        first when ``using_scale``: by MoGe's depth of ``image`` when the
+        sampler has a MoGe model (then ``stage("moge")``), else only
+        rebased on the first camera."""
         extr, intr = camera_matrices(camera_params)
         if using_scale:
-            extr = moge_scale_normalize(image, extr, intr,
-                                        moge_infer=self.moge_infer)
+            infer = None if self.moge is None else functools.partial(
+                moge_infer, self.moge)
+            extr = moge_scale_normalize(image, extr, intr, moge_infer=infer)
+            if infer is not None and stage is not None:
+                stage("moge")
         pose_enc = extri_intri_to_pose_encoding(extr[:, :3, :], intr,
                                                 (height, width))
         return plucker_from_pose_encoding(pose_enc, (height, width))
@@ -87,7 +106,7 @@ class FantasyWorldSampler:
         plucker_fea = None
         if camera_params is not None:
             plucker_fea = pipe.encode_plucker(self.prepare_camera(
-                camera_params, image, height, width, using_scale))
+                camera_params, image, height, width, using_scale, stage))
         stage("camera")
         clip_feature = pipe.encode_clip(img)
         stage("clip")
@@ -192,3 +211,83 @@ class FantasyWorldSampler:
                                         out["ply"], stride=stride,
                                         valid_mask=valid)
         return out
+
+
+class Wan22Sampler:
+    """Wan2.2-Fun-A14B-Control-Camera sampler: umT5 and the Wan2.1 VAE in
+    a ``FantasyWorldPipeline``, the two experts in a ``DualModelDenoiser``;
+    the camera path enters as control-camera latents, and there is no CLIP
+    branch. The VAE encodes and decodes over the reference's tile grid: at
+    480x832 the untiled passes do not fit on an 80 GB card beside an expert
+    and umT5. ``stage_callback`` names "moge", "camera", "vae_encode",
+    "t5_pos", "t5_neg", the denoiser's "control_adapter_high" / "_low" and
+    "swap", and "vae_decode"."""
+
+    def __init__(self, pipe: FantasyWorldPipeline,
+                 denoiser: DualModelDenoiser, moge: Optional[MoGe] = None):
+        self.pipe = pipe
+        self.denoiser = denoiser
+        self.moge = moge
+
+    @classmethod
+    def from_checkpoint(cls, wan_ckpt_path: str, model_ckpt_high: str,
+                        model_ckpt_low: str, *, device,
+                        dtype: torch.dtype = torch.bfloat16,
+                        tokenizer_path: Optional[str] = None,
+                        moge_ckpt: Optional[str] = None,
+                        timestep_boundary: float = 900.0) -> "Wan22Sampler":
+        from .convert.checkpoint import load_wan22
+        from .convert.moge import load_moge
+        pipe, denoiser = load_wan22(
+            wan_ckpt_path, model_ckpt_high, model_ckpt_low, device=device,
+            dtype=dtype, tokenizer_path=tokenizer_path,
+            timestep_boundary=timestep_boundary)
+        return cls(pipe, denoiser, None if moge_ckpt is None else load_moge(
+            moge_ckpt, device=device, dtype=dtype))
+
+    prepare_camera = FantasyWorldSampler.prepare_camera
+
+    def generate_video(self, prompt: str, neg_prompt: str = "",
+                       image: Optional[np.ndarray] = None,
+                       image_path: Optional[str] = None,
+                       end_image: Optional[np.ndarray] = None,
+                       camera_params: Optional[List] = None,
+                       using_scale: bool = True, seed: Optional[int] = 42,
+                       height: int = 480, width: int = 832,
+                       num_frames: int = 81, sample_steps: int = 50,
+                       cfg_scale: float = 5.0, progress_callback=None,
+                       stage_callback=None
+                       ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """image and end_image (H, W, 3) in [0, 1], or image_path ->
+        (uint8 frames (T, H, W, 3), geometry prediction {name: f32
+        numpy})."""
+        stage = stage_callback or (lambda name: None)
+        if image is None:
+            image = read_image(image_path)
+        img = image_pm1(image, height, width)
+        end = None if end_image is None else image_pm1(end_image, height,
+                                                       width)
+        ctrl = None
+        if camera_params is not None:
+            ctrl = control_camera_latents_from_plucker(self.prepare_camera(
+                camera_params, image, height, width, using_scale, stage))
+        stage("camera")
+        y = self.pipe.encode_y(img, num_frames, height, width, end_image=end,
+                               tiled=True)
+        stage("vae_encode")
+        ctx_pos = self.pipe.encode_prompt(prompt)
+        stage("t5_pos")
+        ctx_neg = self.pipe.encode_prompt(neg_prompt)
+        stage("t5_neg")
+        latents, prediction = self.denoiser.denoise(
+            ctx_pos, ctx_neg, y, height, width, num_frames=num_frames,
+            num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
+            control_camera_latents=ctrl, progress_callback=progress_callback,
+            stage_callback=stage)
+        video = self.pipe.decode_video(latents, tiled=True)
+        stage("vae_decode")
+        return video, {k: v.float().cpu().numpy()
+                       for k, v in prediction.items()}
+
+    export = staticmethod(FantasyWorldSampler.export)
+

@@ -383,3 +383,92 @@ def _small_clip_on_cpu(seen, workdir):
     assert video.shape == (nf, h, w, 3)
     assert seen == cs.expected_launches(fcfg, 1, clip=clipc)
     assert all(seen[r] for r in fa.ROUTES)
+
+
+def test_wan22_shape_launches_agree_with_expected_launches():
+    """The Wan2.2 configuration counts the ``wan22_`` shapes, text-only
+    cross-attention among them, and they sum per route to what one more
+    step adds to ``expected_launches``."""
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
+    cfg = wan22_fusion_config()
+    per_shape = cs.layers_per_step(cfg)
+    assert set(per_shape) == {name for name, *_ in cs.SHAPES}
+    assert all(v == 0 for k, v in per_shape.items()
+               if not k.startswith("wan22_"))
+    one, two = cs.expected_launches(cfg, 1), cs.expected_launches(cfg, 2)
+    for kernel in ("generic", "onekv", "d64"):
+        got = sum(per_shape[name] for name, _, _, k in cs.SHAPES
+                  if k == kernel)
+        assert got == two[kernel] - one[kernel], kernel
+    assert two == dict(one, generic=2 * 88, onekv=2 * 40 + 16, d64=2 * 48)
+
+
+def test_moge_tokens_and_launches():
+    """The example 592x336 image at MoGe's 3600-token level is a 45 x 79
+    patch grid plus the class token; DINOv2-L adds one d64 launch per
+    block."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
+    m = MoGeConfig()
+    assert cs.moge_tokens(m, (336, 592)) == 45 * 79 + 1 == 3556
+    assert ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64") in cs.SHAPES
+    plain = cs.expected_launches(FusionConfig(), 2)
+    assert cs.expected_launches(FusionConfig(), 2, moge=(m, 3556)) == dict(
+        plain, d64=plain["d64"] + 24)
+    b = cs.attention_bound("fwd", 1, 3556, 3556, 16, 64)
+    assert b["flop"] == 4 * 16 * 3556 ** 2 * 64 and b["bound_by"] == \
+        "operations"
+
+
+def test_small_wan22_launch_contract(monkeypatch, tmp_path):
+    """The reduced Wan2.2 clip through ``Wan22Sampler.generate_video`` on
+    the CPU (one step, MoGe, an end image), every attention recorded by
+    the route it takes on the card: the counts chip_smoke's small_wan22
+    phase holds the card to, every route among them."""
+    import torch
+    import fantasy_world_tpu_torch.ops.attention as att
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.moge.model import MoGe
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser)
+    from fantasy_world_tpu_torch.sampler import Wan22Sampler
+    seen = {k: 0 for k in fa.LAUNCHES}
+
+    def record(q, k, v, *, scale=None):
+        seen[fa.route(q.shape[2], q.shape[3], k.shape[1])] += 1
+        return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    monkeypatch.setattr(att, "flash_attention", record)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        fcfg, t5c, vaec, mcfg = cs.small_wan22_configs()
+        g = torch.Generator().manual_seed(0)
+        high, low, t5, vae, moge = (
+            build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                  generator=g)
+            for c, cfg in ((FusionModel, fcfg), (FusionModel, fcfg),
+                           (T5Encoder, t5c), (WanVAE, vaec), (MoGe, mcfg)))
+        assert fcfg.dit.text_dim == t5c.dim and vaec.z_dim == \
+            fcfg.dit.out_dim
+        pipe = FantasyWorldPipeline(t5=t5, vae=vae)
+        cs.install_tokenizer(pipe, t5c.vocab, str(tmp_path))
+        h, w, nf = 256, 384, 21
+        image, cams = cs.clip_inputs(h, w, nf)
+        video, pred = Wan22Sampler(pipe, DualModelDenoiser(high, low),
+                                   moge).generate_video(
+            cs.PROMPT, cs.NEG_PROMPT, image=image, end_image=image[::-1],
+            camera_params=cams, seed=0, height=h, width=w, num_frames=nf,
+            sample_steps=1)
+    finally:
+        torch.set_num_threads(threads)
+    assert video.shape == (nf, h, w, 3)
+    assert seen == cs.expected_launches(
+        fcfg, 1, moge=(mcfg, cs.moge_tokens(mcfg, image.shape[:2])))
+    assert all(seen[r] for r in fa.ROUTES)

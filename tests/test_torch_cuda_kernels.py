@@ -7,7 +7,7 @@ so run these without the suite's conftest:
 import pytest
 import torch
 
-from chip_smoke import grad_tol
+from chip_smoke import SHAPES, grad_tol
 from fantasy_world_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +88,28 @@ def test_kernel_matches_plain(device, B, Lq, H, D, Lk, kernel):
     torch.cuda.synchronize()
     assert fa.LAUNCHES[kernel] == before + 2
     assert torch.equal(out, again)             # no order-dependent sums
+    ref = fa.attention_plain(q, k, v, D ** -0.5)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _out_err(out, ref) <= 1
+
+
+# the Wan2.2 denoise at 480x832 and MoGe's DINOv2: 32k rows and keys (a
+# per-head stride product of 32865 * 40 * 128 passes 2^27), ragged tails
+# (MoGe's 3556 keys leave 100 in the last 128-key tile)
+LONG = [(name, shape, lk, kernel) for name, shape, lk, kernel in SHAPES
+        if name.startswith(("wan22_", "moge_"))]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", LONG,
+                         ids=[s[0] for s in LONG])
+def test_kernel_at_wan22_and_moge_shapes(device, name, shape, Lk, kernel):
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel
+    q, k, v = _qkv(shape, Lk, device, seed=7)
+    before = fa.LAUNCHES[kernel]
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel] == before + 1
     ref = fa.attention_plain(q, k, v, D ** -0.5)
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
     assert _out_err(out, ref) <= 1

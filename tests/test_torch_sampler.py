@@ -488,7 +488,7 @@ def test_cli_refuses_unported_options(env, layout, tmp_path, monkeypatch,
                               *extra), monkeypatch, cuda=True)
     assert msg.startswith(flag)
     if flag == "--moge_ckpt":
-        assert "MoGe" in msg
+        assert "no MoGe checkpoint at moge.pt" in msg
 
 
 def test_cli_names_missing_checkpoint_files(env, layout, tmp_path,

@@ -120,25 +120,31 @@ def test_from_jax_loads_strictly(pipes):
 def test_port_never_imports_jax():
     """The port and chip_smoke.py import nothing of JAX or of the JAX
     package (checked in a fresh interpreter: this one has JAX loaded),
-    with the sampler, the loader and the inference CLI among the modules
-    and the CLI's argument checks run."""
+    with the samplers, the loaders, MoGe, the Wan2.2 pipeline and both
+    inference CLIs among the modules and the CLIs' argument checks run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('sampler', 'convert.checkpoint', 'cli.infer_wan21'):\n"
+        "for m in ('sampler', 'convert.checkpoint', 'cli.infer_wan21',"
+        " 'cli.infer_wan22', 'models.moge.model', 'models.moge.infer',"
+        " 'convert.moge', 'convert.lora', 'pipelines.wan_video_22'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
-        "from fantasy_world_tpu_torch.cli import infer_wan21\n"
-        "try:\n"
-        "    infer_wan21.main(['--wan_ckpt_path', 'nowhere', '--model_ckpt',"
-        " 'none.pth', '--image_path', 'x', '--camera_json_path', 'y',"
-        " '--prompt', 'p', '--output_dir', 'o', '--device', 'cpu'])\n"
-        "except SystemExit as e:\n"
-        "    assert 'checkpoint files missing' in str(e), e\n"
+        "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
+        "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"
+        " (infer_wan22.main, ['--model_ckpt_high', 'h.pth',"
+        " '--model_ckpt_low', 'l.pth'])):\n"
+        "    try:\n"
+        "        main(['--wan_ckpt_path', 'nowhere', '--image_path', 'x',"
+        " '--camera_json_path', 'y', '--prompt', 'p', '--output_dir', 'o',"
+        " '--device', 'cpu'] + extra)\n"
+        "    except SystemExit as e:\n"
+        "        assert 'checkpoint files missing' in str(e), e\n"
         "import chip_smoke\n"
         "chip_smoke.small_configs()\n"
         "chip_smoke.small_clip_configs()\n"
+        "chip_smoke.small_wan22_configs()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fantasy_world_tpu' or m.startswith('fantasy_world_tpu.')]"
         "\n"

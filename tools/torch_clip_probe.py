@@ -9,11 +9,12 @@ not take apart, on one NVIDIA GPU:
     cuDNN's SDPA on the same inputs, and the CUDA-event time of a call
     alone and of 50 calls back to back (which take the host's time per
     call when the device waits for it);
-  * the full-size Wan VAE (seeded weights, bf16) alone on the card: the
-    encode of an 81-frame 336x592 video, the decode of its 21x42x74
-    latents, and the tiled decode on the reference's (30,52)/(15,26) grid:
-    seconds (CUDA events, after a warm-up run) and the peak memory above
-    the weights.
+  * the full-size Wan VAE (seeded weights, bf16) alone on the card, at the
+    Wan2.1 clip's 336x592 and the Wan2.2 clip's 480x832, 81 frames: the
+    encode of the video and the decode of its latents, untiled and on the
+    reference's (30,52)/(15,26) grid: seconds (CUDA events, after a
+    warm-up run) and the peak memory above the weights, or the error of a
+    pass the card refuses.
 
 Prints the card's name and power limit first, then one line per
 measurement.
@@ -108,28 +109,37 @@ def probe_vae(device):
     vae = build(lambda: V.WanVAE(V.VAEConfig()), device=device,
                 dtype=torch.bfloat16,
                 generator=torch.Generator(device=device).manual_seed(0))
-    g = torch.Generator(device=device).manual_seed(1)
-    video = torch.rand((1, 3, 81, 336, 592), generator=g, device=device
-                       ).mul(2).sub(1).bfloat16()
-    latents = torch.randn((1, 16, 21, 42, 74), generator=g, device=device
-                          ).bfloat16()
-    base = torch.cuda.memory_allocated()
-    runs = {
-        "encode": lambda: vae.encode(video),
-        "decode": lambda: vae.decode(latents),
-        "decode_tiled_reference_grid": lambda: V.vae_decode_tiled(
-            vae, latents, *V.REFERENCE_TILE)}
     out = {}
-    for name, fn in runs.items():
-        with torch.no_grad():
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = event_ms(fn, reps=2)
-        out[name] = {"seconds": ms / 1e3, "peak_gb_above_weights": (
-            torch.cuda.max_memory_allocated() - base) / 1e9}
-        torch.cuda.empty_cache()
-        print(f"[vae] {name} {json.dumps(out[name])}", flush=True)
+    for geometry, (h, w) in (("336x592", (336, 592)),
+                             ("480x832", (480, 832))):
+        g = torch.Generator(device=device).manual_seed(1)
+        video = torch.rand((1, 3, 81, h, w), generator=g, device=device
+                           ).mul(2).sub(1).bfloat16()
+        latents = torch.randn((1, 16, 21, h // 8, w // 8), generator=g,
+                              device=device).bfloat16()
+        base = torch.cuda.memory_allocated()
+        runs = {
+            "encode": lambda: vae.encode(video),
+            "decode": lambda: vae.decode(latents),
+            "encode_tiled_reference_grid": lambda: V.vae_encode_tiled(
+                vae, video, *V.REFERENCE_TILE),
+            "decode_tiled_reference_grid": lambda: V.vae_decode_tiled(
+                vae, latents, *V.REFERENCE_TILE)}
+        for name, fn in runs.items():
+            key = f"{geometry}_{name}"
+            try:
+                with torch.no_grad():
+                    fn()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = event_ms(fn, reps=2)
+                out[key] = {"seconds": ms / 1e3, "peak_gb_above_weights": (
+                    torch.cuda.max_memory_allocated() - base) / 1e9}
+            except RuntimeError as e:     # the card refuses this pass
+                out[key] = {"refused": str(e).splitlines()[0][:200]}
+            torch.cuda.empty_cache()
+            print(f"[vae] {key} {json.dumps(out[key])}", flush=True)
+        del video, latents
     return out
 
 
