@@ -8,7 +8,8 @@ non-zero):
   1. build the hand-written attention kernels from ``csrc/`` (nvcc, sm_90a,
      one process per source, all at once);
   2. each forward kernel against its plain PyTorch version on seeded bf16
-     inputs at the denoise shapes: max abs error (bound: two bf16 ulps of
+     inputs at the denoise shapes, those of the CFG pair and those of the
+     serve batch (``SERVE_CLIPS`` clips): max abs error (bound: two bf16 ulps of
      the largest output, at most 1.5e-2) and CUDA-event times of both,
      beside the yardsticks: the bound (the larger of FLOP at the bf16 peak
      and bytes at the HBM rate), the share of it reached,
@@ -57,6 +58,29 @@ Between steps 4 and 5, ``small_wan22``: the Wan2.2 sampler at reduced widths
 (two experts, one swapped in through the host, MoGe, the end image), 3
 steps with the boundary between the second and the third, on the card
 against the CPU.
+
+The serving path (``core/quant.py``, ``pipelines/tea_cache.py``, the
+segmented and resumable denoise, ``serving/server.py``, ``cli/serve.py``):
+  * after step 3, ``qlinear``: int8 and fp8 at the DiT's linears of the
+    full step (32,634 rows, 5120 -> 5120 and 13,824, 13,824 -> 5120)
+    against the same arithmetic reckoned in f32, within two bf16 ulps of
+    the largest output; the times of int8 qlinear, its activation quant,
+    ``torch._int_mm`` and rescale, fp8 qlinear and bf16 ``F.linear``,
+    beside their bounds;
+  * after small_wan22, ``small_serve``: int8, fp8, and TeaCache cut after
+    a segment and resumed, on the reduced Wan2.1 model, and the reduced
+    Wan2.2 experts quantized to int8 (the low one pinned and swapped in)
+    with TeaCache's dual plan, cut at the boundary and resumed; card
+    against CPU within SLICE_TOL, the card's plans equal to the CPU's;
+  * after step 8, ``full_serve``: a ``GenerationServer`` on 127.0.0.1:0 over
+    the full clip's sampler, two same-key jobs batched as B = 2 (2 steps)
+    and a TeaCache job (4 steps, a plan that skips), posted over HTTP and
+    polled to done: each batch's seconds and peak GB, the progress seen,
+    the outputs' shapes, exact launches;
+  * after step 10, ``full_quant``: the Wan2.2 expert left on the card, one
+    step in bf16, then quantized to int8 in place and the step again, once
+    under the profiler: seconds, peak and resident GB, the drift against
+    bf16, the device time of the quantization glue.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -160,6 +184,16 @@ SHAPES = [
     # tokens is a 45 x 79 patch grid plus the class token
     ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64"),
 ]
+# full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
+# Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
+# and MoGe still run once per clip, at batch 1)
+SERVE_CLIPS = 2
+SHAPES += [("serve_" + name, (B * SERVE_CLIPS, Lq, H, D), Lk, kernel)
+           for name, (B, Lq, H, D), Lk, kernel in SHAPES
+           if name in ("dit_self", "dit_cross_text", "dit_cross_clip",
+                       "bicross_video_to_geometry",
+                       "bicross_geometry_to_video", "vggt_frame",
+                       "vggt_global", "camera_trunk")]
 # the shape whose time stands for each kernel in the JSON line
 HEADLINE = {"generic": "dit_self", "onekv": "dit_cross_text",
             "d64": "vggt_global", "bwd_dq": "dit_self",
@@ -243,7 +277,7 @@ def layers_per_step(cfg):
     run once per image): what each shape adds to its route's launches,
     which ``phase_full_slice`` measures. A Wan2.2 configuration (the
     control adapter) counts the ``wan22_`` shapes, a Wan2.1 one the
-    others."""
+    others but the ``serve_`` ones, which only ``phase_full_serve`` runs."""
     n_dit, n_x, n_irg = cfg.dit.num_layers, len(cfg.xattn_set()), cfg.num_irg
     counts = {"dit_self": n_dit, "dit_cross_text": n_dit,
               "bicross_video_to_geometry": n_x,
@@ -594,31 +628,43 @@ def check_outputs(cfg, latents, prediction, height, width, num_frames):
     return got
 
 
-def expected_launches(cfg, steps, clip=None, moge=None):
+def expected_launches(cfg, steps, clip=None, moge=None, skipped=0):
     """Kernel launches of a denoise: per step DiT self (generic), bicross
     both ways (generic), DiT cross text, and CLIP where the model takes it
     (onekv), VGGT frame + global (d64); the camera-head trunk (onekv) on the
-    last step. With ``clip`` (a CLIPVisionConfig), the image encoder's
-    self-attention too: one launch per block it runs (all but the last) on
-    its route. With ``moge`` (a MoGeConfig and its token count), DINOv2's:
-    one per block."""
+    last step; none on the ``skipped`` steps (TeaCache replaces their block
+    stack). With ``clip`` and ``moge``, the encoders' launches of one clip
+    (``encoder_launches``)."""
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     n_irg = len(cfg.xattn_set())
     trunk = 4 * cfg.vggt.camera_head.trunk_depth
     cross = 2 if cfg.dit.has_image_input else 1
+    run = steps - skipped
     out = {k: 0 for k in fa.LAUNCHES}
-    out.update(generic=steps * (cfg.dit.num_layers + 2 * n_irg),
-               onekv=steps * cross * cfg.dit.num_layers + trunk,
-               d64=steps * 2 * cfg.num_irg)
+    out.update(generic=run * (cfg.dit.num_layers + 2 * n_irg),
+               onekv=run * cross * cfg.dit.num_layers + trunk,
+               d64=run * 2 * cfg.num_irg)
+    for k, v in encoder_launches(clip, moge).items():
+        out[k] += v
+    return out
+
+
+def encoder_launches(clip=None, moge=None):
+    """The kernel launches of one clip's encoders: with ``clip`` (a
+    CLIPVisionConfig), the image encoder's self-attention, one launch per
+    block it runs (all but the last) on its route; with ``moge`` (a
+    MoGeConfig and its token count), DINOv2's, one per block."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    out = {}
     if clip is not None:
         route = fa.route(clip.num_heads, clip.dim // clip.num_heads,
                          clip.num_patches + 1)
-        out[route] += clip.num_layers - 1
+        out[route] = out.get(route, 0) + clip.num_layers - 1
     if moge is not None:
         mcfg, tokens = moge
         enc = mcfg.encoder
-        out[fa.route(enc.num_heads, enc.dim // enc.num_heads, tokens)] += \
-            enc.depth
+        route = fa.route(enc.num_heads, enc.dim // enc.num_heads, tokens)
+        out[route] = out.get(route, 0) + enc.depth
     return out
 
 
@@ -1276,9 +1322,8 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
     built on the card from a seed, then ``generate_video`` at 336x592, 81
     frames, ``steps`` steps (the heads on the last), and ``export``. Prints
     each stage's seconds (CUDA events) and peak GB, the launches, the
-    output shapes and that every output is finite; frees CLIP and MoGe
-    after. Returns the launches and {"t5", "vae"}, which the Wan2.2 clip
-    shares."""
+    output shapes and that every output is finite. Returns the launches,
+    the clip's pipeline and MoGe, which the serve phase uses."""
     import shutil
     import torch
     from fantasy_world_tpu_torch.core.params import build
@@ -1381,11 +1426,7 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
         raise AssertionError(f"full clip launches {launches} != {want}")
     if "moge" not in stage_s:
         raise AssertionError("the full clip ran no MoGe stage")
-    shared = {"t5": enc["t5"], "vae": enc["vae"]}
-    del enc, cpipe, moge, video, pred
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, shared
+    return launches, cpipe, moge
 
 
 def host_available_gb() -> float:
@@ -1397,7 +1438,8 @@ def host_available_gb() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def phase_full_wan22(device, shared, steps=2, seed=1024, profile_dir=None):
+def phase_full_wan22(device, shared, quant_profile_dir, steps=2, seed=1024,
+                     profile_dir=None):
     """The Wan2.2-Fun-A14B-Control-Camera clip at full width and depth:
     two experts of ``wan22_fusion_config()`` and MoGe-2 built from a seed,
     the low expert moved to pinned host memory, umT5 and the VAE of the
@@ -1407,7 +1449,9 @@ def phase_full_wan22(device, shared, steps=2, seed=1024, profile_dir=None):
     and ``export``. Prints each stage's seconds and peak GB, the launches,
     the output shapes and that every output is finite. With
     ``profile_dir``, the clip runs again with its two steps under the
-    profiler, started and stopped from the sampler's callbacks."""
+    profiler, started and stopped from the sampler's callbacks. Then
+    ``phase_full_quant`` on the expert left on the card (its profile into
+    ``quant_profile_dir``)."""
     import shutil
     import torch
     from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
@@ -1534,9 +1578,586 @@ def phase_full_wan22(device, shared, steps=2, seed=1024, profile_dir=None):
             progress_callback=lambda i, n: prof[i == 1].end())
         for p in prof.values():
             p.report()
+    quant = phase_full_quant(device, den, quant_profile_dir)
     del den, high, low, moge, pipe, video, pred
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, quant
+
+
+# ---------------------------------------------------------------------------
+# the serving path: quantization, TeaCache, the segmented and resumable
+# denoise, the job server
+# ---------------------------------------------------------------------------
+
+# the DiT's linears at the full Wan2.1 step: the CFG pair of 16,317 video
+# tokens through q/k/v/o (5120 -> 5120), the FFN in (5120 -> 13824) and out
+QLINEAR_ROWS = 2 * 16317
+QLINEAR_SHAPES = (("dit_qkvo", 5120, 5120), ("dit_ffn_in", 5120, 13824),
+                  ("dit_ffn_out", 13824, 5120))
+# the dense int8 tensor-core peak of one H100 SXM
+PEAK_INT8_OPS = 1979e12
+# the reduced serving runs quantize every linear at least this wide (the
+# production default of 1024 would leave the reduced widths in bf16)
+SMALL_QUANT_MIN_DIM = 128
+
+
+def qlinear_bound(rows, k, n, mode):
+    """The least time of one quantized linear: its multiply-adds at the
+    int8 (int8) or bf16 (fp8, dequantized; and bf16 itself) peak, against
+    its bytes: bf16 x and y, the weight in its storage type."""
+    flop = 2 * rows * k * n
+    w_bytes = k * n * (2 if mode == "bf16" else 1)
+    nbytes = 2 * rows * k + w_bytes + 2 * rows * n
+    t_ops = flop / (PEAK_INT8_OPS if mode == "int8" else PEAK_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_qlinear(device):
+    """int8 and fp8 ``qlinear`` at the production shapes against the same
+    arithmetic reckoned in f32 (int8: the activations quantized as qlinear
+    does, the integer product in f32; fp8: the dequantized weight), within
+    two bf16 ulps of the largest output; the times of int8 qlinear, its
+    three parts (activation quant, ``torch._int_mm``, rescale), fp8 qlinear
+    and the bf16 ``F.linear``, beside their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from fantasy_world_tpu_torch.core import quant
+    g = torch.Generator(device).manual_seed(21)
+    out = {}
+    for name, k, n in QLINEAR_SHAPES:
+        x = torch.randn((QLINEAR_ROWS, k), generator=g, device=device,
+                        dtype=torch.bfloat16)
+        lin = torch.nn.Linear(k, n, device=device, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lin.weight.uniform_(-k ** -0.5, k ** -0.5, generator=g)
+            lin.bias.uniform_(-k ** -0.5, k ** -0.5, generator=g)
+        q8 = quant.QuantLinear.from_linear(lin, "int8")
+        f8 = quant.QuantLinear.from_linear(lin, "fp8")
+        with torch.no_grad():
+            got8 = quant.qlinear(x, q8)
+            xq, sx = quant.quantize_activations(x)
+            ref8 = ((xq.float() @ q8.weight.float().t()) * sx * q8.kscale
+                    + lin.bias.float())
+            del xq
+            err8, tol8 = _max_err(got8, ref8), out_tol(ref8)
+            del got8, ref8
+            gotf = quant.qlinear(x, f8)
+            wf = (f8.weight.float() * f8.kscale[:, None]).to(x.dtype)
+            reff = F.linear(x.float(), wf.float(), lin.bias.float())
+            errf, tolf = _max_err(gotf, reff), out_tol(reff)
+            del gotf, reff, wf
+            xq, sx = quant.quantize_activations(x)
+            y32 = quant.int_mm(xq, q8.weight)
+            ms = {"int8_ms": time_ms(lambda: quant.qlinear(x, q8), 5),
+                  "act_quant_ms": time_ms(
+                      lambda: quant.quantize_activations(x), 5),
+                  "int_mm_ms": time_ms(lambda: quant.int_mm(xq, q8.weight),
+                                       5),
+                  "rescale_ms": time_ms(
+                      lambda: quant.rescale(y32, sx, q8, x.dtype), 5),
+                  "fp8_ms": time_ms(lambda: quant.qlinear(x, f8), 5),
+                  "bf16_ms": time_ms(
+                      lambda: F.linear(x, lin.weight, lin.bias), 5)}
+            del xq, sx, y32
+        bounds = {m: qlinear_bound(QLINEAR_ROWS, k, n, m)
+                  for m in ("int8", "fp8", "bf16")}
+        out[name] = dict(ms, int8_err=err8, int8_tol=tol8, fp8_err=errf,
+                         fp8_tol=tolf)
+        say("qlinear", shape=f"{QLINEAR_ROWS}x{k}->{n}",
+            **{kk: f"{v:.3f}" for kk, v in ms.items()},
+            **{f"{m}_bound_ms": f"{b:.3f}" for m, (b, _) in bounds.items()},
+            int8_bound_by=bounds["int8"][1],
+            glue_share=f"{(ms['act_quant_ms'] + ms['rescale_ms']) / ms['int8_ms']:.3f}",
+            int8_max_abs_err=f"{err8:.3e}", int8_tol=f"{tol8:.3e}",
+            fp8_max_abs_err=f"{errf:.3e}", fp8_tol=f"{tolf:.3e}")
+        if not (err8 <= tol8 and errf <= tolf):
+            raise AssertionError(f"qlinear {name}: int8 {err8} (bound "
+                                 f"{tol8}), fp8 {errf} (bound {tolf})")
+        del x, lin, q8, f8
+        torch.cuda.empty_cache()
+    return out
+
+
+def tea_threshold(dit, steps, device=None):
+    """A TeaCache threshold whose plan over ``steps`` skips the second step
+    and computes the third: 1.5x the 480P polynomial at the second step's
+    drift (the random weights' drift is far from the real model's, so no
+    fixed threshold would); returns (threshold, plan)."""
+    from fantasy_world_tpu_torch.pipelines import tea_cache as tc
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    ts = FlowMatchScheduler().set_timesteps(steps).timesteps
+    drift = tc.modulation_drift_schedule(tc.time_modulations(dit, ts,
+                                                             device))
+    poly = np.poly1d(tc.TEACACHE_COEFFICIENTS[tc.DEFAULT_MODEL_ID])
+    thresh = 1.5 * float(poly(drift[1]))
+    return thresh, tc.plan_skips(drift, thresh)
+
+
+class _Cut(Exception):
+    """Raised from a progress callback to cut a run after a segment."""
+
+
+def _cut_after_first(done, total):
+    raise _Cut
+
+
+def phase_small_serve(device):
+    """The serving options at reduced widths, on the card in bf16 against
+    the CPU in f32 from the same weights, each within SLICE_TOL (relative
+    L2 of the latents and the prediction): the Wan2.1 denoise with its
+    model quantized to int8 and to fp8 (each quantized where it runs), and
+    with TeaCache, cut after its first segment and resumed from the partial
+    state (the CPU run unsegmented; the card's plan and the CPU's equal);
+    the Wan2.2 dual-expert denoise with both experts quantized to int8 on
+    the card and the low one then pinned in host memory (``place_expert``,
+    in ``load_wan22``'s order), the dual plan, cut at the expert boundary and resumed there, the low expert
+    swapped in. Each cut run runs segments of two steps and is cut after
+    the first; the resumed run, in segments of one, reports its start."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines import tea_cache as tc
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.core.quant import count_quantized
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser, place_expert)
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    t_phase = time.perf_counter()
+    fcfg, pcfg = small_configs()
+    height, width, frames, steps = 128, 192, 9, 4
+    ts = FlowMatchScheduler().set_timesteps(steps).timesteps
+    g = torch.Generator("cpu").manual_seed(17)
+    cpu_f = build(lambda: FusionModel(fcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    wake_zero_inits(cpu_f, g)
+    cpu_p = build(lambda: CameraPoseEncoder(pcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    cond = conditioning(fcfg.dit, height, width, frames,
+                        torch.Generator("cpu").manual_seed(18), 16)
+    work = os.path.join(REPO, "build", "serve_small")
+    os.makedirs(work, exist_ok=True)
+
+    def pipe_on(dev, quant=None):
+        dtype = torch.float32 if dev == "cpu" else torch.bfloat16
+        fus = build(lambda: FusionModel(fcfg), device=dev, dtype=dtype)
+        fus.load_state_dict(cpu_f.state_dict())
+        pose = build(lambda: CameraPoseEncoder(pcfg), device=dev,
+                     dtype=dtype)
+        pose.load_state_dict(cpu_p.state_dict())
+        pipe = FantasyWorldPipeline(fus, pose)
+        n = pipe.quantize(quant, min_dim=SMALL_QUANT_MIN_DIM) if quant else 0
+        return pipe, n
+
+    def denoise(pipe, **kw):
+        lat, pred = pipe.denoise(*cond[:4], height, width, num_frames=frames,
+                                 num_inference_steps=steps, seed=3,
+                                 plucker_fea=pipe.encode_plucker(cond[4]),
+                                 **kw)
+        return [lat.float().cpu()] + [pred[k].float().cpu()
+                                      for k in sorted(pred)]
+
+    errs, fields = {}, {}
+    before = dict(fa.LAUNCHES)
+    for mode in ("int8", "fp8"):
+        (cpu, n_cpu), (card, n_card) = pipe_on("cpu", mode), pipe_on(
+            device, mode)
+        if n_cpu != n_card or n_card == 0:
+            raise AssertionError(f"{mode}: {n_cpu} CPU and {n_card} card "
+                                 f"layers quantized")
+        errs[mode] = _rel_l2(denoise(card), denoise(cpu))
+        fields[f"{mode}_layers"] = n_card
+        del cpu, card
+    # TeaCache, segmented, cut after the first segment and resumed
+    (cpu, _), (card, _) = pipe_on("cpu"), pipe_on(device)
+    thresh, plan_cpu = tea_threshold(cpu.fusion.dit, steps)
+    plan_card = tc.compute_skip_schedule(card.fusion.dit, ts, thresh)
+    path = os.path.join(work, "wan21_partial.npz")
+    try:
+        denoise(card, tea_cache_l1_thresh=thresh, segment_size=2,
+                gen_ckpt_path=path, progress_callback=_cut_after_first)
+        raise AssertionError("the cut run was not cut")
+    except _Cut:
+        pass
+    calls = []
+    got = denoise(card, tea_cache_l1_thresh=thresh, segment_size=1,
+                  gen_ckpt_path=path,
+                  progress_callback=lambda *a: calls.append(a))
+    errs["tea_resumed"] = _rel_l2(got, denoise(cpu,
+                                               tea_cache_l1_thresh=thresh))
+    fields.update(tea_thresh=f"{thresh:.6g}",
+                  plan_card="".join("s" if s else "c" for s in plan_card),
+                  plan_cpu="".join("s" if s else "c" for s in plan_cpu),
+                  resumed_progress="|".join(f"{a}/{b}" for a, b in calls))
+    if list(plan_card) != list(plan_cpu) or not plan_card.any():
+        raise AssertionError(f"TeaCache plans: card {plan_card}, cpu "
+                             f"{plan_cpu}")
+    # resumed at step 2: reported first, then each step
+    if calls != [(i, steps) for i in range(2, steps + 1)] \
+            or os.path.exists(path):
+        raise AssertionError(f"resumed progress {calls}; partial state "
+                             f"left: {os.path.exists(path)}")
+    del cpu, card
+    # at these sizes every attention takes onekv or d64
+    ran = {k: fa.LAUNCHES[k] - before[k] for k in fa.ROUTES}
+    if not ran["onekv"] or not ran["d64"]:
+        raise AssertionError(f"the reduced serving runs launched {ran}")
+
+    # Wan2.2: int8 experts, the low one pinned and swapped in; TeaCache's
+    # dual plan; cut after the first segment and resumed
+    wcfg = small_wan22_configs()[0]
+    experts = {}
+    for high in (True, False):
+        experts[high] = build(lambda: FusionModel(wcfg), device="cpu",
+                              dtype=torch.float32, generator=g)
+        wake_zero_inits(experts[high], g)
+    rng = torch.Generator("cpu").manual_seed(19)
+    f = (frames - 1) // 4 + 1
+    ctx = [torch.randn((1, 16, wcfg.dit.text_dim), generator=rng)
+           for _ in range(2)]
+    y = torch.randn((1, wcfg.dit.in_dim - wcfg.dit.out_dim, f, height // 8,
+                     width // 8), generator=rng)
+    ctrl = torch.randn((1, 24, f, height, width), generator=rng).numpy()
+    dens = {}
+    # the card's copies first: the CPU's quantize the float weights in place.
+    # Each expert is built, loaded, quantized on the card and (the low one)
+    # pinned in the order ``load_wan22`` takes
+    for dev in (device, "cpu"):
+        dtype = torch.float32 if dev == "cpu" else torch.bfloat16
+        mods = {}
+        for high, w in experts.items():
+            on_card = high or dev == "cpu"
+            model = w
+            if dev != "cpu":
+                model = build(lambda: FusionModel(wcfg),
+                              device=dev if on_card else "cpu", dtype=dtype)
+                model.load_state_dict(w.state_dict())
+            mods[high] = place_expert(model, dev, on_host=not on_card,
+                                      quant="int8",
+                                      min_dim=SMALL_QUANT_MIN_DIM)
+        counts = {count_quantized(m) for m in mods.values()}
+        if len(counts) != 1:
+            raise AssertionError(f"the experts quantized differently: "
+                                 f"{counts}")
+        fields[f"wan22_int8_layers_{'cpu' if dev == 'cpu' else 'card'}"] = \
+            counts.pop()
+        dens["cpu" if dev == "cpu" else "card"] = DualModelDenoiser(
+            mods[True], mods[False])
+    n_high = int((ts > dens["card"].timestep_boundary).sum())
+    plan22_cpu = tc.compute_skip_schedule_dual(
+        dens["cpu"].experts[True].dit, dens["cpu"].experts[False].dit, ts,
+        n_high, thresh)
+    plan22_card = tc.compute_skip_schedule_dual(
+        dens["card"].experts[True].dit, dens["card"].experts[False].dit, ts,
+        n_high, thresh, device=device)
+
+    def denoise22(den, **kw):
+        lat, pred = den.denoise(ctx[0], ctx[1], y, height, width,
+                                num_frames=frames, num_inference_steps=steps,
+                                seed=5, control_camera_latents=ctrl,
+                                tea_cache_l1_thresh=thresh, **kw)
+        return [lat.float().cpu()] + [pred[k].float().cpu()
+                                      for k in sorted(pred)]
+    path = os.path.join(work, "wan22_partial.npz")
+    stages, calls = [], []
+    try:
+        denoise22(dens["card"], segment_size=2, gen_ckpt_path=path,
+                  progress_callback=_cut_after_first)
+        raise AssertionError("the cut Wan2.2 run was not cut")
+    except _Cut:
+        pass
+    got = denoise22(dens["card"], segment_size=1, gen_ckpt_path=path,
+                    progress_callback=lambda *a: calls.append(a),
+                    stage_callback=stages.append)
+    errs["wan22_int8_tea_resumed"] = _rel_l2(got, denoise22(dens["cpu"]))
+    fields.update(
+        wan22_plan_card="".join("s" if s else "c" for s in plan22_card),
+        wan22_plan_cpu="".join("s" if s else "c" for s in plan22_cpu),
+        wan22_stages="|".join(stages),
+        wan22_resumed_progress="|".join(f"{a}/{b}" for a, b in calls))
+    shutil.rmtree(work, ignore_errors=True)
+    say("small_serve", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        min_dim=SMALL_QUANT_MIN_DIM, **fields,
+        device_vs_cpu_rel_l2=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                         errs.items()}).replace(" ", ""))
+    if list(plan22_card) != list(plan22_cpu):
+        raise AssertionError(f"Wan2.2 TeaCache plans: card {plan22_card}, "
+                             f"cpu {plan22_cpu}")
+    # resumed at the boundary (step 2): the low expert swapped in
+    if stages != ["swap", "control_adapter_low"] \
+            or calls != [(i, steps) for i in range(2, steps + 1)]:
+        raise AssertionError(f"Wan2.2 resumed run: stages {stages}, "
+                             f"progress {calls}")
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"the reduced serving runs disagree with the "
+                             f"CPU path beyond {SLICE_TOL}: {bad}")
+
+
+def _add(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_full_serve(device, cpipe, moge, seed=1024,
+                     geometry=(336, 592, 81)):
+    """An in-process ``GenerationServer`` on 127.0.0.1:0 over the full-width,
+    full-depth Wan2.1 sampler of the clip (umT5-XXL, CLIP ViT-H, the VAE,
+    MoGe-2), with the serve CLI's batch function in segments of one step:
+    two same-key jobs (2 steps) batched as B = 2, then one TeaCache job (4
+    steps, a plan that skips), posted over HTTP and polled to ``done``.
+    Prints each batch's seconds, peak GB and launches, the plan, the
+    progress seen; checks the exported outputs' shapes, that they are
+    finite, and the exact launches. Frees CLIP and MoGe after; returns the
+    launches and {"t5", "vae"}, which the Wan2.2 clip shares."""
+    import shutil
+    import urllib.request
+    import torch
+    from fantasy_world_tpu_torch.cli.serve import (make_batch_fn,
+                                                   make_validate_fn)
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.sampler import (FantasyWorldSampler,
+                                                 read_image)
+    from fantasy_world_tpu_torch.serving.server import GenerationServer
+    cfg = cpipe.cfg
+    (height, width, frames), steps, tea_steps = geometry, 2, 4
+    t_phase = time.perf_counter()
+    out_root = os.path.join(REPO, "build", "serve_export")
+    thresh, plan = tea_threshold(cpipe.fusion.dit, tea_steps)
+    sampler = FantasyWorldSampler(cpipe, moge=moge)
+    exported = {}
+    export = sampler.export
+
+    def recording_export(video, pred, out_dir, **kw):
+        exported[os.path.basename(out_dir)] = (
+            video.shape, video.dtype, {k: v.shape for k, v in pred.items()},
+            bool(all(np.isfinite(v).all() for v in pred.values())))
+        return export(video, pred, out_dir, **kw)
+    sampler.export = recording_export
+    args = argparse.Namespace(segment_size=1, output_root=out_root,
+                              io_root=REPO)
+    inner = make_batch_fn(sampler, args)
+    batches = []
+
+    def batch_fn(jobs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = dict(fa.LAUNCHES), time.perf_counter()
+        out = inner(jobs)
+        torch.cuda.synchronize()
+        batches.append({"jobs": len(jobs),
+                        "steps": jobs[0].request["sample_steps"],
+                        "seconds": time.perf_counter() - t0,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": {k: fa.LAUNCHES[k] - before[k]
+                                     for k in fa.LAUNCHES}})
+        return out
+
+    server = GenerationServer(batch_fn, host="127.0.0.1", port=0,
+                              max_batch=SERVE_CLIPS, linger_s=1.0,
+                              validate_fn=make_validate_fn(args))
+    url = f"http://127.0.0.1:{server.port}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                url + path, data=data), timeout=30) as r:
+            return json.loads(r.read())
+
+    job = {"image_path": EXAMPLE_IMAGE,
+           "camera_json": os.path.join(REPO, "examples", "cameras",
+                                       "camera_data.json"),
+           "height": height, "width": width, "num_frames": frames,
+           "neg_prompt": NEG_PROMPT}
+    requests = [dict(job, prompt=PROMPT, seed=seed, sample_steps=steps),
+                dict(job, prompt="a lighthouse on a cliff at dusk",
+                     seed=seed + 1, sample_steps=steps),
+                dict(job, prompt=PROMPT, seed=seed + 2,
+                     sample_steps=tea_steps, tea_cache_l1_thresh=thresh)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    server.start()
+    try:
+        fa.reset_launch_counts()
+        ids = [call("/v1/generate", r)["job_id"] for r in requests]
+        seen = {i: [] for i in ids}
+        status = {}
+        deadline = time.time() + 600
+        while time.time() < deadline:
+            status = {i: call(f"/v1/jobs/{i}") for i in ids}
+            for i, body in status.items():
+                mark = body["status"] + (
+                    "@{done}/{total}".format(**body["progress"])
+                    if body.get("progress") else "")
+                if not seen[i] or seen[i][-1] != mark:
+                    seen[i].append(mark)
+            if all(b["status"] in ("done", "error") for b in
+                   status.values()):
+                break
+            time.sleep(0.2)
+        launches = dict(fa.LAUNCHES)
+    finally:
+        server.shutdown()
+    shutil.rmtree(out_root, ignore_errors=True)
+    clip_cfg, mcfg = cpipe.clip.cfg, moge.cfg
+    # MoGe sees the image as it is on disk
+    moge = (mcfg, moge_tokens(mcfg, read_image(EXAMPLE_IMAGE).shape[:2]))
+    want = _add(expected_launches(cfg, steps, clip=clip_cfg, moge=moge),
+                encoder_launches(clip_cfg, moge),
+                expected_launches(cfg, tea_steps, clip=clip_cfg, moge=moge,
+                                  skipped=int(plan.sum())))
+    say("full_serve", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        batches=len(batches),
+        batch_jobs="|".join(str(b["jobs"]) for b in batches),
+        batch_steps="|".join(str(b["steps"]) for b in batches),
+        batch_seconds="|".join(f"{b['seconds']:.2f}" for b in batches),
+        batch_peak_gb="|".join(f"{b['peak_gb']:.2f}" for b in batches),
+        batch_launches="|".join(json.dumps({k: v for k, v in
+                                            b["launches"].items() if v}
+                                           ).replace(" ", "")
+                                for b in batches),
+        tea_thresh=f"{thresh:.6g}",
+        tea_plan="".join("s" if s else "c" for s in plan),
+        progress_seen=json.dumps(list(seen.values())).replace(" ", ""),
+        statuses="|".join(b["status"] for b in status.values()),
+        outputs=json.dumps({k: [list(v[0])] + [list(s) for s in
+                                                 v[2].values()]
+                            for k, v in exported.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    errors = [b.get("error") for b in status.values()
+              if b["status"] != "done"]
+    if errors or len(status) != 3:
+        raise AssertionError(f"serve jobs not done: {errors}")
+    if [b["jobs"] for b in batches] != [2, 1]:
+        raise AssertionError(f"batches {[b['jobs'] for b in batches]}, "
+                             f"want [2, 1]")
+    if not plan.any():
+        raise AssertionError(f"the TeaCache plan {plan} skips nothing")
+    want_shapes = expected_shapes(cfg, height, width, frames)
+    for job_id, (vshape, vdtype, shapes, finite) in exported.items():
+        if vshape != (frames, height, width, 3) or vdtype != np.uint8 \
+                or not finite:
+            raise AssertionError(f"job {job_id}: video {vshape} {vdtype}, "
+                                 f"finite {finite}")
+        for key, shape in shapes.items():
+            if tuple(shape) != want_shapes[key]:
+                raise AssertionError(f"job {job_id}: {key} {shape}")
+    tea_id = ids[2]
+    if not any(m.startswith("running@") for m in seen[tea_id]):
+        raise AssertionError(f"no progress seen on the TeaCache job: "
+                             f"{seen[tea_id]}")
+    if launches != want:
+        raise AssertionError(f"serve launches {launches} != {want}")
+    shared = {"t5": cpipe.t5, "vae": cpipe.vae}
+    return launches, batches, shared
+
+
+def phase_full_quant(device, den, profile_dir, geometry=(480, 832, 81)):
+    """The Wan2.2 expert resident after the clip, one mid denoise step
+    (t = 833, the CFG pair at 480x832, 81 frames, no heads) in bf16, then
+    quantized to int8 in place and the same step twice: seconds, peak GB,
+    the resident GB before and after, whether two int8 experts would fit
+    the card together, the int8 step's relative L2 drift against bf16, and
+    the second int8 step under the profiler: the device time of the
+    activation quant, the int32 products and the rescale."""
+    import torch
+    from fantasy_world_tpu_torch.core.quant import quantize_model
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    cfg = den.cfg
+    high = den._device_of(den.experts[True]).type == "cuda"
+    expert = den.experts[high]
+    height, width, frames = geometry
+    f = (frames - 1) // 4 + 1
+    g = torch.Generator(device).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.bfloat16)
+    lat = randn(2, cfg.dit.out_dim, f, height // 8, width // 8)
+    ctx = randn(2, 512, cfg.dit.text_dim)
+    y = randn(2, cfg.dit.in_dim - cfg.dit.out_dim, f, height // 8, width // 8)
+    t = torch.full((2,), 833.0, device=device)
+
+    def nbytes(m):
+        return sum(x.numel() * x.element_size()
+                   for x in list(m.parameters()) + list(m.buffers()))
+
+    def step():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            noise, _ = expert.joint_forward(lat, t, ctx, None, y)
+        end.record()
+        end.synchronize()
+        return (noise.float(), start.elapsed_time(end) / 1e3,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    ref, bf16_s, bf16_peak = step()
+    resident_before = torch.cuda.memory_allocated() / 1e9
+    expert_before = nbytes(expert) / 1e9
+    t0 = time.perf_counter()
+    n = quantize_model(expert, "int8")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_after = torch.cuda.memory_allocated() / 1e9
+    expert_after = nbytes(expert) / 1e9
+    got, int8_s, int8_peak = step()
+    drift = ((got - ref).norm() / ref.norm()).item()
+    prof = ProfiledStep("wan22_int8_step", int8_s, profile_dir)
+    prof.begin()
+    _, int8_s2, _ = step()
+    prof.end()
+    launches = dict(fa.LAUNCHES)
+    report = prof.report()
+    total = torch.cuda.get_device_properties(device).total_memory / 1e9
+    both = resident_after + expert_after + (int8_peak - resident_after)
+    glue = sum(report["ranges"].get(k, 0.0) for k in
+               ("qlinear_act_quant", "qlinear_rescale"))
+    say("full_quant", expert="high" if high else "low", layers=n,
+        quantize_s=f"{quant_s:.2f}", bf16_step_s=f"{bf16_s:.3f}",
+        int8_step_s=f"{int8_s:.3f}", int8_step2_s=f"{int8_s2:.3f}",
+        bf16_peak_gb=f"{bf16_peak:.2f}", int8_peak_gb=f"{int8_peak:.2f}",
+        resident_gb_before=f"{resident_before:.2f}",
+        resident_gb_after=f"{resident_after:.2f}",
+        expert_gb_bf16=f"{expert_before:.2f}",
+        expert_gb_int8=f"{expert_after:.2f}",
+        both_int8_experts_peak_gb=f"{both:.2f}",
+        card_gb=f"{total:.2f}", both_fit=both < total,
+        drift_rel_l2=f"{drift:.4e}",
+        qlinear_device_s=json.dumps({k: round(v, 3) for k, v in
+                                     report["ranges"].items()}
+                                    ).replace(" ", ""),
+        quant_glue_share=f"{glue / report['device_busy_s']:.4f}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    # three steps without the heads
+    want = expected_launches(cfg, 3)
+    want["onekv"] -= 4 * cfg.vggt.camera_head.trunk_depth
+    if n == 0 or not math.isfinite(drift) or not torch.isfinite(got).all():
+        raise AssertionError(f"int8 step: {n} layers, drift {drift}")
+    if not report["ranges"]:
+        raise AssertionError("the profiler saw no qlinear range")
+    if launches != want:
+        raise AssertionError(f"quant step launches {launches} != {want}")
     return launches
 
 
@@ -1566,8 +2187,9 @@ class ProfiledStep:
     ``report()``, which writes the device's busy time (the union of its
     kernel intervals) by kernel family and by attention kernel, the idle
     share against the unprofiled CUDA-event time of the same step and
-    against the profiled wall time as ``<tag>_step_breakdown.json``, with a
-    gzipped Chrome trace, to ``out_dir``."""
+    against the profiled wall time, and the device time under the
+    ``qlinear_*`` ranges, as ``<tag>_step_breakdown.json``, with a gzipped
+    Chrome trace, to ``out_dir``, and returns it."""
 
     def __init__(self, tag, unprofiled_s, out_dir):
         from torch.profiler import ProfilerActivity, profile
@@ -1593,8 +2215,16 @@ class ProfiledStep:
         tag, unprofiled_s, wall = self.tag, self.unprofiled_s, self.wall
         spans, families = [], {name: [0.0, 0] for name, _ in FAMILIES}
         families["other"] = [0.0, 0]
-        kernels = {}
+        kernels, ranges = {}, {}
         for ev in self.prof.events():
+            if ev.name.startswith("qlinear_"):
+                # a range: on the host, the device time of the kernels
+                # launched under it; its span on the device's timeline is
+                # not a kernel, and counts nowhere
+                if ev.device_type == DeviceType.CPU:
+                    ranges[ev.name] = ranges.get(ev.name, 0.0) + \
+                        ev.device_time_total / 1e6
+                continue
             if ev.device_type != DeviceType.CUDA:
                 continue
             start, end = ev.time_range.start, ev.time_range.end
@@ -1624,7 +2254,8 @@ class ProfiledStep:
                "attention_kernels": {k: {"device_s": t, "launches": n}
                                      for k, (t, n) in sorted(
                                          kernels.items(),
-                                         key=lambda x: -x[1][0])}}
+                                         key=lambda x: -x[1][0])},
+               "ranges": ranges}
         with open(os.path.join(self.out_dir, f"{tag}_step_breakdown.json"),
                   "w") as f:
             json.dump(out, f, indent=1)
@@ -1640,6 +2271,7 @@ class ProfiledStep:
             attention=json.dumps({k: round(v["device_s"], 3) for k, v in
                                   out["attention_kernels"].items()}
                                  ).replace(" ", ""))
+        return out
 
 
 def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
@@ -1758,23 +2390,33 @@ def main(argv=None) -> int:
     phase_build()
     per_kernel = phase_kernels(device)
     phase_train_kernels(device, per_kernel)
+    phase_qlinear(device)
     phase_small_slice(device)
     phase_small_clip(device)
     phase_small_wan22(device)
+    phase_small_serve(device)
     phase_small_train(device)
     phase_train_cli()
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
         device, profile_dir=args.profile)
-    clip_run, shared = phase_full_clip(device, pipe)
+    clip_run, cpipe, moge = phase_full_clip(device, pipe)
+    serve, _, shared = phase_full_serve(device, cpipe, moge)
+    # CLIP and MoGe go; umT5 and the VAE stay for the Wan2.2 clip
+    del cpipe, moge
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
     # the Wan2.1 model makes room for the experts
     del pipe, cond, plucker_fea
     gc.collect()
     torch.cuda.empty_cache()
-    wan22 = phase_full_wan22(device, shared, profile_dir=args.profile)
+    wan22, quant = phase_full_wan22(
+        device, shared, args.profile or os.path.join(REPO, "build",
+                                                     "profile"),
+        profile_dir=args.profile)
 
     yard = ("tflops", "bound_ms", "bound_by", "share", "library_ms",
             "library_ms_by_backend", "by_shape")
@@ -1784,11 +2426,13 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": (denoise[k] + clip_run[k] + train[f"{k}_stats"]
-                         + wan22[k]),
+            "launches": (denoise[k] + clip_run[k] + serve[k]
+                         + train[f"{k}_stats"] + wan22[k] + quant[k]),
             "denoise_launches": denoise[k],
             "clip_run_launches": clip_run[k],
+            "serve_launches": serve[k],
             "wan22_clip_launches": wan22[k],
+            "wan22_int8_step_launches": quant[k],
             "launches_per_denoise_step": per_step[k],
             "stats_launches": train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],

@@ -12,10 +12,16 @@ image's predicted depth (``--using_scale``). It runs bf16 on the card
 (``--device cuda``, the default) and f32 through the kernels' plain
 versions on the CPU only with ``--device cpu``; without a card and without
 ``--device cpu`` it exits. ``--auto_download`` fetches nothing: missing
-checkpoint files end the run with their names. The flags of options not
-ported yet (``--quant``, ``--tea_cache_l1_thresh``, ``--mesh_*``,
-``--ulysses``, ``--segment_size``, ``--gen_ckpt_path``, ``--profile_dir``)
-end the run with the flag's name when set.
+checkpoint files end the run with their names.
+
+The serving options: ``--quant int8|fp8`` rewrites the fusion model's large
+linears after load (``core/quant.py``); ``--tea_cache_l1_thresh`` (with
+``--tea_cache_model_id``'s polynomial) skips the block stack on the steps
+its plan picks; ``--segment_size`` runs the denoise in segments with a
+progress line after each, and ``--gen_ckpt_path`` writes the partial state
+there after each segment, so that a run cut short resumes from it. The
+flags of options not ported yet (``--mesh_*``, ``--ulysses``,
+``--profile_dir``) end the run with the flag's name when set.
 """
 from __future__ import annotations
 
@@ -26,10 +32,8 @@ import sys
 import time
 
 # flag -> the value that leaves the option off; anything else is refused
-NOT_PORTED = {"quant": None, "tea_cache_l1_thresh": None,
-              "mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
-              "ulysses": False, "segment_size": None, "gen_ckpt_path": None,
-              "profile_dir": None}
+NOT_PORTED = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
+              "ulysses": False, "profile_dir": None}
 
 
 def str2bool(v):
@@ -76,27 +80,65 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
+    add_serving_args(p)
     g = p.add_argument_group("not ported yet (setting one exits)")
-    g.add_argument("--quant", type=str, default=None,
-                   choices=["int8", "fp8"])
-    g.add_argument("--tea_cache_l1_thresh", type=float, default=None)
     g.add_argument("--profile_dir", type=str, default=None)
     g.add_argument("--mesh_data", type=int, default=1)
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
     g.add_argument("--ulysses", type=str2bool, default=False)
-    g.add_argument("--segment_size", type=int, default=None)
-    g.add_argument("--gen_ckpt_path", type=str, default=None)
     return p.parse_args(argv)
 
 
-def check_common(args, missing) -> None:
+def add_serving_args(p) -> None:
+    """--quant and the per-run TeaCache and segmented-denoise flags."""
+    p.add_argument("--quant", type=str, default=None, choices=["int8", "fp8"],
+                   help="quantize the denoiser's large linears after load: "
+                        "int8 w8a8 (int32-accumulated products) or fp8 "
+                        "weight storage (core/quant.py)")
+    p.add_argument("--tea_cache_l1_thresh", type=float, default=None,
+                   help="TeaCache: skip the block stack on the steps whose "
+                        "accumulated modulation drift stays under this "
+                        "relative-L1 threshold (the reference suggests "
+                        "0.05 at 480P)")
+    from ..pipelines.tea_cache import DEFAULT_MODEL_ID
+    p.add_argument("--tea_cache_model_id", type=str, default=DEFAULT_MODEL_ID,
+                   help="the TeaCache polynomial's model id")
+    p.add_argument("--segment_size", type=int, default=None,
+                   help="run the denoise in segments of this many steps, "
+                        "with a progress line after each")
+    p.add_argument("--gen_ckpt_path", type=str, default=None,
+                   help="write the partial denoise state here after each "
+                        "segment; a run cut short resumes from it, and it "
+                        "is removed at the end")
+
+
+def progress_printer(args):
+    """The ``[denoise] step done/total`` printer when --segment_size is
+    set, else None."""
+    if not args.segment_size:
+        return None
+    return lambda done, total: print(f"[denoise] step {done}/{total}",
+                                     flush=True)
+
+
+def serving_kwargs(args) -> dict:
+    """The generate_video arguments of the per-run serving flags."""
+    return {"tea_cache_l1_thresh": args.tea_cache_l1_thresh,
+            "tea_cache_model_id": args.tea_cache_model_id,
+            "segment_size": args.segment_size,
+            "gen_ckpt_path": args.gen_ckpt_path,
+            "progress_callback": progress_printer(args)}
+
+
+def check_common(args, missing, not_ported=NOT_PORTED) -> None:
     """Exit (SystemExit, naming the cause) for a flag of an option that is
-    not ported, a missing MoGe checkpoint, missing checkpoint files
-    (``missing``), and ``--device cuda`` without a card."""
+    not ported (``not_ported``: flag -> its off value), a missing MoGe
+    checkpoint, missing checkpoint files (``missing``), and ``--device
+    cuda`` without a card."""
     import torch
 
-    for flag, off in NOT_PORTED.items():
+    for flag, off in not_ported.items():
         if getattr(args, flag) != off:
             raise SystemExit(f"--{flag}: not ported yet")
     if args.moge_ckpt is not None and not os.path.isfile(args.moge_ckpt):
@@ -120,6 +162,7 @@ def run(args) -> dict:
     "ply": path written}."""
     import torch
 
+    from ..core.quant import count_quantized
     from ..hostops.camera import cameras_json_to_camera_list
     from ..sampler import FantasyWorldSampler, read_image
 
@@ -131,14 +174,18 @@ def run(args) -> dict:
             json.load(fh), image_size=(args.height, args.width))
     sampler = FantasyWorldSampler.from_checkpoint(
         args.wan_ckpt_path, args.model_ckpt, device=device, dtype=dtype,
-        tokenizer_path=args.tokenizer_path, moge_ckpt=args.moge_ckpt)
+        tokenizer_path=args.tokenizer_path, moge_ckpt=args.moge_ckpt,
+        quant=args.quant)
+    if args.quant:
+        print(f"[quant] {args.quant}: "
+              f"{count_quantized(sampler.pipe.fusion)} linears")
     image = read_image(args.image_path)
     t0 = time.perf_counter()
     video, prediction = sampler.generate_video(
         prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
         camera_params=cameras, using_scale=args.using_scale, seed=args.seed,
         height=args.height, width=args.width, num_frames=args.frames,
-        sample_steps=args.sample_steps)
+        sample_steps=args.sample_steps, **serving_kwargs(args))
     dt = time.perf_counter() - t0
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
           f"({dt / args.sample_steps:.2f} s/step) on {args.device}")

@@ -13,10 +13,13 @@ VAE and umT5. ``--moge_ckpt`` scales the camera path by MoGe's depth of the
 image. It runs bf16 on the card (``--device cuda``, the default; the
 inactive expert waits in pinned host memory) and f32 on the CPU only with
 ``--device cpu``; without a card and without ``--device cpu`` it exits.
-``--auto_download`` fetches nothing. The flags of options not ported yet
-(``--quant``, ``--tea_cache_l1_thresh``, ``--mesh_*``, ``--ulysses``,
-``--segment_size``, ``--gen_ckpt_path``, ``--profile_dir``) end the run
-with the flag's name when set.
+``--auto_download`` fetches nothing. ``--quant``, ``--tea_cache_l1_thresh``
+(the dual-expert plan), ``--segment_size`` (no segment spans the expert
+boundary) and ``--gen_ckpt_path`` work as in ``cli/infer_wan21.py``; both
+experts are quantized the same way, each on the card, before the low one
+is pinned in host memory. The flags of options not ported yet
+(``--mesh_*``, ``--ulysses``, ``--profile_dir``) end the run with the
+flag's name when set.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import json
 import sys
 import time
 
-from .infer_wan21 import check_common, str2bool
+from .infer_wan21 import (add_serving_args, check_common, serving_kwargs,
+                          str2bool)
 
 
 def parse_args(argv=None):
@@ -57,23 +61,16 @@ def parse_args(argv=None):
     p.add_argument("--auto_download", type=str2bool, default=True,
                    help="accepted; nothing is fetched, and missing "
                         "checkpoint files end the run")
-    p.add_argument("--tea_cache_model_id", type=str,
-                   default="Wan2.1-I2V-14B-480P",
-                   help="accepted; read only with --tea_cache_l1_thresh")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
+    add_serving_args(p)
     g = p.add_argument_group("not ported yet (setting one exits)")
-    g.add_argument("--quant", type=str, default=None,
-                   choices=["int8", "fp8"])
     g.add_argument("--mesh_data", type=int, default=1)
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
     g.add_argument("--ulysses", type=str2bool, default=False)
     g.add_argument("--profile_dir", type=str, default=None)
-    g.add_argument("--tea_cache_l1_thresh", type=float, default=None)
-    g.add_argument("--segment_size", type=int, default=None)
-    g.add_argument("--gen_ckpt_path", type=str, default=None)
     return p.parse_args(argv)
 
 
@@ -100,7 +97,8 @@ def run(args) -> dict:
     sampler = Wan22Sampler.from_checkpoint(
         args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low,
         device=device, dtype=dtype, tokenizer_path=args.tokenizer_path,
-        moge_ckpt=args.moge_ckpt, timestep_boundary=args.timestep_boundary)
+        moge_ckpt=args.moge_ckpt, timestep_boundary=args.timestep_boundary,
+        quant=args.quant)
     image = read_image(args.image_path)
     end_image = (read_image(args.end_image_path) if args.end_image_path
                  else None)
@@ -109,7 +107,8 @@ def run(args) -> dict:
         prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
         end_image=end_image, camera_params=cameras,
         using_scale=args.using_scale, seed=args.seed, height=args.height,
-        width=args.width, sample_steps=args.sample_steps)
+        width=args.width, sample_steps=args.sample_steps,
+        **serving_kwargs(args))
     dt = time.perf_counter() - t0
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
           f"({dt / args.sample_steps:.2f} s/step) on {args.device}")

@@ -343,13 +343,16 @@ def expert_state_dict(wan_ckpt_path: str, high: bool, model_ckpt: str,
 def load_wan22(wan_ckpt_path: str, model_ckpt_high: str, model_ckpt_low: str,
                *, device, dtype: torch.dtype = torch.bfloat16,
                tokenizer_path: Optional[str] = None,
-               timestep_boundary: float = 900.0):
+               timestep_boundary: float = 900.0,
+               quant: Optional[str] = None):
     """The Wan2.2 layout -> (a ``FantasyWorldPipeline`` with umT5 and the
     VAE, a ``DualModelDenoiser``), all in ``dtype``. On a card the high
     expert is built there and the low one in pinned host memory, to trade
-    places at the boundary; on the CPU both are built there."""
+    places at the boundary; on the CPU both are built there. ``quant``
+    ("int8" / "fp8") quantizes each expert as it loads, layer by layer on
+    ``device``, before the low one is pinned."""
     from ..pipelines.wan_video import FantasyWorldPipeline
-    from ..pipelines.wan_video_22 import DualModelDenoiser, pin_to_host
+    from ..pipelines.wan_video_22 import DualModelDenoiser, place_expert
     cfgs = read_configs(wan_ckpt_path, wan22_fusion_config())
     missing = missing_files_wan22(wan_ckpt_path, model_ckpt_high,
                                   model_ckpt_low)
@@ -368,7 +371,8 @@ def load_wan22(wan_ckpt_path: str, model_ckpt_high: str, model_ckpt_low: str,
         load_into(model, expert_state_dict(wan_ckpt_path, high, ckpt,
                                            cfgs["fusion"]),
                   "high expert" if high else "low expert")
-        experts[high] = model if on_card else pin_to_host(model)
+        experts[high] = place_expert(model, device, on_host=not on_card,
+                                     quant=quant)
     vae = load_into(make(WanVAE, cfgs["vae"]), _strip(
         read_pth(os.path.join(wan_ckpt_path, VAE_FILE)), ("model.",)), "vae")
     t5 = load_into(make(T5Encoder, cfgs["t5"]),

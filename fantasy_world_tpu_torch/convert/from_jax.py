@@ -87,6 +87,17 @@ def _arr(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
 
 
+def _quantized(kernel) -> torch.Tensor:
+    """A quantized JAX kernel (in, out), int8 or float8_e4m3fn -> the same
+    bits as an (out, in) tensor of that dtype."""
+    a = np.ascontiguousarray(np.asarray(kernel).T)
+    if a.dtype == np.int8:
+        return torch.from_numpy(a)
+    if a.dtype.itemsize != 1 or "float8_e4m3fn" not in str(a.dtype):
+        raise ValueError(f"not an int8 or float8_e4m3fn kernel: {a.dtype}")
+    return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+
+
 class _Writer:
     def __init__(self, shapes: Mapping[str, torch.Size]):
         self.shapes = shapes
@@ -99,7 +110,15 @@ class _Writer:
         self.sd[name] = t
 
     def linear(self, name: str, p: Mapping) -> None:
-        self.put(name + ".weight", np.asarray(p["kernel"], np.float32).T)
+        """A float ``kernel`` (in, out), or a quantized one (``kernel_q``
+        int8 / ``kernel_f8`` float8_e4m3fn, with ``kscale``) for a
+        ``QuantLinear``, whose bits are kept."""
+        if "kernel_q" in p or "kernel_f8" in p:
+            self.sd[name + ".weight"] = _quantized(
+                p["kernel_q"] if "kernel_q" in p else p["kernel_f8"])
+            self.put(name + ".kscale", p["kscale"])
+        else:
+            self.put(name + ".weight", np.asarray(p["kernel"], np.float32).T)
         if "bias" in p:
             self.put(name + ".bias", p["bias"])
 
@@ -251,10 +270,54 @@ def _shapes(module: nn.Module) -> Dict[str, torch.Size]:
     return {k: v.shape for k, v in module.state_dict().items()}
 
 
-def fusion_state_dict(params: Mapping, model: nn.Module
+def _unstack(tree) -> List:
+    """A tree of leaves stacked on a leading layer axis -> one tree per
+    layer."""
+    if isinstance(tree, Mapping):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = {len(v) for v in parts.values()}
+        if len(n) != 1:
+            raise ValueError(f"ragged stack: layer counts {sorted(n)}")
+        return [{k: v[i] for k, v in parts.items()} for i in range(n.pop())]
+    a = np.asarray(tree)
+    return [a[i] for i in range(a.shape[0])]
+
+
+def blocks_from_scan(params: Mapping, scan: Mapping) -> Dict:
+    """``params`` with its per-layer block lists (DiT blocks, VGGT frame
+    and global blocks, bicross) replaced by the layers of a JAX scan tree
+    (``prepare_scan_params``: {"pcb": [dit stacks], "irg": [{"frame",
+    "agg", "dit"[, "bicross"]}]}), such as a quantized one whose stacked
+    (L, K, N) kernels carry (L, N) scales. Bicross layers of uncoupled IRG
+    runs (not in the scan tree) stay ``params``'."""
+    dit_blocks, frame, glob = [], [], []
+    bicross = list(params["bicross"])
+    for seg in scan["pcb"]:
+        dit_blocks += _unstack(seg)
+    for seg in scan["irg"]:
+        lo = len(frame)
+        dit_blocks += _unstack(seg["dit"])
+        frame += _unstack(seg["frame"])
+        glob += _unstack(seg["agg"])
+        if "bicross" in seg:
+            layers = _unstack(seg["bicross"])
+            bicross[lo:lo + len(layers)] = layers
+    agg = dict(params["vggt"]["aggregator"], frame_blocks=frame,
+               global_blocks=glob)
+    return dict(params, dit=dict(params["dit"], blocks=dit_blocks),
+                vggt=dict(params["vggt"], aggregator=agg), bicross=bicross)
+
+
+def fusion_state_dict(params: Mapping, model: nn.Module,
+                      scan: Optional[Mapping] = None
                       ) -> Dict[str, torch.Tensor]:
     """JAX ``init_fusion`` / ``convert_fusion_checkpoint`` tree ({dit, vggt,
-    bicross}) -> f32 state dict of ``FusionModel`` ``model``."""
+    bicross}) -> f32 state dict of ``FusionModel`` ``model``. Quantized
+    linears (``quantize_tree``) keep their int8 / float8 bits and scales
+    for a model rewritten by ``core.quant.quantize_model``. With ``scan``,
+    the blocks are taken from that scan tree (``blocks_from_scan``)."""
+    if scan is not None:
+        params = blocks_from_scan(params, scan)
     w = _Writer(_shapes(model))
     _dit(w, params["dit"], "dit.")
     _vggt(w, params["vggt"], "vggt.")

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .quant import QuantLinear, qlinear
+
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """x @ W^T (+ b): product accumulated in f32, bias added in f32, result
@@ -22,7 +24,10 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     F.linear, whose bias add is fused into the f32 epilogue of the matmul;
     an f32 layer under a lower-precision x computes in f32 and casts back.
     A layer carrying a ``lora`` adapter (``training/lora.py``) adds its
-    low-rank term."""
+    low-rank term; a quantized layer (``core/quant.py``) takes ``qlinear``.
+    """
+    if isinstance(layer, QuantLinear):
+        return qlinear(x, layer)
     if layer.weight.dtype == x.dtype:
         y = F.linear(x, layer.weight, layer.bias)
     else:

@@ -83,14 +83,15 @@ def save_colored_pointcloud_ply(points: np.ndarray, colors: np.ndarray,
 
 def save_video(frames: np.ndarray, out_path, fps: int = 16) -> str:
     """frames (F, H, W, 3) uint8 -> an MP4 through imageio; where imageio
-    is missing or has no MP4 backend, the raw frames as ``<out_path>.npy``.
-    Returns the path written."""
+    is missing or its MP4 backend is absent or cannot write (a served job
+    keeps its frames), the raw frames as ``<out_path>.npy``. Returns the
+    path written."""
     try:
         import imageio
         imageio.mimwrite(str(out_path), frames, fps=fps, quality=8,
                          macro_block_size=1)
         return str(out_path)
-    except (ImportError, ValueError) as exc:
+    except Exception as exc:  # noqa: BLE001 -- any backend failure
         alt = str(out_path) + ".npy"
         np.save(alt, frames)
         print(f"imageio unavailable ({exc}); wrote raw frames to {alt}")

@@ -183,3 +183,23 @@ class FusionModel(nn.Module):
         prediction = self.vggt.head_prediction(
             inters, (h, w), self.cfg.vggt.aggregator.patch_start_idx)
         return noise_pred, prediction
+
+    def joint_forward_tea(self, latents, timestep, context, clip_feature=None,
+                          y=None, plucker_fea=None, skip: bool = False,
+                          residual=None, control_tokens=None):
+        """The TeaCache-gated evaluation (``joint_forward_tea``): ``skip``
+        replaces the PCB + IRG stack by ``x + residual``; otherwise the
+        stack runs and its output minus its input is the new residual.
+        Returns (noise_pred, residual). The geometry heads do not run here:
+        the last step always computes, through ``joint_forward``."""
+        (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
+            self.forward_prologue(latents, timestep, context, clip_feature, y,
+                                  control_tokens)
+        if skip:
+            x = x + residual
+        else:
+            x_in = x
+            x, _ = self.run_stack(x, ctx, t_mod, timestep, ropes, rope_bi_dit,
+                                  rope_bi_agg, fhw, plucker_fea, False)
+            residual = x - x_in
+        return self.dit.unpatchify(self.dit.head(x, t), fhw), residual

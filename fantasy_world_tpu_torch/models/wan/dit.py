@@ -192,6 +192,18 @@ def dit_block_modulation(table: torch.Tensor, t_mod: torch.Tensor
     return [m[:, i:i + 1] for i in range(6)]
 
 
+def time_mlp(time_embedding: nn.Sequential, time_projection: nn.Sequential,
+             freq_dim: int, timestep: torch.Tensor):
+    """``WanDiT.time_embed`` over its two time modules: timestep (B,) ->
+    t (B, dim), t_mod (B, 6, dim)."""
+    te = time_embedding
+    emb = rope_ops.sinusoidal_embedding_1d(freq_dim, timestep)
+    emb = emb.to(te[0].weight.dtype)
+    t = linear(F.silu(linear(emb, te[0])), te[2])
+    t_mod = linear(F.silu(t), time_projection[1])
+    return t, t_mod.view(*t.shape[:-1], 6, t.shape[-1])
+
+
 class DiTBlock(nn.Module):
     def __init__(self, cfg: WanDiTConfig, layer: int):
         super().__init__()
@@ -307,12 +319,8 @@ class WanDiT(nn.Module):
 
     def time_embed(self, timestep: torch.Tensor):
         """timestep (B,) -> t (B, dim), t_mod (B, 6, dim)."""
-        te = self.time_embedding
-        emb = rope_ops.sinusoidal_embedding_1d(self.cfg.freq_dim, timestep)
-        emb = emb.to(te[0].weight.dtype)
-        t = linear(F.silu(linear(emb, te[0])), te[2])
-        t_mod = linear(F.silu(t), self.time_projection[1])
-        return t, t_mod.view(*t.shape[:-1], 6, self.cfg.dim)
+        return time_mlp(self.time_embedding, self.time_projection,
+                        self.cfg.freq_dim, timestep)
 
     def text_embed(self, context):
         return _gelu_tanh_mlp(self.text_embedding, context)

@@ -8,13 +8,21 @@ PyTorch: conditioning -> denoise -> decode.
   * ``generate_noise``, ``encode_plucker`` and the CFG-pair flow-matching
     ``denoise`` with the geometry heads on the last step;
   * ``decode_video``: the full-sequence causal VAE decode, or the
-    reference's tiled one, to uint8 frames.
+    reference's tiled one, to uint8 frames;
+  * ``quantize``: int8 / fp8 over the fusion model (``core/quant.py``).
 
-Not ported here: TeaCache, segmented/resumable loops, sliding windows,
-multi-device meshes and the Wan2.2 TI2V VAE.
+The denoise takes TeaCache (``pipelines/tea_cache.py``: the skip plan made
+before the loop, the stack residual carried) and runs segmented and
+resumable: after every ``segment_size`` steps it synchronises, reports
+progress and writes the partial state atomically to ``gen_ckpt_path``,
+from which an identically conditioned call resumes.
+
+Not ported here: sliding windows, multi-device meshes and the Wan2.2 TI2V
+VAE.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,6 +35,95 @@ from ..models.wan.t5 import T5Encoder
 from ..models.wan.vae import (WanVAE, tile_plan, vae_decode_tiled,
                                vae_encode_tiled)
 from ..schedulers.flow_match import FlowMatchScheduler
+from .tea_cache import DEFAULT_MODEL_ID, compute_skip_schedule
+
+
+def segment_ends(start: int, n_scan: int, segment_size: int,
+                 cuts: Sequence[int] = ()) -> set:
+    """The steps after which a segment of the denoise ends: every
+    ``segment_size`` steps from ``start``, never across a step of ``cuts``
+    (the Wan2.2 expert boundary), the last at ``n_scan``."""
+    ends, i, seg = set(), start, max(1, segment_size)
+    while i < n_scan:
+        stop = min([c for c in cuts if i < c < n_scan] + [n_scan])
+        i = min(i + seg, stop)
+        ends.add(i)
+    return ends
+
+
+def synchronize(t: torch.Tensor) -> None:
+    """Wait for the work queued on ``t``'s device."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def load_partial(path: Optional[str], n_scan: int, latents: torch.Tensor,
+                 residual: Optional[torch.Tensor], tea: bool):
+    """(start step, latents, residual) from a partial-state file when it
+    belongs to this run: the same step count and latent shape, and -- for
+    a TeaCache run -- a residual (without one, a planned skip would add a
+    zero residual in place of the stack). Else (0, latents, residual)."""
+    if not path or not os.path.exists(path):
+        return 0, latents, residual
+    with np.load(path) as data:
+        if (int(data["n_scan"]) != n_scan
+                or tuple(data["latents"].shape) != tuple(latents.shape)
+                or (tea and "residual" not in data.files)):
+            return 0, latents, residual
+        start = int(data["step"])
+        latents = torch.as_tensor(data["latents"]).to(latents.device,
+                                                      latents.dtype)
+        if tea:
+            residual = torch.as_tensor(data["residual"]).to(residual.device,
+                                                            residual.dtype)
+    return start, latents, residual
+
+
+def save_partial(path: str, step: int, n_scan: int, latents: torch.Tensor,
+                 residual: Optional[torch.Tensor]) -> None:
+    """{step, n_scan, latents[, residual]} in f32, written to ``path`` +
+    ".tmp" and renamed over ``path``."""
+    state = {"step": np.asarray(step), "n_scan": np.asarray(n_scan),
+             "latents": latents.float().cpu().numpy()}
+    if residual is not None:
+        state["residual"] = residual.float().cpu().numpy()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **state)
+    os.replace(tmp, path)
+
+
+class StepReport:
+    """What follows each denoise step: with ``segment_size`` or
+    ``gen_ckpt_path``, at each segment's end, a synchronisation, the
+    partial state written and ``progress(done, n)``; else ``progress``
+    after the step is queued. After the last step the partial state is
+    removed. A resumed run (``start`` > 0) reports its start first."""
+
+    def __init__(self, n: int, start: int, segment_size: Optional[int],
+                 path: Optional[str], progress: Optional[Callable],
+                 cuts: Sequence[int] = ()):
+        self.n, self.path, self.progress = n, path, progress
+        self.segmented = segment_size is not None or path is not None
+        self.ends = segment_ends(start, n - 1, segment_size or n - 1, cuts)
+        if progress is not None and start:
+            progress(start, n)
+
+    def __call__(self, done: int, latents: torch.Tensor,
+                 residual: Optional[torch.Tensor]) -> None:
+        if done == self.n:
+            if self.path:
+                synchronize(latents)
+                if os.path.exists(self.path):
+                    os.remove(self.path)
+        elif self.segmented:
+            if done not in self.ends:
+                return
+            synchronize(latents)
+            if self.path:
+                save_partial(self.path, done, self.n - 1, latents, residual)
+        if self.progress is not None:
+            self.progress(done, self.n)
 
 
 class FantasyWorldPipeline:
@@ -187,19 +284,44 @@ class FantasyWorldPipeline:
                             device=self.device)
         return self.pose_encoder(x)
 
+    def quantize(self, mode: str = "int8", **kw) -> int:
+        """int8 w8a8 or fp8 storage over the fusion model's eligible
+        linears, in place (``core.quant.quantize_model``; the encoders, the
+        VAE and the pose encoder run once per clip and stay as they are).
+        Returns how many layers were rewritten."""
+        from ..core.quant import quantize_model
+        return quantize_model(self.fusion, mode, **kw)
+
     @torch.no_grad()
     def denoise(self, context_pos, context_neg, clip_feature, y,
                 height: int, width: int, num_frames: int = 81,
                 num_inference_steps: int = 50, cfg_scale: float = 5.0,
                 seed: Union[None, int, Sequence[int]] = None,
                 plucker_fea=None,
-                progress_callback: Optional[Callable[[int, int], None]] = None
+                progress_callback: Optional[Callable[[int, int], None]] = None,
+                tea_cache_l1_thresh: Optional[float] = None,
+                tea_cache_model_id: str = DEFAULT_MODEL_ID,
+                segment_size: Optional[int] = None,
+                gen_ckpt_path: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (final latents (B, 16, f, h, w), geometry prediction of
         the positive rows). Each step runs the CFG pair as batch 2 (rows
         [:B] positive, [B:] negative); the CFG combine and the Euler update
-        are f32. ``progress_callback(done, total)`` runs after each step's
-        work is queued (it does not synchronise)."""
+        are f32.
+
+        ``tea_cache_l1_thresh``: TeaCache at this relative-L1 threshold
+        (the reference suggests 0.05 at 480P) with ``tea_cache_model_id``'s
+        polynomial; the plan is made before the loop.
+
+        ``segment_size`` / ``gen_ckpt_path``: the steps before the last run
+        in segments of ``segment_size`` (all of them when only a path is
+        given); after each the device is synchronised,
+        ``progress_callback(done, n)`` runs and the partial state is
+        written to ``gen_ckpt_path``; a call with the same step count and
+        shapes resumes from it, and the file is removed at the end. The
+        result equals the unsegmented one step for step. Without either,
+        ``progress_callback`` runs after each step's work is queued (it
+        does not synchronise)."""
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
         f = (num_frames - 1) // 4 + 1
@@ -221,20 +343,39 @@ class FantasyWorldPipeline:
 
         pairs = sched.sigma_pairs()
         n = len(sched.timesteps)
+        tea = tea_cache_l1_thresh is not None
+        skips, residual = np.zeros((n,), bool), None
+        if tea:
+            skips = compute_skip_schedule(
+                self.fusion.dit, sched.timesteps, tea_cache_l1_thresh,
+                tea_cache_model_id)
+            pt = self.cfg.dit.patch_size
+            n_tok = f * (height // 8 // pt[1]) * (width // 8 // pt[2])
+            residual = torch.zeros((2 * B, n_tok, self.cfg.dit.dim),
+                                   dtype=dtype, device=dev)
+        start, latents, residual = load_partial(gen_ckpt_path, n - 1,
+                                                latents, residual, tea)
+        report = StepReport(n, start, segment_size, gen_ckpt_path,
+                            progress_callback)
         prediction = None
-        for i in range(n):
+        for i in range(start, n):
             last = i == n - 1
             t = torch.full((2 * B,), float(sched.timesteps[i]),
                            dtype=torch.float32, device=dev)
-            noise, prediction = self.fusion.joint_forward(
-                torch.cat([latents] * 2, dim=0), t, ctx, clip2, y2,
-                plucker_fea=pl2, return_prediction=last)
+            lat2 = torch.cat([latents] * 2, dim=0)
+            if tea and not last:
+                noise, residual = self.fusion.joint_forward_tea(
+                    lat2, t, ctx, clip2, y2, plucker_fea=pl2,
+                    skip=bool(skips[i]), residual=residual)
+            else:
+                noise, prediction = self.fusion.joint_forward(
+                    lat2, t, ctx, clip2, y2, plucker_fea=pl2,
+                    return_prediction=last)
             pos, neg = noise[:B].float(), noise[B:].float()
             pred = neg + cfg_scale * (pos - neg)
             latents = (latents.float() + pred * float(pairs[i, 1] - pairs[i, 0])
                        ).to(dtype)
-            if progress_callback is not None:
-                progress_callback(i + 1, n)
+            report(i + 1, latents, residual)
         # the heads ran on the CFG-doubled batch; keep the positive rows
         prediction = {k: v[:B] for k, v in prediction.items()}
         return latents, prediction

@@ -15,8 +15,14 @@ activations, so when the experts sit on different devices only the active
 one is on the card: the other waits in pinned host memory and the two
 trade places, tensor by tensor, at the boundary (``swap_residency``).
 
-Not ported here: TeaCache, the segmented/resumable denoise, meshes and
-quantization.
+``place_expert`` quantizes an expert (int8 or fp8, ``core/quant.py``), each
+layer on the card, before it is pinned to the host, so the two experts
+still hold the same tensors for the swap. The denoise takes TeaCache with
+the dual plan (the residual carried across the boundary) and runs segmented
+and resumable as ``FantasyWorldPipeline.denoise`` does, with no segment
+across the boundary.
+
+Not ported here: meshes.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import torch.nn as nn
 
 from ..models.fusion.model import FusionModel
 from ..schedulers.flow_match import FlowMatchScheduler
-from .wan_video import FantasyWorldPipeline
+from .tea_cache import DEFAULT_MODEL_ID, compute_skip_schedule_dual
+from .wan_video import FantasyWorldPipeline, StepReport, load_partial
 
 
 def control_camera_latents_from_plucker(plucker: np.ndarray) -> np.ndarray:
@@ -70,6 +77,20 @@ def pin_to_host(module: nn.Module) -> nn.Module:
         host.copy_(t.data)
         t.data = host
     return module
+
+
+@torch.no_grad()
+def place_expert(model: nn.Module, device, *, on_host: bool,
+                 quant: Optional[str] = None, **quant_kw) -> nn.Module:
+    """One expert as ``DualModelDenoiser`` takes it: quantized first when
+    ``quant`` is "int8" or "fp8" (``core.quant.quantize_model``, layer by
+    layer on ``device``; ``quant_kw`` goes to it), then moved to pinned host
+    memory when ``on_host``. Quantizing before pinning leaves both experts
+    the same tensor lists, which ``swap_residency`` needs."""
+    from ..core.quant import quantize_model
+    if quant:
+        quantize_model(model, quant, work_device=device, **quant_kw)
+    return pin_to_host(model) if on_host else model
 
 
 @torch.no_grad()
@@ -137,13 +158,22 @@ class DualModelDenoiser:
                 cfg_scale: float = 5.0, seed: Optional[int] = None,
                 control_camera_latents: Optional[np.ndarray] = None,
                 progress_callback: Optional[Callable[[int, int], None]] = None,
-                stage_callback: Optional[Callable[[str], None]] = None
+                stage_callback: Optional[Callable[[str], None]] = None,
+                tea_cache_l1_thresh: Optional[float] = None,
+                tea_cache_model_id: str = DEFAULT_MODEL_ID,
+                segment_size: Optional[int] = None,
+                gen_ckpt_path: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (final latents (1, z, f, h, w), geometry prediction of
         the positive row). ``progress_callback(done, total)`` runs after
-        each step is queued; ``stage_callback`` after an expert's control
-        tokens ("control_adapter_high" / "_low") and after a swap
-        ("swap")."""
+        each step is queued, or after each segment once synchronised when
+        ``segment_size`` or ``gen_ckpt_path`` is given (as in
+        ``FantasyWorldPipeline.denoise``; no segment spans the expert
+        boundary, so a resumed run re-enters the right expert);
+        ``stage_callback`` after an expert's control tokens
+        ("control_adapter_high" / "_low") and after a swap ("swap").
+        ``tea_cache_l1_thresh``: TeaCache with the dual plan
+        (``compute_skip_schedule_dual``)."""
         stage = stage_callback or (lambda name: None)
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
@@ -162,9 +192,23 @@ class DualModelDenoiser:
         y2 = torch.cat([y, y]).to(dev, dtype)
         ctrl = None if control_camera_latents is None else torch.as_tensor(
             np.asarray(control_camera_latents), device=dev, dtype=dtype)
+        tea = tea_cache_l1_thresh is not None
+        skips, residual = np.zeros((n,), bool), None
+        if tea:
+            skips = compute_skip_schedule_dual(
+                self.experts[True].dit, self.experts[False].dit, ts, n_high,
+                tea_cache_l1_thresh, tea_cache_model_id, device=dev)
+            pt = dcfg.patch_size
+            n_tok = f * (height // 8 // pt[1]) * (width // 8 // pt[2])
+            residual = torch.zeros((2 * B, n_tok, dcfg.dim), dtype=dtype,
+                                   device=dev)
+        start, latents, residual = load_partial(gen_ckpt_path, n - 1,
+                                                latents, residual, tea)
+        report = StepReport(n, start, segment_size, gen_ckpt_path,
+                            progress_callback, cuts=(n_high,))
         tokens: Dict[bool, Optional[torch.Tensor]] = {}
         prediction = None
-        for i in range(n):
+        for i in range(start, n):
             high, last = i < n_high, i == n - 1
             if self.activate(high):
                 stage("swap")
@@ -175,13 +219,18 @@ class DualModelDenoiser:
                 stage("control_adapter_" + ("high" if high else "low"))
             t = torch.full((2 * B,), float(ts[i]), dtype=torch.float32,
                            device=dev)
-            noise, prediction = expert.joint_forward(
-                torch.cat([latents] * 2), t, ctx, None, y2,
-                return_prediction=last, control_tokens=tokens[high])
+            lat2 = torch.cat([latents] * 2)
+            if tea and not last:
+                noise, residual = expert.joint_forward_tea(
+                    lat2, t, ctx, None, y2, skip=bool(skips[i]),
+                    residual=residual, control_tokens=tokens[high])
+            else:
+                noise, prediction = expert.joint_forward(
+                    lat2, t, ctx, None, y2, return_prediction=last,
+                    control_tokens=tokens[high])
             pos, neg = noise[:B].float(), noise[B:].float()
             pred = neg + cfg_scale * (pos - neg)
             latents = (latents.float() + pred * float(pairs[i, 1] - pairs[i, 0])
                        ).to(dtype)
-            if progress_callback is not None:
-                progress_callback(i + 1, n)
+            report(i + 1, latents, residual)
         return latents, {k: v[:B] for k, v in prediction.items()}

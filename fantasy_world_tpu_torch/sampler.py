@@ -10,10 +10,13 @@ the scene-scale normalization of the camera path;
 ``generate_video(prompt, neg_prompt, image, camera_params, ...)`` returns
 the uint8 frames and the geometry prediction, and ``export`` writes the
 MP4 and the colored PLY. ``FantasyWorldSampler.generate_videos`` runs a
-batch of clips in one denoise.
+batch of clips in one denoise. Each generate call passes the serving
+options (``tea_cache_l1_thresh``, ``tea_cache_model_id``,
+``segment_size``, ``gen_ckpt_path``) to the denoise; ``quant`` at
+``from_checkpoint`` (or the pipelines' ``quantize``) rewrites the
+denoiser's large linears.
 
-Not ported here: the mesh, Ulysses, TeaCache and segmented-denoise
-arguments.
+Not ported here: the mesh and Ulysses arguments.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .hostops.camera import (camera_matrices, extri_intri_to_pose_encoding,
                              plucker_from_pose_encoding)
 from .models.moge.infer import moge_infer
 from .models.moge.model import MoGe
+from .pipelines.tea_cache import DEFAULT_MODEL_ID
 from .pipelines.wan_video import FantasyWorldPipeline
 from .pipelines.wan_video_22 import (DualModelDenoiser,
                                      control_camera_latents_from_plucker)
@@ -68,14 +72,19 @@ class FantasyWorldSampler:
     def from_checkpoint(cls, wan_ckpt_path: str, model_ckpt: str, *,
                         device, dtype: torch.dtype = torch.bfloat16,
                         tokenizer_path: Optional[str] = None,
-                        moge_ckpt: Optional[str] = None
+                        moge_ckpt: Optional[str] = None,
+                        quant: Optional[str] = None
                         ) -> "FantasyWorldSampler":
+        """``quant`` ("int8" / "fp8") quantizes the fusion model after
+        load."""
         from .convert.checkpoint import load_pipeline
         from .convert.moge import load_moge
-        return cls(load_pipeline(wan_ckpt_path, model_ckpt, device=device,
-                                 dtype=dtype, tokenizer_path=tokenizer_path),
-                   None if moge_ckpt is None else load_moge(
-                       moge_ckpt, device=device, dtype=dtype))
+        pipe = load_pipeline(wan_ckpt_path, model_ckpt, device=device,
+                             dtype=dtype, tokenizer_path=tokenizer_path)
+        if quant:
+            pipe.quantize(quant)
+        return cls(pipe, None if moge_ckpt is None else load_moge(
+            moge_ckpt, device=device, dtype=dtype))
 
     # -- conditioning -------------------------------------------------------
 
@@ -126,10 +135,15 @@ class FantasyWorldSampler:
                        height: int = 336, width: int = 592,
                        num_frames: int = 81, sample_steps: int = 50,
                        cfg_scale: float = 5.0, progress_callback=None,
-                       stage_callback=None
+                       stage_callback=None,
+                       tea_cache_l1_thresh: Optional[float] = None,
+                       tea_cache_model_id: str = DEFAULT_MODEL_ID,
+                       segment_size: Optional[int] = None,
+                       gen_ckpt_path: Optional[str] = None
                        ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
         """image (H, W, 3) in [0, 1], or image_path -> (uint8 frames
-        (T, H, W, 3), geometry prediction {name: f32 numpy})."""
+        (T, H, W, 3), geometry prediction {name: f32 numpy}). The serving
+        options go to ``FantasyWorldPipeline.denoise``."""
         stage = stage_callback or (lambda name: None)
         if image is None:
             image = read_image(image_path)
@@ -141,7 +155,10 @@ class FantasyWorldSampler:
         latents, prediction = self.pipe.denoise(
             ctx_pos, ctx_neg, clip, y, height, width, num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
-            plucker_fea=pl, progress_callback=progress_callback)
+            plucker_fea=pl, progress_callback=progress_callback,
+            tea_cache_l1_thresh=tea_cache_l1_thresh,
+            tea_cache_model_id=tea_cache_model_id,
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
         video = self.pipe.decode_video(latents)
         stage("vae_decode")
         return video, {k: v.float().cpu().numpy()
@@ -155,7 +172,11 @@ class FantasyWorldSampler:
                         seeds: Optional[List[int]] = None,
                         height: int = 336, width: int = 592,
                         num_frames: int = 81, sample_steps: int = 50,
-                        cfg_scale: float = 5.0, progress_callback=None
+                        cfg_scale: float = 5.0, progress_callback=None,
+                        tea_cache_l1_thresh: Optional[float] = None,
+                        tea_cache_model_id: str = DEFAULT_MODEL_ID,
+                        segment_size: Optional[int] = None,
+                        gen_ckpt_path: Optional[str] = None
                         ) -> List[Tuple[np.ndarray, Dict[str, np.ndarray]]]:
         """B clips in one denoise (a CFG batch of 2B); conditioning and the
         decode run per clip. Row i is ``generate_video(prompts[i], ...,
@@ -182,7 +203,10 @@ class FantasyWorldSampler:
             num_inference_steps=sample_steps, cfg_scale=cfg_scale,
             seed=seeds,
             plucker_fea=None if pls[0] is None else torch.cat(pls),
-            progress_callback=progress_callback)
+            progress_callback=progress_callback,
+            tea_cache_l1_thresh=tea_cache_l1_thresh,
+            tea_cache_model_id=tea_cache_model_id,
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
         return [(self.pipe.decode_video(latents[i:i + 1]),
                  {k: v[i:i + 1].float().cpu().numpy()
                   for k, v in (prediction or {}).items()})
@@ -235,13 +259,15 @@ class Wan22Sampler:
                         dtype: torch.dtype = torch.bfloat16,
                         tokenizer_path: Optional[str] = None,
                         moge_ckpt: Optional[str] = None,
-                        timestep_boundary: float = 900.0) -> "Wan22Sampler":
+                        timestep_boundary: float = 900.0,
+                        quant: Optional[str] = None) -> "Wan22Sampler":
+        """``quant`` quantizes both experts as they load."""
         from .convert.checkpoint import load_wan22
         from .convert.moge import load_moge
         pipe, denoiser = load_wan22(
             wan_ckpt_path, model_ckpt_high, model_ckpt_low, device=device,
             dtype=dtype, tokenizer_path=tokenizer_path,
-            timestep_boundary=timestep_boundary)
+            timestep_boundary=timestep_boundary, quant=quant)
         return cls(pipe, denoiser, None if moge_ckpt is None else load_moge(
             moge_ckpt, device=device, dtype=dtype))
 
@@ -256,11 +282,15 @@ class Wan22Sampler:
                        height: int = 480, width: int = 832,
                        num_frames: int = 81, sample_steps: int = 50,
                        cfg_scale: float = 5.0, progress_callback=None,
-                       stage_callback=None
+                       stage_callback=None,
+                       tea_cache_l1_thresh: Optional[float] = None,
+                       tea_cache_model_id: str = DEFAULT_MODEL_ID,
+                       segment_size: Optional[int] = None,
+                       gen_ckpt_path: Optional[str] = None
                        ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
         """image and end_image (H, W, 3) in [0, 1], or image_path ->
         (uint8 frames (T, H, W, 3), geometry prediction {name: f32
-        numpy})."""
+        numpy}). The serving options go to ``DualModelDenoiser.denoise``."""
         stage = stage_callback or (lambda name: None)
         if image is None:
             image = read_image(image_path)
@@ -283,7 +313,9 @@ class Wan22Sampler:
             ctx_pos, ctx_neg, y, height, width, num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
             control_camera_latents=ctrl, progress_callback=progress_callback,
-            stage_callback=stage)
+            stage_callback=stage, tea_cache_l1_thresh=tea_cache_l1_thresh,
+            tea_cache_model_id=tea_cache_model_id,
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
         video = self.pipe.decode_video(latents, tiled=True)
         stage("vae_decode")
         return video, {k: v.float().cpu().numpy()

@@ -87,7 +87,10 @@ def init_lora(model: nn.Module, rank: int = 16, *,
     layer by layer."""
     model.requires_grad_(False)
     factors: List[nn.Parameter] = []
-    for _, layer in target_layers(model, targets):
+    for name, layer in target_layers(model, targets):
+        if type(layer) is not nn.Linear:
+            raise ValueError(f"{name} is a {type(layer).__name__}: LoRA "
+                             f"attaches to float linears only")
         lora = LoRA(layer.in_features, layer.out_features, rank, alpha,
                     layer.weight.device)
         with torch.no_grad():

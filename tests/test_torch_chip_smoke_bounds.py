@@ -70,6 +70,25 @@ def test_shape_launches_agree_with_expected_launches():
     assert per_shape["dit_self"] == 40 and per_shape["vggt_global"] == 24
 
 
+def test_serve_shapes_are_the_denoise_shapes_at_the_serve_batch():
+    """Each Wan2.1 denoise attention has a ``serve_`` counterpart at
+    ``SERVE_CLIPS`` times its rows (the CFG pair of each clip of
+    full_serve's batch) on the same kernel; no step of the CFG pair's
+    denoise counts them."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    shapes = {name: rest for name, *rest in cs.SHAPES}
+    per_step = cs.layers_per_step(FusionConfig())
+    denoise = [n for n, c in per_step.items() if c]
+    assert cs.SERVE_CLIPS == 2 and len(denoise) == 7
+    for name in denoise + ["camera_trunk"]:
+        (b, lq, h, d), lk, kernel = shapes[name]
+        assert shapes["serve_" + name] == [(b * cs.SERVE_CLIPS, lq, h, d),
+                                           lk, kernel], name
+        assert per_step["serve_" + name] == 0
+    assert shapes["serve_vggt_frame"][0] == (84, 782, 16, 64)
+    assert sum(n.startswith("serve_") for n in shapes) == 8
+
+
 def test_chip_smoke_imports_no_torch_at_module_level():
     """The yardstick arithmetic runs without torch (and without JAX)."""
     code = ("import sys, chip_smoke as c\n"
@@ -472,3 +491,81 @@ def test_small_wan22_launch_contract(monkeypatch, tmp_path):
     assert seen == cs.expected_launches(
         fcfg, 1, moge=(mcfg, cs.moge_tokens(mcfg, image.shape[:2])))
     assert all(seen[r] for r in fa.ROUTES)
+
+
+@pytest.mark.parametrize("rows,k,n,mode,bound_ms,bound_by", [
+    # the DiT FFN in at the CFG pair: int8 at 1979 TOP/s, bf16 at 989
+    (2 * 16317, 5120, 13824, "int8", 2.3336, "operations"),
+    (2 * 16317, 5120, 13824, "bf16", 4.6696, "operations"),
+    (2 * 16317, 5120, 5120, "fp8", 1.7295, "operations"),
+    # a few rows: the weight's bytes bind
+    (16, 5120, 5120, "int8", 7.9230e-3, "bytes"),
+])
+def test_qlinear_bound_matches_hand_numbers(rows, k, n, mode, bound_ms,
+                                            bound_by):
+    got, by = cs.qlinear_bound(rows, k, n, mode)
+    assert got == pytest.approx(bound_ms, rel=1e-3) and by == bound_by
+
+
+def test_expected_launches_add_encoders_and_drop_skipped_steps():
+    """A clip's encoders add their launches once; a TeaCache-skipped step
+    launches nothing (its block stack is replaced), the heads' trunk runs
+    on the last step all the same."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    cfg, clip, moge = FusionConfig(), CLIPVisionConfig(), (MoGeConfig(),
+                                                           3556)
+    enc = cs.encoder_launches(clip, moge)
+    assert enc == {"onekv": 31, "d64": 24}
+    both = cs.expected_launches(cfg, 2, clip=clip, moge=moge)
+    plain = cs.expected_launches(cfg, 2)
+    assert both == dict(plain, onekv=plain["onekv"] + 31,
+                        d64=plain["d64"] + 24)
+    assert cs.expected_launches(cfg, 4, skipped=2) == plain
+    assert cs.expected_launches(cfg, 1, skipped=1) == dict(
+        plain, generic=0, onekv=16, d64=0)
+
+
+def test_tea_serve_launch_contract(monkeypatch):
+    """A reduced TeaCache denoise on the CPU at chip_smoke's threshold
+    rule, every attention recorded by the route it takes on the card: the
+    plan skips the second of 4 steps, and the launches are those of 3
+    steps without TeaCache (a skipped step launches nothing), as
+    ``expected_launches(..., skipped=1)`` counts."""
+    import torch
+    import fantasy_world_tpu_torch.ops.attention as att
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    seen = {k: 0 for k in fa.LAUNCHES}
+
+    def record(q, k, v, *, scale=None):
+        seen[fa.route(q.shape[2], q.shape[3], k.shape[1])] += 1
+        return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    monkeypatch.setattr(att, "flash_attention", record)
+    fcfg, pcfg = cs.small_configs()
+    g = torch.Generator().manual_seed(0)
+    pipe = FantasyWorldPipeline(
+        build(lambda: FusionModel(fcfg), device="cpu", dtype=torch.float32,
+              generator=g),
+        build(lambda: CameraPoseEncoder(pcfg), device="cpu",
+              dtype=torch.float32, generator=g))
+    thresh, plan = cs.tea_threshold(pipe.fusion.dit, 4)
+    assert plan.tolist() == [False, True, False, False]
+    h, w, nf = 128, 192, 9
+    cond = cs.conditioning(fcfg.dit, h, w, nf, g, 16)
+    counts = []
+    for steps, tea in ((4, thresh), (3, None)):
+        for k in seen:
+            seen[k] = 0
+        pipe.denoise(*cond[:4], h, w, num_frames=nf,
+                     num_inference_steps=steps, seed=0,
+                     plucker_fea=pipe.encode_plucker(cond[4]),
+                     tea_cache_l1_thresh=tea)
+        counts.append(dict(seen))
+    assert counts[0] == counts[1] and any(counts[0].values())

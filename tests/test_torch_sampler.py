@@ -140,7 +140,12 @@ def _port_modules(trees):
 
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
-    root = tmp_path_factory.mktemp("clip")
+    return make_env(tmp_path_factory.mktemp("clip"))
+
+
+def make_env(root):
+    """The JAX trees, the port's modules holding them, a tokenizer, a
+    camera path and an image under ``root``."""
     rng = np.random.default_rng(0)
     # the pose encoder has no JAX init: the JAX converter reads the port's
     # random state dict, at widths other than the default 128
@@ -473,14 +478,51 @@ def test_cli_needs_a_card_or_device_cpu(env, layout, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "video.mp4")
 
 
+def test_cli_serving_flags(env, layout, tmp_path, capsys):
+    """The CLI in process with --quant, TeaCache, segments and a partial-
+    state file: the clip equals the sampler's unsegmented TeaCache run on
+    the same files (the denoise against JAX's: test_torch_tea_cache.py),
+    a progress line follows each segment, and the file is gone."""
+    from fantasy_world_tpu_torch.cli import infer_wan21
+    from test_torch_tea_cache import THRESH
+    argv = _cli_argv(env, layout, tmp_path / "out", "--device", "cpu",
+                     "--quant", "int8", "--tea_cache_l1_thresh", str(THRESH),
+                     "--segment_size", "1", "--gen_ckpt_path",
+                     str(tmp_path / "partial.npz"))
+    argv[argv.index("--sample_steps") + 1] = "4"
+    r = infer_wan21.main(argv)
+    out = capsys.readouterr().out
+    # min_dim 1024 leaves every linear of the tiny model in f32, as in JAX
+    assert "[quant] int8: 0 linears" in out
+    assert [f"[denoise] step {i}/4" for i in range(1, 5)] == re.findall(
+        r"\[denoise\] step \d/4", out)
+    assert not (tmp_path / "partial.npz").exists()
+    from fantasy_world_tpu_torch.pipelines.tea_cache import (
+        compute_skip_schedule)
+    from fantasy_world_tpu_torch.sampler import read_image
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    sampler = FantasyWorldSampler.from_checkpoint(
+        layout["wan"], layout["model"], device="cpu", dtype=torch.float32,
+        tokenizer_path=env["tok"])
+    assert compute_skip_schedule(
+        sampler.pipe.fusion.dit,
+        FlowMatchScheduler().set_timesteps(4).timesteps, THRESH).any()
+    with open(env["cams"]) as fh:
+        cams = cameras_json_to_camera_list(json.load(fh), image_size=(H, W))
+    video, pred = sampler.generate_video(
+        PROMPT, NEG, image=read_image(env["image_path"]), camera_params=cams,
+        seed=SEED, height=H, width=W, num_frames=FRAMES, sample_steps=4,
+        tea_cache_l1_thresh=THRESH)
+    assert np.array_equal(r["frames"], video)
+    assert all(np.array_equal(r["prediction"][k], v)
+               for k, v in pred.items())
+
+
 @pytest.mark.parametrize("extra,flag", [
     (("--moge_ckpt", "moge.pt"), "--moge_ckpt"),
-    (("--quant", "int8"), "--quant"),
-    (("--tea_cache_l1_thresh", "0.05"), "--tea_cache_l1_thresh"),
     (("--mesh_seq", "2"), "--mesh_seq"),
     (("--ulysses", "true"), "--ulysses"),
-    (("--segment_size", "1"), "--segment_size"),
-    (("--gen_ckpt_path", "g"), "--gen_ckpt_path"),
     (("--profile_dir", "p"), "--profile_dir")])
 def test_cli_refuses_unported_options(env, layout, tmp_path, monkeypatch,
                                       extra, flag):

@@ -120,8 +120,9 @@ def test_from_jax_loads_strictly(pipes):
 def test_port_never_imports_jax():
     """The port and chip_smoke.py import nothing of JAX or of the JAX
     package (checked in a fresh interpreter: this one has JAX loaded),
-    with the samplers, the loaders, MoGe, the Wan2.2 pipeline and both
-    inference CLIs among the modules and the CLIs' argument checks run."""
+    with the samplers, the loaders, MoGe, the Wan2.2 pipeline, the
+    quantization, TeaCache, the server, both inference CLIs and the serve
+    CLI among the modules and the CLIs' argument checks run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -129,7 +130,9 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('sampler', 'convert.checkpoint', 'cli.infer_wan21',"
         " 'cli.infer_wan22', 'models.moge.model', 'models.moge.infer',"
-        " 'convert.moge', 'convert.lora', 'pipelines.wan_video_22'):\n"
+        " 'convert.moge', 'convert.lora', 'pipelines.wan_video_22',"
+        " 'core.quant', 'pipelines.tea_cache', 'serving.server',"
+        " 'cli.serve'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"

@@ -536,6 +536,42 @@ def test_cli_wan22_end_to_end_on_cpu(env, layout, tmp_path, monkeypatch):
         assert _rel_max(pred[k], wp[k]) <= RTOL, k
 
 
+def test_cli_wan22_serving_flags(env, layout, tmp_path, monkeypatch,
+                                 capsys):
+    """The CLI in process with --quant, TeaCache, segments and a partial-
+    state file: the clip equals the sampler's unsegmented TeaCache run on
+    the same files (the denoise against JAX's: test_torch_tea_cache.py), a
+    progress line follows each segment, and the file is gone."""
+    from fantasy_world_tpu_torch.cli import infer_wan22
+    from test_torch_tea_cache import THRESH
+    r = infer_wan22.main(_cli_argv(
+        env, layout, tmp_path / "out", "--device", "cpu", "--moge_ckpt",
+        layout["moge"], "--quant", "int8", "--tea_cache_l1_thresh",
+        str(THRESH), "--segment_size", "1", "--gen_ckpt_path",
+        str(tmp_path / "partial.npz")))
+    out = capsys.readouterr().out
+    assert [f"[denoise] step {i}/{STEPS}" for i in range(1, STEPS + 1)] == \
+        re.findall(r"\[denoise\] step \d/\d", out)
+    assert not (tmp_path / "partial.npz").exists()
+    from fantasy_world_tpu_torch.hostops.camera import (
+        cameras_json_to_camera_list)
+    from fantasy_world_tpu_torch.sampler import Wan22Sampler, read_image
+    sampler = Wan22Sampler.from_checkpoint(
+        layout["wan"], layout["high"], layout["low"], device="cpu",
+        dtype=torch.float32, tokenizer_path=env["tok"],
+        moge_ckpt=layout["moge"])
+    with open(env["cams"]) as fh:
+        cams = cameras_json_to_camera_list(json.load(fh), image_size=(H, W))
+    video, pred = sampler.generate_video(
+        PROMPT, NEG, image=read_image(env["image_path"]),
+        end_image=read_image(env["end_path"]), camera_params=cams,
+        seed=SEED, height=H, width=W, sample_steps=STEPS,
+        tea_cache_l1_thresh=THRESH)
+    assert np.array_equal(r["frames"], video)
+    assert all(np.array_equal(r["prediction"][k], v)
+               for k, v in pred.items())
+
+
 def _cli_exit(argv, monkeypatch, cuda=False):
     from fantasy_world_tpu_torch.cli import infer_wan22
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
@@ -547,13 +583,8 @@ def _cli_exit(argv, monkeypatch, cuda=False):
 @pytest.mark.parametrize("extra,flag", [
     ((), "--device cpu"),
     (("--device", "cpu", "--moge_ckpt", "nowhere.pt"), "--moge_ckpt"),
-    (("--device", "cpu", "--quant", "int8"), "--quant"),
-    (("--device", "cpu", "--tea_cache_l1_thresh", "0.05"),
-     "--tea_cache_l1_thresh"),
     (("--device", "cpu", "--mesh_model", "2"), "--mesh_model"),
     (("--device", "cpu", "--ulysses", "true"), "--ulysses"),
-    (("--device", "cpu", "--segment_size", "1"), "--segment_size"),
-    (("--device", "cpu", "--gen_ckpt_path", "g"), "--gen_ckpt_path"),
     (("--device", "cpu", "--profile_dir", "p"), "--profile_dir")])
 def test_cli_wan22_exits(env, layout, tmp_path, monkeypatch, extra, flag):
     """Not-ported options and a missing MoGe checkpoint exit naming the
