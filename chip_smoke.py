@@ -34,6 +34,11 @@ non-zero):
   6. the trainer's entry point, ``cli.train --synthetic --lora_rank 4`` at
      its demo config: 2 steps saved, then resumed to step 3 (finite
      losses, both checkpoints, the stats and backward kernels launched);
+     then ``train_cli_data``: ``cli.train --data_root --lora_rank 4`` on a
+     reduced-width reference-layout checkpoint written from a seed and a
+     21-frame 256x384 clip of PNGs with RealEstate10K poses, 2 steps saved
+     and a resume to 3 (finite losses, both checkpoints, exact launches:
+     CLIP's and the training step's, per step);
   7. the full-width, full-depth Wan2.1-I2V-14B-480P fusion denoise
      (``FusionConfig()``, 336x592, 81 frames, 3 steps, geometry heads on the
      last) from random weights: shapes, finiteness, launch counts (in all,
@@ -44,7 +49,13 @@ non-zero):
      full width, ``generate_video`` at 336x592, 81 frames, 2 steps, and
      ``export``: each stage's seconds and peak memory, the launches (CLIP's
      31 onekv and MoGe's 24 d64 among them), the output shapes, finiteness;
-     CLIP is freed after, umT5 and the VAE kept for step 10;
+     CLIP is freed after, umT5 and the VAE kept for step 10; before that,
+     ``full_data_train`` on the same pipeline: an 81-frame 336x592 clip
+     (PNGs panning across the example image, ``poses.txt`` from the
+     example camera path) read by the trainer's ``read_clip``, its batch
+     built by ``build_train_batch`` (each encoder's seconds and peak GB),
+     then two LoRA rank-16 steps on it (finite losses, a moved factor, an
+     unchanged base, exact launches, seconds and peak GB);
   9. two full-width LoRA training steps (rank 16, per-block recompute,
      batch 1) on the same model: finite losses, moved factors, an unchanged
      base, exact launch counts, seconds per step and peak memory;
@@ -761,6 +772,13 @@ def install_tokenizer(pipe, vocab: int, workdir: str) -> str:
     ``workdir`` in the HF layout, for the pipeline's own ``tokenize`` to
     load (AutoTokenizer from a local path). Returns its name for the phase
     line."""
+    write_tokenizer(vocab, workdir)
+    pipe.tokenizer_path = workdir
+    return "transformers-wordlevel"
+
+
+def write_tokenizer(vocab: int, workdir: str) -> None:
+    """The files of ``install_tokenizer``'s tokenizer, in ``workdir``."""
     words = sorted(set(f"{PROMPT} {NEG_PROMPT}".lower().replace(
         ",", " ").split()))
     ids = {"[PAD]": 0, "[UNK]": 1, **{w: 2 + i for i, w in
@@ -783,8 +801,6 @@ def install_tokenizer(pipe, vocab: int, workdir: str) -> str:
         json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
                    "pad_token": "[PAD]", "unk_token": "[UNK]",
                    "model_max_length": 512}, fh)
-    pipe.tokenizer_path = workdir
-    return "transformers-wordlevel"
 
 
 def clip_inputs(height, width, num_frames):
@@ -1222,6 +1238,139 @@ def phase_train_cli():
                                  f"{idle}")
     if saved != ["step_00000002", "step_00000003"]:
         raise AssertionError(f"train CLI checkpoints {saved}")
+
+
+def write_pan_clip(clip_dir, height, width, frames, prompt=PROMPT):
+    """A clip directory as ``cli.train --data_root`` reads it:
+    ``frames/{i}.png`` (``data/video.py:save_frames``), ``frames`` frames of
+    (height, width) panning left to right across the example image (scaled
+    by 1.25 with PIL, a window sliding over the extra quarter),
+    ``prompt.txt``, and ``poses.txt``: the first ``frames`` cameras of the
+    example camera path as RealEstate10K rows (a URL line, then ts,
+    fx / W, fy / H, 0.5, 0.5, 0, 0 and the 3x4 w2c). Returns the
+    directory."""
+    from PIL import Image
+    from fantasy_world_tpu_torch.data.video import save_frames
+    img = Image.open(EXAMPLE_IMAGE).convert("RGB")
+    big = np.asarray(img.resize((round(width * 1.25), round(height * 1.25)),
+                                Image.BICUBIC))
+    top, span = (big.shape[0] - height) // 2, big.shape[1] - width
+    xs = [round(i * span / max(1, frames - 1)) for i in range(frames)]
+    save_frames([big[top:top + height, x:x + width] for x in xs],
+                os.path.join(clip_dir, "frames"))
+    with open(os.path.join(clip_dir, "prompt.txt"), "w") as fh:
+        fh.write(prompt + "\n")
+    with open(os.path.join(REPO, "examples", "cameras",
+                           "camera_data.json")) as fh:
+        data = json.load(fh)
+    focal = float(data.get("focal_length", 500))
+    with open(os.path.join(clip_dir, "poses.txt"), "w") as fh:
+        fh.write("https://www.youtube.com/watch?v=example\n")
+        for i, c2w in enumerate(data["cameras_interp"][:frames]):
+            w2c = np.linalg.inv(np.asarray(c2w, np.float64).reshape(4, 4))
+            row = [i, focal / width, focal / height, 0.5, 0.5, 0.0, 0.0]
+            fh.write(" ".join(repr(float(v)) for v in
+                              row + w2c[:3].flatten().tolist()) + "\n")
+    return clip_dir
+
+
+def write_reference_layout(root, seed=21):
+    """``small_clip_configs``' modules from a seed, on the host in f32, as
+    the reference checkpoint layout that ``convert/checkpoint.py:
+    load_pipeline`` reads (``reference_state_dicts``): the base DiT in a
+    safetensors shard, the fusion ``.pth`` (the IRG blocks, ``vggt.*``,
+    the pose encoder), the VAE, CLIP and umT5 ``.pth`` and a
+    ``configs.json`` of the reduced configs. Returns (wan_ckpt_path,
+    model_ckpt)."""
+    import dataclasses
+    import torch
+    from fantasy_world_tpu_torch.convert import checkpoint as ckpt
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVision
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    fcfg, pcfg, t5c, clipc, vaec = small_clip_configs()
+    g = torch.Generator("cpu").manual_seed(seed)
+
+    def make(ctor, cfg):
+        return build(lambda: ctor(cfg), device="cpu", dtype=torch.float32,
+                     generator=g).state_dict()
+    wan = os.path.join(root, "wan")
+    os.makedirs(wan, exist_ok=True)
+    base, fusion = ckpt.reference_state_dicts(make(FusionModel, fcfg), fcfg)
+    for k, v in make(CameraPoseEncoder, pcfg).items():
+        fusion[ckpt.POSE_PREFIX + k] = v
+    ckpt.write_safetensors(os.path.join(
+        wan, "diffusion_pytorch_model-00001-of-00001.safetensors"), base)
+    model = os.path.join(root, "model.pth")
+    torch.save(fusion, model)
+    for ctor, cfg, name in ((WanVAE, vaec, ckpt.VAE_FILE),
+                            (CLIPVision, clipc, ckpt.CLIP_FILE),
+                            (T5Encoder, t5c, ckpt.T5_FILE)):
+        torch.save(make(ctor, cfg), os.path.join(wan, name))
+    with open(os.path.join(wan, ckpt.CONFIGS_FILE), "w") as fh:
+        json.dump({k: dataclasses.asdict(c) for k, c in
+                   (("fusion", fcfg), ("t5", t5c), ("clip", clipc),
+                    ("vae", vaec))}, fh)
+    return wan, model
+
+
+def phase_train_cli_data():
+    """``python -m fantasy_world_tpu_torch.cli.train --data_root`` as a user
+    calls it, on the card at reduced width: ``small_clip_configs``' modules
+    written from a seed in the reference layout, a stand-in tokenizer, one
+    21-frame 256x384 clip (``write_pan_clip``); LoRA rank 4, 2 steps with a
+    checkpoint, then a resume to step 3. Each step builds its batch (the VAE,
+    umT5, CLIP on onekv, the pose encoder) and takes one LoRA step: the
+    launches of each run are exactly ``steps`` x (CLIP's + one step's)."""
+    import shutil
+    from fantasy_world_tpu_torch.cli.train import main as train_main
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    fcfg, _, t5c, clipc, _ = small_clip_configs()
+    root = os.path.join(REPO, "build", "train_cli_data")
+    shutil.rmtree(root, ignore_errors=True)
+    wan, model = write_reference_layout(root)
+    tok = os.path.join(root, "tokenizer")
+    write_tokenizer(t5c.vocab, tok)
+    clips = os.path.join(root, "clips")
+    write_pan_clip(os.path.join(clips, "pan"), 256, 384, 21)
+    ckpt = os.path.join(root, "ckpt")
+    write_s = time.perf_counter() - t0
+
+    def argv(steps):
+        return ["--data_root", clips, "--wan_ckpt_path", wan,
+                "--model_ckpt", model, "--tokenizer_path", tok,
+                "--lora_rank", "4", "--steps", str(steps), "--height", "256",
+                "--width", "384", "--frames", "21", "--warmup", "1",
+                "--lr", "1e-3", "--log_every", "1", "--checkpoint_dir", ckpt]
+    runs = []
+    for steps, ran in ((2, 2), (3, 1)):
+        fa.reset_launch_counts()
+        loss = train_main(argv(steps))
+        launches = dict(fa.LAUNCHES)
+        want = _add(expected_train_launches(fcfg, ran),
+                    *[encoder_launches(clip=clipc)] * ran)
+        runs.append((loss, launches, want))
+    saved = sorted(os.listdir(ckpt))
+    shutil.rmtree(root, ignore_errors=True)
+    say("train_cli_data", seconds=f"{time.perf_counter() - t0:.2f}",
+        write_layout_s=f"{write_s:.2f}", image="example_png_pan",
+        tokenizer="transformers-wordlevel",
+        losses="|".join(f"{loss:.5f}" for loss, _, _ in runs),
+        checkpoints="|".join(saved),
+        launches="|".join(json.dumps({k: v for k, v in n.items() if v}
+                                     ).replace(" ", "") for _, n, _ in runs))
+    for loss, launches, want in runs:
+        if not (loss is not None and math.isfinite(loss)):
+            raise AssertionError(f"train CLI on data: final loss {loss}")
+        if launches != want:
+            raise AssertionError(f"train CLI on data: launches {launches} "
+                                 f"!= {want}")
+    if saved != ["step_00000002", "step_00000003"]:
+        raise AssertionError(f"train CLI on data: checkpoints {saved}")
 
 
 def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
@@ -2274,20 +2423,19 @@ class ProfiledStep:
         return out
 
 
-def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
-                     latent_fhw=(21, 42, 74), profile_dir=None):
-    """LoRA rank 16 with per-block recompute on the full-width model the
-    denoise ran: ``steps`` steps at batch 1, lr 1e-4, warm-up 1; with
-    ``profile_dir``, one more step under the profiler."""
+def lora_steps(device, fusion, next_batch, steps, seed):
+    """LoRA rank 16 with per-block recompute on ``fusion`` (lr 1e-4,
+    warm-up 1), as the trainer's loop runs it: ``steps`` times, a batch
+    from ``next_batch()`` (the last one still held, as the loop holds it),
+    then one step on it. Each build and each step is timed with CUDA
+    events; each step's peak memory is taken; the launches of the builds
+    and of the steps are counted apart. Returns a dict for
+    ``check_lora_run`` and the phase line."""
     import torch
     from fantasy_world_tpu_torch.cli.train import _optimizer
     from fantasy_world_tpu_torch.ops import flash_attention as fa
-    from fantasy_world_tpu_torch.schedulers.flow_match import (
-        FlowMatchScheduler)
     from fantasy_world_tpu_torch.training.lora import (init_lora, lora_state,
                                                        make_lora_train_step)
-    from fantasy_world_tpu_torch.training.step import sample_training_inputs
-    fusion, cfg = pipe.fusion, pipe.cfg
     params = dict(fusion.named_parameters())
     # base tensors whose bytes must not change: every 1/8th of the list,
     # from the first DiT embedding to the last bicross
@@ -2300,6 +2448,77 @@ def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
                                                weight_decay=1e-4),
                             list(state.values()))
     step = make_lora_train_step(fusion, opt, sched, remat=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    zero = {k: 0 for k in fa.LAUNCHES}
+    run = {"losses": [], "build_s": [], "step_s": [], "step_gb": [],
+           "build_launches": dict(zero), "launches": dict(zero),
+           "lora_params": sum(t.numel() for t in state.values())}
+    batch = None
+    for _ in range(steps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        before = dict(fa.LAUNCHES)
+        events[0].record()
+        batch = next_batch()
+        events[1].record()
+        torch.cuda.synchronize()
+        built = dict(fa.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        run["losses"].append(float(step(batch)))
+        events[2].record()
+        torch.cuda.synchronize()
+        run["step_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        run["build_s"].append(events[0].elapsed_time(events[1]) / 1e3)
+        run["step_s"].append(events[1].elapsed_time(events[2]) / 1e3)
+        for k, v in fa.LAUNCHES.items():
+            run["build_launches"][k] += built[k] - before[k]
+            run["launches"][k] += v - built[k]
+    run["moved"] = sum(int(t.count_nonzero()) for n, t in state.items()
+                       if n.endswith(".up"))
+    run["changed"] = [n for n, t in frozen.items()
+                      if not torch.equal(params[n], t)]
+    run["step"], run["batch"] = step, batch
+    return run
+
+
+def check_lora_run(run, want_launches, want_build_launches=None):
+    """The checks of ``lora_steps``' run: finite losses, a moved ``up``
+    factor, an unchanged base, exact launches of the steps and, when given,
+    of the builds."""
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"non-finite training loss {run['losses']}")
+    if run["moved"] == 0:
+        raise AssertionError("no up factor moved in the steps")
+    if run["changed"]:
+        raise AssertionError(f"LoRA training changed base tensors "
+                             f"{run['changed']}")
+    if run["launches"] != want_launches:
+        raise AssertionError(f"training launch counts {run['launches']} != "
+                             f"{want_launches}")
+    if (want_build_launches is not None
+            and run["build_launches"] != want_build_launches):
+        raise AssertionError(f"batch build launches "
+                             f"{run['build_launches']} != "
+                             f"{want_build_launches}")
+
+
+def _nonzero(counts):
+    return json.dumps({k: v for k, v in counts.items() if v}).replace(" ", "")
+
+
+def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
+                     latent_fhw=(21, 42, 74), profile_dir=None):
+    """LoRA rank 16 with per-block recompute on the full-width model the
+    denoise ran (``lora_steps``): ``steps`` steps at batch 1 on random
+    latents and the denoise's conditioning; with ``profile_dir``, one more
+    step under the profiler."""
+    import torch
+    from fantasy_world_tpu_torch.schedulers.flow_match import (
+        FlowMatchScheduler)
+    from fantasy_world_tpu_torch.training.step import sample_training_inputs
+    cfg = pipe.cfg
     gen = torch.Generator(device).manual_seed(seed + 1)
     fm = FlowMatchScheduler().set_timesteps(1000)
     shape = (1, cfg.dit.out_dim, *latent_fhw)
@@ -2313,48 +2532,129 @@ def phase_full_train(device, pipe, cond, plucker_fea, steps=2, seed=1024,
                         "context": cond[0].to(device),
                         "clip_feature": cond[2].to(device),
                         "y": cond[3].to(device), "plucker_fea": plucker_fea})
-    n_factors = sum(t.numel() for t in state.values())
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    torch.cuda.synchronize()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    losses = []
-    events[0].record()
-    for i, batch in enumerate(batches):
-        losses.append(step(batch))
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
-    losses = [float(x) for x in losses]
-    step_s = [events[i].elapsed_time(events[i + 1]) / 1e3
-              for i in range(steps)]
-    moved = sum(int(t.count_nonzero()) for n, t in state.items()
-                if n.endswith(".up"))
-    changed = [n for n, t in frozen.items() if not torch.equal(params[n], t)]
-    want = expected_train_launches(cfg, steps)
-    say("full_train", steps=steps, rank=16, lora_params=n_factors,
-        losses="|".join(f"{x:.5f}" for x in losses),
-        step_seconds="|".join(f"{x:.3f}" for x in step_s),
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        up_nonzero=moved, base_unchanged=not changed,
-        launches=json.dumps({k: v for k, v in launches.items() if v}
-                            ).replace(" ", ""))
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss {losses}")
-    if moved == 0:
-        raise AssertionError("no up factor moved in two steps")
-    if changed:
-        raise AssertionError(f"LoRA training changed base tensors {changed}")
-    if launches != want:
-        raise AssertionError(f"training launch counts {launches} != {want}")
+    run = lora_steps(device, pipe.fusion, iter(batches).__next__, steps,
+                     seed)
+    say("full_train", steps=steps, rank=16, lora_params=run["lora_params"],
+        losses="|".join(f"{x:.5f}" for x in run["losses"]),
+        step_seconds="|".join(f"{x:.3f}" for x in run["step_s"]),
+        peak_gb=f"{max(run['step_gb']):.2f}", up_nonzero=run["moved"],
+        base_unchanged=not run["changed"],
+        launches=_nonzero(run["launches"]))
+    check_lora_run(run, expected_train_launches(cfg, steps))
     if profile_dir:
-        prof = ProfiledStep("train", float(np.mean(step_s)), profile_dir)
+        prof = ProfiledStep("train", float(np.mean(run["step_s"])),
+                            profile_dir)
         prof.begin()
-        step(batches[-1])
+        run["step"](run["batch"])
         prof.end()
         prof.report()
+    return run["launches"]
+
+
+def phase_full_data_train(device, cpipe, steps=2, seed=1024):
+    """Fine-tuning on a clip at full width, as ``cli.train --data_root``
+    runs it, on ``phase_full_clip``'s pipeline (umT5-XXL, CLIP ViT-H, the
+    VAE and the pose encoder beside the 18.5B fusion model, MoGe still
+    resident): an 81-frame 336x592 clip written as PNGs
+    (``write_pan_clip``), then ``steps`` turns of the trainer's
+    ``_data_batches`` (``read_clip``, ``build_train_batch``) and one LoRA
+    rank-16 step (``lora_steps``), so every build after the first runs
+    beside the adapters, their AdamW moments and the allocator state a
+    step leaves. Prints each build's stage seconds and peak GB beside each
+    step's; checks the first batch's shapes and finiteness, finite losses,
+    a moved ``up`` factor, an unchanged base, and the launches: CLIP's in
+    each build, the training steps' in the steps. The adapters are removed
+    after. Returns the launches of both."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.cli.train import _data_batches
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.training.lora import target_layers
+    fusion, cfg = cpipe.fusion, cpipe.cfg
+    height, width, frames = 336, 592, 81
+    t_phase = t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "data_clips")
+    shutil.rmtree(root, ignore_errors=True)
+    write_pan_clip(os.path.join(root, "pan"), height, width, frames)
+    write_s = time.perf_counter() - t0
+    builds = []                       # per build: [(stage, event, peak)]
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        builds[-1].append((name, event, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    batches = _data_batches(cpipe, argparse.Namespace(
+        data_root=root, height=height, width=width, frames=frames,
+        seed=seed), stage_callback=mark)
+
+    first = {}
+
+    def next_batch():
+        builds.append([])
+        mark("start")
+        b = next(batches)
+        if not first:
+            first.update({k: tuple(v.shape) for k, v in b.items()
+                          if torch.is_tensor(v) and v.dim() > 1})
+        return b
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    run = lora_steps(device, fusion, next_batch, steps, seed + 3)
+    shutil.rmtree(root, ignore_errors=True)
+    batch = run["batch"]
+    f, lh, lw = (frames - 1) // 4 + 1, height // 8, width // 8
+    want_shapes = {
+        "clean_latents": (1, cfg.dit.out_dim, f, lh, lw),
+        "noise": (1, cfg.dit.out_dim, f, lh, lw),
+        "context": (1, cpipe.text_len, cfg.dit.text_dim),
+        "clip_feature": (1, 257, cfg.dit.clip_feature_dim),
+        "y": (1, cfg.dit.in_dim - cfg.dit.out_dim, f, lh, lw),
+        "plucker_fea": (1, f * (lh // 2) * (lw // 2), cfg.dit.plucker_dim)}
+    shapes = {k: first.get(k) for k in want_shapes}
+    finite = all(bool(torch.isfinite(batch[k]).all()) for k in want_shapes)
+    stage_s = [{name: b[i - 1][1].elapsed_time(ev) / 1e3
+                for i, (name, ev, _) in enumerate(b) if i} for b in builds]
+    stage_gb = [{name: peak / 1e9 for name, _, peak in b[1:]}
+                for b in builds]
+    want_build = _add({k: 0 for k in fa.LAUNCHES},
+                      *[encoder_launches(clip=CLIPVisionConfig())] * steps)
+    say("full_data_train", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        frames=frames, height=height, width=width, image="example_png_pan",
+        tokenizer="transformers-wordlevel", write_clip_s=f"{write_s:.2f}",
+        resident_gb=f"{resident_gb:.2f}",
+        build_seconds="|".join(f"{x:.3f}" for x in run["build_s"]),
+        build_stage_seconds="|".join(json.dumps(
+            {k: round(v, 3) for k, v in d.items()}).replace(" ", "")
+            for d in stage_s),
+        build_peak_gb="|".join(f"{max(d.values()):.2f}" for d in stage_gb),
+        build_stage_peak_gb="|".join(json.dumps(
+            {k: round(v, 2) for k, v in d.items()}).replace(" ", "")
+            for d in stage_gb),
+        batch_shapes=json.dumps({k: list(v) for k, v in shapes.items()}
+                                ).replace(" ", ""), batch_finite=finite,
+        steps=steps, rank=16,
+        losses="|".join(f"{x:.5f}" for x in run["losses"]),
+        step_seconds="|".join(f"{x:.3f}" for x in run["step_s"]),
+        step_peak_gb="|".join(f"{x:.2f}" for x in run["step_gb"]),
+        up_nonzero=run["moved"], base_unchanged=not run["changed"],
+        build_launches=_nonzero(run["build_launches"]),
+        launches=_nonzero(run["launches"]))
+    if shapes != want_shapes:
+        raise AssertionError(f"batch shapes {shapes} != {want_shapes}")
+    if not finite:
+        raise AssertionError("the clip's batch is not finite")
+    check_lora_run(run, expected_train_launches(cfg, steps), want_build)
+    # the model leaves as it came: without adapters, whose factors and
+    # gradients full_train would otherwise hold through its own steps
+    launches = _add(run["build_launches"], run["launches"])
+    del run, batch, batches
+    for _, layer in target_layers(fusion):
+        layer._modules.pop("lora", None)
     return launches
 
 
@@ -2397,12 +2697,14 @@ def main(argv=None) -> int:
     phase_small_serve(device)
     phase_small_train(device)
     phase_train_cli()
+    phase_train_cli_data()
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
         device, profile_dir=args.profile)
     clip_run, cpipe, moge = phase_full_clip(device, pipe)
     serve, _, shared = phase_full_serve(device, cpipe, moge)
+    data_train = phase_full_data_train(device, cpipe)
     # CLIP and MoGe go; umT5 and the VAE stay for the Wan2.2 clip
     del cpipe, moge
     gc.collect()
@@ -2427,14 +2729,16 @@ def main(argv=None) -> int:
             "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
             "launches": (denoise[k] + clip_run[k] + serve[k]
-                         + train[f"{k}_stats"] + wan22[k] + quant[k]),
+                         + train[f"{k}_stats"] + data_train[k]
+                         + data_train[f"{k}_stats"] + wan22[k] + quant[k]),
             "denoise_launches": denoise[k],
             "clip_run_launches": clip_run[k],
             "serve_launches": serve[k],
+            "data_train_launches": data_train[k] + data_train[f"{k}_stats"],
             "wan22_clip_launches": wan22[k],
             "wan22_int8_step_launches": quant[k],
             "launches_per_denoise_step": per_step[k],
-            "stats_launches": train[f"{k}_stats"],
+            "stats_launches": train[f"{k}_stats"] + data_train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
             "stats_ms": pk["stats_ms"],
@@ -2445,8 +2749,13 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"fa_{k}", "route": "cuda", "source": BWD_SOURCE,
             "replaces": REPLACES[k],
-            "launches": sum(train[f"{k}_{d}"] for d in fa.BWD_D),
-            "launches_by_head_dim": {d: train[f"{k}_{d}"] for d in fa.BWD_D},
+            "launches": sum(train[f"{k}_{d}"] + data_train[f"{k}_{d}"]
+                            for d in fa.BWD_D),
+            "launches_by_head_dim": {d: train[f"{k}_{d}"]
+                                     + data_train[f"{k}_{d}"]
+                                     for d in fa.BWD_D},
+            "data_train_launches": sum(data_train[f"{k}_{d}"]
+                                       for d in fa.BWD_D),
             "launches_per_denoise_step": sum(per_step[f"{k}_{d}"]
                                              for d in fa.BWD_D),
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],

@@ -19,9 +19,11 @@ linears after load (``core/quant.py``); ``--tea_cache_l1_thresh`` (with
 ``--tea_cache_model_id``'s polynomial) skips the block stack on the steps
 its plan picks; ``--segment_size`` runs the denoise in segments with a
 progress line after each, and ``--gen_ckpt_path`` writes the partial state
-there after each segment, so that a run cut short resumes from it. The
-flags of options not ported yet (``--mesh_*``, ``--ulysses``,
-``--profile_dir``) end the run with the flag's name when set.
+there after each segment, so that a run cut short resumes from it.
+``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of the
+generation (conditioning, denoise, decode) to ``D/trace.json``. The flags
+of options not ported yet (``--mesh_*``, ``--ulysses``) end the run with
+the flag's name when set.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import time
 
 # flag -> the value that leaves the option off; anything else is refused
 NOT_PORTED = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
-              "ulysses": False, "profile_dir": None}
+              "ulysses": False}
 
 
 def str2bool(v):
@@ -82,7 +84,6 @@ def parse_args(argv=None):
                         "f32 through their plain versions")
     add_serving_args(p)
     g = p.add_argument_group("not ported yet (setting one exits)")
-    g.add_argument("--profile_dir", type=str, default=None)
     g.add_argument("--mesh_data", type=int, default=1)
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
@@ -91,7 +92,8 @@ def parse_args(argv=None):
 
 
 def add_serving_args(p) -> None:
-    """--quant and the per-run TeaCache and segmented-denoise flags."""
+    """--quant, the per-run TeaCache and segmented-denoise flags, and
+    --profile_dir."""
     p.add_argument("--quant", type=str, default=None, choices=["int8", "fp8"],
                    help="quantize the denoiser's large linears after load: "
                         "int8 w8a8 (int32-accumulated products) or fp8 "
@@ -111,6 +113,9 @@ def add_serving_args(p) -> None:
                    help="write the partial denoise state here after each "
                         "segment; a run cut short resumes from it, and it "
                         "is removed at the end")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "generation into this directory")
 
 
 def progress_printer(args):
@@ -165,6 +170,7 @@ def run(args) -> dict:
     from ..core.quant import count_quantized
     from ..hostops.camera import cameras_json_to_camera_list
     from ..sampler import FantasyWorldSampler, read_image
+    from ..utils.observability import profile_trace
 
     check_args(args)
     device = torch.device(args.device)
@@ -181,11 +187,13 @@ def run(args) -> dict:
               f"{count_quantized(sampler.pipe.fusion)} linears")
     image = read_image(args.image_path)
     t0 = time.perf_counter()
-    video, prediction = sampler.generate_video(
-        prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
-        camera_params=cameras, using_scale=args.using_scale, seed=args.seed,
-        height=args.height, width=args.width, num_frames=args.frames,
-        sample_steps=args.sample_steps, **serving_kwargs(args))
+    with profile_trace(args.profile_dir):
+        video, prediction = sampler.generate_video(
+            prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
+            camera_params=cameras, using_scale=args.using_scale,
+            seed=args.seed, height=args.height, width=args.width,
+            num_frames=args.frames, sample_steps=args.sample_steps,
+            **serving_kwargs(args))
     dt = time.perf_counter() - t0
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
           f"({dt / args.sample_steps:.2f} s/step) on {args.device}")

@@ -17,8 +17,9 @@ inactive expert waits in pinned host memory) and f32 on the CPU only with
 (the dual-expert plan), ``--segment_size`` (no segment spans the expert
 boundary) and ``--gen_ckpt_path`` work as in ``cli/infer_wan21.py``; both
 experts are quantized the same way, each on the card, before the low one
-is pinned in host memory. The flags of options not ported yet
-(``--mesh_*``, ``--ulysses``, ``--profile_dir``) end the run with the
+is pinned in host memory. ``--profile_dir`` writes a ``torch.profiler``
+trace of the generation, as in ``cli/infer_wan21.py``. The flags of
+options not ported yet (``--mesh_*``, ``--ulysses``) end the run with the
 flag's name when set.
 """
 from __future__ import annotations
@@ -70,7 +71,6 @@ def parse_args(argv=None):
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
     g.add_argument("--ulysses", type=str2bool, default=False)
-    g.add_argument("--profile_dir", type=str, default=None)
     return p.parse_args(argv)
 
 
@@ -87,6 +87,7 @@ def run(args) -> dict:
 
     from ..hostops.camera import cameras_json_to_camera_list
     from ..sampler import Wan22Sampler, read_image
+    from ..utils.observability import profile_trace
 
     check_args(args)
     device = torch.device(args.device)
@@ -103,12 +104,13 @@ def run(args) -> dict:
     end_image = (read_image(args.end_image_path) if args.end_image_path
                  else None)
     t0 = time.perf_counter()
-    video, prediction = sampler.generate_video(
-        prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
-        end_image=end_image, camera_params=cameras,
-        using_scale=args.using_scale, seed=args.seed, height=args.height,
-        width=args.width, sample_steps=args.sample_steps,
-        **serving_kwargs(args))
+    with profile_trace(args.profile_dir):
+        video, prediction = sampler.generate_video(
+            prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
+            end_image=end_image, camera_params=cameras,
+            using_scale=args.using_scale, seed=args.seed,
+            height=args.height, width=args.width,
+            sample_steps=args.sample_steps, **serving_kwargs(args))
     dt = time.perf_counter() - t0
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
           f"({dt / args.sample_steps:.2f} s/step) on {args.device}")

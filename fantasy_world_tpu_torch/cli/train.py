@@ -1,5 +1,8 @@
 """Flow-matching fine-tuning of the fusion model (``cli/train.py``).
 
+    python -m fantasy_world_tpu_torch.cli.train --data_root CLIPS \
+        --wan_ckpt_path DIR --model_ckpt model.pth --tokenizer_path TOK \
+        --lora_rank 16 --steps N [--checkpoint_dir D] [--device cpu]
     python -m fantasy_world_tpu_torch.cli.train --synthetic --steps 2 \
         --demo_dim 64 --demo_layers 2 [--lora_rank 4] [--checkpoint_dir D] \
         [--device cpu]
@@ -15,12 +18,26 @@ metrics and an optional ``torch.profiler`` trace. It runs on the card
 only when asked (``--device cpu``: f32, the plain versions); without a
 card and without ``--device cpu`` it exits.
 
-``--synthetic`` draws random batches at a reduced demo config, from the
-same numpy stream as the JAX trainer, so both see identical batches; a
-resumed run continues the stream where the checkpoint left it. Not in
-this trainer yet: ``--data_root`` (batches through the VAE, T5 and CLIP,
-which come with the encoder slices), ``--pipe_stages`` and mesh axes above
-1 (the multi-GPU slice).
+Two data modes:
+  * ``--data_root DIR`` with the reference checkpoints (``--wan_ckpt_path``,
+    ``--model_ckpt``, loaded by ``convert/checkpoint.py:load_pipeline``):
+    each subdirectory of DIR is a clip, ``video.mp4`` (imageio) or
+    ``frames/*.png|jpg``, ``prompt.txt`` and optionally ``poses.txt``
+    (RealEstate10K rows, for the Plucker conditioning). Step i takes clip
+    i mod the clip count: its first ``--frames`` frames (or all, when it
+    has fewer; not rounded to 4k + 1), centre-cropped and resized to
+    ``--height`` x ``--width``, through ``training/data.py:
+    build_train_batch``. The noise of step i comes from a generator seeded
+    by (``--seed``, i), so a resumed run continues as an unbroken one.
+  * ``--synthetic``: random batches at a reduced demo config, from the
+    same numpy stream as the JAX trainer, so both see identical batches;
+    a resumed run continues the stream where the checkpoint left it.
+
+The encoders stay on the card beside the fusion model. LoRA is what fits
+one 80 GB card at full width: full fine-tuning of the 18.5B model holds
+~37 GB of bf16 weights, as much again in gradients and ~148 GB of f32
+AdamW moments, and runs out of memory. ``--pipe_stages`` and mesh axes
+above 1 come with the multi-GPU slice and exit.
 """
 from __future__ import annotations
 
@@ -37,8 +54,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="fantasy-world-tpu trainer "
                                             "(PyTorch port)")
     p.add_argument("--data_root", type=str, default=None,
-                   help="directory of clip subdirs (not in the port yet: "
-                        "needs the encoder slices)")
+                   help="directory of clip subdirs (video.mp4 | frames/ + "
+                        "prompt.txt [+ poses.txt]); needs --wan_ckpt_path "
+                        "and --model_ckpt")
     p.add_argument("--synthetic", action="store_true",
                    help="random batches at a reduced config (no ckpts/data)")
     p.add_argument("--wan_ckpt_path", type=str, default=None)
@@ -61,7 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--lora_rank", type=int, default=0,
                    help="train rank-N LoRA factors on the DiT projections "
-                        "instead of full fine-tuning (base stays frozen)")
+                        "instead of full fine-tuning (base stays frozen); "
+                        "at full width LoRA is what fits one H100")
     p.add_argument("--lora_alpha", type=float, default=1.0)
     p.add_argument("--lora_targets", type=str,
                    default="self_attn,cross_attn,ffn",
@@ -197,43 +216,116 @@ def _synthetic_batches(args, device):
                for k, v in batch.items()}
 
 
-def _unported(args) -> None:
-    """SystemExit for the modes that later slices bring."""
+def _clip_dirs(root):
+    return sorted(d for d in (os.path.join(root, n) for n in os.listdir(root))
+                  if os.path.isdir(d))
+
+
+def read_clip(clip: str, height: int, width: int, frames: int):
+    """One clip directory -> (frames (n, height, width, 3) uint8, prompt,
+    Plucker rays (1, n, height, width, 6) or None), n = min(its frames,
+    ``frames``); the rays are first-frame-relative with frame 0 at the
+    origin, one per frame, from ``poses.txt``."""
+    from ..data.re10k import re10k_plucker
+    from ..data.video import VideoData
+    src = os.path.join(clip, "video.mp4")
+    if os.path.exists(src):
+        video = VideoData(src, height=height, width=width)
+    else:
+        video = VideoData(image_folder=os.path.join(clip, "frames"),
+                          height=height, width=width)
+    n = min(len(video), frames)
+    clip_frames = np.stack([np.asarray(video[j]) for j in range(n)])
+    with open(os.path.join(clip, "prompt.txt")) as fh:
+        prompt = fh.read().strip()
+    pose_file = os.path.join(clip, "poses.txt")
+    plucker = (re10k_plucker(pose_file, n, (height, width))
+               if os.path.exists(pose_file) else None)
+    return clip_frames, prompt, plucker
+
+
+def _data_batches(pipe, args, start: int = 0, stage_callback=None):
+    """Step ``start``, ``start`` + 1, ... -> ``build_train_batch`` of clip
+    step mod the clip count, its noise drawn from a generator seeded by
+    (--seed, step); ``stage_callback(name)`` runs after the clip is read
+("read_clip") and after each stage of the build."""
+    from ..training.data import build_train_batch
+
+    clips = _clip_dirs(args.data_root)
+    step = start
+    while True:
+        frames, prompt, plucker = read_clip(clips[step % len(clips)],
+                                            args.height, args.width,
+                                            args.frames)
+        if stage_callback is not None:
+            stage_callback("read_clip")
+        gen = torch.Generator(pipe.device).manual_seed(int(
+            np.random.SeedSequence([args.seed, step]).generate_state(1)[0]))
+        yield build_train_batch(pipe, frames, prompt, gen,
+                                plucker_embedding=plucker,
+                                stage_callback=stage_callback)
+        step += 1
+
+
+def _check_args(args) -> None:
+    """SystemExit for the modes that the multi-GPU slice brings, and for a
+    real-data run without its paths or clips."""
     if args.pipe_stages > 0:
         raise SystemExit("--pipe_stages: the pipeline-parallel trainer "
                          "comes with the multi-GPU slice of the port")
     if max(args.mesh_data, args.mesh_seq, args.mesh_model) > 1:
         raise SystemExit("--mesh_data/--mesh_seq/--mesh_model > 1: meshes "
                          "come with the multi-GPU slice of the port")
-    if args.data_root or not args.synthetic:
-        raise SystemExit("--data_root: real-data batches need the VAE, T5 "
-                         "and CLIP, which come with the encoder slices of "
-                         "the port; use --synthetic")
+    if args.synthetic:
+        return
+    if not (args.wan_ckpt_path and args.model_ckpt and args.data_root):
+        raise SystemExit("real-data mode needs --wan_ckpt_path, "
+                         "--model_ckpt and --data_root (or --synthetic)")
+    if not (os.path.isdir(args.data_root) and _clip_dirs(args.data_root)):
+        raise SystemExit(f"no clip subdirectories under {args.data_root}")
+
+
+def _model(args, device, dtype, log):
+    """(fusion model, pipeline or None): the demo config from the seed
+    (--synthetic), else the reference checkpoints with their encoders."""
+    from ..core.params import build
+    from ..models.fusion.model import FusionModel
+    from ..utils.demo import demo_config
+
+    if args.synthetic:
+        cfg = demo_config(dim=args.demo_dim, layers=args.demo_layers,
+                          start_index=args.demo_start_index,
+                          agg_dim=max(32, args.demo_dim // 4))
+        gen = torch.Generator(device).manual_seed(args.seed)
+        return build(lambda: FusionModel(cfg), device=device, dtype=dtype,
+                     generator=gen), None
+    from ..convert.checkpoint import load_pipeline, missing_files
+    missing = missing_files(args.wan_ckpt_path, args.model_ckpt)
+    if missing:
+        raise SystemExit("checkpoint files missing: " + ", ".join(missing))
+    t0 = time.perf_counter()
+    pipe = load_pipeline(args.wan_ckpt_path, args.model_ckpt, device=device,
+                         dtype=dtype, tokenizer_path=args.tokenizer_path)
+    log.info("loaded %s + %s in %.1fs", args.wan_ckpt_path, args.model_ckpt,
+             time.perf_counter() - t0)
+    return pipe.fusion, pipe
 
 
 def run(args) -> Optional[float]:
     """Train; returns the final loss (None when the checkpoint is already
     at --steps)."""
-    from ..core.params import build
-    from ..models.fusion.model import FusionModel
     from ..training.lora import init_lora, lora_state, make_lora_train_step
     from ..training.step import make_train_step
-    from ..utils.demo import demo_config
     from ..utils.observability import get_logger
 
-    _unported(args)
+    _check_args(args)
     log = get_logger("train")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the trainer runs on the card; "
                          "pass --device cpu to train on the CPU")
     device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    cfg = demo_config(dim=args.demo_dim, layers=args.demo_layers,
-                      start_index=args.demo_start_index,
-                      agg_dim=max(32, args.demo_dim // 4))
-    gen = torch.Generator(device).manual_seed(args.seed)
-    model = build(lambda: FusionModel(cfg), device=device, dtype=dtype,
-                  generator=gen)
+    model, pipe = _model(args, device, dtype, log)
     if args.lora_rank > 0:
         targets = tuple(t for t in args.lora_targets.split(",") if t)
         factors = init_lora(model, args.lora_rank,
@@ -253,9 +345,12 @@ def run(args) -> Optional[float]:
         return None
     make = make_lora_train_step if args.lora_rank > 0 else make_train_step
     step_fn = make(model, opt, sched, remat=not args.no_remat)
-    batches = _synthetic_batches(args, device)
-    for _ in range(start):              # a resumed run continues the stream
-        next(batches)
+    if pipe is None:
+        batches = _synthetic_batches(args, device)
+        for _ in range(start):          # a resumed run continues the stream
+            next(batches)
+    else:
+        batches = _data_batches(pipe, args, start)
     loss_val = _train_loop(args, step_fn, batches, trainable, opt, sched,
                            start, log)
     print(f"train done: {args.steps - start} step(s), final loss "

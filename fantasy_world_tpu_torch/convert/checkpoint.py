@@ -23,7 +23,9 @@ text tower, heads the configuration leaves out) are not read.
 ``.safetensors`` is read by ``read_safetensors`` (the format is an 8-byte
 header length, a JSON header and the raw buffers), ``.pth`` by
 ``torch.load(weights_only=True)``, both mapped from disk rather than read
-into memory.
+into memory. ``reference_state_dicts`` and ``write_safetensors`` go the
+other way, from the port's modules to the layout, for checkpoints written
+from a seed.
 
 An optional ``configs.json`` in ``wan_ckpt_path`` ({"fusion", "t5",
 "clip", "vae"}: each a config's ``dataclasses.asdict``) gives the
@@ -43,7 +45,8 @@ import dataclasses
 import glob
 import json
 import os
-from typing import Dict, List, Mapping, Optional
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +81,7 @@ _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
               "F16": torch.float16, "BF16": torch.bfloat16,
               "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
               "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +102,28 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(buf[lo:hi]).view(_ST_DTYPES[info["dtype"]])
         out[name] = t.reshape(info["shape"])
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]
+                      ) -> None:
+    """{name: tensor} -> a ``.safetensors`` file in each tensor's dtype:
+    the 8-byte header length, the JSON header (padded to 8 bytes), the raw
+    buffers."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little"))
+        fh.write(head)
+        for blob in blobs:
+            fh.write(blob)
 
 
 def read_pth(path: str) -> Dict[str, torch.Tensor]:
@@ -200,10 +226,24 @@ def read_configs(wan_ckpt_path: str,
 # state dicts
 # ---------------------------------------------------------------------------
 
-def _permute(t: torch.Tensor, head_dim: int) -> torch.Tensor:
-    """``permute_qk_out_channels`` along dim 0 (torch's output axis)."""
+def _permute(t: torch.Tensor, head_dim: int, inverse: bool = False
+             ) -> torch.Tensor:
+    """``permute_qk_out_channels`` along dim 0 (torch's output axis), or
+    its inverse."""
     idx = permute_qk_out_channels(np.arange(t.shape[0]), head_dim)
-    return t[torch.as_tensor(idx)]
+    return t[torch.as_tensor(np.argsort(idx) if inverse else idx)]
+
+
+def _permuted_names(cfg: FusionConfig):
+    """(name, head_dim) of every tensor the RoPE permutation applies to."""
+    for i in range(cfg.dit.num_layers):
+        for name in ("q.weight", "q.bias", "k.weight", "k.bias",
+                     "norm_q.weight", "norm_k.weight"):
+            yield f"dit.blocks.{i}.self_attn.{name}", cfg.dit.head_dim
+    for i in range(cfg.num_irg):
+        for name in ("m1_proj.weight", "m1_proj.bias", "m2_proj.weight",
+                     "m2_proj.bias"):
+            yield f"bicross.{i}.cross_attn.{name}", cfg.bicross.head_dim
 
 
 def fusion_state_dict_from(base_dit: Mapping[str, torch.Tensor],
@@ -224,20 +264,48 @@ def fusion_state_dict_from(base_dit: Mapping[str, torch.Tensor],
                 out[irg[part](int(i)) + rest] = v
         elif k.startswith("vggt."):
             out[k] = v
-    for i in range(cfg.dit.num_layers):
-        pre = f"dit.blocks.{i}.self_attn."
-        for name in ("q.weight", "q.bias", "k.weight", "k.bias",
-                     "norm_q.weight", "norm_k.weight"):
-            if pre + name in out:
-                out[pre + name] = _permute(out[pre + name], cfg.dit.head_dim)
-    for i in range(cfg.num_irg):
-        pre = f"bicross.{i}.cross_attn."
-        for name in ("m1_proj.weight", "m1_proj.bias", "m2_proj.weight",
-                     "m2_proj.bias"):
-            if pre + name in out:
-                out[pre + name] = _permute(out[pre + name],
-                                           cfg.bicross.head_dim)
+    for name, head_dim in _permuted_names(cfg):
+        if name in out:
+            out[name] = _permute(out[name], head_dim)
     return out
+
+
+def reference_state_dicts(sd: Mapping[str, torch.Tensor], cfg: FusionConfig
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]:
+    """A ``FusionModel`` state dict -> (base DiT, fusion file), which
+    ``fusion_state_dict_from`` turns back into ``sd``. The base holds every
+    DiT tensor but the camera adapters (``.processor.``), the blocks that
+    the IRG stack takes over too, as the released base checkpoint does;
+    the fusion file holds the adapters of the blocks before the stack as
+    ``pipe.dit.*``, the IRG blocks (adapters included) and the rest of
+    VGGT. The pose encoder is not in ``sd``: its tensors go into the
+    fusion file under ``POSE_PREFIX``."""
+    sd = dict(sd)
+    for name, head_dim in _permuted_names(cfg):
+        if name in sd:
+            sd[name] = _permute(sd[name], head_dim, inverse=True)
+    base, fusion = {}, {}
+    for k, v in sd.items():
+        blk = re.match(r"dit\.blocks\.(\d+)\.(.*)", k)
+        irg = re.match(r"(vggt\.aggregator\.global_blocks|bicross)\.(\d+)\."
+                       r"(.*)", k)
+        if blk and int(blk.group(1)) >= cfg.start_index:
+            fusion[f"IRGBlock.{int(blk.group(1)) - cfg.start_index}.x_dit."
+                   f"{blk.group(2)}"] = v
+            if ".processor." not in k:
+                base[k[len("dit."):]] = v
+        elif k.startswith("dit.") and ".processor." in k:
+            fusion["pipe." + k] = v
+        elif k.startswith("dit."):
+            base[k[len("dit."):]] = v
+        elif irg:
+            part = ("x_agg" if irg.group(1).startswith("vggt")
+                    else "bicross_attention")
+            fusion[f"IRGBlock.{irg.group(2)}.{part}.{irg.group(3)}"] = v
+        else:
+            fusion[k] = v
+    return base, fusion
 
 
 def pose_config_from_state_dict(sd: Mapping[str, torch.Tensor],

@@ -1,13 +1,16 @@
-"""Camera JSON -> Plucker ray video, on the host in numpy
-(``hostops/camera.py``, ``hostops/geometry.py``, ``hostops/rotation.py``):
+"""Cameras -> Plucker ray video, on the host in numpy (``hostops/camera.py``
+and ``hostops/geometry.py``): camera JSON and 19-float camera entries,
 the inference path's pose-encoding round trip, first-frame-relative poses
-with zero translation and per-pixel [o x d, d] rays."""
+with zero translation and per-pixel [o x d, d] rays. The quaternion
+functions live in ``hostops/rotation.py`` and are re-exported here."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .rotation import mat_to_quat, quat_to_mat
 
 
 @dataclasses.dataclass
@@ -21,6 +24,15 @@ class Camera:
     @property
     def c2w_mat(self) -> np.ndarray:
         return np.linalg.inv(self.w2c_mat)
+
+    @classmethod
+    def from_entry(cls, entry: Sequence[float]) -> "Camera":
+        """A 19-float entry: ``ts fx fy cx cy k1 k2`` then the 3x4 w2c
+        rows (the RE10K and camera-controller layout)."""
+        fx, fy, cx, cy = entry[1:5]
+        w2c = np.eye(4)
+        w2c[:3, :] = np.asarray(entry[7:], np.float64).reshape(3, 4)
+        return cls(fx, fy, cx, cy, w2c)
 
 
 def cameras_json_to_camera_list(data: dict, image_size: Tuple[int, int]
@@ -37,41 +49,6 @@ def cameras_json_to_camera_list(data: dict, image_size: Tuple[int, int]
             np.asarray(c2w, np.float64).reshape(4, 4))[:3, :]
         cams.append(Camera(fx, fy, cx, cy, w2c))
     return cams
-
-
-def quat_to_mat(q: np.ndarray) -> np.ndarray:
-    i, j, k, r = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
-    two_s = 2.0 / (q * q).sum(-1)
-    o = np.stack([
-        1 - two_s * (j * j + k * k), two_s * (i * j - k * r),
-        two_s * (i * k + j * r),
-        two_s * (i * j + k * r), 1 - two_s * (i * i + k * k),
-        two_s * (j * k - i * r),
-        two_s * (i * k - j * r), two_s * (j * k + i * r),
-        1 - two_s * (i * i + j * j)], axis=-1)
-    return o.reshape(q.shape[:-1] + (3, 3))
-
-
-def mat_to_quat(m: np.ndarray) -> np.ndarray:
-    """Rotation matrices -> XYZW quaternions with a non-negative w."""
-    f = m.reshape(m.shape[:-2] + (9,))
-    m00, m01, m02, m10, m11, m12, m20, m21, m22 = (f[..., i]
-                                                  for i in range(9))
-    q_abs = np.sqrt(np.maximum(np.stack([
-        1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
-        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], axis=-1), 0.0))
-    quat_by_rijk = np.stack([
-        np.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], -1),
-        np.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], -1),
-        np.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], -1),
-        np.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], -1),
-    ], axis=-2)
-    cand = quat_by_rijk / (2.0 * np.maximum(q_abs[..., None], 0.1))
-    best = q_abs.argmax(axis=-1)
-    out = np.take_along_axis(cand, best[..., None, None].repeat(4, -1),
-                             axis=-2)[..., 0, :]
-    out = out[..., [1, 2, 3, 0]]
-    return np.where(out[..., 3:4] < 0, -out, out)
 
 
 def extri_intri_to_pose_encoding(extrinsics: np.ndarray,
@@ -100,6 +77,18 @@ def pose_encoding_to_extri_intri(pose_enc: np.ndarray,
     intr[..., 1, 2] = H / 2
     intr[..., 2, 2] = 1.0
     return extr.astype(np.float32), intr
+
+
+def cameras_from_extri_intri(extrinsics: np.ndarray,
+                             intrinsics: np.ndarray) -> List[Camera]:
+    """(S, 3, 4) w2c + (S, 3, 3) -> cameras."""
+    cams = []
+    for ext, K in zip(extrinsics, intrinsics):
+        w2c = np.eye(4)
+        w2c[:3, :] = ext
+        cams.append(Camera(float(K[0, 0]), float(K[1, 1]),
+                           float(K[0, 2]), float(K[1, 2]), w2c))
+    return cams
 
 
 def get_relative_pose(cams: List[Camera]) -> np.ndarray:
@@ -137,13 +126,8 @@ def plucker_from_pose_encoding(pose_enc: np.ndarray,
     a zero-translation first frame, and the intrinsics multiplied by the
     image size again, as the reference was trained."""
     H, W = image_size_hw
-    extr, intr = pose_encoding_to_extri_intri(pose_enc, (H, W))
-    cams = []
-    for ext, Kc in zip(extr, intr):
-        w2c = np.eye(4)
-        w2c[:3, :] = ext
-        cams.append(Camera(float(Kc[0, 0]), float(Kc[1, 1]),
-                           float(Kc[0, 2]), float(Kc[1, 2]), w2c))
+    cams = cameras_from_extri_intri(*pose_encoding_to_extri_intri(
+        pose_enc, (H, W)))
     K = np.asarray([[c.fx * W, c.fy * H, c.cx * W, c.cy * H] for c in cams],
                    np.float32)
     return ray_condition(K, get_relative_pose(cams), H, W)[None]
@@ -174,3 +158,4 @@ def load_camera_json(path: str, image_size: Tuple[int, int],
     with open(path) as fh:
         cams = cameras_json_to_camera_list(json.load(fh), image_size)
     return cams if num_frames is None else cams[:num_frames]
+

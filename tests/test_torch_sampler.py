@@ -294,29 +294,16 @@ def _write_reference_layout(root, modules, rng):
     def stale(t):
         return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
             np.float32))
-    base, fusion = {}, {}
-    for k, v in modules["fusion"].state_dict().items():
-        m = re.match(r"dit\.blocks\.(\d+)\.(.*)", k)
-        irg = re.match(r"(vggt\.aggregator\.global_blocks|bicross)\.(\d+)\."
-                       r"(.*)", k)
+    base, fusion = ckpt.reference_state_dicts(
+        modules["fusion"].state_dict(), fusion_config_from(J_CFG))
+    for k, v in base.items():
+        m = re.match(r"blocks\.(\d+)\.", k)
         if m and int(m.group(1)) >= si:
-            fusion[f"IRGBlock.{int(m.group(1)) - si}.x_dit.{m.group(2)}"] = v
-            if ".processor." not in k:
-                base[k[4:]] = stale(v)
-        elif k.startswith("dit.") and ".processor." in k:
-            fusion["pipe." + k] = v
-        elif k.startswith("dit."):
-            base[k[4:]] = v
-        elif irg:
-            part = "x_agg" if irg.group(1).startswith("vggt") else \
-                "bicross_attention"
-            fusion[f"IRGBlock.{irg.group(2)}.{part}.{irg.group(3)}"] = v
-        else:
-            fusion[k] = v
+            base[k] = stale(v)
     fusion["pipe.dit.head.head.weight"] = base["head.head.weight"]
     base["head.head.weight"] = stale(base["head.head.weight"])
     for k, v in modules["pose"].state_dict().items():
-        fusion["camera_condition.pose_encoder." + k] = v
+        fusion[ckpt.POSE_PREFIX + k] = v
     names = sorted(base)
     half = len(names) // 2
     for i, part in enumerate((names[:half], names[half:])):
@@ -386,6 +373,47 @@ def test_loader_refuses_duplicate_shard_keys(tmp_path):
                   str(tmp_path / f"diffusion_pytorch_model-{i}.safetensors"))
     with pytest.raises(ValueError, match="duplicate keys"):
         ckpt.read_shards(ckpt.dit_shards(str(tmp_path)))
+
+
+def test_reference_state_dicts_invert_the_loader(env):
+    """``reference_state_dicts`` then ``fusion_state_dict_from`` gives back
+    every tensor of the model, the q/k permutation undone and redone; the
+    adapters of the blocks before the IRG stack go to ``pipe.dit``, the
+    stack's blocks to the fusion file and, but for their adapters, to the
+    base as well."""
+    cfg = fusion_config_from(J_CFG)
+    sd = env["modules"]["fusion"].state_dict()
+    base, fusion = ckpt.reference_state_dicts(sd, cfg)
+    back = ckpt.fusion_state_dict_from(base, fusion, cfg)
+    assert set(back) == set(sd)
+    assert not [k for k in sd if not torch.equal(back[k], sd[k])]
+    q = f"blocks.{J_CFG.start_index}.self_attn.q.weight"
+    assert not torch.equal(base[q], sd["dit." + q])       # un-permuted
+    assert torch.equal(base[q], fusion["IRGBlock.0.x_dit.self_attn.q."
+                                       "weight"])
+    assert not [k for k in base if ".processor." in k]
+    assert all(k.startswith(("pipe.dit.", "IRGBlock.", "vggt."))
+               for k in fusion)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int64, torch.uint8,
+                                   torch.bool])
+def test_write_safetensors_round_trips(tmp_path, dtype):
+    """What ``write_safetensors`` writes, the safetensors library and
+    ``read_safetensors`` read back bit for bit."""
+    from safetensors.torch import load_file
+    g = torch.Generator().manual_seed(1)
+    tensors = {n: (torch.randn(shape, generator=g) * 50).to(dtype)
+               for n, shape in (("a", (3, 5)), ("b", (2, 1, 7)), ("c", ()),
+                                ("d", (0, 4)))}
+    path = str(tmp_path / "w.safetensors")
+    ckpt.write_safetensors(path, tensors)
+    for got in (load_file(path), ckpt.read_safetensors(path)):
+        assert set(got) == set(tensors)
+        for k, t in tensors.items():
+            assert got[k].dtype == dtype and got[k].shape == t.shape, k
+            assert torch.equal(got[k], t), k
 
 
 def test_safetensors_reader_reads_what_safetensors_wrote(tmp_path):
@@ -523,7 +551,7 @@ def test_cli_serving_flags(env, layout, tmp_path, capsys):
     (("--moge_ckpt", "moge.pt"), "--moge_ckpt"),
     (("--mesh_seq", "2"), "--mesh_seq"),
     (("--ulysses", "true"), "--ulysses"),
-    (("--profile_dir", "p"), "--profile_dir")])
+    (("--mesh_model", "2"), "--mesh_model")])
 def test_cli_refuses_unported_options(env, layout, tmp_path, monkeypatch,
                                       extra, flag):
     msg = _cli_exit(_cli_argv(env, layout, tmp_path, "--device", "cpu",

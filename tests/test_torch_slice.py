@@ -121,8 +121,10 @@ def test_port_never_imports_jax():
     """The port and chip_smoke.py import nothing of JAX or of the JAX
     package (checked in a fresh interpreter: this one has JAX loaded),
     with the samplers, the loaders, MoGe, the Wan2.2 pipeline, the
-    quantization, TeaCache, the server, both inference CLIs and the serve
-    CLI among the modules and the CLIs' argument checks run."""
+    quantization, TeaCache, the server, both inference CLIs, the serve
+    CLI, the data readers, build_train_batch, the trainer and
+    make_camera_json among the modules and the CLIs' argument checks
+    run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -132,7 +134,8 @@ def test_port_never_imports_jax():
         " 'cli.infer_wan22', 'models.moge.model', 'models.moge.infer',"
         " 'convert.moge', 'convert.lora', 'pipelines.wan_video_22',"
         " 'core.quant', 'pipelines.tea_cache', 'serving.server',"
-        " 'cli.serve'):\n"
+        " 'cli.serve', 'data.video', 'data.re10k', 'hostops.rotation',"
+        " 'training.data', 'cli.train', 'cli.make_camera_json'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"

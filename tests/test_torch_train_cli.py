@@ -1,6 +1,7 @@
 """The port's training CLI on the CPU: a synthetic run, save and resume, the
-LoRA mode, the modes that later slices bring, the batch stream shared with
-the JAX trainer, and that the trainer imports nothing of JAX."""
+LoRA mode, the modes that the multi-GPU slice brings, the batch stream
+shared with the JAX trainer, and that the trainer imports nothing of JAX.
+The real-data mode: tests/test_torch_train_data.py."""
 import argparse
 import os
 import re
@@ -87,7 +88,7 @@ def test_train_cli_lora_mode(tmp_path, capsys):
 @pytest.mark.parametrize("extra,slice_name", [
     (["--pipe_stages", "2"], "multi-GPU"),
     (["--mesh_data", "2"], "multi-GPU"),
-    (["--data_root", "/nonexistent"], "encoder"),
+    (["--mesh_model", "2"], "multi-GPU"),
 ])
 def test_unported_modes_exit(tmp_path, extra, slice_name):
     with pytest.raises(SystemExit, match=slice_name):

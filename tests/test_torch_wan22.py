@@ -585,7 +585,7 @@ def _cli_exit(argv, monkeypatch, cuda=False):
     (("--device", "cpu", "--moge_ckpt", "nowhere.pt"), "--moge_ckpt"),
     (("--device", "cpu", "--mesh_model", "2"), "--mesh_model"),
     (("--device", "cpu", "--ulysses", "true"), "--ulysses"),
-    (("--device", "cpu", "--profile_dir", "p"), "--profile_dir")])
+    (("--device", "cpu", "--mesh_seq", "2"), "--mesh_seq")])
 def test_cli_wan22_exits(env, layout, tmp_path, monkeypatch, extra, flag):
     """Not-ported options and a missing MoGe checkpoint exit naming the
     flag; without a card and without --device cpu it exits too."""
