@@ -70,6 +70,25 @@ Between steps 4 and 5, ``small_wan22``: the Wan2.2 sampler at reduced widths
 steps with the boundary between the second and the third, on the card
 against the CPU.
 
+The Wan2.2 TI2V-5B path and the sliding window:
+  * after the reduced denoise, ``small_windowed``: the Wan2.1 denoise in
+    sliding temporal windows (two of 6 of 11 latent frames) at reduced
+    widths, card against CPU within SLICE_TOL, exact launches;
+  * after small_wan22, ``small_ti2v``: ``run_condition`` (the 38-block
+    VAE's latent of the image in latent frame 0), ``denoise_ti2v`` and
+    ``decode_video`` at reduced widths, card against CPU within
+    SLICE_TOL, frame 0 equal to the clean latent after the loop;
+  * after step 9, ``full_windowed``: one step of the full-depth model in
+    two windows of 11 of the 21 latent frames: seconds, peak GB, exact
+    launches;
+  * after step 10, ``full_ti2v``: TI2V-5B at full width and depth from a
+    seed (30 blocks of 3072, the 38-block VAE) beside the umT5-XXL of the
+    clips: the example image at 704x1280, 2 steps at 121 frames, the tiled
+    decode; each stage's seconds and peak GB, a 50-step clip reckoned from
+    them, exactly 30 generic and 30 onekv launches a step.
+  The kernels are also held to their plain versions at TI2V-5B's shapes
+  (27,280 rows of 24 heads; over themselves and over 512 text keys).
+
 The serving path (``core/quant.py``, ``pipelines/tea_cache.py``, the
 segmented and resumable denoise, ``serving/server.py``, ``cli/serve.py``):
   * after step 3, ``qlinear``: int8 and fp8 at the DiT's linears of the
@@ -194,6 +213,10 @@ SHAPES = [
     # MoGe's DINOv2-L, once per clip: the example 592x336 image at 3600
     # tokens is a 45 x 79 patch grid plus the class token
     ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64"),
+    # Wan2.2 TI2V-5B at 704x1280, 121 frames: 31 x 22 x 40 tokens, 24
+    # heads of 128 (a ragged last 128-row tile), umT5's 512 keys
+    ("ti2v_dit_self", (2, 27280, 24, 128), 27280, "generic"),
+    ("ti2v_dit_cross_text", (2, 27280, 24, 128), 512, "onekv"),
 ]
 # full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
 # Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
@@ -383,8 +406,11 @@ def phase_kernels(device):
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
     g = torch.Generator(device=device).manual_seed(0)
+    from fantasy_world_tpu_torch.models.wan.dit import TI2V_5B
     layers = {k: v + layers_per_step(wan22_fusion_config())[k]
               for k, v in layers_per_step(FusionConfig()).items()}
+    layers.update(ti2v_dit_self=TI2V_5B.num_layers,
+                  ti2v_dit_cross_text=TI2V_5B.num_layers)
     per_kernel = {k: {"max_abs_err": 0.0, "by_shape": []} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
@@ -516,9 +542,12 @@ def phase_train_kernels(device, per_kernel):
         fwd.setdefault("stats_by_shape", []).append(
             {"shape": name, "ms": ms["stats"], "plain_ms": plain["stats"],
              "max_abs_err": errs["o"], "err_bound": o_tol, **ys["stats"]})
+        fwd["stats_max_abs_err"] = max(fwd.get("stats_max_abs_err", 0.0),
+                                       errs["o"])
         if name == HEADLINE[kernel]:
             fwd["stats_ms"] = ms["stats"]
             fwd["stats_plain_ms"] = plain["stats"]
+            fwd["stats_yardsticks"] = ys["stats"]
         for kname, part, grads in (("bwd_dq", "dq", ("dq",)),
                                    ("bwd_dkv", "dkv", ("dk", "dv"))):
             pk = per_kernel[kname]
@@ -2658,6 +2687,388 @@ def phase_full_data_train(device, cpipe, steps=2, seed=1024):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sliding-window denoise and the Wan2.2 TI2V-5B path
+# ---------------------------------------------------------------------------
+
+def expected_window_launches(cfg, plan, height, width, steps):
+    """Kernel launches of a sliding-window denoise (no heads): per window
+    of each step, every attention of the fusion forward on the route its
+    window's key count takes -- DiT self over the window's video tokens,
+    DiT cross (text, and CLIP where the model takes it), bicross both ways
+    (geometry tokens: a frame's video tokens plus the aggregator's special
+    tokens), VGGT frame and global (d64)."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    pt = cfg.dit.patch_size
+    per_frame = (height // 8 // pt[1]) * (width // 8 // pt[2])
+    extra = cfg.vggt.aggregator.patch_start_idx
+    d, b = cfg.dit, cfg.bicross
+    n_x = len(cfg.xattn_set())
+    out = {k: 0 for k in fa.LAUNCHES}
+    for t0, t1 in plan:
+        video, geom = (t1 - t0) * per_frame, (t1 - t0) * (per_frame + extra)
+        out[fa.route(d.num_heads, d.head_dim, video)] += d.num_layers
+        # text keys (at most 512) and CLIP's 257
+        cross = 2 if d.has_image_input else 1
+        out[fa.route(d.num_heads, d.head_dim, 512)] += cross * d.num_layers
+        for lk in (geom, video):
+            out[fa.route(b.num_heads, b.head_dim, lk)] += n_x
+        out["d64"] += 2 * cfg.num_irg
+    return {k: v * steps for k, v in out.items()}
+
+
+def phase_small_windowed(device):
+    """The Wan2.1 sliding-window denoise at the reduced widths of
+    ``small_configs``: 2 steps over 11 latent frames (256x384, 41 frames)
+    in windows of 6 with stride 5 (two windows of 2304 video tokens, so
+    every route is taken, blended over one frame), on the card in bf16
+    against the CPU in f32 from the same weights; the latents within
+    SLICE_TOL, no prediction, exact launches."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.temporal_tiler import window_plan
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    t_phase = time.perf_counter()
+    fcfg, pcfg = small_configs()
+    height, width, frames, steps, size, stride = 256, 384, 41, 2, 6, 5
+    g = torch.Generator("cpu").manual_seed(15)
+    cpu_f = build(lambda: FusionModel(fcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    wake_zero_inits(cpu_f, g)
+    cpu_p = build(lambda: CameraPoseEncoder(pcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    cond = conditioning(fcfg.dit, height, width, frames,
+                        torch.Generator("cpu").manual_seed(16), 16)
+    outs, launches = {}, {}
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        fus, pose = cpu_f, cpu_p
+        if dev != "cpu":
+            fus = build(lambda: FusionModel(fcfg), device=dev, dtype=dtype)
+            fus.load_state_dict(cpu_f.state_dict())
+            pose = build(lambda: CameraPoseEncoder(pcfg), device=dev,
+                         dtype=dtype)
+            pose.load_state_dict(cpu_p.state_dict())
+        pipe = FantasyWorldPipeline(fus, pose)
+        fa.reset_launch_counts()
+        lat, pred = pipe.denoise(*cond[:4], height, width, num_frames=frames,
+                                 num_inference_steps=steps, seed=3,
+                                 plucker_fea=pipe.encode_plucker(cond[4]),
+                                 sliding_window_size=size,
+                                 sliding_window_stride=stride)
+        launches[str(dev)] = dict(fa.LAUNCHES)
+        if pred is not None or not bool(torch.isfinite(lat).all()):
+            raise AssertionError(f"windowed denoise on {dev}: prediction "
+                                 f"{pred}, finite {torch.isfinite(lat).all()}")
+        outs[str(dev)] = lat.float().cpu()
+    f = (frames - 1) // 4 + 1
+    plan = window_plan(f, size, stride)
+    want = expected_window_launches(fcfg, plan, height, width, steps)
+    err = _rel_l2([outs[str(device)]], [outs["cpu"]])
+    card = launches[str(device)]
+    say("small_windowed", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        windows="|".join(f"{a}-{b}" for a, b in plan),
+        latents_shape="x".join(map(str, outs["cpu"].shape)),
+        device_vs_cpu_rel_l2=f"{err:.3e}",
+        launches=json.dumps({k: v for k, v in card.items() if v}
+                            ).replace(" ", ""))
+    if any(launches["cpu"].values()):
+        raise AssertionError(f"the CPU run launched {launches['cpu']}")
+    if card != want:
+        raise AssertionError(f"windowed launches {card} != {want}")
+    if not err <= SLICE_TOL:
+        raise AssertionError(f"the windowed denoise disagrees with the CPU "
+                             f"path: {err} > {SLICE_TOL}")
+
+
+def phase_full_windowed(device, pipe, cond, plucker_fea, seed=1024):
+    """One sliding-window step at full width on ``phase_full_slice``'s
+    model: 336x592, 81 frames (21 latent frames) in windows of 11 with
+    stride 10, two windows: seconds, peak GB, exact launches, finite
+    latents of the right shape."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.temporal_tiler import window_plan
+    cfg = pipe.cfg
+    height, width, frames, size, stride = 336, 592, 81, 11, 10
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    lat, pred = pipe.denoise(*cond[:4], height, width, num_frames=frames,
+                             num_inference_steps=1, seed=seed,
+                             plucker_fea=plucker_fea,
+                             sliding_window_size=size,
+                             sliding_window_stride=stride)
+    end.record()
+    end.synchronize()
+    launches = dict(fa.LAUNCHES)
+    f = (frames - 1) // 4 + 1
+    plan = window_plan(f, size, stride)
+    want = expected_window_launches(cfg, plan, height, width, 1)
+    shape = (1, cfg.dit.out_dim, f, height // 8, width // 8)
+    finite = bool(torch.isfinite(lat).all())
+    say("full_windowed", windows="|".join(f"{a}-{b}" for a, b in plan),
+        step_seconds=f"{start.elapsed_time(end) / 1e3:.3f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        latents_shape="x".join(map(str, lat.shape)), finite=finite,
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    if len(plan) != 2 or tuple(lat.shape) != shape or not finite \
+            or pred is not None:
+        raise AssertionError(f"windowed step: plan {plan}, shape "
+                             f"{tuple(lat.shape)}, finite {finite}")
+    if launches != want:
+        raise AssertionError(f"windowed step launches {launches} != {want}")
+    del lat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def small_ti2v_configs():
+    """Reduced TI2V-5B widths: the DiT 2 x 2 heads of 128 (self over 2304
+    tokens at 512x768x21 -> generic, cross -> onekv), umT5 as in
+    ``small_clip_configs``, the 38-block VAE at width 16 (z = 48). Returns
+    the (dit, t5, vae) configs."""
+    import dataclasses
+    from fantasy_world_tpu_torch.models.wan.dit import TI2V_5B
+    from fantasy_world_tpu_torch.models.wan.vae38 import VAE38Config
+    _, _, t5, _, _ = small_clip_configs()
+    dit = dataclasses.replace(TI2V_5B, dim=256, ffn_dim=512, num_heads=2,
+                              num_layers=2, text_dim=t5.dim)
+    return dit, t5, VAE38Config(dim=16, dec_dim=16)
+
+
+def ti2v_launches(cfg, steps):
+    """A TI2V denoise's launches: per step, each block's self-attention
+    (generic at these lengths) and text cross-attention (onekv)."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    out = {k: 0 for k in fa.LAUNCHES}
+    out.update(generic=steps * cfg.num_layers, onekv=steps * cfg.num_layers)
+    return out
+
+
+def run_ti2v(pipe, image, height, width, frames, steps, seed, mark=None,
+             tiled=False):
+    """The TI2V-5B clip through the port's entry points: ``run_condition``
+    (the 38-block VAE's latent of the image fused into latent frame 0),
+    ``denoise_ti2v`` on the conditioning's noise, then ``decode_video``
+    (``tiled``: over the reference grid). ``mark(name)`` after each unit,
+    step and the decode. Returns (latents, first-frame latent, uint8
+    video)."""
+    from fantasy_world_tpu_torch.pipelines.ti2v import denoise_ti2v
+    from fantasy_world_tpu_torch.pipelines.units import run_condition
+    stage = mark or (lambda name: None)
+    shared, posi, nega = run_condition(
+        pipe, PROMPT, NEG_PROMPT, input_image=image, height=height,
+        width=width, num_frames=frames, seed=seed, stage_callback=stage)
+    latents = denoise_ti2v(
+        pipe.dit, posi["context"], nega["context"], height, width,
+        num_frames=frames, num_inference_steps=steps, seed=seed,
+        first_frame_latents=shared["first_frame_latents"],
+        noise=shared["noise"],
+        progress_callback=lambda i, n: stage(f"denoise_step{i}"))
+    video = pipe.decode_video(latents, tiled=tiled)
+    stage("vae_decode")
+    return latents, shared["first_frame_latents"], video
+
+
+def phase_small_ti2v(device):
+    """The TI2V-5B path at the widths of ``small_ti2v_configs``, 512x768,
+    21 frames, 2 steps, on the card in bf16 against the CPU in f32 from the
+    same weights: the first-frame latent, the latents, the float decode of
+    each run's latents, the card's decode of the CPU's latents and both
+    decodes of unit-normal latents within SLICE_TOL, frame 0 equal to the
+    clean latent after the loop, exact launches."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.wan.dit import WanDiT
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae38 import WanVAE38
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import image_pm1
+    t_phase = time.perf_counter()
+    dcfg, t5c, vcfg = small_ti2v_configs()
+    ctors = {"dit": (WanDiT, dcfg), "t5": (T5Encoder, t5c),
+             "vae": (WanVAE38, vcfg)}
+    height, width, frames, steps = 512, 768, 21, 2
+    g = torch.Generator("cpu").manual_seed(17)
+    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                        generator=g) for n, (c, cfg) in ctors.items()}
+    image, _ = clip_inputs(height, width, frames)
+    image = image_pm1(image, height, width)
+    lat_shape = (1, 48, (frames - 1) // 4 + 1, height // 16, width // 16)
+    # unit-normal latents: the VAE's own bf16 error, apart from the range
+    # of the denoised latents
+    rand_lat = torch.randn(lat_shape, generator=g)
+    work = os.path.join(REPO, "build", "small_ti2v")
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        mods = weights
+        if dev != "cpu":
+            mods = {}
+            for n, (c, cfg) in ctors.items():
+                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+                mods[n].load_state_dict(weights[n].state_dict())
+        pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"],
+                                    dit=mods["dit"])
+        tok = install_tokenizer(pipe, t5c.vocab, os.path.join(work, "tok"))
+        fa.reset_launch_counts()
+        lat, first, video = run_ti2v(pipe, image, height, width, frames,
+                                     steps, seed=3)
+        launches = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            dec = pipe.vae.decode(lat)
+            # the VAE alone: the CPU run's latents decoded on the card too
+            same = dec if not outs else pipe.vae.decode(
+                outs["cpu"]["latents"].to(dev, dtype))
+            rand = pipe.vae.decode(rand_lat.to(dev, dtype))
+        outs[str(dev)] = {"latents": lat.float().cpu(),
+                          "decode_random_latents": rand.float().cpu(),
+                          "decode_same_latents": same.float().cpu(),
+                          "first": first.float().cpu(),
+                          "decode": dec.float().cpu(), "video": video,
+                          "launches": launches,
+                          "clamped": torch.equal(lat[:, :, :1],
+                                                 first.to(lat.dtype))}
+        del mods, pipe, dec, same, rand
+    shutil.rmtree(work, ignore_errors=True)
+    cpu, card = outs["cpu"], outs[str(device)]
+    errs = {k: _rel_l2([card[k]], [cpu[k]])
+            for k in ("first", "latents", "decode")}
+    errs["decode_same_latents"] = _rel_l2([card["decode_same_latents"]],
+                                          [cpu["decode"]])
+    errs["decode_random_latents"] = _rel_l2(
+        [card["decode_random_latents"]], [cpu["decode_random_latents"]])
+    want = ti2v_launches(dcfg, steps)
+    say("small_ti2v", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        tokenizer=tok, image="example_png",
+        latents_shape="x".join(map(str, card["latents"].shape)),
+        video_shape="x".join(map(str, card["video"].shape)),
+        frame0_clamped=f"{card['clamped']}|{cpu['clamped']}",
+        device_vs_cpu_rel_l2=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                         errs.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in card["launches"].items()
+                             if v}).replace(" ", ""))
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"the CPU run launched {cpu['launches']}")
+    if card["launches"] != want:
+        raise AssertionError(f"small TI2V launches {card['launches']} != "
+                             f"{want}")
+    if tuple(card["latents"].shape) != lat_shape \
+            or card["video"].shape != (frames, height, width, 3):
+        raise AssertionError(f"small TI2V shapes {card['latents'].shape} "
+                             f"{card['video'].shape}")
+    if not (card["clamped"] and cpu["clamped"]):
+        raise AssertionError("frame 0 is not the clean first-frame latent")
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"the reduced TI2V path disagrees with the CPU "
+                             f"path beyond {SLICE_TOL}: {bad}")
+
+
+def phase_full_ti2v(device, t5, steps=2, seed=1024):
+    """Wan2.2 TI2V-5B at full width and depth from a seed (the 30-block,
+    3072-wide DiT, the 38-block VAE) with the umT5-XXL of the earlier
+    clips: ``run_condition`` with the example image at 704x1280, ``steps``
+    CFG-pair steps of ``denoise_ti2v`` at 704x1280, 121 frames, the tiled
+    decode to 121 frames. Prints each stage's seconds and peak GB (CUDA
+    events), a 50-step clip reckoned from them, the launches (exactly 30
+    generic and 30 onekv a step), the shapes, finiteness and that frame 0
+    is the clean first-frame latent."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.wan.dit import TI2V_5B, WanDiT
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
+    from fantasy_world_tpu_torch.models.wan.vae38 import WanVAE38
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import image_pm1
+    height, width, frames = 704, 1280, 121
+    t_phase = t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    dit = build(lambda: WanDiT(TI2V_5B), device=device, dtype=torch.bfloat16,
+                generator=g)
+    vae = build(lambda: WanVAE38(), device=device, dtype=torch.bfloat16,
+                generator=g)
+    pipe = FantasyWorldPipeline(t5=t5, vae=vae, dit=dit)
+    work = os.path.join(REPO, "build", "full_ti2v")
+    tok = install_tokenizer(pipe, T5Config().vocab, os.path.join(work, "tok"))
+    pipe.tokenize(PROMPT)             # the tokenizer loads on first use
+    image, _ = clip_inputs(height, width, frames)
+    image = image_pm1(image, height, width)
+    torch.cuda.synchronize()
+    say("full_ti2v_build", seconds=f"{time.perf_counter() - t0:.2f}",
+        dit_params=sum(p.numel() for p in dit.parameters()),
+        vae_params=sum(p.numel() for p in vae.parameters()),
+        resident_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    marks = []
+
+    def mark(name, *_):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    mark("start")
+    lat, first, video = run_ti2v(pipe, image, height, width, frames, steps,
+                                 seed, mark=mark, tiled=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    stage_s = {name: marks[i - 1][1].elapsed_time(ev) / 1e3
+               for i, (name, ev, _) in enumerate(marks) if i}
+    peak_gb = {name: peak / 1e9 for name, _, peak in marks[1:]}
+    step_s = [stage_s[f"denoise_step{i}"] for i in range(1, steps + 1)]
+    fixed = sum(v for k, v in stage_s.items() if not k.startswith("denoise"))
+    reckoned = fixed + 50 * float(np.mean(step_s))
+    lat_shape = (1, 48, (frames - 1) // 4 + 1, height // 16, width // 16)
+    finite = bool(torch.isfinite(lat).all())
+    clamped = torch.equal(lat[:, :, :1], first.to(lat.dtype))
+    want = ti2v_launches(TI2V_5B, steps)
+    shutil.rmtree(work, ignore_errors=True)
+    say("full_ti2v", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        steps=steps, tokenizer=tok, image="example_png_704x1280",
+        stage_seconds=json.dumps({k: round(v, 3) for k, v in
+                                  stage_s.items()}).replace(" ", ""),
+        stage_peak_gb=json.dumps({k: round(v, 2) for k, v in
+                                  peak_gb.items()}).replace(" ", ""),
+        reckoned_50_step_clip_s=f"{reckoned:.1f}",
+        latents_shape="x".join(map(str, lat.shape)),
+        video_shape="x".join(map(str, video.shape)), finite=finite,
+        frame0_clamped=clamped,
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    if tuple(lat.shape) != lat_shape or not finite or not clamped:
+        raise AssertionError(f"TI2V latents {tuple(lat.shape)}, finite "
+                             f"{finite}, frame 0 clamped {clamped}")
+    if video.shape != (frames, height, width, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"TI2V video {video.shape} {video.dtype}")
+    if launches != want:
+        raise AssertionError(f"TI2V launches {launches} != {want}")
+    del dit, vae, pipe, lat, first, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2692,8 +3103,10 @@ def main(argv=None) -> int:
     phase_train_kernels(device, per_kernel)
     phase_qlinear(device)
     phase_small_slice(device)
+    phase_small_windowed(device)
     phase_small_clip(device)
     phase_small_wan22(device)
+    phase_small_ti2v(device)
     phase_small_serve(device)
     phase_small_train(device)
     phase_train_cli()
@@ -2711,6 +3124,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
+    windowed = phase_full_windowed(device, pipe, cond, plucker_fea)
     # the Wan2.1 model makes room for the experts
     del pipe, cond, plucker_fea
     gc.collect()
@@ -2719,6 +3133,13 @@ def main(argv=None) -> int:
         device, shared, args.profile or os.path.join(REPO, "build",
                                                      "profile"),
         profile_dir=args.profile)
+    # the experts are gone; umT5 stays for TI2V-5B, the 2.1 VAE goes
+    t5 = shared["t5"]
+    del shared
+    gc.collect()
+    torch.cuda.empty_cache()
+    ti2v = phase_full_ti2v(device, t5)
+    del t5
 
     yard = ("tflops", "bound_ms", "bound_by", "share", "library_ms",
             "library_ms_by_backend", "by_shape")
@@ -2728,15 +3149,18 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"fa_fwd_{k}", "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": (denoise[k] + clip_run[k] + serve[k]
+            "launches": (denoise[k] + windowed[k] + clip_run[k] + serve[k]
                          + train[f"{k}_stats"] + data_train[k]
-                         + data_train[f"{k}_stats"] + wan22[k] + quant[k]),
+                         + data_train[f"{k}_stats"] + wan22[k] + quant[k]
+                         + ti2v[k]),
             "denoise_launches": denoise[k],
+            "windowed_step_launches": windowed[k],
             "clip_run_launches": clip_run[k],
             "serve_launches": serve[k],
             "data_train_launches": data_train[k] + data_train[f"{k}_stats"],
             "wan22_clip_launches": wan22[k],
             "wan22_int8_step_launches": quant[k],
+            "ti2v_clip_launches": ti2v[k],
             "launches_per_denoise_step": per_step[k],
             "stats_launches": train[f"{k}_stats"] + data_train[f"{k}_stats"],
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
@@ -2744,6 +3168,22 @@ def main(argv=None) -> int:
             "stats_ms": pk["stats_ms"],
             "stats_plain_ms": pk["stats_plain_ms"],
             "stats_by_shape": pk["stats_by_shape"]})
+    # the stats output of the three forwards (with_stats), one row as in
+    # the TPU kernel table: its launches on every route, its numbers at
+    # onekv's headline shape (DiT cross against 512 text keys, batch 1)
+    pk = per_kernel["onekv"]
+    kernels.append({
+        "name": "fa_fwd_stats", "route": "cuda", "source": SOURCES["onekv"],
+        "sources": sorted(set(SOURCES.values())),
+        "replaces": f"{JAX_FA}:102",
+        "launches": sum(train[f"{k}_stats"] + data_train[f"{k}_stats"]
+                        for k in fa.ROUTES),
+        "launches_by_route": {k: train[f"{k}_stats"]
+                              + data_train[f"{k}_stats"] for k in fa.ROUTES},
+        "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
+                           for k in fa.ROUTES),
+        "ms": pk["stats_ms"], "plain_ms": pk["stats_plain_ms"],
+        **{n: pk["stats_yardsticks"][n] for n in yard[:-1]}})
     for k in ("bwd_dq", "bwd_dkv"):
         pk = per_kernel[k]
         kernels.append({

@@ -38,6 +38,10 @@ their Reward-LoRAs under ``PAI/Wan2.2-Fun-Reward-LoRAs/``, the shared
 Each expert is its base DiT with its LoRA merged at 0.55
 (``convert/lora.py``), then the fusion file overlaid as above, with the
 same q/k permutation.
+
+A standalone DiT's state dict (the TI2V-5B model) takes the same
+permutation (``dit_state_dict_from``); ``Wan2.2_VAE.pth`` loads into
+``WanVAE38`` by ``load_into`` once its ``model.`` prefix is stripped.
 """
 from __future__ import annotations
 
@@ -234,12 +238,17 @@ def _permute(t: torch.Tensor, head_dim: int, inverse: bool = False
     return t[torch.as_tensor(np.argsort(idx) if inverse else idx)]
 
 
-def _permuted_names(cfg: FusionConfig):
-    """(name, head_dim) of every tensor the RoPE permutation applies to."""
-    for i in range(cfg.dit.num_layers):
+def _dit_permuted_names(cfg: WanDiTConfig, prefix: str = ""):
+    """(name, head_dim) of the DiT's self-attention q/k tensors."""
+    for i in range(cfg.num_layers):
         for name in ("q.weight", "q.bias", "k.weight", "k.bias",
                      "norm_q.weight", "norm_k.weight"):
-            yield f"dit.blocks.{i}.self_attn.{name}", cfg.dit.head_dim
+            yield f"{prefix}blocks.{i}.self_attn.{name}", cfg.head_dim
+
+
+def _permuted_names(cfg: FusionConfig):
+    """(name, head_dim) of every tensor the RoPE permutation applies to."""
+    yield from _dit_permuted_names(cfg.dit, "dit.")
     for i in range(cfg.num_irg):
         for name in ("m1_proj.weight", "m1_proj.bias", "m2_proj.weight",
                      "m2_proj.bias"):
@@ -265,6 +274,18 @@ def fusion_state_dict_from(base_dit: Mapping[str, torch.Tensor],
         elif k.startswith("vggt."):
             out[k] = v
     for name, head_dim in _permuted_names(cfg):
+        if name in out:
+            out[name] = _permute(out[name], head_dim)
+    return out
+
+
+def dit_state_dict_from(sd: Mapping[str, torch.Tensor], cfg: WanDiTConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference WanModel state dict (the TI2V-5B DiT's shards) -> the
+    standalone ``WanDiT``'s, the RoPE permutation applied to the
+    self-attention q/k."""
+    out = dict(sd)
+    for name, head_dim in _dit_permuted_names(cfg):
         if name in out:
             out[name] = _permute(out[name], head_dim)
     return out

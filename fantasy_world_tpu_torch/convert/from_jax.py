@@ -1,5 +1,6 @@
 """JAX parameter tree (numpy leaves) -> the port's ``state_dict``: the
-fusion model, the camera pose encoder, LoRA factors, umT5, CLIP and the VAE.
+fusion model, the standalone DiT, the camera pose encoder, LoRA factors,
+umT5, CLIP, the VAE and the 38-block VAE.
 
 The JAX package keeps linear kernels as (in, out) and per-block lists
 (``init_fusion``); the port keeps PyTorch's (out, in) and the reference
@@ -432,6 +433,44 @@ def vae_state_dict(params: Mapping, model: nn.Module
     w.conv("conv1", params["conv1"])
     w.conv("conv2", params["conv2"])
     _vae_coder(w, params["decoder"], "decoder.", decoder_upsample_plan(cfg))
+    return w.sd
+
+
+def _vae38_macro(w: _Writer, p: Mapping, pre: str) -> None:
+    for j, rb in enumerate(p["res"]):
+        _vae_res(w, rb, f"{pre}.{j}")
+    if "resample" in p:
+        rs, name = p["resample"], f"{pre}.{len(p['res'])}"
+        w.conv(name + ".resample.1", rs["resample_conv"])
+        if "time_conv" in rs:
+            w.conv(name + ".time_conv", rs["time_conv"])
+
+
+def vae38_state_dict(params: Mapping, model: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``convert_wan_vae38`` tree -> f32 state dict of ``WanVAE38``."""
+    w = _Writer(_shapes(model))
+    for pre, seq in (("encoder.", "downsamples"), ("decoder.", "upsamples")):
+        p = params[pre[:-1]]
+        w.conv(pre + "conv1", p["conv1"])
+        for i, stage in enumerate(p[seq]):
+            _vae38_macro(w, stage, f"{pre}{seq}.{i}.{seq}")
+        _vae_res(w, p["middle_res1"], pre + "middle.0")
+        _vae_attn(w, p["middle_attn"], pre + "middle.1")
+        _vae_res(w, p["middle_res2"], pre + "middle.2")
+        w.put(pre + "head.0.gamma", p["head_norm"]["gamma"])
+        w.conv(pre + "head.2", p["head_conv"])
+    w.conv("conv1", params["conv1"])
+    w.conv("conv2", params["conv2"])
+    return w.sd
+
+
+def dit_state_dict(params: Mapping, model: nn.Module
+                   ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_wan_dit`` / ``convert_wan_dit`` tree -> f32 state dict of
+    the standalone ``WanDiT`` ``model``."""
+    w = _Writer(_shapes(model))
+    _dit(w, params, "")
     return w.sd
 
 

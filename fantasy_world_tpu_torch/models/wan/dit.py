@@ -9,12 +9,17 @@ the fusion model's IRG loop interleaves with the geometry stream.
 q/k use the contiguous rotate-half RoPE (``ops.rope.apply_rope_half``): the
 q/k projection columns are expected in the de-interleaved order that the
 JAX converters write (see ``convert/from_jax.py``).
+
+``WanDiT.forward`` is the standalone DiT (``wan_dit_forward``), which the
+Wan2.2 TI2V-5B denoise runs (``pipelines/ti2v.py``; ``TI2V_5B`` is its
+configuration): its separated timestep modulates the tokens of the fused
+first frame at t = 0 (``SplitTokens``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +63,16 @@ class WanDiTConfig:
 
     def has_adapter(self, layer: int) -> bool:
         return layer < self.camera_adapter_end
+
+
+# Wan2.2 TI2V-5B (the reference registry's entry 1f5ab770...): a per-token
+# timestep and the first-frame latent fused into the sequence, on the
+# 38-block VAE's z = 48 latents
+TI2V_5B = WanDiTConfig(
+    patch_size=(1, 2, 2), in_dim=48, dim=3072, ffn_dim=14336, freq_dim=256,
+    text_dim=4096, out_dim=48, num_heads=24, num_layers=30, eps=1e-6,
+    seperated_timestep=True, fuse_vae_embedding_in_latents=True,
+    require_vae_embedding=False, has_image_input=False)
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -185,9 +200,53 @@ class CrossAttention(nn.Module):
         return linear(o, self.o)
 
 
-def dit_block_modulation(table: torch.Tensor, t_mod: torch.Tensor
-                         ) -> List[torch.Tensor]:
-    """(1, 6, dim) table + t_mod (B, 6, dim) -> six f32 (B, 1, dim)."""
+@dataclasses.dataclass(frozen=True)
+class SplitTokens:
+    """A per-token value that takes one row on the first ``n0`` tokens and
+    another on the rest: ``rows`` (B, 2, ...). The TI2V-5B timestep is 0 on
+    the tokens of the fused first frame and t on the others, so its time
+    embedding, its six block modifiers and the head's two are carried as
+    two rows and applied by token range; the (B, L, 6, dim) per-token
+    tensor (4 GB in f32 at 704x1280x121) is never made."""
+    rows: torch.Tensor
+    n0: int
+
+    def map(self, fn) -> "SplitTokens":
+        return SplitTokens(fn(self.rows), self.n0)
+
+
+def by_tokens(fn, tokens, mods) -> torch.Tensor:
+    """``fn(*tokens, *mods)`` with (B, 1, dim) modifiers, or, when they are
+    ``SplitTokens``, over each token range of the (B, L, ...) ``tokens``
+    with its row."""
+    if not isinstance(mods[0], SplitTokens):
+        return fn(*tokens, *mods)
+    n0 = mods[0].n0
+    return torch.cat([
+        fn(*(t[:, :n0] for t in tokens), *(m.rows[:, 0:1] for m in mods)),
+        fn(*(t[:, n0:] for t in tokens), *(m.rows[:, 1:2] for m in mods))],
+        dim=1)
+
+
+def _modulated(x, shift, scale, eps):
+    return by_tokens(lambda v, sh, sc: layer_norm_modulate(v, sh, sc,
+                                                           eps=eps),
+                     (x,), (shift, scale))
+
+
+def _gated(x, gate, out):
+    """x + gate * out: the product in f32, the sum in x's dtype."""
+    return by_tokens(lambda v, o, g: v + (g * o.float()).to(v.dtype),
+                     (x, out), (gate,))
+
+
+def dit_block_modulation(table: torch.Tensor, t_mod) -> list:
+    """(1, 6, dim) table + t_mod (B, 6, dim) -> six f32 (B, 1, dim);
+    ``SplitTokens`` rows (B, 2, 6, dim) -> six ``SplitTokens`` of (B, 2,
+    dim)."""
+    if isinstance(t_mod, SplitTokens):
+        m = table.float()[:, None] + t_mod.rows.float()
+        return [SplitTokens(m[:, :, i], t_mod.n0) for i in range(6)]
     m = table.float() + t_mod.float()
     return [m[:, i:i + 1] for i in range(6)]
 
@@ -195,10 +254,11 @@ def dit_block_modulation(table: torch.Tensor, t_mod: torch.Tensor
 def time_mlp(time_embedding: nn.Sequential, time_projection: nn.Sequential,
              freq_dim: int, timestep: torch.Tensor):
     """``WanDiT.time_embed`` over its two time modules: timestep (B,) ->
-    t (B, dim), t_mod (B, 6, dim)."""
+    t (B, dim), t_mod (B, 6, dim); (B, L) -> t (B, L, dim), t_mod
+    (B, L, 6, dim)."""
     te = time_embedding
-    emb = rope_ops.sinusoidal_embedding_1d(freq_dim, timestep)
-    emb = emb.to(te[0].weight.dtype)
+    emb = rope_ops.sinusoidal_embedding_1d(freq_dim, timestep.reshape(-1))
+    emb = emb.view(*timestep.shape, freq_dim).to(te[0].weight.dtype)
     t = linear(F.silu(linear(emb, te[0])), te[2])
     t_mod = linear(F.silu(t), time_projection[1])
     return t, t_mod.view(*t.shape[:-1], 6, t.shape[-1])
@@ -231,10 +291,8 @@ class DiTBlock(nn.Module):
         modifiers). The modulation and gated residual are f32."""
         sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = dit_block_modulation(
             self.modulation, t_mod)
-        xd = x.dtype
-        h = layer_norm_modulate(x, sh_msa, sc_msa, eps=self.eps)
-        x = x + (g_msa * self.self_attn(h, rope_cos, rope_sin).float()
-                 ).to(xd)
+        h = _modulated(x, sh_msa, sc_msa, self.eps)
+        x = _gated(x, g_msa, self.self_attn(h, rope_cos, rope_sin))
         x = x + self.cross_attn(
             layer_norm(x, self.norm3.weight, self.norm3.bias, self.eps),
             context, plucker_fea, apply_pose)
@@ -242,8 +300,8 @@ class DiTBlock(nn.Module):
 
     def ffn_half(self, x, modifiers):
         sh_mlp, sc_mlp, g_mlp = modifiers
-        h = layer_norm_modulate(x, sh_mlp, sc_mlp, eps=self.eps)
-        return x + (g_mlp * _gelu_tanh_mlp(self.ffn, h).float()).to(x.dtype)
+        h = _modulated(x, sh_mlp, sc_mlp, self.eps)
+        return _gated(x, g_mlp, _gelu_tanh_mlp(self.ffn, h))
 
     def forward(self, x, context, t_mod, rope_cos, rope_sin, *,
                 plucker_fea=None, apply_pose=False):
@@ -266,10 +324,16 @@ class Head(nn.Module):
                 generator)
 
     def forward(self, x, t):
-        """``head_apply``: f32 shift/scale from the table and t (B, dim)."""
-        mod = self.modulation.float() + t.float()[:, None]
-        h = layer_norm_modulate(x, mod[:, 0:1], mod[:, 1:2], eps=self.eps)
-        return linear(h, self.head)
+        """``head_apply``: f32 shift/scale from the table and t (B, dim)
+        or ``SplitTokens`` rows (B, 2, dim)."""
+        table = self.modulation.float()
+        if isinstance(t, SplitTokens):
+            mod = t.map(lambda r: table[:, None] + r.float()[:, :, None])
+            shift, scale = (mod.map(lambda m: m[:, :, i]) for i in (0, 1))
+        else:
+            mod = table + t.float()[:, None]
+            shift, scale = mod[:, 0:1], mod[:, 1:2]
+        return linear(_modulated(x, shift, scale, self.eps), self.head)
 
 
 class ImageEmbedding(nn.Module):
@@ -294,9 +358,9 @@ class WanDiT(nn.Module):
 
     def __init__(self, cfg: WanDiTConfig):
         super().__init__()
-        if cfg.has_image_pos_emb or cfg.seperated_timestep:
-            raise NotImplementedError("options off the Wan2.1 and Wan2.2 "
-                                      "control-camera paths")
+        if cfg.has_image_pos_emb:
+            raise NotImplementedError("has_image_pos_emb: the end image's "
+                                      "CLIP tokens are not ported")
         self.cfg = cfg
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim,
                                          cfg.patch_size, cfg.patch_size)
@@ -318,9 +382,19 @@ class WanDiT(nn.Module):
                                                  cfg.dim)
 
     def time_embed(self, timestep: torch.Tensor):
-        """timestep (B,) -> t (B, dim), t_mod (B, 6, dim)."""
+        """timestep (B,) -> t (B, dim), t_mod (B, 6, dim); per-token
+        (B, L) -> t (B, L, dim), t_mod (B, L, 6, dim)."""
         return time_mlp(self.time_embedding, self.time_projection,
                         self.cfg.freq_dim, timestep)
+
+    def time_embed_split(self, timestep: torch.Tensor, n0: int):
+        """The TI2V-5B separated timestep: t = 0 on the first ``n0`` tokens
+        and ``timestep`` (B,) on the rest, as ``SplitTokens`` of t
+        (B, 2, dim) and t_mod (B, 2, 6, dim)."""
+        ts = timestep.float()
+        rows = torch.stack([torch.zeros_like(ts), ts], dim=1)
+        t, t_mod = self.time_embed(rows)
+        return SplitTokens(t, n0), SplitTokens(t_mod, n0)
 
     def text_embed(self, context):
         return _gelu_tanh_mlp(self.text_embedding, context)
@@ -358,3 +432,34 @@ class WanDiT(nn.Module):
         x = x.reshape(B, f, h, w, pt, ph, pw, self.cfg.out_dim)
         x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
         return x.reshape(B, self.cfg.out_dim, f * pt, h * ph, w * pw)
+
+    def forward(self, x, timestep, context, clip_feature=None, y=None,
+                plucker_fea=None, fuse_first_frame: bool = False,
+                control_tokens=None):
+        """The standalone DiT (``wan_dit_forward``): latents (B, C, F, H, W),
+        timestep (B,), context (B, L, text_dim) -> noise (B, out_dim, F, H,
+        W). With ``seperated_timestep`` and ``fuse_first_frame`` (latent
+        frame 0 holds the clean image latent), frame 0's tokens are
+        modulated at t = 0 (``SplitTokens``)."""
+        cfg = self.cfg
+        B, _, Fr, H, W = x.shape
+        pt, ph, pw = cfg.patch_size
+        if cfg.seperated_timestep and fuse_first_frame:
+            t, t_mod = self.time_embed_split(timestep,
+                                             (H // ph) * (W // pw))
+        else:
+            t, t_mod = self.time_embed(timestep)
+        ctx = self.text_embed(context)
+        if y is not None and cfg.require_vae_embedding:
+            x = torch.cat([x, y], dim=1)
+        if clip_feature is not None and cfg.has_image_input:
+            ctx = torch.cat([self.img_emb(clip_feature), ctx], dim=1)
+        tokens, (f, h, w) = self.patchify(x, control_tokens)
+        cos, sin = rope_ops.cos_sin_half_from_angles(
+            rope_ops.build_angles_3d(cfg.head_dim, f, h, w), tokens.device)
+        for i, block in enumerate(self.blocks):
+            tokens = block(tokens, ctx, t_mod, cos, sin,
+                           plucker_fea=plucker_fea,
+                           apply_pose=(plucker_fea is not None
+                                       and cfg.has_adapter(i)))
+        return self.unpatchify(self.head(tokens, t), (f, h, w))

@@ -117,15 +117,23 @@ class RMSGamma(nn.Module):
                                               else (dim, 1, 1, 1)))
 
 
-def _norm_silu(norm: RMSGamma, x: torch.Tensor) -> torch.Tensor:
+def _norm_silu(norm: RMSGamma, x: torch.Tensor,
+               inplace: bool = False) -> torch.Tensor:
     # SiLU computes in f32 internally and rounds once, as the JAX package's
-    # f32 round trip does
-    return F.silu(rms_norm_channel(norm.gamma, x))
+    # f32 round trip does; ``inplace`` overwrites the normed copy where no
+    # gradient is taken
+    y = rms_norm_channel(norm.gamma, x)
+    return F.silu(y, inplace=inplace and not y.requires_grad)
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, din: int, dout: int):
+    """``inplace``: the SiLUs and the residual sum overwrite tensors the
+    block made (the 38-block VAE's decoder, one activation less at its
+    widest stage); the values are the same."""
+
+    def __init__(self, din: int, dout: int, inplace: bool = False):
         super().__init__()
+        self.inplace = inplace
         self.residual = nn.Sequential(
             RMSGamma(din), nn.SiLU(), nn.Conv3d(din, dout, 3), RMSGamma(dout),
             nn.SiLU(), nn.Identity(), nn.Conv3d(dout, dout, 3))
@@ -134,9 +142,9 @@ class ResidualBlock(nn.Module):
     def forward(self, x):
         r = self.residual
         h = x if self.shortcut is None else causal_conv3d(self.shortcut, x)
-        y = causal_conv3d(r[2], _norm_silu(r[0], x))
-        y = causal_conv3d(r[6], _norm_silu(r[3], y))
-        return y + h
+        y = causal_conv3d(r[2], _norm_silu(r[0], x, self.inplace))
+        y = causal_conv3d(r[6], _norm_silu(r[3], y, self.inplace))
+        return y.add_(h) if self.inplace else y + h
 
 
 def _conv2d(conv: nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -178,14 +186,15 @@ def per_frame(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor
 class Resample(nn.Module):
     """``resample.1`` is the spatial conv (after the nearest 2x upsample,
     or after a (0, 1, 0, 1) zero pad with stride 2); 3d modes add
-    ``time_conv``."""
+    ``time_conv``. An upsample halves the channels, or maps them to
+    ``up_dim`` (the 38-block VAE keeps them)."""
 
-    def __init__(self, kind: str, dim: int):
+    def __init__(self, kind: str, dim: int, up_dim: Optional[int] = None):
         super().__init__()
         self.kind = kind
         up = kind.startswith("up")
-        self.resample = nn.Sequential(
-            nn.Identity(), nn.Conv2d(dim, dim // 2 if up else dim, 3))
+        out = (dim // 2 if up_dim is None else up_dim) if up else dim
+        self.resample = nn.Sequential(nn.Identity(), nn.Conv2d(dim, out, 3))
         self.time_conv = None
         if kind == "up3d":
             self.time_conv = nn.Conv3d(dim, 2 * dim, (3, 1, 1))
@@ -203,6 +212,10 @@ class Resample(nn.Module):
         x = per_frame(lambda h: _conv2d(conv, F.pad(h, (0, 1, 0, 1)),
                                         stride=2), x)
         if self.kind == "down3d":
+            # frame 0 passes; fewer than 3 frames (a still image) leave it
+            # alone
+            if x.shape[2] < 3:
+                return x[:, :, :1]
             w, b = self.time_conv.weight, self.time_conv.bias
             y = F.conv3d(x, w.to(x.dtype), b.to(x.dtype), stride=(2, 1, 1))
             x = torch.cat([x[:, :, :1], y], dim=2)

@@ -30,15 +30,40 @@ def conv2d(conv: nn.Module, x: torch.Tensor, *, stride=(1, 1),
     return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
+# cuDNN indexes a convolution's tensors with 32-bit integers. PyTorch splits
+# a larger one over its batch, but a video's single batch row can outgrow
+# that (a 38-block VAE decode tile: 512 channels x 121 frames x 240 x 416,
+# 6.2e9 elements), so causal_conv3d splits it over time
+MAX_CONV_ELEMENTS = 2 ** 31 - 1
+
+
 def causal_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     """CausalConv3d: time padded 2*(kt//2) on the left only, space
-    symmetrically. x: (B, C, T, H, W)."""
+    symmetrically. x: (B, C, T, H, W). When the input or the output would
+    hold more than ``MAX_CONV_ELEMENTS``, it runs over pieces of the time
+    axis, each with the 2*(kt//2) frames before it as its history."""
     w = conv.weight.to(x.dtype)
     kt, kh, kw = w.shape[2:]
-    if kt > 1:
-        x = F.pad(x, (0, 0, 0, 0, 2 * (kt // 2), 0))
+    pad_t = 2 * (kt // 2)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv3d(x, w, b, padding=(0, kh // 2, kw // 2))
+    B, C, T, H, W = x.shape
+    frame = B * max(C, w.shape[0]) * H * W
+    piece = MAX_CONV_ELEMENTS // frame - pad_t
+    if piece >= T:
+        if pad_t:
+            x = F.pad(x, (0, 0, 0, 0, pad_t, 0))
+        return F.conv3d(x, w, b, padding=(0, kh // 2, kw // 2))
+    if piece < 1:
+        raise ValueError(f"one frame of {tuple(x.shape)} -> {w.shape[0]} "
+                         f"channels outgrows {MAX_CONV_ELEMENTS} elements")
+    out = x.new_empty((B, w.shape[0], T, H, W))
+    for t0 in range(0, T, piece):
+        t1 = min(T, t0 + piece)
+        part = x[:, :, max(t0 - pad_t, 0):t1]
+        if t0 < pad_t:
+            part = F.pad(part, (0, 0, 0, 0, pad_t - t0, 0))
+        out[:, :, t0:t1] = F.conv3d(part, w, b, padding=(0, kh // 2, kw // 2))
+    return out
 
 
 def _time_double(y: torch.Tensor) -> torch.Tensor:

@@ -8,20 +8,27 @@ PyTorch: conditioning -> denoise -> decode.
   * ``generate_noise``, ``encode_plucker`` and the CFG-pair flow-matching
     ``denoise`` with the geometry heads on the last step;
   * ``decode_video``: the full-sequence causal VAE decode, or the
-    reference's tiled one, to uint8 frames;
+    reference's tiled one, to uint8 frames, through the 2.1 VAE or the
+    38-block one (``models/wan/vae38.py``) that the pipe holds;
   * ``quantize``: int8 / fp8 over the fusion model (``core/quant.py``).
+
+A pipe may hold a standalone DiT (``dit``, the TI2V-5B model) in place of
+the fusion model: the conditioning units (``pipelines/units.py``) read its
+``cfg.dit``, and ``pipelines/ti2v.py`` denoises with it.
 
 The denoise takes TeaCache (``pipelines/tea_cache.py``: the skip plan made
 before the loop, the stack residual carried) and runs segmented and
 resumable: after every ``segment_size`` steps it synchronises, reports
 progress and writes the partial state atomically to ``gen_ckpt_path``,
-from which an identically conditioned call resumes.
+from which an identically conditioned call resumes. Its sliding-window
+option evaluates each step over temporal windows of the latents
+(``pipelines/temporal_tiler.py``) and blends them.
 
-Not ported here: sliding windows, multi-device meshes and the Wan2.2 TI2V
-VAE.
+Not ported here: multi-device meshes.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -31,9 +38,11 @@ import torch
 from ..models.fusion.model import FusionModel
 from ..models.wan.camera import CameraPoseEncoder
 from ..models.wan.clip import CLIPVision, preprocess_image
+from ..models.wan.dit import WanDiT, WanDiTConfig
 from ..models.wan.t5 import T5Encoder
 from ..models.wan.vae import (WanVAE, tile_plan, vae_decode_tiled,
                                vae_encode_tiled)
+from ..models.wan.vae38 import WanVAE38, vae38_decode_tiled
 from ..schedulers.flow_match import FlowMatchScheduler
 from .tea_cache import DEFAULT_MODEL_ID, compute_skip_schedule
 
@@ -126,21 +135,29 @@ class StepReport:
             self.progress(done, self.n)
 
 
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """The ``cfg`` of a pipe around a standalone DiT."""
+    dit: WanDiTConfig
+
+
 class FantasyWorldPipeline:
-    """Holds the fusion model, the camera pose encoder and the encoders,
-    built on one device in one dtype; any of them may be absent when its
-    stage is not run."""
+    """Holds the fusion model (or a standalone DiT), the camera pose
+    encoder and the encoders, built on one device in one dtype; any of them
+    may be absent when its stage is not run."""
 
     def __init__(self, fusion: Optional[FusionModel] = None,
                  pose_encoder: Optional[CameraPoseEncoder] = None, *,
                  t5: Optional[T5Encoder] = None,
                  clip: Optional[CLIPVision] = None,
-                 vae: Optional[WanVAE] = None,
+                 vae: Union[None, WanVAE, WanVAE38] = None,
+                 dit: Optional[WanDiT] = None,
                  tokenizer_path: Optional[str] = None, text_len: int = 512):
         self.fusion = fusion
         self.pose_encoder = pose_encoder
-        self.t5, self.clip, self.vae = t5, clip, vae
-        self.cfg = None if fusion is None else fusion.cfg
+        self.t5, self.clip, self.vae, self.dit = t5, clip, vae, dit
+        self.cfg = (fusion.cfg if fusion is not None else
+                    None if dit is None else DiTConfig(dit.cfg))
         self.tokenizer_path = tokenizer_path
         self.text_len = text_len
         # the HF tokenizer, loaded on first use; any callable with its
@@ -150,6 +167,8 @@ class FantasyWorldPipeline:
     def _weight(self) -> torch.Tensor:
         if self.fusion is not None:
             return self.fusion.dit.patch_embedding.weight
+        if self.dit is not None:
+            return self.dit.patch_embedding.weight
         for m in (self.t5, self.clip, self.vae, self.pose_encoder):
             if m is not None:
                 return next(m.parameters())
@@ -162,6 +181,11 @@ class FantasyWorldPipeline:
     @property
     def dtype(self) -> torch.dtype:
         return self._weight().dtype
+
+    @property
+    def vae_cfg(self):
+        """The VAE's config: ``spatial_down`` 8 (2.1) or 16 (38-block)."""
+        return None if self.vae is None else self.vae.cfg
 
     @staticmethod
     def generate_noise(shape, seed: Union[None, int, Sequence[int]] = None
@@ -219,22 +243,28 @@ class FantasyWorldPipeline:
                                device=self.device).permute(2, 0, 1)[None]
 
     @torch.no_grad()
+    def clip_tokens(self, image: np.ndarray) -> torch.Tensor:
+        """image (H, W, 3) in [-1, 1] -> (1, 257, dim) CLIP tokens."""
+        return self.clip(preprocess_image(self._image(image)).to(self.dtype))
+
     def encode_clip(self, image: np.ndarray) -> Optional[torch.Tensor]:
-        """image (H, W, 3) in [-1, 1] -> (1, 257, dim) CLIP tokens, or None
-        when the model takes no image context."""
+        """``clip_tokens``, or None when the model takes no image
+        context."""
         if self.clip is None or (self.cfg is not None
                                  and not self.cfg.dit.has_image_input):
             return None
-        return self.clip(preprocess_image(self._image(image)).to(self.dtype))
+        return self.clip_tokens(image)
 
     @torch.no_grad()
     def encode_y(self, image: np.ndarray, num_frames: int, height: int,
                  width: int, end_image: Optional[np.ndarray] = None,
-                 tiled: bool = False) -> torch.Tensor:
+                 tiled: bool = False,
+                 mid_images: Optional[Sequence] = None) -> torch.Tensor:
         """image (H, W, 3) in [-1, 1] -> y (1, 4 + z, f, h, w): the mask of
         the given frames and the VAE latent of the video that holds the
-        image, zero frames, and ``end_image`` (same form) as the last frame
-        when given. ``tiled`` encodes over the reference's tile grid."""
+        image, zero frames, ``end_image`` (same form) as the last frame
+        when given, and each (image, frame index) of ``mid_images`` as a
+        keyframe. ``tiled`` encodes over the reference's tile grid."""
         img = self._image(image)
         msk = np.ones((1, num_frames, height // 8, width // 8), np.float32)
         msk[:, 1:] = 0
@@ -243,6 +273,12 @@ class FantasyWorldPipeline:
         if end_image is not None:
             msk[:, -1:] = 1
             frames[1][:, -1] = self._image(end_image)[0]
+        for mid, idx in mid_images or ():
+            msk[:, idx:idx + 1] = 1
+            if idx:
+                frames[1][:, idx - 1] = self._image(mid)[0]
+            else:
+                frames[0] = self._image(mid).transpose(0, 1)
         msk = np.concatenate([msk[:, 0:1].repeat(4, axis=1), msk[:, 1:]],
                              axis=1)
         msk = msk.reshape(1, msk.shape[1] // 4, 4, height // 8, width // 8)
@@ -265,13 +301,16 @@ class FantasyWorldPipeline:
     @torch.no_grad()
     def decode_video(self, latents: torch.Tensor, tiled: bool = False,
                      tile_size=None, tile_stride=None) -> np.ndarray:
-        """latents (1, z, f, h, w) -> uint8 frames (T, H, W, 3). ``tiled``
-        decodes over the reference's tile grid, or over the given one (in
-        latent pixels; give both tile_size and tile_stride, or neither)."""
+        """latents (1, z, f, h, w) -> uint8 frames (T, H, W, 3), through the
+        VAE the pipe holds (the 2.1 one, or the 38-block one: 16 pixels a
+        latent pixel). ``tiled`` decodes over the reference's tile grid,
+        (30, 52) latent pixels with stride (15, 26) for either VAE, or over
+        the given one (give both tile_size and tile_stride, or neither)."""
         x = latents.to(self.vae.conv2.weight.device, self.dtype)
         if tiled:
-            video = vae_decode_tiled(self.vae, x,
-                                     *tile_plan(tile_size, tile_stride))
+            decode = (vae38_decode_tiled if isinstance(self.vae, WanVAE38)
+                      else vae_decode_tiled)
+            video = decode(self.vae, x, *tile_plan(tile_size, tile_stride))
         else:
             video = self.vae.decode(x)
         video = video[0].permute(1, 2, 3, 0).float().cpu().numpy()
@@ -302,8 +341,10 @@ class FantasyWorldPipeline:
                 tea_cache_l1_thresh: Optional[float] = None,
                 tea_cache_model_id: str = DEFAULT_MODEL_ID,
                 segment_size: Optional[int] = None,
-                gen_ckpt_path: Optional[str] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                gen_ckpt_path: Optional[str] = None,
+                sliding_window_size: Optional[int] = None,
+                sliding_window_stride: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Returns (final latents (B, 16, f, h, w), geometry prediction of
         the positive rows). Each step runs the CFG pair as batch 2 (rows
         [:B] positive, [B:] negative); the CFG combine and the Euler update
@@ -321,7 +362,14 @@ class FantasyWorldPipeline:
         shapes resumes from it, and the file is removed at the end. The
         result equals the unsegmented one step for step. Without either,
         ``progress_callback`` runs after each step's work is queued (it
-        does not synchronise)."""
+        does not synchronise).
+
+        ``sliding_window_size`` / ``sliding_window_stride`` (latent frames;
+        the stride defaults to half the size): each step evaluates the CFG
+        pair over temporal windows of the latents, y and the Plucker
+        features and blends them (``temporal_tiled_forward``). The geometry
+        heads do not run, so the prediction is None; TeaCache,
+        ``segment_size`` and ``gen_ckpt_path`` do not combine with it."""
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
         f = (num_frames - 1) // 4 + 1
@@ -343,6 +391,19 @@ class FantasyWorldPipeline:
 
         pairs = sched.sigma_pairs()
         n = len(sched.timesteps)
+        if sliding_window_size is not None:
+            given = [name for name, v in (
+                ("tea_cache_l1_thresh", tea_cache_l1_thresh),
+                ("segment_size", segment_size),
+                ("gen_ckpt_path", gen_ckpt_path)) if v is not None]
+            if given:
+                raise ValueError(f"sliding_window_size does not combine "
+                                 f"with {', '.join(given)}")
+            return self._denoise_windowed(
+                latents, sched, ctx, clip2, y2, pl2, cfg_scale, f, height,
+                width, sliding_window_size,
+                sliding_window_stride or max(1, sliding_window_size // 2),
+                progress_callback), None
         tea = tea_cache_l1_thresh is not None
         skips, residual = np.zeros((n,), bool), None
         if tea:
@@ -379,3 +440,43 @@ class FantasyWorldPipeline:
         # the heads ran on the CFG-doubled batch; keep the positive rows
         prediction = {k: v[:B] for k, v in prediction.items()}
         return latents, prediction
+
+    def _denoise_windowed(self, latents, sched, ctx, clip2, y2, pl2,
+                          cfg_scale, f, height, width, size, stride,
+                          progress_callback):
+        """The step loop with each CFG-pair prediction tiled over temporal
+        windows; the Plucker features (B2, L, D) enter as (B2, D, f, h, w)
+        so that they slice by frame like the latents."""
+        from .temporal_tiler import temporal_tiled_forward
+        pl_bcthw = None
+        if pl2 is not None:
+            pt = self.cfg.dit.patch_size
+            h2, w2 = height // 8 // pt[1], width // 8 // pt[2]
+            pl_bcthw = pl2.view(pl2.shape[0], f, h2, w2,
+                                pl2.shape[-1]).permute(0, 4, 1, 2, 3)
+
+        def window(latents, y, plucker, t):
+            pl = None
+            if plucker is not None:
+                pl = plucker.permute(0, 2, 3, 4, 1).reshape(
+                    plucker.shape[0], -1, plucker.shape[1])
+            lat2 = torch.cat([latents] * 2, dim=0)
+            noise, _ = self.fusion.joint_forward(
+                lat2, torch.full((lat2.shape[0],), t, dtype=torch.float32,
+                                 device=lat2.device), ctx, clip2, y,
+                plucker_fea=pl)
+            nb = latents.shape[0]
+            pos, neg = noise[:nb].float(), noise[nb:].float()
+            return neg + cfg_scale * (pos - neg)
+
+        pairs, n = sched.sigma_pairs(), len(sched.timesteps)
+        for i in range(n):
+            pred = temporal_tiled_forward(
+                window, {"latents": latents, "y": y2, "plucker": pl_bcthw},
+                size, stride, slice_names=("latents", "y", "plucker"),
+                t=float(sched.timesteps[i]))
+            latents = (latents.float() + pred.float()
+                       * float(pairs[i, 1] - pairs[i, 0])).to(latents.dtype)
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        return latents

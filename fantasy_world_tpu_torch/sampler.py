@@ -33,6 +33,7 @@ from .hostops.camera import (camera_matrices, extri_intri_to_pose_encoding,
 from .models.moge.infer import moge_infer
 from .models.moge.model import MoGe
 from .pipelines.tea_cache import DEFAULT_MODEL_ID
+from .pipelines.units import run_condition
 from .pipelines.wan_video import FantasyWorldPipeline
 from .pipelines.wan_video_22 import (DualModelDenoiser,
                                      control_camera_latents_from_plucker)
@@ -243,15 +244,20 @@ class Wan22Sampler:
     the camera path enters as control-camera latents, and there is no CLIP
     branch. The VAE encodes and decodes over the reference's tile grid: at
     480x832 the untiled passes do not fit on an 80 GB card beside an expert
-    and umT5. ``stage_callback`` names "moge", "camera", "vae_encode",
-    "t5_pos", "t5_neg", the denoiser's "control_adapter_high" / "_low" and
-    "swap", and "vae_decode"."""
+    and umT5. The conditioning runs through ``run_condition``
+    (``pipelines/units.py``). ``stage_callback`` names "moge", "camera",
+    each conditioning unit (``PipelineUnit.name``: "t5" for both prompts,
+    "vae_encode" for y, ...), the denoiser's "control_adapter_high" /
+    "_low" and "swap", and "vae_decode"."""
 
     def __init__(self, pipe: FantasyWorldPipeline,
                  denoiser: DualModelDenoiser, moge: Optional[MoGe] = None):
         self.pipe = pipe
         self.denoiser = denoiser
         self.moge = moge
+        if pipe.cfg is None:
+            # the conditioning units read the experts' configuration
+            pipe.cfg = denoiser.cfg
 
     @classmethod
     def from_checkpoint(cls, wan_ckpt_path: str, model_ckpt_high: str,
@@ -302,15 +308,13 @@ class Wan22Sampler:
             ctrl = control_camera_latents_from_plucker(self.prepare_camera(
                 camera_params, image, height, width, using_scale, stage))
         stage("camera")
-        y = self.pipe.encode_y(img, num_frames, height, width, end_image=end,
-                               tiled=True)
-        stage("vae_encode")
-        ctx_pos = self.pipe.encode_prompt(prompt)
-        stage("t5_pos")
-        ctx_neg = self.pipe.encode_prompt(neg_prompt)
-        stage("t5_neg")
+        shared, posi, nega = run_condition(
+            self.pipe, prompt, neg_prompt, input_image=img, end_image=end,
+            height=height, width=width, num_frames=num_frames, seed=seed,
+            cfg_scale=cfg_scale, tiled=True, stage_callback=stage)
         latents, prediction = self.denoiser.denoise(
-            ctx_pos, ctx_neg, y, height, width, num_frames=num_frames,
+            posi["context"], nega["context"], shared["y"], height, width,
+            num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
             control_camera_latents=ctrl, progress_callback=progress_callback,
             stage_callback=stage, tea_cache_l1_thresh=tea_cache_l1_thresh,

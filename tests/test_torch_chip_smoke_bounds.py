@@ -28,6 +28,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("fwd", (2, 16317, 257, 40, 128), 0.17176, 0.20265, "bytes"),
     # the camera-head trunk: 81 tokens, bound by bytes
     ("fwd", (2, 81, 81, 16, 128), 1.07495e-4, 7.9230e-4, "bytes"),
+    # TI2V-5B at 704x1280x121, CFG pair: DiT self over 27,280 tokens of
+    # 24 heads, and cross-attention against 512 text keys
+    ("fwd", (2, 27280, 27280, 24, 128), 18.2894, 18.4928, "operations"),
+    ("fwd", (2, 27280, 512, 24, 128), 0.34326, 0.34708, "operations"),
     # training, batch 1: the backward kernels' 6 and 8 units
     ("dq", (1, 16317, 16317, 40, 128), 8.1790, 8.2700, "operations"),
     ("dkv", (1, 16317, 16317, 40, 128), 10.905, 11.027, "operations"),
@@ -68,6 +72,40 @@ def test_shape_launches_agree_with_expected_launches():
                   if k == kernel)
         assert got == two[kernel] - one[kernel], kernel
     assert per_shape["dit_self"] == 40 and per_shape["vggt_global"] == 24
+
+
+def test_ti2v_shapes_and_launches():
+    """TI2V-5B's two attention shapes route as their kernel says, hold
+    31 x 22 x 40 tokens, and a step launches each once per block; no Wan
+    denoise step counts them."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.models.wan.dit import TI2V_5B
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    shapes = {name: rest for name, *rest in cs.SHAPES
+              if name.startswith("ti2v_")}
+    assert set(shapes) == {"ti2v_dit_self", "ti2v_dit_cross_text"}
+    for (b, lq, h, d), lk, kernel in shapes.values():
+        assert (b, lq, h, d) == (2, 31 * 22 * 40, TI2V_5B.num_heads,
+                                 TI2V_5B.head_dim)
+        assert fa.route(h, d, lk) == kernel
+    assert cs.layers_per_step(FusionConfig())["ti2v_dit_self"] == 0
+    two = cs.ti2v_launches(TI2V_5B, 2)
+    assert {k: v for k, v in two.items() if v} == {"generic": 60,
+                                                   "onekv": 60}
+
+
+def test_window_launches_agree_with_expected_launches():
+    """One window over all 21 latent frames launches what a step without
+    the heads does; the full-width windowed step's two windows of 11
+    frames take the same routes."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    cfg = FusionConfig()
+    whole = cs.expected_window_launches(cfg, [(0, 21)], 336, 592, 2)
+    want = cs.expected_launches(cfg, 2)
+    want["onekv"] -= 4 * cfg.vggt.camera_head.trunk_depth
+    assert whole == want
+    two = cs.expected_window_launches(cfg, [(0, 11), (10, 21)], 336, 592, 1)
+    assert two == whole
 
 
 def test_serve_shapes_are_the_denoise_shapes_at_the_serve_batch():

@@ -115,6 +115,27 @@ def test_kernel_at_wan22_and_moge_shapes(device, name, shape, Lk, kernel):
     assert _out_err(out, ref) <= 1
 
 
+# TI2V-5B at 704x1280x121: 27,280 rows (a ragged last 128-row tile) of 24
+# heads, over themselves (generic) and over 512 text keys (onekv)
+TI2V = [(name, shape, lk, kernel) for name, shape, lk, kernel in SHAPES
+        if name.startswith("ti2v_")]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", TI2V,
+                         ids=[s[0] for s in TI2V])
+def test_kernel_at_ti2v_shapes(device, name, shape, Lk, kernel):
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel and Lq % 128
+    q, k, v = _qkv(shape, Lk, device, seed=11)
+    before = fa.LAUNCHES[kernel]
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel] == before + 1
+    ref = fa.attention_plain(q, k, v, D ** -0.5)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _out_err(out, ref) <= 1
+
+
 @pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic"),
                                       (128, "onekv")])
 def test_kernel_reads_strided_views(device, D, kernel):

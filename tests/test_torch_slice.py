@@ -122,9 +122,10 @@ def test_port_never_imports_jax():
     package (checked in a fresh interpreter: this one has JAX loaded),
     with the samplers, the loaders, MoGe, the Wan2.2 pipeline, the
     quantization, TeaCache, the server, both inference CLIs, the serve
-    CLI, the data readers, build_train_batch, the trainer and
-    make_camera_json among the modules and the CLIs' argument checks
-    run."""
+    CLI, the data readers, build_train_batch, the trainer,
+    make_camera_json, the 38-block VAE, the conditioning units, the TI2V
+    denoise and the temporal tiler among the modules and the CLIs'
+    argument checks run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -135,7 +136,9 @@ def test_port_never_imports_jax():
         " 'convert.moge', 'convert.lora', 'pipelines.wan_video_22',"
         " 'core.quant', 'pipelines.tea_cache', 'serving.server',"
         " 'cli.serve', 'data.video', 'data.re10k', 'hostops.rotation',"
-        " 'training.data', 'cli.train', 'cli.make_camera_json'):\n"
+        " 'training.data', 'cli.train', 'cli.make_camera_json',"
+        " 'models.wan.vae38', 'pipelines.units', 'pipelines.ti2v',"
+        " 'pipelines.temporal_tiler'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"
@@ -151,6 +154,7 @@ def test_port_never_imports_jax():
         "chip_smoke.small_configs()\n"
         "chip_smoke.small_clip_configs()\n"
         "chip_smoke.small_wan22_configs()\n"
+        "chip_smoke.small_ti2v_configs()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fantasy_world_tpu' or m.startswith('fantasy_world_tpu.')]"
         "\n"
