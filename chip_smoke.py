@@ -111,6 +111,33 @@ segmented and resumable denoise, ``serving/server.py``, ``cli/serve.py``):
     step in bf16, then quantized to int8 in place and the step again, once
     under the profiler: seconds, peak and resident GB, the drift against
     bf16, the device time of the quantization glue.
+The weights tooling and the track head (``cli/convert.py``,
+``cli/verify_weights.py``, ``convert/{registry,manager,bundle}.py``,
+``models/vggt/track.py``):
+  * after ``train_cli_data``, ``small_verify``: on ``write_reference_layout``
+    and ``write_wan22_layout`` (reduced widths, from a seed), each as a
+    subprocess: ``cli.convert --variant wan21`` to a bundle, then at once
+    ``cli.verify_weights`` on the raw layout (with ``--out_bundle``), on
+    the bundle with ``--config_from``, on the Wan2.2 layout, and on the
+    Wan2.1 layout with one fusion tensor removed: every phase ok and exit 0,
+    equal raw and bundle latents, exit 1 with the census failed first;
+  * then ``small_track``: the track head at reduced widths (8 heads of 48)
+    on the card against the CPU within SLICE_TOL, exact d64 launches;
+  * after step 7, ``full_verify``: verify_weights' census, finite, 2-step
+    9-frame denoise with heads and heads checks on the resident full model,
+    and the registry (its reference-layout base DiT detects as the 14B I2V
+    entry); likewise the Wan2.2 expert (Control-Camera entry) in step 10,
+    and in ``full_ti2v`` the TI2V-5B DiT, reloaded through
+    ``ModelManager.load_model`` with a bit-equal step output, before the
+    decode;
+  * last, ``full_track``: the track head at full width from a seed
+    (``TrackConfig()``, the feature-only DPT over 21 latent frames of
+    VGGT's tokens at 336x592, so 81 frames, 256 points, 4 iterations):
+    seconds, peak GB, the attention calls' seconds, exact launches, shapes
+    and finiteness.
+  The kernels are also held to their plain versions at FLF2V's text
+  cross-attention (769 keys) and the track head's four attentions (8 heads
+  of 48, padded to 64), with the kernel's time on padded inputs beside.
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -186,6 +213,11 @@ SLICE_TOL = 5e-2
 # backward's, through 3 DiT blocks, 2 VGGT block pairs and bicross
 TRAIN_TOL = 5e-2
 
+# the track head's query points, and its frames: the feature-only DPT
+# upsamples the 21 latent frames of an 81-frame clip 4x in time
+TRACK_POINTS = 256
+TRACK_FRAMES = 1 + 4 * ((81 - 1) // 4)
+
 # name, (B, Lq, H, D), Lk, kernel -- the main path's attentions with the
 # CFG pair as batch 2
 SHAPES = [
@@ -217,6 +249,22 @@ SHAPES = [
     # heads of 128 (a ragged last 128-row tile), umT5's 512 keys
     ("ti2v_dit_self", (2, 27280, 24, 128), 27280, "generic"),
     ("ti2v_dit_cross_text", (2, 27280, 24, 128), 512, "onekv"),
+    # FLF2V (the registry's has_image_pos_emb entry) at 336x592: the 514
+    # tokens of the start and end images split at 257, so the text keys are
+    # the end image's 257 and umT5's 512 -- 769, a remainder of onekv's tiles
+    ("flf2v_dit_cross_text", (2, 16317, 40, 128), 769, "onekv"),
+    # the track head (TrackConfig(): 8 heads of 48, zero-padded to 64) on
+    # TRACK_POINTS query points and the TRACK_FRAMES frames the feature-only
+    # DPT gives at 81 video frames, with 64 virtual tracks: time attention
+    # over each track's frames, then virtual <- points, virtual self,
+    # points <- virtual in every frame
+    ("track_time", (TRACK_POINTS + 64, TRACK_FRAMES, 8, 48), TRACK_FRAMES,
+     "d64"),
+    ("track_virtual_to_point", (TRACK_FRAMES, 64, 8, 48), TRACK_POINTS,
+     "d64"),
+    ("track_virtual_self", (TRACK_FRAMES, 64, 8, 48), 64, "d64"),
+    ("track_point_to_virtual", (TRACK_FRAMES, TRACK_POINTS, 8, 48), 64,
+     "d64"),
 ]
 # full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
 # Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
@@ -410,7 +458,13 @@ def phase_kernels(device):
     layers = {k: v + layers_per_step(wan22_fusion_config())[k]
               for k, v in layers_per_step(FusionConfig()).items()}
     layers.update(ti2v_dit_self=TI2V_5B.num_layers,
-                  ti2v_dit_cross_text=TI2V_5B.num_layers)
+                  ti2v_dit_cross_text=TI2V_5B.num_layers,
+                  flf2v_dit_cross_text=FusionConfig().dit.num_layers)
+    # the track head's: one launch a block a refinement iteration
+    from fantasy_world_tpu_torch.models.vggt.track import TrackConfig
+    tc = TrackConfig()
+    layers.update({name: tc.iters * tc.depth for name, *_ in SHAPES
+                   if name.startswith("track_")})
     per_kernel = {k: {"max_abs_err": 0.0, "by_shape": []} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
@@ -435,9 +489,20 @@ def phase_kernels(device):
             y["online_ms"] = time_ms(
                 lambda: fa.launch("generic", qg, kg, vg, scale), 5)
             del qg, kg, vg
+        # below the kernel's head dim the wrapper copies q, k, v into a
+        # zero-padded tensor first: the kernel alone on padded inputs
+        dk = fa.kernel_dim(H, D, Lk)
+        if dk != D:
+            qp, kp, vp = (torch.nn.functional.pad(t, (0, dk - D))
+                          for t in (q, k, v))
+            y["padded_kernel_ms"] = time_ms(
+                lambda: fa.launch(kernel, qp, kp, vp, scale), 5)
+            del qp, kp, vp
         say("kernel", shape=name, kernel=kernel, max_abs_err=f"{err:.3e}",
             bound=f"{tol:.3e}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-            online_ms=_fmt(y.get("online_ms")), tflops=f"{y['tflops']:.1f}",
+            online_ms=_fmt(y.get("online_ms")),
+            padded_kernel_ms=_fmt(y.get("padded_kernel_ms")),
+            tflops=f"{y['tflops']:.1f}",
             bound_ms=f"{y['bound_ms']:.4f}", bound_by=y["bound_by"],
             share=f"{y['share']:.4f}",
             library_ms="|".join(f"{b}:{_fmt(t)}" for b, t in
@@ -1269,6 +1334,40 @@ def phase_train_cli():
         raise AssertionError(f"train CLI checkpoints {saved}")
 
 
+# the registry entry (``convert/registry.py``) each full-width DiT must
+# detect as
+REGISTRY_ENTRY = {"wan21": "6bfcfb3b342cb286ce886889d519a77e",   # 14B I2V
+                  "wan22": "47dbeab5e560db3180adf51dc0232fb1",   # Control-
+                  "ti2v": "1f5ab7703c6fc803fdded85ff040c316"}    # Camera
+
+
+def detected(sd, fusion_cfg=None):
+    """(registry hash, detected name) of a DiT's reference-layout census:
+    ``sd`` a standalone DiT's state dict, or with ``fusion_cfg`` a fusion
+    model's, whose base DiT (``reference_state_dicts``) is taken. Only the
+    shapes are read: the tensors are replaced by meta ones first."""
+    import torch
+    from fantasy_world_tpu_torch.convert import checkpoint as ckpt
+    from fantasy_world_tpu_torch.convert import registry
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in sd.items()}
+    if fusion_cfg is not None:
+        meta, _ = ckpt.reference_state_dicts(meta, fusion_cfg)
+    h = registry.hash_state_dict_keys(meta)
+    try:
+        return h, registry.detect(meta)[0]
+    except KeyError:
+        return h, None
+
+
+def check_detected(what, sd, entry, fusion_cfg=None):
+    h, name = detected(sd, fusion_cfg)
+    if h != REGISTRY_ENTRY[entry] or name != "wan_video_dit":
+        raise AssertionError(f"{what}: census hash {h} ({name}), want the "
+                             f"{entry} entry {REGISTRY_ENTRY[entry]}")
+    return h
+
+
 def write_pan_clip(clip_dir, height, width, frames, prompt=PROMPT):
     """A clip directory as ``cli.train --data_root`` reads it:
     ``frames/{i}.png`` (``data/video.py:save_frames``), ``frames`` frames of
@@ -1346,6 +1445,58 @@ def write_reference_layout(root, seed=21):
     return wan, model
 
 
+def write_wan22_layout(root, seed=23):
+    """``small_wan22_configs``' experts from a seed, on the host in f32, as
+    the Wan2.2 layout that ``convert/checkpoint.py:load_wan22`` reads: each
+    expert's base DiT in ``{high,low}_noise_model/`` shards, a rank-2
+    Reward-LoRA (kohya names) over its block 0's linears, its fusion
+    ``.pth``; the VAE and umT5 ``.pth``; a ``configs.json``. Returns
+    (wan_ckpt_path, model_ckpt_high, model_ckpt_low)."""
+    import dataclasses
+    import torch
+    from fantasy_world_tpu_torch.convert import checkpoint as ckpt
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    fcfg, t5c, vaec, _ = small_wan22_configs()
+    g = torch.Generator("cpu").manual_seed(seed)
+
+    def make(ctor, cfg):
+        return build(lambda: ctor(cfg), device="cpu", dtype=torch.float32,
+                     generator=g).state_dict()
+    wan = os.path.join(root, "wan22")
+    paths = []
+    for high in (True, False):
+        base, fusion = ckpt.reference_state_dicts(make(FusionModel, fcfg),
+                                                  fcfg)
+        shards = os.path.join(wan, ckpt.EXPERT_SHARDS[high])
+        os.makedirs(os.path.dirname(shards), exist_ok=True)
+        ckpt.write_safetensors(shards.replace(
+            "*", "-00001-of-00001"), base)
+        lora = {}
+        for layer in ("self_attn.q", "cross_attn.o", "ffn.0"):
+            w = base[f"blocks.0.{layer}.weight"]
+            name = "lora_unet_blocks_0_" + layer.replace(".", "_")
+            lora[name + ".lora_up.weight"] = torch.randn(
+                w.shape[0], 2, generator=g) * 0.1
+            lora[name + ".lora_down.weight"] = torch.randn(
+                2, w.shape[1], generator=g) * 0.1
+            lora[name + ".alpha"] = torch.tensor(4.0)
+        lora_path = os.path.join(wan, ckpt.EXPERT_LORAS[high])
+        os.makedirs(os.path.dirname(lora_path), exist_ok=True)
+        ckpt.write_safetensors(lora_path, lora)
+        paths.append(os.path.join(root, "model_high.pth" if high
+                                  else "model_low.pth"))
+        torch.save(fusion, paths[-1])
+    torch.save(make(WanVAE, vaec), os.path.join(wan, ckpt.VAE_FILE))
+    torch.save(make(T5Encoder, t5c), os.path.join(wan, ckpt.T5_FILE))
+    with open(os.path.join(wan, ckpt.CONFIGS_FILE), "w") as fh:
+        json.dump({k: dataclasses.asdict(c) for k, c in
+                   (("fusion", fcfg), ("t5", t5c), ("vae", vaec))}, fh)
+    return wan, paths[0], paths[1]
+
+
 def phase_train_cli_data():
     """``python -m fantasy_world_tpu_torch.cli.train --data_root`` as a user
     calls it, on the card at reduced width: ``small_clip_configs``' modules
@@ -1400,6 +1551,214 @@ def phase_train_cli_data():
                                  f"!= {want}")
     if saved != ["step_00000002", "step_00000003"]:
         raise AssertionError(f"train CLI on data: checkpoints {saved}")
+
+
+def _verify_cmd(module, *argv):
+    return [sys.executable, "-m", f"fantasy_world_tpu_torch.cli.{module}",
+            *argv]
+
+
+def phase_small_verify():
+    """The weights tooling as a user runs it, each command a subprocess on
+    the card: ``cli.convert --variant wan21`` of ``write_reference_layout``
+    to a bundle; ``cli.verify_weights --variant wan21`` on the raw layout
+    (with ``--out_bundle``: save, reload, bit-compare) and on the bundle
+    with ``--config_from``; ``--variant wan22`` on ``write_wan22_layout``
+    (``small_wan22``'s widths, the Reward-LoRAs merged); and the Wan2.1
+    layout with one fusion tensor removed. Every report must have every
+    phase ok and exit 0, the raw and bundle latents must be equal (sha256
+    of their bytes), and the broken layout must exit 1 with the census the
+    first phase to fail. The verifies run at once, the bundle's once the
+    convert has written it."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "small_verify")
+    shutil.rmtree(root, ignore_errors=True)
+    wan, model = write_reference_layout(root)
+    wan22, high, low = write_wan22_layout(root)
+    fusion = torch.load(model, weights_only=True)
+    gone = "IRGBlock.0.x_agg.norm1.weight"
+    del fusion[gone]
+    broken = os.path.join(root, "model_broken.pth")
+    torch.save(fusion, broken)
+    del fusion
+    bundle = os.path.join(root, "wan21.bundle")
+    write_s = time.perf_counter() - t0
+
+    def report(name):
+        return os.path.join(root, f"report_{name}.json")
+
+    def verify(name, *argv):
+        return subprocess.Popen(
+            _verify_cmd("verify_weights", *argv, "--report", report(name)),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    # the verifies that need no bundle run while the convert writes it
+    convert = subprocess.Popen(_verify_cmd(
+        "convert", "--variant", "wan21", "--wan_ckpt_path", wan,
+        "--model_ckpt", model, "--out", bundle), cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {
+        "raw": verify("raw", "--variant", "wan21", "--wan_ckpt_path", wan,
+                      "--model_ckpt", model, "--out_bundle",
+                      os.path.join(root, "verified.bundle")),
+        "wan22": verify("wan22", "--variant", "wan22", "--wan_ckpt_path",
+                        wan22, "--model_ckpt_high", high,
+                        "--model_ckpt_low", low),
+        "broken": verify("broken", "--variant", "wan21", "--wan_ckpt_path",
+                         wan, "--model_ckpt", broken)}
+    _, err = convert.communicate(timeout=600)
+    convert_s = time.perf_counter() - t0 - write_s
+    if convert.returncode != 0:
+        raise AssertionError(f"cli.convert exit {convert.returncode}: "
+                             f"{err[-2000:]}")
+    procs["bundle"] = verify("bundle", "--variant", "wan21",
+                             "--wan_ckpt_path", bundle, "--config_from",
+                             bundle)
+    out = {}
+    for name, proc in procs.items():
+        _, stderr = proc.communicate(timeout=600)
+        with open(report(name)) as fh:
+            out[name] = (proc.returncode, json.load(fh), stderr)
+    shutil.rmtree(root, ignore_errors=True)
+
+    def phases(rep):
+        return "|".join(f"{p['name']}:{'ok' if p['ok'] else 'FAIL'}:"
+                        f"{p['wall_s']}" for p in rep["phases"])
+    digests = {name: next(p["detail"].get("latent_sha256") for p in
+                          rep["phases"] if p["name"] == "denoise")
+               for name, (_, rep, _) in out.items() if name != "broken"}
+    say("small_verify", seconds=f"{time.perf_counter() - t0:.2f}",
+        write_layouts_s=f"{write_s:.2f}", convert_s=f"{convert_s:.2f}",
+        **{f"{name}_exit": rc for name, (rc, _, _) in out.items()},
+        **{f"{name}_phases": phases(rep) for name, (_, rep, _) in
+           out.items()},
+        raw_bundle_latents_equal=digests["raw"] == digests["bundle"])
+    for name in ("raw", "bundle", "wan22"):
+        rc, rep, err = out[name]
+        if rc != 0 or not rep["ok"] or not all(p["ok"] for p in
+                                               rep["phases"]):
+            raise AssertionError(f"verify_weights {name}: exit {rc}, "
+                                 f"{phases(rep)}: {err[-2000:]}")
+    if digests["raw"] != digests["bundle"]:
+        raise AssertionError("verify_weights: the bundle's denoise latents "
+                             "differ from the raw layout's")
+    rc, rep, _ = out["broken"]
+    failed = [p for p in rep["phases"] if not p["ok"]]
+    if rc != 1 or not failed or failed[0]["name"] != "census:fusion" \
+            or failed[0]["detail"].get("n_missing") != 1:
+        raise AssertionError(f"verify_weights on a fusion file without "
+                             f"{gone}: exit {rc}, {phases(rep)}")
+
+
+def small_track_configs():
+    """The track head at reduced widths: the tracker keeps TrackConfig()'s
+    8 heads of 48 (d64, zero-padded to 64) in 2 blocks over 4 pyramid
+    levels of a 32-wide latent and 16 virtual tracks; the feature-only DPT
+    reads 256-wide aggregated tokens. Returns (TrackConfig,
+    DPTHeadConfig)."""
+    from fantasy_world_tpu_torch.models.vggt.heads import DPTHeadConfig
+    from fantasy_world_tpu_torch.models.vggt.track import TrackConfig
+    tc = TrackConfig(latent_dim=32, hidden_size=384, corr_levels=4,
+                     corr_radius=3, depth=2, num_virtual_tracks=16)
+    dpt = DPTHeadConfig(dim_in=256, output_dim=0, features=tc.latent_dim,
+                        out_channels=(16, 32, 64, 64),
+                        intermediate_layer_idx=(1, 1, 0, 0), pos_embed=False,
+                        down_ratio=2, feature_only=True)
+    return tc, dpt
+
+
+def track_inputs(dpt, frames, ph, pw, points, generator, device="cpu",
+                 dtype=None):
+    """Random aggregated tokens of ``frames`` latent frames on a (ph, pw)
+    patch grid behind 5 camera/register tokens (one tensor per layer the
+    DPT reads; the other layers of the list repeat the first), and
+    ``points`` query points (1, N, 2) in full-resolution pixels."""
+    import torch
+    idx = dpt.intermediate_layer_idx
+    taps = {i: torch.randn((1, frames, 5 + ph * pw, dpt.dim_in),
+                           generator=generator, device=device, dtype=dtype)
+            for i in sorted(set(idx))}
+    toks = [taps.get(i, taps[idx[0]]) for i in range(max(idx) + 1)]
+    size = torch.tensor([pw * dpt.patch_size - 1.0,
+                         ph * dpt.patch_size - 1.0], device=device)
+    q = torch.rand((1, points, 2), generator=generator, device=device) * size
+    return toks, q
+
+
+def track_launches(tc, forwards=1):
+    """d64 launches of the track head: per refinement iteration and block,
+    time attention, virtual <- points, virtual self, points <- virtual."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    out = {k: 0 for k in fa.LAUNCHES}
+    out["d64"] = forwards * tc.iters * tc.depth * 4
+    return out
+
+
+def phase_small_track(device):
+    """The track head (``models/vggt/track.py``: the feature-only DPT, the
+    correlation pyramid, 4 refinement iterations) at ``small_track_configs``
+    on the card in bf16 against the same weights on the CPU in f32 through
+    the plain versions: the feature maps, each iteration's displacement
+    from the query points (its coordinates less the queries: the
+    coordinates themselves are almost all query), vis and conf within
+    SLICE_TOL (relative L2), exactly ``track_launches`` d64 launches. The
+    flow head (coordinate and feature deltas) is scaled by 1e-2: each
+    iteration's deltas feed the next one's sampling and feature update,
+    and at the random init the CPU's own bf16 run of this head differs
+    from its f32 run by 4.6e-2 in vis after 4 iterations, too near
+    SLICE_TOL to tell a fault from rounding (4.4e-3 at the scale)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.vggt.track import TrackHead
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    tc, dpt = small_track_configs()
+    frames, ph, pw, points = 3, 6, 10, 32
+    g = torch.Generator("cpu").manual_seed(9)
+    cpu_head = build(lambda: TrackHead(tc, dpt), device="cpu",
+                     dtype=torch.float32, generator=g)
+    cpu_head.tracker.updateformer.flow_head.weight.data.mul_(1e-2)
+    toks, q = track_inputs(dpt, frames, ph, pw, points, g)
+    outs, launches = {}, None
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        head = cpu_head
+        if dev != "cpu":
+            head = build(lambda: TrackHead(tc, dpt), device=dev, dtype=dtype)
+            head.load_state_dict(cpu_head.state_dict())
+            fa.reset_launch_counts()
+        with torch.no_grad():
+            fmaps = head.feature_extractor([t.to(dev, dtype) for t in toks],
+                                           (ph, pw), 5)
+            coords, vis, conf = head.tracker(q.to(dev), fmaps)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+        start = q.to(dev)[:, None]
+        outs[dev] = {"fmaps": fmaps, "vis": vis, "conf": conf,
+                     **{f"disp{i}": c - start for i, c in enumerate(coords)}}
+        outs[dev] = {k: v.float().cpu() for k, v in outs[dev].items()}
+    errs = {k: ((outs[device][k] - ref).norm()
+                / ref.norm().clamp_min(1e-12)).item()
+            for k, ref in outs["cpu"].items()}
+    want = track_launches(tc)
+    T = 1 + 4 * (frames - 1)
+    say("small_track", seconds=f"{time.perf_counter() - t0:.2f}",
+        frames=T, points=points, fmaps_shape="x".join(
+            map(str, outs[device]["fmaps"].shape)),
+        device_vs_cpu_rel_l2=json.dumps(
+            {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    if tuple(outs[device]["disp3"].shape) != (1, T, points, 2):
+        raise AssertionError(f"track shape {outs[device]['disp3'].shape}")
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"reduced track head disagrees with the CPU "
+                             f"path beyond {SLICE_TOL}: {bad}")
+    if launches != want:
+        raise AssertionError(f"track launches {launches} != {want}")
 
 
 def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
@@ -1668,7 +2027,9 @@ def phase_full_wan22(device, shared, quant_profile_dir, steps=2, seed=1024,
         host_available_gb_after=f"{host_available_gb():.1f}",
         expert_params=sum(p.numel() for p in high.parameters()),
         pin_low_expert_s=f"{pin_s:.2f}",
-        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+        registry=check_detected("full_wan22", high.state_dict(), "wan22",
+                                cfg))
     pipe = FantasyWorldPipeline(t5=shared["t5"], vae=shared["vae"])
     out_dir = os.path.join(REPO, "build", "wan22_export", "full")
     install_tokenizer(pipe, T5Config().vocab, os.path.join(out_dir, "tok"))
@@ -2857,19 +3218,23 @@ def ti2v_launches(cfg, steps):
 
 
 def run_ti2v(pipe, image, height, width, frames, steps, seed, mark=None,
-             tiled=False):
+             tiled=False, before_denoise=None):
     """The TI2V-5B clip through the port's entry points: ``run_condition``
     (the 38-block VAE's latent of the image fused into latent frame 0),
     ``denoise_ti2v`` on the conditioning's noise, then ``decode_video``
     (``tiled``: over the reference grid). ``mark(name)`` after each unit,
-    step and the decode. Returns (latents, first-frame latent, uint8
-    video)."""
+    step and the decode; ``before_denoise(noise, positive context,
+    first-frame latent)`` between the conditioning and the denoise.
+    Returns (latents, first-frame latent, uint8 video)."""
     from fantasy_world_tpu_torch.pipelines.ti2v import denoise_ti2v
     from fantasy_world_tpu_torch.pipelines.units import run_condition
     stage = mark or (lambda name: None)
     shared, posi, nega = run_condition(
         pipe, PROMPT, NEG_PROMPT, input_image=image, height=height,
         width=width, num_frames=frames, seed=seed, stage_callback=stage)
+    if before_denoise is not None:
+        before_denoise(shared["noise"], posi["context"],
+                       shared["first_frame_latents"])
     latents = denoise_ti2v(
         pipe.dit, posi["context"], nega["context"], height, width,
         num_frames=frames, num_inference_steps=steps, seed=seed,
@@ -2986,7 +3351,15 @@ def phase_full_ti2v(device, t5, steps=2, seed=1024):
     decode to 121 frames. Prints each stage's seconds and peak GB (CUDA
     events), a 50-step clip reckoned from them, the launches (exactly 30
     generic and 30 onekv a step), the shapes, finiteness and that frame 0
-    is the clean first-frame latent."""
+    is the clean first-frame latent. Between the conditioning and the
+    denoise, ``ti2v_reload_check`` (the registry's TI2V entry, and a second
+    DiT from ``ModelManager`` with a bit-equal step output); its two
+    forwards' launches are counted apart. The check comes before the
+    denoise and not just before the decode: there, the second DiT's
+    allocations, freed with the cache, left the tiled decode half as slow
+    again (most likely because cuDNN keeps the plan it first finds for a
+    convolution's shape, and which plans it can take depends on the
+    allocator's state at that moment)."""
     import shutil
     import torch
     from fantasy_world_tpu_torch.core.params import build
@@ -3029,15 +3402,26 @@ def phase_full_ti2v(device, t5, steps=2, seed=1024):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     mark("start")
+    reload = {}
+
+    def reload_check(noise, context, first):
+        before = dict(fa.LAUNCHES)
+        ti2v_reload_check(device, dit, noise, context, first)
+        reload.update({k: fa.LAUNCHES[k] - before[k] for k in before})
+        mark("reload_check")
     lat, first, video = run_ti2v(pipe, image, height, width, frames, steps,
-                                 seed, mark=mark, tiled=True)
+                                 seed, mark=mark, tiled=True,
+                                 before_denoise=reload_check)
     torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
+    # the clip's launches: the reload check's two forwards are a
+    # comparison, counted apart
+    launches = {k: v - reload[k] for k, v in fa.LAUNCHES.items()}
     stage_s = {name: marks[i - 1][1].elapsed_time(ev) / 1e3
                for i, (name, ev, _) in enumerate(marks) if i}
     peak_gb = {name: peak / 1e9 for name, _, peak in marks[1:]}
     step_s = [stage_s[f"denoise_step{i}"] for i in range(1, steps + 1)]
-    fixed = sum(v for k, v in stage_s.items() if not k.startswith("denoise"))
+    fixed = sum(v for k, v in stage_s.items()
+                if not k.startswith("denoise") and k != "reload_check")
     reckoned = fixed + 50 * float(np.mean(step_s))
     lat_shape = (1, 48, (frames - 1) // 4 + 1, height // 16, width // 16)
     finite = bool(torch.isfinite(lat).all())
@@ -3055,7 +3439,12 @@ def phase_full_ti2v(device, t5, steps=2, seed=1024):
         video_shape="x".join(map(str, video.shape)), finite=finite,
         frame0_clamped=clamped,
         launches=json.dumps({k: v for k, v in launches.items() if v}
-                            ).replace(" ", ""))
+                            ).replace(" ", ""),
+        reload_check_launches=json.dumps({k: v for k, v in reload.items()
+                                          if v}).replace(" ", ""))
+    # the resident DiT's forward and the reloaded one's
+    if reload != ti2v_launches(TI2V_5B, 2):
+        raise AssertionError(f"TI2V reload check launches {reload}")
     if tuple(lat.shape) != lat_shape or not finite or not clamped:
         raise AssertionError(f"TI2V latents {tuple(lat.shape)}, finite "
                              f"{finite}, frame 0 clamped {clamped}")
@@ -3067,6 +3456,199 @@ def phase_full_ti2v(device, t5, steps=2, seed=1024):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_full_verify(device, pipe, steps=2, frames=9):
+    """``cli/verify_weights.py``'s checks on the resident full-width,
+    full-depth Wan2.1 model of ``phase_full_slice``: the census against
+    ``FusionConfig()`` built on the meta device, the NaN/Inf scan of every
+    tensor of the fusion model and the pose encoder, the registry (the
+    reference-layout base DiT must detect as the 14B I2V entry), a 2-step
+    denoise of 9 frames at 336x592 with the heads, and the heads' sanity.
+    Each check's seconds and peak GB; exact launches. Returns the
+    launches."""
+    import torch
+    from fantasy_world_tpu_torch.cli import verify_weights as vw
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    cfg = pipe.fusion.cfg
+    seconds, peak, res = {}, {}, {}
+
+    def check(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+
+    check("census", lambda: vw.census(pipe.fusion.state_dict(),
+                                      vw.architecture(cfg)))
+    check("finite", lambda: vw.finiteness(
+        {"fusion": pipe.fusion.state_dict(),
+         "pose": pipe.pose_encoder.state_dict()}, device))
+    check("registry", lambda: check_detected(
+        "full_verify", pipe.fusion.state_dict(), "wan21", cfg))
+    fa.reset_launch_counts()
+    check("denoise", lambda: vw.denoise_check(pipe, cfg, "wan21",
+                                              steps=steps, frames=frames))
+    launches = dict(fa.LAUNCHES)
+    detail, pred = res["denoise"]
+    check("heads", lambda: vw.head_sanity(pred))
+    want = expected_launches(cfg, steps)
+    say("full_verify", seconds=json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()}).replace(" ", ""),
+        peak_gb=json.dumps({k: round(v, 2) for k, v in peak.items()}
+                           ).replace(" ", ""),
+        census_keys=res["census"]["keys"],
+        census_ok=res["census"]["ok"], scanned=res["finite"]["scanned"],
+        nonfinite=len(res["finite"]["nonfinite"]), registry=res["registry"],
+        latent_shape="x".join(map(str, detail["latent_shape"])),
+        denoise_ok=detail["ok"], heads_ok=res["heads"]["ok"],
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    failed = [k for k in ("census", "finite", "heads") if not res[k]["ok"]]
+    if failed or not detail["ok"]:
+        raise AssertionError(f"full_verify: {failed or 'denoise'} failed: "
+                             f"{ {k: res[k] for k in failed} }")
+    if launches != want:
+        raise AssertionError(f"full_verify launches {launches} != {want}")
+    return launches
+
+
+def phase_full_track(device, points=TRACK_POINTS, seed=1024):
+    """The track head at full width from a seed: ``TrackConfig()`` (4
+    iterations, 6 blocks of 384, 8 heads of 48, 7 pyramid levels) over
+    the feature-only DPT of VGGT's 1024-wide aggregated tokens (2048 with
+    the frame and global halves) of 21 latent frames at 336x592, so 81
+    frames of 168 x 296 feature maps, and ``points`` query points. Prints
+    the feature extractor's and the tracker's seconds and peak GB (CUDA
+    events), the seconds inside the tracker's attention calls (their zero
+    padding of D 48 to 64 included), exact launches, and the outputs'
+    shapes and finiteness. Returns the launches."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.vggt import track as track_mod
+    from fantasy_world_tpu_torch.models.vggt.model import VGGTConfig
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    vcfg = VGGTConfig()
+    tc, dpt = vcfg.track, vcfg.track_dpt
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    head = build(lambda: track_mod.TrackHead(tc, dpt), device=device,
+                 dtype=torch.bfloat16, generator=g)
+    ph, pw, latent_frames = 336 // 16, 592 // 16, 21
+    toks, q = track_inputs(dpt, latent_frames, ph, pw, points, g,
+                           device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 1e9
+    spans = []
+    attention = track_mod.dot_product_attention
+
+    def timed_attention(q_, k_, v_, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        o = attention(q_, k_, v_, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return o
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    peaks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    track_mod.dot_product_attention = timed_attention
+    try:
+        with torch.no_grad():
+            events[0].record()
+            fmaps = head.feature_extractor(toks, (ph, pw), 5)
+            events[1].record()
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            coords, vis, conf = head.tracker(q, fmaps)
+            events[2].record()
+    finally:
+        track_mod.dot_product_attention = attention
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    launches = dict(fa.LAUNCHES)
+    fe_s = events[0].elapsed_time(events[1]) / 1e3
+    tr_s = events[1].elapsed_time(events[2]) / 1e3
+    attn_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    T = 1 + 4 * (latent_frames - 1)
+    finite = all(bool(torch.isfinite(x).all()) for x in (*coords, vis, conf))
+    shapes = {"fmaps": tuple(fmaps.shape), "track": tuple(coords[-1].shape),
+              "vis": tuple(vis.shape), "conf": tuple(conf.shape)}
+    want_shapes = {"fmaps": (1, T, tc.latent_dim, 168, 296),
+                   "track": (1, T, points, 2), "vis": (1, T, points),
+                   "conf": (1, T, points)}
+    want = track_launches(tc)
+    say("full_track", build_s=f"{build_s:.2f}",
+        head_params=sum(p.numel() for p in head.parameters()),
+        resident_gb=f"{resident:.2f}", feature_extractor_s=f"{fe_s:.3f}",
+        tracker_s=f"{tr_s:.3f}", tracker_attention_s=f"{attn_s:.3f}",
+        attention_calls=len(spans),
+        feature_extractor_peak_gb=f"{peaks[0]:.2f}",
+        tracker_peak_gb=f"{peaks[1]:.2f}", iters=len(coords),
+        shapes=json.dumps({k: list(v) for k, v in shapes.items()}
+                          ).replace(" ", ""), finite=finite,
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    if shapes != want_shapes or not finite:
+        raise AssertionError(f"full_track: shapes {shapes} (want "
+                             f"{want_shapes}), finite {finite}")
+    if launches != want:
+        raise AssertionError(f"full_track launches {launches} != {want}")
+    del head, toks, fmaps, coords, vis, conf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ti2v_reload_check(device, dit, latents, context, first):
+    """Before the TI2V denoise: the resident DiT's state dict in the
+    reference layout (q/k columns interleaved back) must detect as the
+    TI2V-5B entry, and ``ModelManager.load_model`` of that dict in memory
+    must give a second DiT whose step output -- one forward of the
+    positive row at t = 500 on ``latents`` (the conditioning's noise) with
+    frame 0 fused -- equals the resident one's bit for bit. Prints the
+    seconds and the peak GB; frees the second DiT."""
+    import torch
+    from fantasy_world_tpu_torch.convert.checkpoint import (
+        dit_reference_state_dict)
+    from fantasy_world_tpu_torch.convert.manager import ModelManager
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = check_detected("full_ti2v", dit.state_dict(), "ti2v")
+    mm = ModelManager(device, torch.bfloat16)
+    name = mm.load_model(dit_reference_state_dict(dit.state_dict(), dit.cfg))
+    _, second = mm.fetch_model(name)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    # as denoise_ti2v feeds its DiT: the conditioning's noise and context
+    # come from the host
+    w = dit.patch_embedding.weight
+    x = latents.to(w.device, w.dtype, copy=True)
+    x[:, :, :1] = first.to(w.device, w.dtype)
+    context = context.to(w.device, w.dtype)
+    t = torch.full((x.shape[0],), 500.0, device=device)
+    with torch.no_grad():
+        a = dit(x, t, context, fuse_first_frame=True)
+        b = second(x, t, context, fuse_first_frame=True)
+    equal = torch.equal(a, b)
+    torch.cuda.synchronize()
+    say("full_ti2v_reload", registry=h, model=name,
+        load_s=f"{load_s:.2f}", seconds=f"{time.perf_counter() - t0:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        step_output_bit_equal=equal)
+    if not equal:
+        raise AssertionError("the DiT reloaded through ModelManager gives "
+                             "another step output")
+    del mm, second, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -3111,10 +3693,13 @@ def main(argv=None) -> int:
     phase_small_train(device)
     phase_train_cli()
     phase_train_cli_data()
+    phase_small_verify()
+    phase_small_track(device)
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
         device, profile_dir=args.profile)
+    verify = phase_full_verify(device, pipe)
     clip_run, cpipe, moge = phase_full_clip(device, pipe)
     serve, _, shared = phase_full_serve(device, cpipe, moge)
     data_train = phase_full_data_train(device, cpipe)
@@ -3140,6 +3725,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ti2v = phase_full_ti2v(device, t5)
     del t5
+    gc.collect()
+    torch.cuda.empty_cache()
+    track = phase_full_track(device)
 
     yard = ("tflops", "bound_ms", "bound_by", "share", "library_ms",
             "library_ms_by_backend", "by_shape")
@@ -3152,8 +3740,10 @@ def main(argv=None) -> int:
             "launches": (denoise[k] + windowed[k] + clip_run[k] + serve[k]
                          + train[f"{k}_stats"] + data_train[k]
                          + data_train[f"{k}_stats"] + wan22[k] + quant[k]
-                         + ti2v[k]),
+                         + ti2v[k] + verify[k] + track[k]),
             "denoise_launches": denoise[k],
+            "verify_launches": verify[k],
+            "track_launches": track[k],
             "windowed_step_launches": windowed[k],
             "clip_run_launches": clip_run[k],
             "serve_launches": serve[k],

@@ -11,8 +11,12 @@
 image's predicted depth (``--using_scale``). It runs bf16 on the card
 (``--device cuda``, the default) and f32 through the kernels' plain
 versions on the CPU only with ``--device cpu``; without a card and without
-``--device cpu`` it exits. ``--auto_download`` fetches nothing: missing
-checkpoint files end the run with their names.
+``--device cpu`` it exits. ``--wan_ckpt_path`` is resolved on the local
+disk (``convert/downloader.py:resolve_ckpt_dir``): the directory itself
+when it holds the layout or a bundle (``cli/convert.py``), else the
+preset's directory beside it. No hub is called: missing checkpoint files
+end the run with their names and the preset's, and ``--auto_download`` is
+accepted for the JAX CLI's sake and has no effect.
 
 The serving options: ``--quant int8|fp8`` rewrites the fusion model's large
 linears after load (``core/quant.py``); ``--tea_cache_l1_thresh`` (with
@@ -74,8 +78,9 @@ def parse_args(argv=None):
                    help="umT5 tokenizer dir (defaults to "
                         "<wan_ckpt_path>/google/umt5-xxl if present)")
     p.add_argument("--auto_download", type=str2bool, default=True,
-                   help="accepted; nothing is fetched, and missing "
-                        "checkpoint files end the run")
+                   help="accepted as in the JAX CLI; no effect: nothing "
+                        "is fetched, and missing checkpoint files end the "
+                        "run")
     p.add_argument("--moge_ckpt", type=str, default=None,
                    help="MoGe-2 checkpoint for the scene-scale "
                         "normalization")
@@ -157,9 +162,22 @@ def check_common(args, missing, not_ported=NOT_PORTED) -> None:
                          "the CPU")
 
 
+def resolve_layout(args, preset: str, attr: str = "wan_ckpt_path") -> list:
+    """``args.<attr>`` through ``resolve_ckpt_dir``; [] when it resolved,
+    else [why], for ``check_common``'s list of what is missing."""
+    from ..convert.downloader import resolve_ckpt_dir
+    try:
+        setattr(args, attr, resolve_ckpt_dir(getattr(args, attr), preset))
+        return []
+    except FileNotFoundError as e:
+        return [str(e)]
+
+
 def check_args(args) -> None:
     from ..convert.checkpoint import missing_files
-    check_common(args, missing_files(args.wan_ckpt_path, args.model_ckpt))
+    missing = resolve_layout(args, "Wan2.1-I2V-14B-480P")
+    check_common(args, missing + missing_files(args.wan_ckpt_path,
+                                               args.model_ckpt))
 
 
 def run(args) -> dict:

@@ -13,7 +13,9 @@ VAE and umT5. ``--moge_ckpt`` scales the camera path by MoGe's depth of the
 image. It runs bf16 on the card (``--device cuda``, the default; the
 inactive expert waits in pinned host memory) and f32 on the CPU only with
 ``--device cpu``; without a card and without ``--device cpu`` it exits.
-``--auto_download`` fetches nothing. ``--quant``, ``--tea_cache_l1_thresh``
+``--wan_ckpt_path`` (the layout or a bundle) is resolved on the local
+disk as in ``cli/infer_wan21.py``; ``--auto_download`` has no effect.
+``--quant``, ``--tea_cache_l1_thresh``
 (the dual-expert plan), ``--segment_size`` (no segment spans the expert
 boundary) and ``--gen_ckpt_path`` work as in ``cli/infer_wan21.py``; both
 experts are quantized the same way, each on the card, before the low one
@@ -29,7 +31,8 @@ import json
 import sys
 import time
 
-from .infer_wan21 import (add_serving_args, check_common, serving_kwargs,
+from .infer_wan21 import (add_serving_args, check_common, resolve_layout,
+                          serving_kwargs,
                           str2bool)
 
 
@@ -60,8 +63,9 @@ def parse_args(argv=None):
                    help="MoGe-2 checkpoint for the scene-scale "
                         "normalization")
     p.add_argument("--auto_download", type=str2bool, default=True,
-                   help="accepted; nothing is fetched, and missing "
-                        "checkpoint files end the run")
+                   help="accepted as in the JAX CLI; no effect: nothing "
+                        "is fetched, and missing checkpoint files end the "
+                        "run")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
@@ -76,7 +80,8 @@ def parse_args(argv=None):
 
 def check_args(args) -> None:
     from ..convert.checkpoint import missing_files_wan22
-    check_common(args, missing_files_wan22(
+    missing = resolve_layout(args, "Wan2.2-Fun-A14B-Control-Camera")
+    check_common(args, missing + missing_files_wan22(
         args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low))
 
 

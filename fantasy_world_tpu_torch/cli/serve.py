@@ -21,7 +21,9 @@ It runs bf16 on the card (``--device cuda``, the default) and f32 through
 the kernels' plain versions on the CPU only with ``--device cpu``; without
 a card and without ``--device cpu`` it exits. The checkpoint flags are
 required (``--model_ckpt``, or ``--model_ckpt_high`` and
-``--model_ckpt_low``); ``--auto_download`` fetches nothing, and missing
+``--model_ckpt_low``) unless ``--ckpt_dir`` is a bundle
+(``cli/convert.py``); ``--ckpt_dir`` is resolved on the local disk as in
+``cli/infer_wan21.py``, ``--auto_download`` has no effect, and missing
 files end the run. ``--quant`` quantizes the denoiser once at start-up;
 ``--segment_size`` makes each batch report its progress on
 ``GET /v1/jobs/<id>``; a request's ``tea_cache_l1_thresh`` turns TeaCache
@@ -37,7 +39,7 @@ import sys
 
 import numpy as np
 
-from .infer_wan21 import check_common, str2bool
+from .infer_wan21 import check_common, resolve_layout, str2bool
 
 NOT_PORTED = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
               "ulysses": False}
@@ -62,8 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--moge_ckpt", type=str, default=None)
     p.add_argument("--tokenizer_path", type=str, default=None)
     p.add_argument("--auto_download", type=str2bool, default=True,
-                   help="accepted; nothing is fetched, and missing "
-                        "checkpoint files end the run")
+                   help="accepted as in the JAX CLI; no effect: nothing "
+                        "is fetched, and missing checkpoint files end the "
+                        "run")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_batch", type=int, default=4,
@@ -236,8 +239,14 @@ def load_sampler(args):
     """The sampler of ``--variant`` on ``--device``, quantized with
     ``--quant``; exits first on the checks of ``check_common``."""
     import torch
+    from ..convert.bundle import is_bundle
     from ..convert.checkpoint import missing_files, missing_files_wan22
-    if args.variant == "wan22":
+    resolved = resolve_layout(args, "Wan2.2-Fun-A14B-Control-Camera"
+                              if args.variant == "wan22" else
+                              "Wan2.1-I2V-14B-480P", attr="ckpt_dir")
+    if is_bundle(args.ckpt_dir):
+        need = ()
+    elif args.variant == "wan22":
         need = (("--model_ckpt_high", args.model_ckpt_high),
                 ("--model_ckpt_low", args.model_ckpt_low))
     else:
@@ -245,10 +254,11 @@ def load_sampler(args):
     for flag, val in need:
         if val is None:
             raise SystemExit(f"{flag} is required")
-    missing = (missing_files_wan22(args.ckpt_dir, args.model_ckpt_high,
-                                   args.model_ckpt_low)
-               if args.variant == "wan22" else
-               missing_files(args.ckpt_dir, args.model_ckpt))
+    missing = resolved + (
+        missing_files_wan22(args.ckpt_dir, args.model_ckpt_high,
+                            args.model_ckpt_low)
+        if args.variant == "wan22" else
+        missing_files(args.ckpt_dir, args.model_ckpt))
     check_common(args, missing, NOT_PORTED)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32

@@ -28,8 +28,14 @@ other way, from the port's modules to the layout, for checkpoints written
 from a seed.
 
 An optional ``configs.json`` in ``wan_ckpt_path`` ({"fusion", "t5",
-"clip", "vae"}: each a config's ``dataclasses.asdict``) gives the
-architecture; without one the production configs apply.
+"clip", "vae"}: each a config in ``utils/configio.py``'s schema) gives the
+architecture; without one the production configs apply. A bundle written
+by ``cli/convert.py`` (``convert/bundle.py``) loads in the reference
+layout's place: its components are already in the port's names. Each
+loader reads the state dicts first (``pipeline_state_dicts``,
+``expert_state_dict``), then builds the modules from them
+(``pipeline_from_state_dicts``, ``place_experts``), so that
+``cli/verify_weights.py`` can check the tensors in between.
 
 The Wan2.2-Fun-A14B-Control-Camera layout (``load_wan22``) holds the two
 experts' base DiTs under ``high_noise_model/`` and ``low_noise_model/``,
@@ -64,6 +70,8 @@ from ..models.wan.t5 import T5Config, T5Encoder
 from ..models.wan.dit import WanDiTConfig
 from ..models.wan.vae import VAEConfig, WanVAE
 from ..ops.rope import permute_qk_out_channels
+from ..utils.configio import config_from_dict
+from .bundle import bundle_components, is_bundle, load_bundle
 
 DIT_SHARDS = "diffusion_pytorch_model-*.safetensors"
 VAE_FILE = "Wan2.1_VAE.pth"
@@ -80,6 +88,10 @@ EXPERT_LORAS = {
     False: os.path.join(LORA_DIR, "Wan2.2-Fun-A14B-InP-low-noise-HPS2.1"
                                   ".safetensors")}
 LORA_MULTIPLIER = 0.55
+# a bundle's components (convert/bundle.py); Wan2.1's pose encoder is
+# optional, as in the fusion file
+WAN21_COMPONENTS = ("fusion", "t5", "clip", "vae")
+WAN22_COMPONENTS = ("fusion_high", "fusion_low", "t5", "vae")
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
               "F16": torch.float16, "BF16": torch.bfloat16,
@@ -112,22 +124,22 @@ def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]
                       ) -> None:
     """{name: tensor} -> a ``.safetensors`` file in each tensor's dtype:
     the 8-byte header length, the JSON header (padded to 8 bytes), the raw
-    buffers."""
-    header, blobs, offset = {}, [], 0
+    buffers, written one tensor at a time (a tensor on the card is copied
+    to the host when its turn comes)."""
+    header, offset = {}, 0
     for name, t in tensors.items():
-        t = t.detach().cpu().contiguous()
-        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        n = t.numel() * t.element_size()
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(blob)]}
-        blobs.append(blob)
-        offset += len(blob)
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as fh:
         fh.write(len(head).to_bytes(8, "little"))
         fh.write(head)
-        for blob in blobs:
-            fh.write(blob)
+        for t in tensors.values():
+            t = t.detach().cpu().contiguous()
+            fh.write(t.reshape(-1).view(torch.uint8).numpy().data)
 
 
 def read_pth(path: str) -> Dict[str, torch.Tensor]:
@@ -154,12 +166,37 @@ def read_shards(paths: List[str]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def read_state_dict(path) -> Dict[str, torch.Tensor]:
+    """A state dict from a ``.safetensors`` or ``.pth`` file, a list of
+    ``.safetensors`` shards, or a directory of them."""
+    if isinstance(path, (list, tuple)):
+        return read_shards(list(path))
+    if os.path.isdir(path):
+        shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+        if not shards:
+            raise FileNotFoundError(f"no safetensors under {path}")
+        return read_shards(shards)
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    return read_pth(path)
+
+
 def dit_shards(wan_ckpt_path: str, pattern: str = DIT_SHARDS) -> List[str]:
     return sorted(glob.glob(os.path.join(wan_ckpt_path, pattern)))
 
 
-def missing_files(wan_ckpt_path: str, model_ckpt: str) -> List[str]:
-    """The checkpoint files that ``load_pipeline`` needs and cannot find."""
+def _missing_components(wan_ckpt_path: str, want) -> List[str]:
+    have = bundle_components(wan_ckpt_path)
+    return [os.path.join(wan_ckpt_path, c + ".safetensors") for c in want
+            if c not in have]
+
+
+def missing_files(wan_ckpt_path: str, model_ckpt: Optional[str]
+                  ) -> List[str]:
+    """The checkpoint files that ``load_pipeline`` needs and cannot find
+    (of a bundle: its components; ``model_ckpt`` is then not read)."""
+    if is_bundle(wan_ckpt_path):
+        return _missing_components(wan_ckpt_path, WAN21_COMPONENTS)
     missing = [] if dit_shards(wan_ckpt_path) else [
         os.path.join(wan_ckpt_path, DIT_SHARDS)]
     missing += [p for p in [model_ckpt] + [
@@ -172,6 +209,8 @@ def missing_files(wan_ckpt_path: str, model_ckpt: str) -> List[str]:
 def missing_files_wan22(wan_ckpt_path: str, model_ckpt_high: str,
                         model_ckpt_low: str) -> List[str]:
     """The checkpoint files that ``load_wan22`` needs and cannot find."""
+    if is_bundle(wan_ckpt_path):
+        return _missing_components(wan_ckpt_path, WAN22_COMPONENTS)
     missing = [os.path.join(wan_ckpt_path, pat)
                for pat in EXPERT_SHARDS.values()
                if not dit_shards(wan_ckpt_path, pat)]
@@ -195,35 +234,28 @@ def wan22_fusion_config() -> FusionConfig:
         camera_adapter_end=0), camera_control=True)
 
 
-def config_from_dict(default, values: Mapping):
-    """``default`` (a config instance) with the fields in ``values``
-    replaced, nested configs recursively, lists as tuples."""
-    kw = {}
-    for f in dataclasses.fields(default):
-        if f.name not in values:
-            continue
-        cur, new = getattr(default, f.name), values[f.name]
-        if dataclasses.is_dataclass(cur):
-            new = config_from_dict(cur, new)
-        elif isinstance(new, list):
-            new = tuple(new)
-        kw[f.name] = new
-    return dataclasses.replace(default, **kw)
-
-
 def read_configs(wan_ckpt_path: str,
                  fusion: FusionConfig = FusionConfig()) -> Dict[str, object]:
-    """{"fusion", "t5", "clip", "vae"} configs: ``configs.json``'s fields
-    over the production defaults (``fusion`` for the fusion model)."""
-    defaults = {"fusion": fusion, "t5": T5Config(),
+    """{"fusion", "fusion_high", "fusion_low", "t5", "clip", "vae"}
+    configs: ``configs.json``'s fields (``utils/configio.py``'s schema)
+    over the production defaults (``fusion`` for each fusion model), and
+    "pose" when the file gives one."""
+    defaults = {"fusion": fusion, "fusion_high": fusion,
+                "fusion_low": fusion, "t5": T5Config(),
                 "clip": CLIPVisionConfig(), "vae": VAEConfig()}
     path = os.path.join(wan_ckpt_path, CONFIGS_FILE)
-    if not os.path.isfile(path):
-        return defaults
-    with open(path) as fh:
-        raw = json.load(fh)
-    return {k: config_from_dict(d, raw[k]) if k in raw else d
-            for k, d in defaults.items()}
+    raw = {}
+    if os.path.isfile(path):
+        with open(path) as fh:
+            raw = json.load(fh)
+    # a Wan2.2 bundle names its experts' config, a reference layout "fusion"
+    for k in ("fusion_high", "fusion_low"):
+        raw.setdefault(k, raw.get("fusion", {}))
+    out = {k: config_from_dict(type(d), raw[k], d) if k in raw else d
+           for k, d in defaults.items()}
+    if "pose" in raw:
+        out["pose"] = config_from_dict(CameraPoseEncoderConfig, raw["pose"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +320,17 @@ def dit_state_dict_from(sd: Mapping[str, torch.Tensor], cfg: WanDiTConfig
     for name, head_dim in _dit_permuted_names(cfg):
         if name in out:
             out[name] = _permute(out[name], head_dim)
+    return out
+
+
+def dit_reference_state_dict(sd: Mapping[str, torch.Tensor],
+                             cfg: WanDiTConfig) -> Dict[str, torch.Tensor]:
+    """``dit_state_dict_from``'s inverse: a standalone ``WanDiT``'s state
+    dict -> the reference WanModel's (the checkpoint file's) layout."""
+    out = dict(sd)
+    for name, head_dim in _dit_permuted_names(cfg):
+        if name in out:
+            out[name] = _permute(out[name], head_dim, inverse=True)
     return out
 
 
@@ -356,71 +399,127 @@ def _strip(sd: Mapping[str, torch.Tensor], prefixes) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_into(module: nn.Module, sd: Mapping[str, torch.Tensor],
-              what: str) -> nn.Module:
-    """Copy ``sd`` into every parameter and buffer of ``module``; keys it
-    does not have are not read. VGGT blocks saved without LayerScale get
-    unit scales, as the reference's Identity is."""
+UNIT_SCALES = (".ls1.gamma", ".ls2.gamma")
+
+
+def module_state_dict(module: nn.Module, sd: Mapping[str, torch.Tensor],
+                      what: str) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of every parameter and buffer of ``module`` (which
+    may live on the meta device), taken from ``sd``; keys it does not have
+    are not read, a key it lacks raises. VGGT blocks saved without
+    LayerScale get unit scales, as the reference's Identity is."""
     want = module.state_dict()
-    sd = dict(sd)
-    for k, t in want.items():
-        if k not in sd and k.endswith((".ls1.gamma", ".ls2.gamma")):
-            sd[k] = torch.ones_like(t, device="cpu")
-    missing = sorted(k for k in want if k not in sd)
+    missing = sorted(k for k in want if k not in sd
+                     and not k.endswith(UNIT_SCALES))
     if missing:
         raise KeyError(f"{what}: the checkpoint lacks {len(missing)} "
                        f"tensors, e.g. {missing[:5]}")
-    module.load_state_dict({k: sd[k] for k in want}, strict=True)
+    return {k: sd[k] if k in sd else torch.ones(t.shape, dtype=t.dtype)
+            for k, t in want.items()}
+
+
+def load_into(module: nn.Module, sd: Mapping[str, torch.Tensor],
+              what: str) -> nn.Module:
+    """Copy ``module_state_dict(module, sd)`` into ``module``."""
+    module.load_state_dict(module_state_dict(module, sd, what), strict=True)
     return module
 
 
-def load_pipeline(wan_ckpt_path: str, model_ckpt: str, *, device,
-                  dtype: torch.dtype = torch.bfloat16,
-                  tokenizer_path: Optional[str] = None):
-    """The reference layout -> a ``FantasyWorldPipeline`` with the fusion
-    model, the pose encoder, umT5, CLIP and the VAE built on ``device`` in
-    ``dtype``."""
-    from ..pipelines.wan_video import FantasyWorldPipeline
-    cfgs = read_configs(wan_ckpt_path)
-    missing = missing_files(wan_ckpt_path, model_ckpt)
-    if missing:
-        raise FileNotFoundError(f"checkpoint files missing: {missing}")
+def _encoder_state_dicts(wan_ckpt_path: str, names) -> Dict[str, Dict]:
+    """{"t5", "clip", "vae"} of ``names``: the reference layout's files,
+    CLIP's visual tower and the VAE without their prefixes."""
+    out = {}
+    if "vae" in names:
+        out["vae"] = _strip(read_pth(os.path.join(wan_ckpt_path, VAE_FILE)),
+                            ("model.",))
+    if "clip" in names:
+        out["clip"] = _strip(read_pth(os.path.join(wan_ckpt_path, CLIP_FILE)),
+                             ("model.visual.", "visual."))
+    if "t5" in names:
+        out["t5"] = read_pth(os.path.join(wan_ckpt_path, T5_FILE))
+    return out
 
-    def make(ctor, cfg):
-        return build(lambda: ctor(cfg), device=device, dtype=dtype)
 
+def pipeline_state_dicts(wan_ckpt_path: str, model_ckpt: Optional[str],
+                         cfg: FusionConfig) -> Dict[str, Dict]:
+    """The Wan2.1 reference layout (or bundle) -> {"fusion", "pose" (when
+    the fusion file holds one), "t5", "clip", "vae"}: each a state dict in
+    the port's names, tensors mapped from the files."""
+    if is_bundle(wan_ckpt_path):
+        have = bundle_components(wan_ckpt_path)
+        return load_bundle(wan_ckpt_path, [c for c in (*WAN21_COMPONENTS,
+                                                       "pose") if c in have])
     fusion_sd = read_pth(model_ckpt)
-    fusion = load_into(make(FusionModel, cfgs["fusion"]),
-                       fusion_state_dict_from(
-                           read_shards(dit_shards(wan_ckpt_path)),
-                           fusion_sd, cfgs["fusion"]), "fusion")
+    out = {"fusion": fusion_state_dict_from(
+        read_shards(dit_shards(wan_ckpt_path)), fusion_sd, cfg)}
     pose_sd = {k[len(POSE_PREFIX):]: v for k, v in fusion_sd.items()
                if k.startswith(POSE_PREFIX)}
-    pose = None
     if pose_sd:
-        pose = load_into(make(CameraPoseEncoder,
-                              pose_config_from_state_dict(pose_sd)),
-                         pose_sd, "pose encoder")
-    del fusion_sd
-    vae = load_into(make(WanVAE, cfgs["vae"]), _strip(
-        read_pth(os.path.join(wan_ckpt_path, VAE_FILE)), ("model.",)), "vae")
-    clip = load_into(make(CLIPVision, cfgs["clip"]), _strip(
-        read_pth(os.path.join(wan_ckpt_path, CLIP_FILE)),
-        ("model.visual.", "visual.")), "clip")
-    t5 = load_into(make(T5Encoder, cfgs["t5"]),
-                   read_pth(os.path.join(wan_ckpt_path, T5_FILE)), "t5")
+        out["pose"] = pose_sd
+    out.update(_encoder_state_dicts(wan_ckpt_path, ("t5", "clip", "vae")))
+    return out
+
+
+def _tokenizer(wan_ckpt_path: str, tokenizer_path: Optional[str]):
     if tokenizer_path is None:
         cand = os.path.join(wan_ckpt_path, "google", "umt5-xxl")
         tokenizer_path = cand if os.path.isdir(cand) else None
-    return FantasyWorldPipeline(fusion, pose, t5=t5, clip=clip, vae=vae,
-                                tokenizer_path=tokenizer_path)
+    return tokenizer_path
 
 
-def expert_state_dict(wan_ckpt_path: str, high: bool, model_ckpt: str,
-                      cfg: FusionConfig) -> Dict[str, torch.Tensor]:
+def pipeline_from_state_dicts(sds: Mapping[str, Mapping], cfgs: Mapping, *,
+                              device, dtype: torch.dtype = torch.bfloat16,
+                              tokenizer_path: Optional[str] = None):
+    """``pipeline_state_dicts``' output -> a ``FantasyWorldPipeline`` with
+    the modules it holds built on ``device`` in ``dtype`` (the pose
+    encoder's widths read off its tensors)."""
+    from ..pipelines.wan_video import FantasyWorldPipeline
+
+    def make(ctor, cfg, name):
+        if name not in sds:
+            return None
+        return load_into(build(lambda: ctor(cfg), device=device,
+                               dtype=dtype), sds[name], name)
+
+    pose = None
+    if "pose" in sds:
+        pose = make(CameraPoseEncoder,
+                    pose_config_from_state_dict(sds["pose"]), "pose")
+    return FantasyWorldPipeline(
+        make(FusionModel, cfgs["fusion"], "fusion"), pose,
+        t5=make(T5Encoder, cfgs["t5"], "t5"),
+        clip=make(CLIPVision, cfgs["clip"], "clip"),
+        vae=make(WanVAE, cfgs["vae"], "vae"), tokenizer_path=tokenizer_path)
+
+
+def load_pipeline(wan_ckpt_path: str, model_ckpt: Optional[str], *, device,
+                  dtype: torch.dtype = torch.bfloat16,
+                  tokenizer_path: Optional[str] = None,
+                  configs: Optional[Mapping[str, object]] = None):
+    """The reference layout, or a bundle (``convert/bundle.py``; then
+    ``model_ckpt`` is not read) -> a ``FantasyWorldPipeline`` with the
+    fusion model, the pose encoder, umT5, CLIP and the VAE built on
+    ``device`` in ``dtype``. ``configs`` override ``read_configs``'."""
+    cfgs = {**read_configs(wan_ckpt_path), **(configs or {})}
+    missing = missing_files(wan_ckpt_path, model_ckpt)
+    if missing:
+        raise FileNotFoundError(f"checkpoint files missing: {missing}")
+    return pipeline_from_state_dicts(
+        pipeline_state_dicts(wan_ckpt_path, model_ckpt, cfgs["fusion"]),
+        cfgs, device=device, dtype=dtype,
+        tokenizer_path=_tokenizer(wan_ckpt_path, tokenizer_path))
+
+
+def expert_state_dict(wan_ckpt_path: str, high: bool,
+                      model_ckpt: Optional[str], cfg: FusionConfig
+                      ) -> Dict[str, torch.Tensor]:
     """One Wan2.2 expert: its base DiT shards with its Reward-LoRA merged,
-    the fusion checkpoint overlaid -> {FusionModel name: tensor}."""
+    the fusion checkpoint overlaid -> {FusionModel name: tensor}; of a
+    bundle, its ``fusion_high`` / ``fusion_low``."""
     from .lora import merge_lora_into_state_dict
+    if is_bundle(wan_ckpt_path):
+        name = "fusion_high" if high else "fusion_low"
+        return load_bundle(wan_ckpt_path, [name])[name]
     base = read_shards(dit_shards(wan_ckpt_path, EXPERT_SHARDS[high]))
     base = merge_lora_into_state_dict(
         base, read_safetensors(os.path.join(wan_ckpt_path,
@@ -429,47 +528,66 @@ def expert_state_dict(wan_ckpt_path: str, high: bool, model_ckpt: str,
     return fusion_state_dict_from(base, read_pth(model_ckpt), cfg)
 
 
-def load_wan22(wan_ckpt_path: str, model_ckpt_high: str, model_ckpt_low: str,
-               *, device, dtype: torch.dtype = torch.bfloat16,
+def wan22_encoder_state_dicts(wan_ckpt_path: str) -> Dict[str, Dict]:
+    """{"t5", "vae"} of the Wan2.2 layout or bundle."""
+    if is_bundle(wan_ckpt_path):
+        return load_bundle(wan_ckpt_path, ["t5", "vae"])
+    return _encoder_state_dicts(wan_ckpt_path, ("t5", "vae"))
+
+
+def place_experts(expert_sds, cfg: FusionConfig, *, device,
+                  dtype: torch.dtype = torch.bfloat16,
+                  quant: Optional[str] = None,
+                  timestep_boundary: float = 900.0):
+    """((high, state dict or a callable that returns it), (low, ...))
+    -> a ``DualModelDenoiser``. On a card the high expert is built there
+    and the low one in pinned host memory, to trade places at the
+    boundary; on the CPU both are built there. ``quant`` ("int8" / "fp8")
+    quantizes each expert as it loads, layer by layer on ``device``,
+    before the low one is pinned. A callable is called only when its
+    expert is built, so one expert's tensors are read at a time."""
+    from ..pipelines.wan_video_22 import DualModelDenoiser, place_expert
+    device = torch.device(device)
+    experts = {}
+    for high, sd in expert_sds:
+        on_card = high or device.type == "cpu"
+        model = build(lambda: FusionModel(cfg), dtype=dtype,
+                      device=device if on_card else "cpu")
+        load_into(model, sd() if callable(sd) else sd,
+                  "high expert" if high else "low expert")
+        experts[high] = place_expert(model, device, on_host=not on_card,
+                                     quant=quant)
+    return DualModelDenoiser(experts[True], experts[False],
+                             timestep_boundary)
+
+
+def load_wan22(wan_ckpt_path: str, model_ckpt_high: Optional[str],
+               model_ckpt_low: Optional[str], *, device,
+               dtype: torch.dtype = torch.bfloat16,
                tokenizer_path: Optional[str] = None,
                timestep_boundary: float = 900.0,
-               quant: Optional[str] = None):
-    """The Wan2.2 layout -> (a ``FantasyWorldPipeline`` with umT5 and the
-    VAE, a ``DualModelDenoiser``), all in ``dtype``. On a card the high
-    expert is built there and the low one in pinned host memory, to trade
-    places at the boundary; on the CPU both are built there. ``quant``
-    ("int8" / "fp8") quantizes each expert as it loads, layer by layer on
-    ``device``, before the low one is pinned."""
+               quant: Optional[str] = None,
+               configs: Optional[Mapping[str, object]] = None):
+    """The Wan2.2 layout, or a bundle -> (a ``FantasyWorldPipeline`` with
+    umT5 and the VAE, a ``DualModelDenoiser`` (``place_experts``)), all in
+    ``dtype``. ``configs`` override ``read_configs``'."""
     from ..pipelines.wan_video import FantasyWorldPipeline
-    from ..pipelines.wan_video_22 import DualModelDenoiser, place_expert
-    cfgs = read_configs(wan_ckpt_path, wan22_fusion_config())
+    cfgs = {**read_configs(wan_ckpt_path, wan22_fusion_config()),
+            **(configs or {})}
     missing = missing_files_wan22(wan_ckpt_path, model_ckpt_high,
                                   model_ckpt_low)
     if missing:
         raise FileNotFoundError(f"checkpoint files missing: {missing}")
-    device = torch.device(device)
-
-    def make(ctor, cfg, dev=device):
-        return build(lambda: ctor(cfg), device=dev, dtype=dtype)
-
-    experts = {}
-    for high, ckpt in ((True, model_ckpt_high), (False, model_ckpt_low)):
-        on_card = high or device.type == "cpu"
-        model = make(FusionModel, cfgs["fusion"],
-                     device if on_card else "cpu")
-        load_into(model, expert_state_dict(wan_ckpt_path, high, ckpt,
-                                           cfgs["fusion"]),
-                  "high expert" if high else "low expert")
-        experts[high] = place_expert(model, device, on_host=not on_card,
-                                     quant=quant)
-    vae = load_into(make(WanVAE, cfgs["vae"]), _strip(
-        read_pth(os.path.join(wan_ckpt_path, VAE_FILE)), ("model.",)), "vae")
-    t5 = load_into(make(T5Encoder, cfgs["t5"]),
-                   read_pth(os.path.join(wan_ckpt_path, T5_FILE)), "t5")
-    if tokenizer_path is None:
-        cand = os.path.join(wan_ckpt_path, "google", "umt5-xxl")
-        tokenizer_path = cand if os.path.isdir(cand) else None
-    pipe = FantasyWorldPipeline(t5=t5, vae=vae, tokenizer_path=tokenizer_path)
-    return pipe, DualModelDenoiser(experts[True], experts[False],
-                                   timestep_boundary)
-
+    cfg = cfgs["fusion_high"]
+    den = place_experts(
+        [(high, lambda high=high, ckpt=ckpt: expert_state_dict(
+            wan_ckpt_path, high, ckpt, cfg))
+         for high, ckpt in ((True, model_ckpt_high),
+                            (False, model_ckpt_low))],
+        cfg, device=device, dtype=dtype, quant=quant,
+        timestep_boundary=timestep_boundary)
+    sds = wan22_encoder_state_dicts(wan_ckpt_path)
+    pipe = pipeline_from_state_dicts(
+        sds, cfgs, device=device, dtype=dtype,
+        tokenizer_path=_tokenizer(wan_ckpt_path, tokenizer_path))
+    return pipe, den

@@ -1,6 +1,8 @@
 """JAX parameter tree (numpy leaves) -> the port's ``state_dict``: the
 fusion model, the standalone DiT, the camera pose encoder, LoRA factors,
-umT5, CLIP, the VAE and the 38-block VAE.
+umT5, CLIP, the VAE, the 38-block VAE and the VGGT track head (whose
+split q/k/v kernels go back into ``nn.MultiheadAttention``'s packed
+``in_proj_weight``).
 
 The JAX package keeps linear kernels as (in, out) and per-block lists
 (``init_fusion``); the port keeps PyTorch's (out, in) and the reference
@@ -153,6 +155,8 @@ def _dit(w: _Writer, p: Mapping, pre: str) -> None:
         w.linear(pre + "img_emb.proj.1", ie["fc1"])
         w.linear(pre + "img_emb.proj.3", ie["fc2"])
         w.norm(pre + "img_emb.proj.4", ie["norm_out"])
+        if "emb_pos" in ie:
+            w.put(pre + "img_emb.emb_pos", ie["emb_pos"])
     if "control_adapter" in p:
         ca = p["control_adapter"]
         w.conv(pre + "control_adapter.conv", ca["conv"])
@@ -223,8 +227,58 @@ def _dpt(w: _Writer, p: Mapping, pre: str) -> None:
                 w.conv(f"{fp}resConfUnit{unit}.conv1", fb[f"res{unit}_conv1"])
                 w.conv(f"{fp}resConfUnit{unit}.conv2", fb[f"res{unit}_conv2"])
     w.conv(sp + "output_conv1", p["output_conv1"])
-    w.conv(sp + "output_conv2.0", p["output_conv2_0"])
-    w.conv(sp + "output_conv2.2", p["output_conv2_2"])
+    if "output_conv2_0" in p:                 # not in feature_only mode
+        w.conv(sp + "output_conv2.0", p["output_conv2_0"])
+        w.conv(sp + "output_conv2.2", p["output_conv2_2"])
+
+
+def _mha(w: _Writer, p: Mapping, pre: str) -> None:
+    """Split q/k/v (in, out) kernels -> ``nn.MultiheadAttention``'s packed
+    ``in_proj_weight`` (3E, E) and ``in_proj_bias``, and ``out_proj``."""
+    w.put(pre + "in_proj_weight", np.concatenate(
+        [np.asarray(p[n]["kernel"], np.float32).T for n in "qkv"]))
+    w.put(pre + "in_proj_bias", np.concatenate(
+        [np.asarray(p[n]["bias"], np.float32) for n in "qkv"]))
+    w.linear(pre + "out_proj", p["out"])
+
+
+def _track_block(w: _Writer, p: Mapping, pre: str, attn: str) -> None:
+    w.norm(pre + "norm1", p["norm1"])
+    if "norm_context" in p:
+        w.norm(pre + "norm_context", p["norm_context"])
+    w.norm(pre + "norm2", p["norm2"])
+    _mha(w, p["attn"], f"{pre}{attn}.")
+    w.linear(pre + "mlp.fc1", p["mlp"]["fc1"])
+    w.linear(pre + "mlp.fc2", p["mlp"]["fc2"])
+
+
+def _tracker(w: _Writer, p: Mapping, pre: str) -> None:
+    w.linear(pre + "corr_mlp.fc1", p["corr_mlp"]["fc1"])
+    w.linear(pre + "corr_mlp.fc2", p["corr_mlp"]["fc2"])
+    w.put(pre + "query_ref_token", p["query_ref_token"])
+    uf, up = p["updateformer"], pre + "updateformer."
+    w.norm(up + "input_norm", uf["input_norm"])
+    w.linear(up + "input_transform", uf["input_transform"])
+    w.norm(up + "output_norm", uf["output_norm"])
+    w.linear(up + "flow_head", uf["flow_head"])
+    w.put(up + "virual_tracks", uf["virtual_tracks"])          # sic
+    for kind, attn in (("time_blocks", "attn"),
+                       ("space_virtual_blocks", "attn"),
+                       ("space_point2virtual_blocks", "cross_attn"),
+                       ("space_virtual2point_blocks", "cross_attn")):
+        for i, blk in enumerate(uf[kind]):
+            _track_block(w, blk, f"{up}{kind}.{i}.", attn)
+    w.norm(pre + "fmap_norm", p["fmap_norm"])
+    w.norm(pre + "ffeat_norm", p["ffeat_norm"])
+    w.linear(pre + "ffeat_updater.0", p["ffeat_updater"])
+    w.linear(pre + "vis_predictor.0", p["vis_predictor"])
+    if "conf_predictor" in p:
+        w.linear(pre + "conf_predictor.0", p["conf_predictor"])
+
+
+def _track_head(w: _Writer, p: Mapping, pre: str) -> None:
+    _dpt(w, p["feature_extractor"], pre + "feature_extractor.")
+    _tracker(w, p["tracker"], pre + "tracker.")
 
 
 def _camera_head(w: _Writer, p: Mapping, pre: str) -> None:
@@ -257,6 +311,22 @@ def _vggt(w: _Writer, p: Mapping, pre: str) -> None:
     for head in ("depth_head", "point_head"):
         if head in p:
             _dpt(w, p[head], f"{pre}{head}.")
+    if "track_head" in p:
+        _track_head(w, p["track_head"], pre + "track_head.")
+
+
+def track_head_state_dict(params: Mapping, model: nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_track_head`` tree ({"feature_extractor", "tracker"}; or
+    ``convert_dpt_head`` + ``convert_tracker`` of a checkpoint) -> f32
+    state dict of ``TrackHead``; a ``TrackerPredictor`` ``model`` takes
+    the tracker tree alone."""
+    w = _Writer(_shapes(model))
+    if "feature_extractor" in params:
+        _track_head(w, params, "")
+    else:
+        _tracker(w, params, "")
+    return w.sd
 
 
 def _bicross(w: _Writer, p: Mapping, pre: str) -> None:

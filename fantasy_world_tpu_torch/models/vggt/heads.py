@@ -1,5 +1,6 @@
 """VGGT prediction heads (``models/vggt/heads.py``): the iterative camera
-head and the causal-3D DPT head.
+head and the causal-3D DPT head (in ``feature_only`` mode, the track
+head's feature extractor).
 
 Stage 3 of the DPT head is strictly per frame; ``DPTHead.forward`` runs it
 in chunks of ``STAGE3_FRAMES`` frames (concatenating the results is exact),
@@ -277,8 +278,10 @@ class _Scratch(nn.Module):
         self.refinenet3 = FusionBlock(f)
         self.refinenet4 = FusionBlock(f, has_residual=False)
         if cfg.feature_only:
-            raise NotImplementedError("feature_only (track head) is off the "
-                                      "denoise path")
+            # the track head's feature extractor stops after output_conv1,
+            # which then keeps all ``features`` channels
+            self.output_conv1 = nn.Conv2d(f, f, 3, padding=1)
+            return
         self.output_conv1 = nn.Conv2d(f, f // 2, 3, padding=1)
         self.output_conv2 = nn.Sequential(
             nn.Conv2d(f // 2, 32, 3, padding=1), nn.ReLU(),
@@ -337,7 +340,8 @@ class DPTHead(nn.Module):
                     spatial_hw: Tuple[int, int]):
         """Scratch fusion + output convs on (N, C_l, h_l, w_l) frames;
         strictly per frame. Returns activated (preds (N, H, W, out-1),
-        conf (N, H, W))."""
+        conf (N, H, W)), or with ``feature_only`` the feature maps (N,
+        features, H / down_ratio, W / down_ratio)."""
         cfg, sc = self.cfg, self.scratch
         ph, pw = spatial_hw
         H, W = ph * cfg.patch_size, pw * cfg.patch_size
@@ -350,6 +354,8 @@ class DPTHead(nn.Module):
         out = conv2d(sc.output_conv1, out)
         out = bilinear_align_corners(out, (H // cfg.down_ratio,
                                            W // cfg.down_ratio))
+        if cfg.feature_only:
+            return out
         if cfg.pos_embed:
             out = _add_pos_embed(out, W, H)
         out = conv2d(sc.output_conv2[0], out)
@@ -360,7 +366,9 @@ class DPTHead(nn.Module):
     def forward(self, aggregated_tokens: List[torch.Tensor],
                 spatial_hw: Tuple[int, int], patch_start_idx: int):
         """``dpt_head_forward``: per-layer (B, S, P, dim_in) tokens ->
-        (preds (B, T, H, W, out-1), conf (B, T, H, W)), T = 1 + 4*(S-1)."""
+        (preds (B, T, H, W, out-1), conf (B, T, H, W)), T = 1 + 4*(S-1);
+        with ``feature_only``, feature maps (B, T, features, H / down_ratio,
+        W / down_ratio)."""
         feats = self.stage1_project(aggregated_tokens, spatial_hw,
                                     patch_start_idx)
         outs = self.stage2_upsample(feats)
@@ -368,12 +376,13 @@ class DPTHead(nn.Module):
         frames = [o.transpose(1, 2).reshape(B * T, *o.shape[1:2],
                                             *o.shape[3:]) for o in outs]
         del feats, outs
-        preds, confs = [], []
-        for i in range(0, B * T, STAGE3_FRAMES):
-            p, c = self.stage3_fuse([x[i:i + STAGE3_FRAMES] for x in frames],
-                                    spatial_hw)
-            preds.append(p)
-            confs.append(c)
-        preds, confs = torch.cat(preds), torch.cat(confs)
+        chunks = [self.stage3_fuse([x[i:i + STAGE3_FRAMES] for x in frames],
+                                   spatial_hw)
+                  for i in range(0, B * T, STAGE3_FRAMES)]
+        if self.cfg.feature_only:
+            fmaps = torch.cat(chunks)
+            return fmaps.reshape(B, T, *fmaps.shape[1:])
+        preds = torch.cat([p for p, _ in chunks])
+        confs = torch.cat([c for _, c in chunks])
         return (preds.reshape(B, T, *preds.shape[1:]),
                 confs.reshape(B, T, *confs.shape[1:]))

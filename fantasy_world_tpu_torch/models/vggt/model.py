@@ -1,10 +1,12 @@
 """VGGT geometry model consuming Wan DiT features (``models/vggt/model.py``):
 the 5120 -> 1024 projection, the fp32 timestep AdaLN embedding, the
-aggregator and the camera/depth/point heads."""
+aggregator and the camera/depth/point heads, and with ``enable_track`` the
+track head (``track.py``), which runs when query points are given. The
+denoise leaves the track head off, as the reference's inference does."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +46,23 @@ class VGGTConfig:
                              out_channels=self.dpt_out_channels,
                              intermediate_layer_idx=self.dpt_layer_idx)
 
+    @property
+    def track(self):
+        from .track import TrackConfig
+        return TrackConfig()
+
+    @property
+    def track_dpt(self) -> DPTHeadConfig:
+        """The track head's feature extractor: features = the tracker's
+        latent width, down_ratio 2, no position embedding, feature only."""
+        return DPTHeadConfig(dim_in=2 * self.embed_dim,
+                             patch_size=self.dpt_patch_size,
+                             output_dim=0, features=self.track.latent_dim,
+                             out_channels=self.dpt_out_channels,
+                             intermediate_layer_idx=self.dpt_layer_idx,
+                             pos_embed=False, down_ratio=2,
+                             feature_only=True)
+
 
 class VGGT(nn.Module):
     # the timestep embedding is an fp32 island: core.params.build keeps
@@ -52,8 +71,6 @@ class VGGT(nn.Module):
 
     def __init__(self, cfg: VGGTConfig):
         super().__init__()
-        if cfg.enable_track:
-            raise NotImplementedError("the track head is off the denoise path")
         self.cfg = cfg
         C = cfg.embed_dim
         self.projection_head = nn.Conv3d(cfg.wan_dim, C, 1)
@@ -67,6 +84,9 @@ class VGGT(nn.Module):
             self.depth_head = DPTHead(cfg.dpt_head(2, "exp"))
         if cfg.enable_point:
             self.point_head = DPTHead(cfg.dpt_head(4, "inv_log"))
+        if cfg.enable_track:
+            from .track import TrackHead
+            self.track_head = TrackHead(cfg.track, cfg.track_dpt)
 
     def process_wan_input(self, wan_features: torch.Tensor,
                           timestep: torch.Tensor):
@@ -90,10 +110,13 @@ class VGGT(nn.Module):
         return proj, e0.view(e.shape[0], 6, self.cfg.embed_dim)
 
     def head_prediction(self, aggregated_tokens: List[torch.Tensor],
-                        spatial_hw: Tuple[int, int], patch_start_idx: int
+                        spatial_hw: Tuple[int, int], patch_start_idx: int,
+                        query_points: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
         """Camera/depth/point heads over the per-layer (B, S, P, 2C)
-        intermediates."""
+        intermediates; with the track head and query points (B, N, 2) in
+        full-resolution pixels, also "track" (the last iteration's (B, T,
+        N, 2)), "vis" and "track_conf" (B, T, N)."""
         out: Dict[str, torch.Tensor] = {}
         if self.cfg.enable_camera:
             out["pose_enc"] = self.camera_head(aggregated_tokens[-1])[-1]
@@ -103,4 +126,8 @@ class VGGT(nn.Module):
         if self.cfg.enable_point:
             out["world_points"], out["world_points_conf"] = self.point_head(
                 aggregated_tokens, spatial_hw, patch_start_idx)
+        if self.cfg.enable_track and query_points is not None:
+            coords, vis, conf = self.track_head(
+                aggregated_tokens, spatial_hw, patch_start_idx, query_points)
+            out["track"], out["vis"], out["track_conf"] = coords[-1], vis, conf
         return out

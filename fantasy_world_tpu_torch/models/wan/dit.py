@@ -75,6 +75,13 @@ TI2V_5B = WanDiTConfig(
     require_vae_embedding=False, has_image_input=False)
 
 
+# CLIP tokens of one image; the cross-attention takes the first this many
+# context tokens as image keys, the rest as text keys
+CLIP_TOKENS = 257
+# FLF2V (``has_image_pos_emb``): the start and the end image's tokens
+FLF2V_IMAGE_TOKENS = 2 * CLIP_TOKENS
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, l, d = x.shape
     return x.view(b, l, num_heads, d // num_heads)
@@ -176,10 +183,12 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context, plucker_fea=None, apply_pose=False):
         """Text (+ 257 CLIP image tokens first in ``context``) cross
-        attention, then the camera shift when ``apply_pose``."""
+        attention, then the camera shift when ``apply_pose``. The split is
+        at 257 whatever the image tokens: with FLF2V's 514 the end image's
+        257 join the text keys, as in the reference."""
         n = self.num_heads
         if self.has_image_input:
-            img, ctx = context[:, :257], context[:, 257:]
+            img, ctx = context[:, :CLIP_TOKENS], context[:, CLIP_TOKENS:]
         else:
             ctx = context
         q = rms_norm(linear(x, self.q), self.norm_q.weight, self.eps)
@@ -337,17 +346,31 @@ class Head(nn.Module):
 
 
 class ImageEmbedding(nn.Module):
-    def __init__(self, feature_dim: int, dim: int):
+    """CLIP tokens -> dim. With ``pos_tokens`` (FLF2V: the start and end
+    images' 2 x 257 tokens) a learned position embedding ``emb_pos``
+    (1, pos_tokens, feature_dim) is added to the tokens first."""
+
+    def __init__(self, feature_dim: int, dim: int, pos_tokens: int = 0):
         super().__init__()
         self.proj = nn.Sequential(nn.LayerNorm(feature_dim, eps=1e-5),
                                   nn.Linear(feature_dim, feature_dim),
                                   nn.GELU(), nn.Linear(feature_dim, dim),
                                   nn.LayerNorm(dim, eps=1e-5))
+        if pos_tokens:
+            self.emb_pos = nn.Parameter(torch.empty(1, pos_tokens,
+                                                    feature_dim))
+
+    def init_extra_(self, generator):
+        if hasattr(self, "emb_pos"):
+            self.emb_pos.data.zero_()
 
     def forward(self, clip_feature):
-        """CLIP tokens -> dim (LN, MLP with exact GELU, LN)."""
+        """(+ emb_pos), LN, MLP with exact GELU, LN."""
         p = self.proj
-        x = layer_norm(clip_feature, p[0].weight, p[0].bias, 1e-5)
+        x = clip_feature
+        if hasattr(self, "emb_pos"):
+            x = x + self.emb_pos.to(x.dtype)
+        x = layer_norm(x, p[0].weight, p[0].bias, 1e-5)
         x = linear(F.gelu(linear(x, p[1])), p[3])
         return layer_norm(x, p[4].weight, p[4].bias, 1e-5)
 
@@ -358,9 +381,6 @@ class WanDiT(nn.Module):
 
     def __init__(self, cfg: WanDiTConfig):
         super().__init__()
-        if cfg.has_image_pos_emb:
-            raise NotImplementedError("has_image_pos_emb: the end image's "
-                                      "CLIP tokens are not ported")
         self.cfg = cfg
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim,
                                          cfg.patch_size, cfg.patch_size)
@@ -376,7 +396,9 @@ class WanDiT(nn.Module):
                                      for i in range(cfg.num_layers)])
         self.head = Head(cfg)
         if cfg.has_image_input:
-            self.img_emb = ImageEmbedding(cfg.clip_feature_dim, cfg.dim)
+            self.img_emb = ImageEmbedding(
+                cfg.clip_feature_dim, cfg.dim,
+                FLF2V_IMAGE_TOKENS if cfg.has_image_pos_emb else 0)
         if cfg.add_control_adapter:
             self.control_adapter = SimpleAdapter(cfg.in_dim_control_adapter,
                                                  cfg.dim)

@@ -94,6 +94,34 @@ def test_ti2v_shapes_and_launches():
                                                    "onekv": 60}
 
 
+def test_flf2v_and_track_cells():
+    """FLF2V's text keys are the end image's 257 and umT5's 512; the track
+    head's cells hold TRACK_POINTS points and 64 virtual tracks over the
+    81 frames the feature-only DPT makes of 21 latent frames, 8 heads of
+    48 on d64; a forward launches d64 once per attention per block per
+    iteration (96 at TrackConfig()), and no denoise step counts them."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.models.vggt.model import VGGTConfig
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    shapes = {name: rest for name, *rest in cs.SHAPES
+              if name.startswith(("flf2v_", "track_"))}
+    assert shapes["flf2v_dit_cross_text"] == [(2, 16317, 40, 128),
+                                              257 + 512, "onekv"]
+    tc = VGGTConfig().track
+    assert cs.TRACK_FRAMES == 81 and cs.TRACK_POINTS == 256
+    nv, hd = tc.num_virtual_tracks, tc.hidden_size // tc.num_heads
+    assert hd == 48 and fa.kernel_dim(tc.num_heads, hd, 81) == 64
+    assert shapes["track_time"] == [(256 + nv, 81, 8, 48), 81, "d64"]
+    assert shapes["track_virtual_to_point"] == [(81, nv, 8, 48), 256, "d64"]
+    assert shapes["track_virtual_self"] == [(81, nv, 8, 48), nv, "d64"]
+    assert shapes["track_point_to_virtual"] == [(81, 256, 8, 48), nv, "d64"]
+    for (b, lq, h, d), lk, kernel in shapes.values():
+        assert fa.route(h, d, lk) == kernel
+    assert cs.track_launches(tc)["d64"] == 96
+    per_step = cs.layers_per_step(FusionConfig())
+    assert all(per_step[name] == 0 for name in shapes)
+
+
 def test_window_launches_agree_with_expected_launches():
     """One window over all 21 latent frames launches what a step without
     the heads does; the full-width windowed step's two windows of 11

@@ -136,6 +136,29 @@ def test_kernel_at_ti2v_shapes(device, name, shape, Lk, kernel):
     assert _out_err(out, ref) <= 1
 
 
+# FLF2V's text cross-attention over 769 keys (a new remainder of onekv's
+# key tiles) and the track head's four attentions, 8 heads of 48 that the
+# wrapper zero-pads to d64's 64
+FLF2V_TRACK = [(name, shape, lk, kernel) for name, shape, lk, kernel in SHAPES
+               if name.startswith(("flf2v_", "track_"))]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", FLF2V_TRACK,
+                         ids=[s[0] for s in FLF2V_TRACK])
+def test_kernel_at_flf2v_and_track_shapes(device, name, shape, Lk, kernel):
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel
+    q, k, v = _qkv(shape, Lk, device, seed=13)
+    before = fa.LAUNCHES[kernel]
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel] == before + 1
+    ref = fa.attention_plain(q, k, v, D ** -0.5)
+    assert out.shape == ref.shape == q.shape
+    assert out.dtype == torch.bfloat16
+    assert _out_err(out, ref) <= 1
+
+
 @pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic"),
                                       (128, "onekv")])
 def test_kernel_reads_strided_views(device, D, kernel):

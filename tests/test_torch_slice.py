@@ -124,8 +124,9 @@ def test_port_never_imports_jax():
     quantization, TeaCache, the server, both inference CLIs, the serve
     CLI, the data readers, build_train_batch, the trainer,
     make_camera_json, the 38-block VAE, the conditioning units, the TI2V
-    denoise and the temporal tiler among the modules and the CLIs'
-    argument checks run."""
+    denoise, the temporal tiler, the convert and verify_weights CLIs with
+    the registry, ModelManager, bundles and local resolution, and the
+    track head among the modules and the CLIs' argument checks run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -138,7 +139,9 @@ def test_port_never_imports_jax():
         " 'cli.serve', 'data.video', 'data.re10k', 'hostops.rotation',"
         " 'training.data', 'cli.train', 'cli.make_camera_json',"
         " 'models.wan.vae38', 'pipelines.units', 'pipelines.ti2v',"
-        " 'pipelines.temporal_tiler'):\n"
+        " 'pipelines.temporal_tiler', 'cli.convert', 'cli.verify_weights',"
+        " 'models.vggt.track', 'convert.registry', 'convert.manager',"
+        " 'convert.bundle', 'convert.downloader', 'utils.configio'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"
