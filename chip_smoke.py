@@ -138,6 +138,28 @@ The weights tooling and the track head (``cli/convert.py``,
   The kernels are also held to their plain versions at FLF2V's text
   cross-attention (769 keys) and the track head's four attentions (8 heads
   of 48, padded to 64), with the kernel's time on padded inputs beside.
+The single-card options (``models/wan/dit.py``'s latent pose adapters,
+``Bicross.forward_temporal``, ``joint_forward(camera_token=, uncond=)``,
+``schedulers/{ddim,continuous_ode}.py``):
+  * after small_track, ``small_options``: at reduced widths, on the card in
+    bf16 against the CPU in f32 within SLICE_TOL with exact launches, a
+    standalone DiT forward with each of 'latent_split' and
+    'latent_overall', ``joint_forward`` with the example path's pose
+    encodings as camera tokens (V = 4f - 3) and with ``uncond`` (the
+    bicross launches gone), ``forward_temporal`` with 6 geometry frames
+    over 4 video frames; one ladder of each schedule on card tensors
+    against the CPU within SCHED_TOL;
+  * after full_windowed, ``full_options`` on full_slice's resident model
+    (its bicross gates woken for the phase): one CFG-pair
+    ``joint_forward`` at 336x592, 81 frames, plain, with camera tokens
+    (2, 81, 9) and with ``uncond``; ``forward_temporal`` on one IRG
+    block's shapes (T = R = 21, M = 782); one forward of a full-width
+    Wan2.1-I2V-14B ``WanDiT`` with each latent method, its tensors the
+    fusion DiT's and only the 25 adapters new: each run's seconds, peak
+    GB, shapes, finiteness and exact launches;
+  * kernel cells ``pose_split`` (onekv, (42, 777, 40, 128) over 777 keys)
+    and ``bicross_temporal_{video_to_geometry,geometry_to_video}`` (onekv,
+    D 96 padded, 782 and 777 keys).
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -265,6 +287,14 @@ SHAPES = [
     ("track_virtual_self", (TRACK_FRAMES, 64, 8, 48), 64, "d64"),
     ("track_point_to_virtual", (TRACK_FRAMES, TRACK_POINTS, 8, 48), 64,
      "d64"),
+    # the single-card options at 336x592, 81 frames (21 latent frames of
+    # 777 tokens): the 'latent_split' pose attention, each latent frame's
+    # tokens over its frame's 777 Plucker tokens (the 'latent_overall' one
+    # is dit_self's shape); temporal bicross at T = R = 21, one geometry
+    # frame of 777 + 5 tokens a window, both ways, D 96 padded to 128
+    ("pose_split", (42, 777, 40, 128), 777, "onekv"),
+    ("bicross_temporal_video_to_geometry", (42, 777, 12, 96), 782, "onekv"),
+    ("bicross_temporal_geometry_to_video", (42, 782, 12, 96), 777, "onekv"),
 ]
 # full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
 # Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
@@ -465,6 +495,11 @@ def phase_kernels(device):
     tc = TrackConfig()
     layers.update({name: tc.iters * tc.depth for name, *_ in SHAPES
                    if name.startswith("track_")})
+    # the options: one launch per adapter block, or per IRG block, of a
+    # forward that takes them
+    layers.update(pose_split=FusionConfig().dit.camera_adapter_end,
+                  **{name: FusionConfig().num_irg for name, *_ in SHAPES
+                     if name.startswith("bicross_temporal_")})
     per_kernel = {k: {"max_abs_err": 0.0, "by_shape": []} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
@@ -670,12 +705,25 @@ def wake_zero_inits(fusion, generator) -> None:
             for gamma in (b.gamma_m1, b.gamma_m2):
                 gamma.normal_(0.0, 0.5, generator=generator)
         for blk in fusion.dit.blocks:
-            proc = blk.cross_attn.processor
-            if proc is not None:
-                proc.v_proj.group2[2].weight.normal_(0.0, 0.05,
-                                                     generator=generator)
+            wake_pose_adapter(blk.cross_attn.processor, generator)
         up = fusion.vggt.camera_head.camera_time_upsample.expand_channels
         up.weight.normal_(0.0, 0.05, generator=generator)
+
+
+def wake_pose_adapter(proc, generator, std=0.05) -> None:
+    """Random values for a DiT block's zero-initialised pose adapter: the
+    'adaln' output layer, or the latent methods' k/v projections."""
+    import torch
+    from fantasy_world_tpu_torch.models.wan.dit import LatentPoseAdapter
+    if proc is None:
+        return
+    with torch.no_grad():
+        if isinstance(proc, LatentPoseAdapter):
+            for lin in (proc.k_proj, proc.v_proj):
+                lin.weight.normal_(0.0, std, generator=generator)
+        else:
+            proc.v_proj.group2[2].weight.normal_(0.0, std,
+                                                 generator=generator)
 
 
 def conditioning(dit_cfg, height, width, num_frames, generator, text_len,
@@ -1759,6 +1807,259 @@ def phase_small_track(device):
                              f"path beyond {SLICE_TOL}: {bad}")
     if launches != want:
         raise AssertionError(f"track launches {launches} != {want}")
+
+
+# ---------------------------------------------------------------------------
+# the single-card options: latent pose injection, camera tokens, the uncond
+# bicross skip, temporal bicross, the DDIM and continuous-ODE schedules
+# ---------------------------------------------------------------------------
+
+POSE_METHODS = ("latent_split", "latent_overall")
+# the schedule ladders, card f32 against CPU f32: elementwise products of
+# the same host scalars, so only a fused multiply-add's rounding differs
+SCHED_TOL = 1e-5
+
+
+def no_launches():
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    return {k: 0 for k in fa.LAUNCHES}
+
+
+def pose_dit_launches(dcfg, tokens, frames):
+    """Kernel launches of one ``WanDiT.forward`` with Plucker features (one
+    token each per video token) over ``tokens`` tokens in ``frames``
+    latent frames: per block the self-attention (generic) and the text and
+    CLIP cross-attentions (onekv); on each adapter block the pose
+    attention, over one frame's Plucker tokens ('latent_split') or all of
+    them ('latent_overall'), on the route those keys take."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    n = dcfg.num_layers
+    out = no_launches()
+    out["generic"] += n
+    out["onekv"] += n * (2 if dcfg.has_image_input else 1)
+    keys = (tokens // frames if dcfg.pose_inject_method == "latent_split"
+            else tokens)
+    out[fa.route(dcfg.num_heads, dcfg.head_dim, keys)] += min(
+        dcfg.camera_adapter_end, n)
+    return out
+
+
+def joint_launches(cfg, uncond=False):
+    """Kernel launches of one ``joint_forward`` without the heads: a
+    denoise step's (``expected_launches``) without the camera trunk; with
+    ``uncond`` the IRG blocks' two bicross attentions each are gone."""
+    out = expected_launches(cfg, 1)
+    out["onekv"] -= 4 * cfg.vggt.camera_head.trunk_depth
+    if uncond:
+        out["generic"] -= 2 * len(cfg.xattn_set())
+    return out
+
+
+def temporal_launches(bcfg, T, S, R, M):
+    """``Bicross.forward_temporal``: the video frames over their windows'
+    W * M geometry tokens, and back over S video tokens."""
+    import math
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    out = no_launches()
+    W = math.ceil(R / T)
+    for keys in (W * M, S):
+        out[fa.route(bcfg.num_heads, bcfg.head_dim, keys)] += 1
+    return out
+
+
+def pose_encodings(height, width, frames):
+    """(1, frames, 9) pose encodings of the example camera path."""
+    import torch
+    from fantasy_world_tpu_torch.hostops.camera import (
+        camera_matrices, extri_intri_to_pose_encoding, load_camera_json)
+    extr, intr = camera_matrices(load_camera_json(
+        os.path.join(REPO, "examples", "cameras", "camera_data.json"),
+        (height, width), frames))
+    return torch.from_numpy(extri_intri_to_pose_encoding(
+        extr[:, :3, :], intr, (height, width)))[None]
+
+
+# small_options: the reduced fusion model at 256x384, 21 frames (6 latent
+# frames of 16 x 24 tokens, 16 x 24 + 5 geometry tokens a frame)
+SMALL_OPTION_GEOMETRY = (256, 384, 21)
+# temporal bicross at reduced widths: 6 geometry frames over 4 video frames
+# (windows of 2 frames, two of them padded), T, S, R, M
+SMALL_TEMPORAL = (4, 16 * 24, 6, 16 * 24 + 5)
+
+
+def small_options_setup(seed=31):
+    """The CPU f32 models and inputs of ``small_options``: the reduced
+    fusion model (``small_configs``) with its zero-initialised gates and
+    adapters woken, a standalone DiT of its widths per latent pose method
+    (adapters woken), and the inputs: a CFG pair at
+    ``SMALL_OPTION_GEOMETRY``, Plucker features, the example path's pose
+    encodings for 4f - 3 views, temporal bicross streams."""
+    import dataclasses
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.dit import WanDiT
+    fcfg, _ = small_configs()
+    g = torch.Generator("cpu").manual_seed(seed)
+    fusion = build(lambda: FusionModel(fcfg), device="cpu",
+                   dtype=torch.float32, generator=g)
+    wake_zero_inits(fusion, g)
+    dits = {}
+    for method in POSE_METHODS:
+        dcfg = dataclasses.replace(fcfg.dit, pose_inject_method=method)
+        dits[method] = build(lambda: WanDiT(dcfg), device="cpu",
+                             dtype=torch.float32, generator=g)
+        for blk in dits[method].blocks:
+            wake_pose_adapter(blk.cross_attn.processor, g)
+    height, width, frames = SMALL_OPTION_GEOMETRY
+    d = fcfg.dit
+    f, lh, lw = (frames - 1) // 4 + 1, height // 8, width // 8
+    tokens = f * (lh // 2) * (lw // 2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+    T, S, R, M = SMALL_TEMPORAL
+    inputs = {
+        "latents": randn(2, d.out_dim, f, lh, lw),
+        "timestep": torch.full((2,), 800.0),
+        "context": randn(2, 16, d.text_dim),
+        "clip": randn(2, 257, d.clip_feature_dim),
+        "y": randn(2, d.in_dim - d.out_dim, f, lh, lw),
+        "plucker": randn(2, tokens, d.plucker_dim, scale=0.3),
+        "camera_token": pose_encodings(height, width, 4 * f - 3).expand(
+            2, -1, -1).contiguous(),
+        "x1": randn(2, T * S, fcfg.bicross.m1_dim),
+        "x2": randn(2, R * M, fcfg.bicross.m2_dim),
+        "frames": f, "tokens": tokens}
+    return fusion, dits, inputs
+
+
+def small_option_runs(fusion, dits, inputs, device, dtype):
+    """Each option once on ``device`` in ``dtype``: {name: (outputs (f32 on
+    the host), launches)}. ``fusion``/``dits`` hold the weights (copied to
+    ``device`` unless already there)."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+
+    def to(t):
+        return (t.to(device, dtype) if isinstance(t, torch.Tensor)
+                and t.is_floating_point() else t)
+    x = {k: to(v) for k, v in inputs.items()}
+    x["timestep"] = inputs["timestep"].to(device)
+    x["camera_token"] = inputs["camera_token"].to(device)
+    joint = (x["latents"], x["timestep"], x["context"], x["clip"], x["y"])
+    T, S, R, M = SMALL_TEMPORAL
+    runs = {
+        "camera_token": lambda: fusion.joint_forward(
+            *joint, plucker_fea=x["plucker"],
+            camera_token=x["camera_token"])[0],
+        "uncond": lambda: fusion.joint_forward(
+            *joint, plucker_fea=x["plucker"], uncond=True)[0],
+        "temporal": lambda: fusion.bicross[0].forward_temporal(
+            x["x1"], x["x2"], T, S, R, M)}
+    for method, dit in dits.items():
+        runs[method] = (lambda dit=dit: dit(
+            x["latents"], x["timestep"], x["context"], clip_feature=x["clip"],
+            y=x["y"], plucker_fea=x["plucker"]))
+    out = {}
+    with torch.no_grad():
+        for name, run in runs.items():
+            before = dict(fa.LAUNCHES)
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            out[name] = ([t.float().cpu() for t in got],
+                         {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES})
+    return out
+
+
+def small_option_launches(fusion, dits, inputs):
+    """What ``small_option_runs`` should launch on the card."""
+    cfg = fusion.cfg
+    want = {"camera_token": joint_launches(cfg),
+            "uncond": joint_launches(cfg, uncond=True),
+            "temporal": temporal_launches(cfg.bicross, *SMALL_TEMPORAL)}
+    for method, dit in dits.items():
+        want[method] = pose_dit_launches(dit.cfg, inputs["tokens"],
+                                         inputs["frames"])
+    return want
+
+
+def scheduler_ladders(device, steps=10, seed=37):
+    """One ladder of each of the DDIM and continuous-ODE schedules on f32
+    tensors on ``device``: ``add_noise`` at the first step, then ``step``
+    down the ladder with 0.5 x + 0.1 n as the model output. Returns {name:
+    final sample on the host}."""
+    import torch
+    from fantasy_world_tpu_torch.schedulers import (ContinuousODEScheduler,
+                                                    EnhancedDDIMScheduler)
+    g = torch.Generator("cpu").manual_seed(seed)
+    clean, noise, n2 = (torch.randn((2, 16, 6, 32, 48), generator=g)
+                        .to(device) for _ in range(3))
+    out = {}
+    for name, sched in (("ddim", EnhancedDDIMScheduler()),
+                        ("continuous_ode", ContinuousODEScheduler())):
+        sched.set_timesteps(steps)
+        x = sched.add_noise(clean, noise, 0)
+        for i in range(steps):
+            x = sched.step(0.5 * x + 0.1 * n2, i, x)
+        out[name] = x.cpu()
+    return out
+
+
+def phase_small_options(device):
+    """The options at reduced widths, on the card in bf16 against the CPU
+    in f32 (plain versions) within SLICE_TOL, exact launches: a standalone
+    DiT forward with each latent pose method, ``joint_forward`` with the
+    example path's pose encodings as camera tokens and with ``uncond``,
+    ``forward_temporal`` on an uneven split; then one ladder of each
+    schedule on card tensors against the CPU within SCHED_TOL."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.dit import WanDiT
+    t0 = time.perf_counter()
+    fusion, dits, inputs = small_options_setup()
+    ref = small_option_runs(fusion, dits, inputs, "cpu", torch.float32)
+    want = small_option_launches(fusion, dits, inputs)
+    dev_fusion = build(lambda: FusionModel(fusion.cfg), device=device,
+                       dtype=torch.bfloat16)
+    dev_fusion.load_state_dict(fusion.state_dict())
+    dev_dits = {}
+    for method, dit in dits.items():
+        dev_dits[method] = build(lambda: WanDiT(dit.cfg), device=device,
+                                 dtype=torch.bfloat16)
+        dev_dits[method].load_state_dict(dit.state_dict())
+    got = small_option_runs(dev_fusion, dev_dits, inputs, device,
+                            torch.bfloat16)
+    errs, bad = {}, []
+    for name, (outs, launches) in got.items():
+        errs[name] = max(_rel_l2([o], [r])
+                         for o, r in zip(outs, ref[name][0]))
+        if launches != want[name]:
+            bad.append(f"{name}: launches {launches} != {want[name]}")
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            bad.append(f"{name}: non-finite")
+    sched_ref = scheduler_ladders("cpu")
+    sched = scheduler_ladders(device)
+    sched_errs = {k: _rel_l2([sched[k]], [v])
+                  for k, v in sched_ref.items()}
+    say("small_options", seconds=f"{time.perf_counter() - t0:.2f}",
+        device_vs_cpu_rel_l2=json.dumps(
+            {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(" ", ""),
+        scheduler_rel_l2=json.dumps(
+            {k: float(f"{v:.3e}") for k, v in sched_errs.items()}
+        ).replace(" ", ""),
+        launches=json.dumps({k: {r: n for r, n in v[1].items() if n}
+                             for k, v in got.items()}).replace(" ", ""))
+    bad += [f"{k}: {v} > {SLICE_TOL}" for k, v in errs.items()
+            if not v <= SLICE_TOL]
+    bad += [f"{k}: {v} > {SCHED_TOL}" for k, v in sched_errs.items()
+            if not v <= SCHED_TOL]
+    if bad:
+        raise AssertionError("small_options: " + "; ".join(bad))
+    del dev_fusion, dev_dits
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
@@ -3194,6 +3495,159 @@ def phase_full_windowed(device, pipe, cond, plucker_fea, seed=1024):
     return launches
 
 
+def aliased_pose_dit(fusion_dit, method, device, generator=None, like=None):
+    """A full-width standalone ``WanDiT`` with the latent pose adapter
+    ``method`` whose tensors are the resident fusion DiT's: built on the
+    meta device, every tensor but the adapters pointed at ``fusion_dit``'s
+    (nothing copied); the adapters (2 x plucker_dim x dim a block) taken
+    from the DiT ``like``, or allocated on ``device`` and woken from
+    ``generator``."""
+    import dataclasses
+    import torch
+    from fantasy_world_tpu_torch.models.wan.dit import WanDiT
+    cfg = dataclasses.replace(fusion_dit.cfg, pose_inject_method=method)
+    with torch.device("meta"):
+        dit = WanDiT(cfg)
+    dit = dit.to(fusion_dit.patch_embedding.weight.dtype)
+    src = {k: v for k, v in fusion_dit.state_dict().items()
+           if ".processor." not in k}
+    if like is not None:
+        src.update({k: v for k, v in like.state_dict().items()
+                    if ".processor." in k})
+    dit.load_state_dict(src, strict=False, assign=True)
+    if like is None:
+        for blk in dit.blocks:
+            proc = blk.cross_attn.processor
+            if proc is not None:
+                proc.to_empty(device=device)
+                wake_pose_adapter(proc, generator, std=0.02)
+    meta = [n for n, t in dit.state_dict().items() if t.is_meta]
+    if meta:
+        raise AssertionError(f"{method} DiT: {len(meta)} tensors left on "
+                             f"the meta device, e.g. {meta[:3]}")
+    return dit
+
+
+def phase_full_options(device, pipe, cond, plucker_fea, seed=1024,
+                       geometry=(336, 592, 81)):
+    """The options at full width on ``phase_full_slice``'s resident
+    ``FusionConfig()`` model, its bicross gates woken for the phase (they
+    carry the geometry stream into the video's) and put back after: one
+    CFG-pair ``joint_forward`` at 336x592, 81 frames, plain, with the
+    example camera path's pose encodings as camera tokens (2, 81, 9), and
+    with ``uncond``; ``forward_temporal`` of the first IRG block's bicross
+    on random streams of its shapes (T = R = 21, S = 777, M = 782); then
+    one forward of a full-width Wan2.1-I2V-14B ``WanDiT`` with each latent
+    pose method, its tensors the fusion DiT's and only its 25 adapters new.
+    Each: shapes, finiteness, exact launches, seconds, peak GB; the camera
+    and uncond outputs must differ from the plain one. Returns the
+    launches."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    cfg, fusion = pipe.cfg, pipe.fusion
+    dt = pipe.dtype
+    height, width, frames = geometry
+    f, lh, lw = (frames - 1) // 4 + 1, height // 8, width // 8
+    tokens = f * (lh // 2) * (lw // 2)
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed)
+    lat = torch.randn((2, cfg.dit.out_dim, f, lh, lw), generator=g,
+                      device=device).to(dt)
+    ts = torch.full((2,), 900.0, device=device)
+    ctx = torch.cat([cond[0], cond[1]]).to(device, dt)
+    clip = torch.cat([cond[2]] * 2).to(device, dt)
+    y = torch.cat([cond[3]] * 2).to(device, dt)
+    pl2 = torch.cat([plucker_fea] * 2)
+    cam = pose_encodings(height, width, frames).expand(2, -1, -1).to(device)
+    joint = (lat, ts, ctx, clip, y)
+    T, S, R = f, tokens // f, f
+    M = S + cfg.vggt.aggregator.patch_start_idx
+    x1 = torch.randn((2, T * S, cfg.bicross.m1_dim), generator=g,
+                     device=device).to(dt)
+    x2 = torch.randn((2, R * M, cfg.bicross.m2_dim), generator=g,
+                     device=device).to(dt)
+    launches = no_launches()
+    rows, outs = [], {}
+
+    def measure(name, run, want):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(fa.LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            out = run()
+        end.record()
+        end.synchronize()
+        got = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        out = out if isinstance(out, tuple) else (out,)
+        finite = all(bool(torch.isfinite(o).all()) for o in out)
+        rows.append(f"{name}:{start.elapsed_time(end) / 1e3:.3f}s:"
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f}GB:"
+                    + ",".join("x".join(map(str, o.shape)) for o in out)
+                    + f":finite={finite}:" + json.dumps(
+                        {k: v for k, v in got.items() if v}
+                    ).replace(" ", ""))
+        if got != want or not finite:
+            raise AssertionError(f"full_options {name}: launches {got} "
+                                 f"(want {want}), finite {finite}")
+        for k, v in got.items():
+            launches[k] += v
+        outs[name] = out
+
+    gammas = [(b.gamma_m1, b.gamma_m2) for b in fusion.bicross]
+    saved = [(a.clone(), b.clone()) for a, b in gammas]
+    try:
+        with torch.no_grad():
+            for pair in gammas:
+                for gamma in pair:
+                    gamma.normal_(0.0, 0.1, generator=g)
+        measure("plain", lambda: fusion.joint_forward(
+            *joint, plucker_fea=pl2)[0], joint_launches(cfg))
+        measure("camera_token", lambda: fusion.joint_forward(
+            *joint, plucker_fea=pl2, camera_token=cam)[0],
+            joint_launches(cfg))
+        measure("uncond", lambda: fusion.joint_forward(
+            *joint, plucker_fea=pl2, uncond=True)[0],
+            joint_launches(cfg, uncond=True))
+        measure("temporal", lambda: fusion.bicross[0].forward_temporal(
+            x1, x2, T, S, R, M), temporal_launches(cfg.bicross, T, S, R, M))
+    finally:
+        with torch.no_grad():
+            for (a, b), (sa, sb) in zip(gammas, saved):
+                a.copy_(sa)
+                b.copy_(sb)
+    moved = {name: _rel_l2([outs[name][0]], [outs["plain"][0]])
+             for name in ("camera_token", "uncond")}
+    del x1, x2, outs["temporal"]
+    dit = None
+    for method in POSE_METHODS:
+        dit = aliased_pose_dit(fusion.dit, method, device, generator=g,
+                               like=dit)
+        measure(method, lambda: dit(lat, ts, ctx, clip_feature=clip, y=y,
+                                    plucker_fea=pl2),
+                pose_dit_launches(dit.cfg, tokens, f))
+    del dit
+    say("full_options", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        runs="|".join(rows),
+        rel_l2_vs_plain=json.dumps({k: float(f"{v:.3e}")
+                                    for k, v in moved.items()}
+                                   ).replace(" ", ""),
+        launches=json.dumps({k: v for k, v in launches.items() if v}
+                            ).replace(" ", ""))
+    unmoved = [k for k, v in moved.items() if not v > 0]
+    if unmoved:
+        raise AssertionError(f"full_options: {unmoved} equal the plain "
+                             f"forward")
+    del outs, lat, ctx, clip, y, pl2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def small_ti2v_configs():
     """Reduced TI2V-5B widths: the DiT 2 x 2 heads of 128 (self over 2304
     tokens at 512x768x21 -> generic, cross -> onekv), umT5 as in
@@ -3695,6 +4149,7 @@ def main(argv=None) -> int:
     phase_train_cli_data()
     phase_small_verify()
     phase_small_track(device)
+    phase_small_options(device)
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
@@ -3710,6 +4165,7 @@ def main(argv=None) -> int:
     train = phase_full_train(device, pipe, cond, plucker_fea,
                              profile_dir=args.profile)
     windowed = phase_full_windowed(device, pipe, cond, plucker_fea)
+    options = phase_full_options(device, pipe, cond, plucker_fea)
     # the Wan2.1 model makes room for the experts
     del pipe, cond, plucker_fea
     gc.collect()
@@ -3740,10 +4196,11 @@ def main(argv=None) -> int:
             "launches": (denoise[k] + windowed[k] + clip_run[k] + serve[k]
                          + train[f"{k}_stats"] + data_train[k]
                          + data_train[f"{k}_stats"] + wan22[k] + quant[k]
-                         + ti2v[k] + verify[k] + track[k]),
+                         + ti2v[k] + verify[k] + track[k] + options[k]),
             "denoise_launches": denoise[k],
             "verify_launches": verify[k],
             "track_launches": track[k],
+            "options_launches": options[k],
             "windowed_step_launches": windowed[k],
             "clip_run_launches": clip_run[k],
             "serve_launches": serve[k],

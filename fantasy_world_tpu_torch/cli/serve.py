@@ -28,6 +28,9 @@ files end the run. ``--quant`` quantizes the denoiser once at start-up;
 ``--segment_size`` makes each batch report its progress on
 ``GET /v1/jobs/<id>``; a request's ``tea_cache_l1_thresh`` turns TeaCache
 on for its batch. ``--mesh_*`` and ``--ulysses`` are not ported and exit.
+The CUDA allocator runs on expandable segments unless
+``PYTORCH_CUDA_ALLOC_CONF`` says otherwise (``serving/server.py:
+expandable_segments``).
 The bound address is printed, so ``--port 0`` takes a free port.
 """
 from __future__ import annotations
@@ -275,8 +278,11 @@ def load_sampler(args):
 
 
 def main(argv=None) -> None:
-    from ..serving.server import GenerationServer
+    from ..serving.server import GenerationServer, expandable_segments
     args = parse_args(argv)
+    # before the models take the card: the whole process allocates from
+    # expandable segments
+    expandable_segments()
     sampler = load_sampler(args)
     batch_fn = (make_batch_fn22 if args.variant == "wan22"
                 else make_batch_fn)(sampler, args)

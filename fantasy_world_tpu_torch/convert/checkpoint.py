@@ -67,7 +67,7 @@ from ..models.fusion.model import FusionConfig, FusionModel
 from ..models.wan.camera import CameraPoseEncoder, CameraPoseEncoderConfig
 from ..models.wan.clip import CLIPVision, CLIPVisionConfig
 from ..models.wan.t5 import T5Config, T5Encoder
-from ..models.wan.dit import WanDiTConfig
+from ..models.wan.dit import WanDiT, WanDiTConfig
 from ..models.wan.vae import VAEConfig, WanVAE
 from ..ops.rope import permute_qk_out_channels
 from ..utils.configio import config_from_dict
@@ -402,12 +402,47 @@ def _strip(sd: Mapping[str, torch.Tensor], prefixes) -> Dict[str, torch.Tensor]:
 UNIT_SCALES = (".ls1.gamma", ".ls2.gamma")
 
 
+# the tensor that marks each kind of pose adapter in a DiT block; the two
+# latent methods share their keys, so only the configuration tells them
+# apart
+_ADAPTER_KEYS = {"adaln": "cross_attn.processor.k_proj.group1.weight",
+                 "latent_split or latent_overall":
+                 "cross_attn.processor.k_proj.weight"}
+
+
+def check_pose_adapters(module: nn.Module, sd: Mapping[str, torch.Tensor],
+                        what: str) -> None:
+    """Raise when a block of a ``WanDiT`` inside ``module`` has a pose
+    adapter of another kind than ``sd`` holds for it ('adaln' against
+    'latent_split' / 'latent_overall'), naming the block, the method the
+    configuration names and the one the tensors show."""
+    for name, m in module.named_modules():
+        if not isinstance(m, WanDiT):
+            continue
+        cfg, pre = m.cfg, name + "." if name else ""
+        want = ("adaln" if cfg.pose_inject_method == "adaln"
+                else "latent_split or latent_overall")
+        for i in range(min(cfg.camera_adapter_end, cfg.num_layers)):
+            found = [kind for kind, key in _ADAPTER_KEYS.items()
+                     if f"{pre}blocks.{i}.{key}" in sd]
+            if found and found != [want]:
+                raise ValueError(
+                    f"{what}: block {i}'s pose adapter tensors are "
+                    f"{found[0]!r} ({pre}blocks.{i}."
+                    f"{_ADAPTER_KEYS[found[0]]}) but the configuration "
+                    f"names pose_inject_method="
+                    f"{cfg.pose_inject_method!r}")
+
+
 def module_state_dict(module: nn.Module, sd: Mapping[str, torch.Tensor],
                       what: str) -> Dict[str, torch.Tensor]:
     """{name: tensor} of every parameter and buffer of ``module`` (which
     may live on the meta device), taken from ``sd``; keys it does not have
-    are not read, a key it lacks raises. VGGT blocks saved without
-    LayerScale get unit scales, as the reference's Identity is."""
+    are not read, a key it lacks raises, and so does a pose adapter of
+    another kind than the configuration's (``check_pose_adapters``). VGGT
+    blocks saved without LayerScale get unit scales, as the reference's
+    Identity is."""
+    check_pose_adapters(module, sd, what)
     want = module.state_dict()
     missing = sorted(k for k in want if k not in sd
                      and not k.endswith(UNIT_SCALES))

@@ -180,9 +180,13 @@ def _dit(w: _Writer, p: Mapping, pre: str) -> None:
         w.put(bp + "modulation", b["modulation"])
         if "camera" in b:
             cam, cp = b["camera"], bp + "cross_attn.processor."
-            w.linear(cp + "k_proj.group1", cam["k_group1"])
-            w.mlp(cp + "k_proj.group2", cam["k_group2"])
-            w.mlp(cp + "v_proj.group2", cam["v_group2"])
+            if "k_group1" in cam:                              # 'adaln'
+                w.linear(cp + "k_proj.group1", cam["k_group1"])
+                w.mlp(cp + "k_proj.group2", cam["k_group2"])
+                w.mlp(cp + "v_proj.group2", cam["v_group2"])
+            else:                    # 'latent_split' / 'latent_overall'
+                w.linear(cp + "k_proj", cam["k_proj"])
+                w.linear(cp + "v_proj", cam["v_proj"])
 
 
 def _vggt_block(w: _Writer, p: Mapping, pre: str) -> None:

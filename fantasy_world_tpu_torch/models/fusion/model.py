@@ -95,14 +95,26 @@ class FusionModel(nn.Module):
 
     def run_stack(self, x, ctx, t_mod, timestep, ropes, rope_bi_dit,
                   rope_bi_agg, fhw, plucker_fea, collect_inters: bool,
-                  remat: bool = False):
+                  remat: bool = False, camera_token=None,
+                  uncond: bool = False):
         """PCB prefix, geometry branch input, interleaved IRG loop. Returns
-        (x, per-layer (B, S, P, 2C) intermediates | None)."""
+        (x, per-layer (B, S, P, 2C) intermediates | None).
+        ``camera_token``: pose encodings for the geometry stream's camera
+        slots; ``uncond``: the IRG blocks skip their bicross coupling."""
         cfg = self.cfg
         f, h, w = fhw
         B = x.shape[0]
         cos_d, sin_d = ropes
         apply_pose = cfg.camera_control and plucker_fea is not None
+        if (apply_pose and cfg.dit.camera_adapter_end > 0
+                and cfg.dit.pose_inject_method == "latent_split"):
+            # the stack passes no latent frame count to its blocks, as in
+            # the JAX package, whose latent_split reshape fails there
+            raise ValueError(
+                "latent_split pose injection does not run in the fusion "
+                "model: its blocks get no latent frame count (the JAX "
+                "fusion stack fails the same way); use latent_overall, "
+                "adaln, or the standalone WanDiT")
         blocks = self.dit.blocks
         si = cfg.start_index
 
@@ -116,7 +128,7 @@ class FusionModel(nn.Module):
         agg = self.vggt.aggregator
         patch_tokens, e0 = self.vggt.process_wan_input(
             x.view(B, f, h, w, cfg.dit.dim), timestep)
-        tokens, pos = agg.assemble_tokens(patch_tokens)
+        tokens, pos = agg.assemble_tokens(patch_tokens, camera_token)
         S = f
         P, C = tokens.shape[-2:]
         bcfg = cfg.vggt.aggregator.block_cfg
@@ -141,7 +153,9 @@ class FusionModel(nn.Module):
                                             plucker_fea=plucker_fea,
                                             apply_pose=has_ad)
                 x_agg, mod_agg = gblk.attn_half(x_agg, rope_g, e0)
-                x, x_agg = self.bicross[i](x, x_agg, rope_bi_dit, rope_bi_agg)
+                if not uncond:
+                    x, x_agg = self.bicross[i](x, x_agg, rope_bi_dit,
+                                               rope_bi_agg)
                 x = dblk.ffn_half(x, mod_dit)
                 x_agg = gblk.ffn_half(x_agg, mod_agg)
             else:
@@ -162,12 +176,16 @@ class FusionModel(nn.Module):
 
     def joint_forward(self, latents, timestep, context, clip_feature=None,
                       y=None, plucker_fea=None, return_prediction=False,
-                      remat=False, control_tokens=None):
+                      remat=False, control_tokens=None, camera_token=None,
+                      uncond: bool = False):
         """One denoise evaluation. latents (B, 16, f, h', w'); timestep
         (B,); context (B, 512, text_dim); clip_feature (B, 257, 1280);
         y (B, 20, f, h', w'); plucker_fea (B, L, plucker_dim);
         control_tokens (1 or B, L, dim), the Wan2.2 control-camera adapter's
-        output (``WanDiT.control_adapter_tokens``).
+        output (``WanDiT.control_adapter_tokens``); camera_token (B, 4f - 3,
+        9) pose encodings, projected into the geometry stream's camera
+        slots (``Aggregator.assemble_tokens``); ``uncond``: the IRG blocks
+        run without their bicross coupling.
         Returns (noise_pred (B, 16, f, h', w'), prediction dict | None).
         ``remat``: recompute each block on the backward pass."""
         (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
@@ -175,7 +193,8 @@ class FusionModel(nn.Module):
                                   control_tokens)
         x, inters = self.run_stack(x, ctx, t_mod, timestep, ropes,
                                    rope_bi_dit, rope_bi_agg, fhw, plucker_fea,
-                                   return_prediction, remat)
+                                   return_prediction, remat, camera_token,
+                                   uncond)
         f, h, w = fhw
         noise_pred = self.dit.unpatchify(self.dit.head(x, t), fhw)
         if not return_prediction:

@@ -8,12 +8,13 @@ Token layout per frame: [camera(1) | register(4) | patch(h*w)].
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ...core.params import normal_
+from ...core.params import linear, normal_
 from ...ops import rope as rope_ops
 from .blocks import VGGTBlock, VGGTBlockConfig
 
@@ -42,12 +43,28 @@ class AggregatorConfig:
 
 
 class _CamTokenProjector(nn.Module):
-    # checkpoint weights kept for strict loading; the denoise path passes
-    # no camera tokens, so it does not run here
+    """Pose encodings -> camera tokens (``cam_token_projector``); runs when
+    ``joint_forward`` is given ``camera_token``, which no CLI passes."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.mlp = nn.Sequential(nn.Linear(36, 128), nn.GELU(),
                                  nn.Linear(128, dim))
+
+    def forward(self, cam: torch.Tensor) -> torch.Tensor:
+        """(B, V, 9) pose encodings -> (B*(V+3)//4, 1, C) camera tokens,
+        one per group of four views: view 0 is repeated three times at the
+        end, then (B*Vp/4, 36) rows go through Linear, exact GELU, Linear.
+        V % 4 must be 1 (one token per latent frame: V = 4f - 3)."""
+        B, V, _ = cam.shape
+        if V % 4 != 1:
+            raise ValueError(f"cam_token_projector needs V % 4 == 1 views "
+                             f"(4 * latent frames - 3); got V = {V}")
+        cam = torch.cat([cam, cam[:, :1].expand(B, 3, cam.shape[-1])], dim=1)
+        rows = cam.reshape(B * (cam.shape[1] // 4), 36)
+        m = self.mlp
+        out = linear(F.gelu(linear(rows, m[0])), m[2])
+        return out.reshape(-1, 1, out.shape[-1])
 
 
 class Aggregator(nn.Module):
@@ -68,13 +85,19 @@ class Aggregator(nn.Module):
         normal_(self.camera_token, 1e-6, generator)
         normal_(self.register_token, 1e-6, generator)
 
-    def assemble_tokens(self, patch_tokens: torch.Tensor
+    def assemble_tokens(self, patch_tokens: torch.Tensor,
+                        camera_token: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S, H, W, C) patch tokens -> tokens (B*S, P, C) and int
-        positions (B*S, P, 2) (aggregator._process_aggregator_input)."""
+        positions (B*S, P, 2) (aggregator._process_aggregator_input). The
+        camera slot holds the learned token, or, given ``camera_token``
+        (B, V = 4S - 3, 9) pose encodings, their projection."""
         B, S, H, W, C = patch_tokens.shape
         patches = patch_tokens.reshape(B * S, H * W, C)
-        cam = slice_expand_and_flatten(self.camera_token, B, S)
+        if camera_token is not None:
+            cam = self.CamTokenProjector(camera_token)
+        else:
+            cam = slice_expand_and_flatten(self.camera_token, B, S)
         reg = slice_expand_and_flatten(self.register_token, B, S)
         tokens = torch.cat([cam.to(patches.dtype), reg.to(patches.dtype),
                             patches], dim=1)

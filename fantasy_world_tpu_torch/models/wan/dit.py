@@ -14,6 +14,13 @@ JAX converters write (see ``convert/from_jax.py``).
 Wan2.2 TI2V-5B denoise runs (``pipelines/ti2v.py``; ``TI2V_5B`` is its
 configuration): its separated timestep modulates the tokens of the fused
 first frame at t = 0 (``SplitTokens``).
+
+The blocks before ``camera_adapter_end`` carry a pose adapter as their
+cross attention's ``processor``, by ``pose_inject_method``: 'adaln'
+(``CameraAdapter``, an additive shift) or 'latent_split' /
+'latent_overall' (``LatentPoseAdapter``, an attention onto the projected
+Plucker tokens). ``WanDiT.forward`` passes the grid's latent frame count,
+which 'latent_split' splits by.
 """
 from __future__ import annotations
 
@@ -163,9 +170,63 @@ class CameraAdapter(nn.Module):
         return o + shift * nonzero
 
 
+class LatentPoseAdapter(nn.Module):
+    """'latent_split' / 'latent_overall' pose adapter: zero-initialised,
+    bias-free k/v projections of the Plucker tokens, which the cross
+    attention's normed q attends to -- per latent frame ('latent_split')
+    or over the whole sequence ('latent_overall') -- before the output
+    projection."""
+
+    def __init__(self, plucker_dim: int, dim: int, split: bool):
+        super().__init__()
+        self.split = split
+        self.k_proj = nn.Linear(plucker_dim, dim, bias=False)
+        self.v_proj = nn.Linear(plucker_dim, dim, bias=False)
+
+    def init_extra_(self, generator):
+        self.k_proj.weight.data.zero_()
+        self.v_proj.weight.data.zero_()
+
+    def forward(self, o, q, plucker_fea, num_heads: int,
+                plucker_frames: Optional[int]):
+        """o + attention(q, k_proj(plucker), v_proj(plucker)); q (B, L, D)
+        and the Plucker tokens split into ``plucker_frames`` groups, each
+        attended on its own, under 'latent_split'."""
+        pk = linear(plucker_fea, self.k_proj)
+        pv = linear(plucker_fea, self.v_proj)
+        pq = q
+        if self.split:
+            if plucker_frames is None:
+                raise ValueError("latent_split pose injection needs the "
+                                 "latent frame count (plucker_frames)")
+            B, L, D = q.shape
+            f = plucker_frames
+            pq = q.reshape(B * f, L // f, D)
+            pk = pk.reshape(B * f, -1, D)
+            pv = pv.reshape(B * f, -1, D)
+        pose_x = dot_product_attention(_split_heads(pq, num_heads),
+                                       _split_heads(pk, num_heads),
+                                       _split_heads(pv, num_heads))
+        return o + _merge_heads(pose_x).reshape(q.shape)
+
+
+POSE_INJECT_METHODS = ("adaln", "latent_split", "latent_overall")
+
+
+def pose_adapter(method: str, plucker_dim: int, dim: int) -> nn.Module:
+    """The cross attention's ``processor`` of a pose inject method."""
+    if method == "adaln":
+        return CameraAdapter(plucker_dim, dim)
+    if method in ("latent_split", "latent_overall"):
+        return LatentPoseAdapter(plucker_dim, dim, method == "latent_split")
+    raise ValueError(f"pose_inject_method {method!r} is not one of "
+                     f"{POSE_INJECT_METHODS}")
+
+
 class CrossAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, eps: float,
-                 has_image_input: bool, camera: Optional[Tuple[int, int]]):
+                 has_image_input: bool,
+                 camera: Optional[Tuple[str, int, int]]):
         super().__init__()
         self.num_heads, self.eps = num_heads, eps
         self.has_image_input = has_image_input
@@ -179,13 +240,17 @@ class CrossAttention(nn.Module):
             self.k_img = nn.Linear(dim, dim)
             self.v_img = nn.Linear(dim, dim)
             self.norm_k_img = RMSNorm(dim)
-        self.processor = CameraAdapter(*camera) if camera else None
+        self.processor = pose_adapter(*camera) if camera else None
 
-    def forward(self, x, context, plucker_fea=None, apply_pose=False):
+    def forward(self, x, context, plucker_fea=None, apply_pose=False,
+                plucker_frames=None):
         """Text (+ 257 CLIP image tokens first in ``context``) cross
-        attention, then the camera shift when ``apply_pose``. The split is
-        at 257 whatever the image tokens: with FLF2V's 514 the end image's
-        257 join the text keys, as in the reference."""
+        attention, then the pose adapter when ``apply_pose``: the 'adaln'
+        shift, or the latent methods' attention onto the Plucker tokens
+        (``plucker_frames``: the latent frame count 'latent_split' splits
+        by). The split is at 257 whatever the image tokens: with FLF2V's
+        514 the end image's 257 join the text keys, as in the
+        reference."""
         n = self.num_heads
         if self.has_image_input:
             img, ctx = context[:, :CLIP_TOKENS], context[:, CLIP_TOKENS:]
@@ -205,7 +270,10 @@ class CrossAttention(nn.Module):
                 qh, _split_heads(k_img, n), _split_heads(v_img, n)))
         if apply_pose and self.processor is not None \
                 and plucker_fea is not None:
-            o = self.processor(o, plucker_fea)
+            if isinstance(self.processor, LatentPoseAdapter):
+                o = self.processor(o, q, plucker_fea, n, plucker_frames)
+            else:
+                o = self.processor(o, plucker_fea)
         return linear(o, self.o)
 
 
@@ -278,10 +346,8 @@ class DiTBlock(nn.Module):
         super().__init__()
         self.eps = cfg.eps
         self.self_attn = SelfAttention(cfg.dim, cfg.num_heads, cfg.eps)
-        camera = ((cfg.plucker_dim, cfg.dim) if cfg.has_adapter(layer)
-                  else None)
-        if camera and cfg.pose_inject_method != "adaln":
-            raise NotImplementedError(cfg.pose_inject_method)
+        camera = ((cfg.pose_inject_method, cfg.plucker_dim, cfg.dim)
+                  if cfg.has_adapter(layer) else None)
         self.cross_attn = CrossAttention(cfg.dim, cfg.num_heads, cfg.eps,
                                          cfg.has_image_input, camera)
         self.norm3 = nn.LayerNorm(cfg.dim, eps=cfg.eps)
@@ -295,7 +361,7 @@ class DiTBlock(nn.Module):
                 generator)
 
     def attn_half(self, x, context, t_mod, rope_cos, rope_sin, *,
-                  plucker_fea=None, apply_pose=False):
+                  plucker_fea=None, apply_pose=False, plucker_frames=None):
         """Self- and cross-attention residuals; returns (x, the three FFN
         modifiers). The modulation and gated residual are f32."""
         sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = dit_block_modulation(
@@ -304,7 +370,7 @@ class DiTBlock(nn.Module):
         x = _gated(x, g_msa, self.self_attn(h, rope_cos, rope_sin))
         x = x + self.cross_attn(
             layer_norm(x, self.norm3.weight, self.norm3.bias, self.eps),
-            context, plucker_fea, apply_pose)
+            context, plucker_fea, apply_pose, plucker_frames)
         return x, (sh_mlp, sc_mlp, g_mlp)
 
     def ffn_half(self, x, modifiers):
@@ -313,10 +379,11 @@ class DiTBlock(nn.Module):
         return _gated(x, g_mlp, _gelu_tanh_mlp(self.ffn, h))
 
     def forward(self, x, context, t_mod, rope_cos, rope_sin, *,
-                plucker_fea=None, apply_pose=False):
+                plucker_fea=None, apply_pose=False, plucker_frames=None):
         x, mods = self.attn_half(x, context, t_mod, rope_cos, rope_sin,
                                  plucker_fea=plucker_fea,
-                                 apply_pose=apply_pose)
+                                 apply_pose=apply_pose,
+                                 plucker_frames=plucker_frames)
         return self.ffn_half(x, mods)
 
 
@@ -483,5 +550,6 @@ class WanDiT(nn.Module):
             tokens = block(tokens, ctx, t_mod, cos, sin,
                            plucker_fea=plucker_fea,
                            apply_pose=(plucker_fea is not None
-                                       and cfg.has_adapter(i)))
+                                       and cfg.has_adapter(i)),
+                           plucker_frames=f)
         return self.unpatchify(self.head(tokens, t), (f, h, w))

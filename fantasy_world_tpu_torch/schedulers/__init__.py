@@ -1,0 +1,3 @@
+from .flow_match import FlowMatchScheduler
+from .continuous_ode import ContinuousODEScheduler
+from .ddim import EnhancedDDIMScheduler

@@ -7,7 +7,11 @@ drains the queue and runs compatible jobs through one CFG-batched denoise
 rows); the results are exported to disk and polled by job id.
 
 Standard library only (http.server, threading): the server is IO-light,
-and all the heavy work stays in the worker thread.
+and all the heavy work stays in the worker thread. The one exception is
+the CUDA allocator: a server turns on its expandable segments
+(``expandable_segments``), since a served batch of full-width clips on a
+cache that earlier phases left fragmented runs out of memory with gigabytes
+reserved but unallocated (``tools/torch_serve_oom_probe.py``).
 
     POST /v1/generate   {"prompt": ..., "image_path": ..., ...} -> {"job_id"}
     GET  /v1/jobs/<id>  -> {"status": queued|running|done|error, ...}
@@ -23,6 +27,7 @@ is batch-granular), and the server goes on.
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -42,6 +47,26 @@ DEFAULTS = {
     "tea_cache_l1_thresh": None,   # per-job TeaCache: the whole batch
                                    # shares one skip plan
 }
+
+
+ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
+
+
+def expandable_segments() -> str:
+    """Serve from expandable CUDA allocator segments, which grow in place
+    instead of leaving per-size holes. Before CUDA starts the setting goes
+    into ``PYTORCH_CUDA_ALLOC_CONF``; once it runs, into the allocator,
+    for the segments it makes from then on. A ``PYTORCH_CUDA_ALLOC_CONF``
+    the caller set wins. Returns what was done: "env", "runtime" or
+    "caller"."""
+    if os.environ.get(ALLOC_CONF):
+        return "caller"
+    import torch
+    if not torch.cuda.is_initialized():
+        os.environ[ALLOC_CONF] = "expandable_segments:True"
+        return "env"
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    return "runtime"
 
 
 @dataclass
@@ -197,7 +222,9 @@ class GenerationServer:
         'Authorization: Bearer <token>' on generate/jobs endpoints --
         mandatory when binding a non-loopback host, since requests carry
         raw filesystem paths. retention_s: finished jobs older than this
-        are pruned on the next submit."""
+        are pruned on the next submit. The CUDA allocator's expandable
+        segments go on (``expandable_segments``)."""
+        expandable_segments()
         self.jobs: Dict[str, Job] = {}
         self.validate_fn = validate_fn
         self.auth_token = auth_token

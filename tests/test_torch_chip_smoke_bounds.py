@@ -122,6 +122,93 @@ def test_flf2v_and_track_cells():
     assert all(per_step[name] == 0 for name in shapes)
 
 
+def test_option_cells_and_launches():
+    """The options' cells at 336x592, 81 frames (21 latent frames of 777
+    tokens): the 'latent_split' pose attention per latent frame and temporal
+    bicross at T = R = 21 (782 geometry tokens a frame), both on onekv, the
+    bicross pair padded from D 96; no denoise step counts them. The
+    full-width forwards' launches: camera tokens launch what a plain
+    ``joint_forward`` does (88 generic, 80 onekv, 48 d64), ``uncond`` drops
+    the IRG blocks' 48 bicross attentions, each latent method adds one
+    pose attention on each of the 25 adapter blocks (latent_split over a
+    frame's 777 keys on onekv, latent_overall over all 16,317 on
+    generic), temporal bicross launches onekv twice."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    cfg = FusionConfig()
+    f, tokens = 21, 21 * 21 * 37
+    M = tokens // f + cfg.vggt.aggregator.patch_start_idx
+    shapes = {name: rest for name, *rest in cs.SHAPES
+              if name.startswith(("pose_", "bicross_temporal_"))}
+    hd = cfg.bicross.head_dim
+    assert shapes == {
+        "pose_split": [(2 * f, tokens // f, 40, 128), tokens // f, "onekv"],
+        "bicross_temporal_video_to_geometry": [(2 * f, tokens // f, 12, hd),
+                                               M, "onekv"],
+        "bicross_temporal_geometry_to_video": [(2 * f, M, 12, hd),
+                                               tokens // f, "onekv"]}
+    for (b, lq, h, d), lk, kernel in shapes.values():
+        assert fa.route(h, d, lk) == kernel
+        assert fa.kernel_dim(h, d, lk) == 128
+    per_step = cs.layers_per_step(cfg)
+    assert all(per_step[name] == 0 for name in shapes)
+    plain = {"generic": 88, "onekv": 80, "d64": 48}
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+    assert nonzero(cs.joint_launches(cfg)) == plain
+    assert nonzero(cs.joint_launches(cfg, uncond=True)) == dict(
+        plain, generic=40)
+    import dataclasses
+    for method, want in (("latent_split", {"generic": 40, "onekv": 105}),
+                         ("latent_overall", {"generic": 65, "onekv": 80})):
+        dcfg = dataclasses.replace(cfg.dit, pose_inject_method=method)
+        assert nonzero(cs.pose_dit_launches(dcfg, tokens, f)) == want
+    assert nonzero(cs.temporal_launches(cfg.bicross, f, tokens // f, f,
+                                        M)) == {"onekv": 2}
+
+
+def test_small_options_launch_contract(monkeypatch):
+    """``small_options``' runs on the CPU, every attention recorded by the
+    route it takes on the card: the counts the phase holds the card to
+    (uncond drops its bicross calls; camera tokens launch a plain
+    forward's), each output finite; the schedule ladders run."""
+    import torch
+    import fantasy_world_tpu_torch.ops.attention as att
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(fa, "LAUNCHES", {k: 0 for k in fa.LAUNCHES})
+
+    def record(q, k, v, *, scale=None):
+        fa.LAUNCHES[fa.route(q.shape[2], q.shape[3], k.shape[1])] += 1
+        return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
+
+    monkeypatch.setattr(att, "flash_attention", record)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        fusion, dits, inputs = cs.small_options_setup()
+        runs = cs.small_option_runs(fusion, dits, inputs, "cpu",
+                                    torch.float32)
+        ladders = cs.scheduler_ladders("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    want = cs.small_option_launches(fusion, dits, inputs)
+    assert set(runs) == set(want) == {"camera_token", "uncond", "temporal",
+                                      "latent_split", "latent_overall"}
+    for name, (outs, launches) in runs.items():
+        assert launches == want[name], name
+        assert all(bool(torch.isfinite(o).all()) for o in outs), name
+    n_x = len(fusion.cfg.xattn_set())
+    assert want["uncond"]["generic"] == want["camera_token"]["generic"] \
+        - 2 * n_x
+    # the reduced widths still take both pose routes and pad the bicross
+    # pair into onekv
+    assert want["latent_split"]["onekv"] > want["latent_overall"]["onekv"]
+    assert want["temporal"]["onekv"] == 2
+    assert set(ladders) == {"ddim", "continuous_ode"}
+    assert all(bool(torch.isfinite(v).all()) for v in ladders.values())
+
+
 def test_window_launches_agree_with_expected_launches():
     """One window over all 21 latent frames launches what a step without
     the heads does; the full-width windowed step's two windows of 11

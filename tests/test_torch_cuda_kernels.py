@@ -159,6 +159,30 @@ def test_kernel_at_flf2v_and_track_shapes(device, name, shape, Lk, kernel):
     assert _out_err(out, ref) <= 1
 
 
+# the single-card options at 336x592, 81 frames: the 'latent_split' pose
+# attention (42 frame rows of 777 tokens, 40 heads, over 777 keys) and
+# temporal bicross both ways (12 heads of 96 that the wrapper zero-pads to
+# onekv's 128, over 782 and 777 keys): key counts off onekv's tiles
+OPTIONS = [(name, shape, lk, kernel) for name, shape, lk, kernel in SHAPES
+           if name.startswith(("pose_", "bicross_temporal_"))]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", OPTIONS,
+                         ids=[s[0] for s in OPTIONS])
+def test_kernel_at_option_shapes(device, name, shape, Lk, kernel):
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel == "onekv"
+    q, k, v = _qkv(shape, Lk, device, seed=17)
+    before = fa.LAUNCHES[kernel]
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel] == before + 1
+    ref = fa.attention_plain(q, k, v, D ** -0.5)
+    assert out.shape == ref.shape == q.shape
+    assert out.dtype == torch.bfloat16
+    assert _out_err(out, ref) <= 1
+
+
 @pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic"),
                                       (128, "onekv")])
 def test_kernel_reads_strided_views(device, D, kernel):

@@ -143,6 +143,22 @@ def test_error_isolation_and_validation(server):
     assert ei.value.code == 404
 
 
+def test_server_turns_on_expandable_segments(monkeypatch):
+    """Before CUDA starts, a server puts expandable segments into
+    PYTORCH_CUDA_ALLOC_CONF; a value the caller set is left as it is."""
+    from fantasy_world_tpu_torch.serving.server import (ALLOC_CONF,
+                                                        expandable_segments)
+    monkeypatch.delenv(ALLOC_CONF, raising=False)
+    srv = GenerationServer(lambda jobs: [{} for _ in jobs], port=0)
+    try:
+        assert os.environ[ALLOC_CONF] == "expandable_segments:True"
+    finally:
+        srv.httpd.server_close()
+    monkeypatch.setenv(ALLOC_CONF, "expandable_segments:False")
+    assert expandable_segments() == "caller"
+    assert os.environ[ALLOC_CONF] == "expandable_segments:False"
+
+
 def test_make_batch_fn22_per_job_loop(tmp_path):
     """--variant wan22: one generate_video per job, each job its own
     export directory, progress only on its own job."""

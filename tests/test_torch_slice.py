@@ -125,8 +125,11 @@ def test_port_never_imports_jax():
     CLI, the data readers, build_train_batch, the trainer,
     make_camera_json, the 38-block VAE, the conditioning units, the TI2V
     denoise, the temporal tiler, the convert and verify_weights CLIs with
-    the registry, ModelManager, bundles and local resolution, and the
-    track head among the modules and the CLIs' argument checks run."""
+    the registry, ModelManager, bundles and local resolution, the track
+    head, the DDIM and continuous-ODE schedules, and the fusion, bicross,
+    aggregator and DiT modules of the single-card options among the
+    modules, chip_smoke's option set-up and the CLIs' argument checks
+    run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -141,7 +144,10 @@ def test_port_never_imports_jax():
         " 'models.wan.vae38', 'pipelines.units', 'pipelines.ti2v',"
         " 'pipelines.temporal_tiler', 'cli.convert', 'cli.verify_weights',"
         " 'models.vggt.track', 'convert.registry', 'convert.manager',"
-        " 'convert.bundle', 'convert.downloader', 'utils.configio'):\n"
+        " 'convert.bundle', 'convert.downloader', 'utils.configio',"
+        " 'schedulers.ddim', 'schedulers.continuous_ode',"
+        " 'models.fusion.bicross', 'models.fusion.model',"
+        " 'models.vggt.aggregator', 'models.wan.dit'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"
@@ -158,6 +164,8 @@ def test_port_never_imports_jax():
         "chip_smoke.small_clip_configs()\n"
         "chip_smoke.small_wan22_configs()\n"
         "chip_smoke.small_ti2v_configs()\n"
+        "chip_smoke.small_options_setup()\n"
+        "chip_smoke.pose_encodings(64, 96, 9)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fantasy_world_tpu' or m.startswith('fantasy_world_tpu.')]"
         "\n"
