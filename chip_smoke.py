@@ -160,6 +160,26 @@ The single-card options (``models/wan/dit.py``'s latent pose adapters,
   * kernel cells ``pose_split`` (onekv, (42, 777, 40, 128) over 777 keys)
     and ``bicross_temporal_{video_to_geometry,geometry_to_video}`` (onekv,
     D 96 padded, 782 and 777 keys).
+The multi-GPU path (``parallel/``), with ranks that are spawned processes
+sharing this one card over gloo (NCCL refuses two ranks on one device),
+the collectives' data moving through staging buffers on the card that
+every rank maps (CUDA IPC):
+  * after small_options, ``small_mesh``: the reduced slice's denoise on
+    meshes of 2 ranks (1x2x1, Ulysses), 8 (2x2x2) and 4 (1x4x1, Ulysses:
+    2 heads over 4 ranks take the ring), each against the CPU run of
+    small_slice within SLICE_TOL, with exact launches on every rank, and
+    which gloo collectives take CUDA tensors (``[gloo_cuda]``);
+  * then ``full_mesh``: Ulysses and the ring as direct calls at the DiT
+    self, bicross and VGGT global shapes over 2 ranks against the
+    one-process kernel on the same inputs; the full-width 2-step denoise
+    with the heads at 1x1x2 (all 40 blocks, the DiT's megatron splits)
+    and at 1x2x1 with Ulysses (4 + 4 blocks), each against the same
+    seeded model run in this process, within SLICE_TOL, exact launches;
+    seconds per step and peak GB per rank -- one card's, not multi-GPU
+    times;
+  * kernel cells ``mesh_*`` (the DiT at 20 of 40 heads), ``ulysses_*``
+    (bicross at 6 of 12 heads, VGGT global at 8 of 16) and ``ring_*``
+    (the ring's stats calls at 2 seq ranks).
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -295,7 +315,38 @@ SHAPES = [
     ("pose_split", (42, 777, 40, 128), 777, "onekv"),
     ("bicross_temporal_video_to_geometry", (42, 777, 12, 96), 782, "onekv"),
     ("bicross_temporal_geometry_to_video", (42, 782, 12, 96), 777, "onekv"),
+    # the multi-GPU path at 336x592, 81 frames, one rank's calls: the DiT
+    # at 20 of its 40 heads (mesh_model 2, or Ulysses at mesh_seq 2 after
+    # its all-to-all: the whole 16,317 tokens, the padding cut), Ulysses'
+    # bicross at 6 of 12 heads and VGGT global at 8 of 16; and the ring's
+    # stats calls at mesh_seq 2: rank 0's 11 frames against a part of 11
+    # frames (the other rank's 10 zero-padded to 11)
+    ("mesh_dit_self_20_heads", (2, 16317, 20, 128), 16317, "generic"),
+    ("mesh_dit_cross_text_20_heads", (2, 16317, 20, 128), 512, "onekv"),
+    ("mesh_dit_cross_clip_20_heads", (2, 16317, 20, 128), 257, "onekv"),
+    ("ulysses_bicross_video_to_geometry", (2, 16317, 6, 96), 16422,
+     "generic"),
+    ("ulysses_bicross_geometry_to_video", (2, 16422, 6, 96), 16317,
+     "generic"),
+    ("ulysses_vggt_global", (2, 16422, 8, 64), 16422, "d64"),
+    ("ring_dit_self", (2, 11 * 777, 40, 128), 11 * 777, "generic"),
+    ("ring_bicross_video_to_geometry", (2, 11 * 777, 12, 96), 11 * 782,
+     "generic"),
+    ("ring_bicross_geometry_to_video", (2, 11 * 782, 12, 96), 11 * 777,
+     "generic"),
+    ("ring_vggt_global", (2, 11 * 782, 16, 64), 11 * 782, "d64"),
 ]
+# the multi-GPU cells: one rank's calls per denoise step of its mesh (DiT
+# self and cross at mesh_model 2 for 40 blocks; the Ulysses and ring cells
+# at mesh_seq 2 for 24 IRG blocks, the ring two stats calls per attention)
+MESH_CELLS = {"mesh_dit_self_20_heads": 40, "mesh_dit_cross_text_20_heads": 40,
+              "mesh_dit_cross_clip_20_heads": 40,
+              "ulysses_bicross_video_to_geometry": 24,
+              "ulysses_bicross_geometry_to_video": 24,
+              "ulysses_vggt_global": 24, "ring_dit_self": 2 * 40,
+              "ring_bicross_video_to_geometry": 2 * 24,
+              "ring_bicross_geometry_to_video": 2 * 24,
+              "ring_vggt_global": 2 * 24}
 # full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
 # Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
 # and MoGe still run once per clip, at batch 1)
@@ -500,6 +551,7 @@ def phase_kernels(device):
     layers.update(pose_split=FusionConfig().dit.camera_adapter_end,
                   **{name: FusionConfig().num_irg for name, *_ in SHAPES
                      if name.startswith("bicross_temporal_")})
+    layers.update(MESH_CELLS)
     per_kernel = {k: {"max_abs_err": 0.0, "by_shape": []} for k in fa.ROUTES}
     for name, (B, Lq, H, D), Lk, kernel in SHAPES:
         if fa.route(H, D, Lk) != kernel:
@@ -533,10 +585,27 @@ def phase_kernels(device):
             y["padded_kernel_ms"] = time_ms(
                 lambda: fa.launch(kernel, qp, kp, vp, scale), 5)
             del qp, kp, vp
+        # the ring's calls take the stats forward: its output and (m2, l)
+        # against the plain version's, and its time
+        if name.startswith("ring_"):
+            so, sm, sl = fa.flash_attention_stats(q, k, v)
+            ro, rm, rl = fa.attention_plain_stats(q, k, v, scale)
+            y["stats_max_abs_err"] = _max_err(so, ro)
+            y["stats_rel_err"] = max(
+                ((sm - rm).abs() / rm.abs().clamp_min(1.0)).max().item(),
+                ((sl - rl).abs() / rl).max().item())
+            if not (y["stats_max_abs_err"] <= out_tol(ro)
+                    and y["stats_rel_err"] <= STATS_RTOL):
+                raise AssertionError(f"{name}: stats {y['stats_max_abs_err']}"
+                                     f", {y['stats_rel_err']}")
+            y["stats_ms"] = time_ms(lambda: fa.flash_attention_stats(q, k, v),
+                                    5)
+            del so, sm, sl, ro, rm, rl
         say("kernel", shape=name, kernel=kernel, max_abs_err=f"{err:.3e}",
             bound=f"{tol:.3e}", ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
             online_ms=_fmt(y.get("online_ms")),
             padded_kernel_ms=_fmt(y.get("padded_kernel_ms")),
+            stats_ms=_fmt(y.get("stats_ms")),
             tflops=f"{y['tflops']:.1f}",
             bound_ms=f"{y['bound_ms']:.4f}", bound_by=y["bound_by"],
             share=f"{y['share']:.4f}",
@@ -831,7 +900,34 @@ def moge_tokens(cfg, image_hw, resolution_level=9):
     return int((n / (w / h)) ** 0.5) * int((n * (w / h)) ** 0.5) + 1
 
 
+# the reduced slice: geometry (256x384, 21 frames: 6 latent frames of 16 x
+# 24 tokens), denoise steps and its noise seed
+SMALL_GEOMETRY = (256, 384, 21)
+SMALL_STEPS, SMALL_SEED = 2, 3
+
+
+def small_slice_setup():
+    """The reduced slice's models on the CPU in f32 (from seed 5, the zero
+    gates woken) and its conditioning: (fusion config, pose config, fusion,
+    pose encoder, conditioning)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    fcfg, pcfg = small_configs()
+    g = torch.Generator("cpu").manual_seed(5)
+    cpu_f = build(lambda: FusionModel(fcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    wake_zero_inits(cpu_f, g)
+    cpu_p = build(lambda: CameraPoseEncoder(pcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    cond = conditioning(fcfg.dit, *SMALL_GEOMETRY,
+                        torch.Generator("cpu").manual_seed(6), 16)
+    return fcfg, pcfg, cpu_f, cpu_p, cond
+
+
 def phase_small_slice(device):
+    """Returns the CPU run's outputs, {name: f32 CPU tensor}."""
     import torch
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import FusionModel
@@ -839,16 +935,8 @@ def phase_small_slice(device):
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     from fantasy_world_tpu_torch.pipelines.wan_video import (
         FantasyWorldPipeline)
-    fcfg, pcfg = small_configs()
-    height, width, frames, steps = 256, 384, 21, 2
-    g = torch.Generator("cpu").manual_seed(5)
-    cpu_f = build(lambda: FusionModel(fcfg), device="cpu",
-                  dtype=torch.float32, generator=g)
-    wake_zero_inits(cpu_f, g)
-    cpu_p = build(lambda: CameraPoseEncoder(pcfg), device="cpu",
-                  dtype=torch.float32, generator=g)
-    cond = conditioning(fcfg.dit, height, width, frames,
-                        torch.Generator("cpu").manual_seed(6), 16)
+    fcfg, pcfg, cpu_f, cpu_p, cond = small_slice_setup()
+    (height, width, frames), steps = SMALL_GEOMETRY, SMALL_STEPS
     outs = {}
     before = dict(fa.LAUNCHES)
     for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
@@ -862,7 +950,7 @@ def phase_small_slice(device):
         pipe = FantasyWorldPipeline(fus, pose)
         lat, pred = pipe.denoise(*cond[:4], height, width,
                                  num_frames=frames, num_inference_steps=steps,
-                                 seed=3,
+                                 seed=SMALL_SEED,
                                  plucker_fea=pipe.encode_plucker(cond[4]))
         outs[dev] = {k: v.float().cpu() for k, v in
                      check_outputs(fcfg, lat, pred, height, width,
@@ -880,6 +968,7 @@ def phase_small_slice(device):
     if bad:
         raise AssertionError(f"reduced slice disagrees with the CPU path "
                              f"beyond {SLICE_TOL}: {bad}")
+    return outs["cpu"]
 
 
 # ---------------------------------------------------------------------------
@@ -2060,6 +2149,523 @@ def phase_small_options(device):
     del dev_fusion, dev_dits
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU (parallel/): ranks that share this one card over gloo
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one device, so the mesh phases run their ranks
+# as spawned processes that share the card over gloo: gloo meets them at
+# barriers, and a collective's data moves through staging buffers on the
+# card that every rank maps (CUDA IPC, parallel/distributed.py). The mesh's
+# math and its kernel launches are checked; its times are one card's, not
+# multi-GPU times. Each rank writes what it found into MESH_DIR.
+MESH_DIR = os.path.join(REPO, "build", "mesh")
+# full_mesh's Ulysses denoise: full width, 4 PCB + 4 IRG blocks (a Ulysses
+# mesh replicates the weights on each rank, two of them on one card)
+MESH_ULYSSES_DEPTH = (8, 4)
+
+
+def mesh_run(fn, world, *args):
+    """``fn(rank, *args)`` in ``world`` spawned ranks on this card over
+    gloo; then each rank's JSON record (``MESH_DIR/rank{r}.json``)."""
+    from fantasy_world_tpu_torch.parallel.distributed import spawn
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for name in os.listdir(MESH_DIR):
+        os.remove(os.path.join(MESH_DIR, name))
+    spawn(fn, world, *args, backend="gloo", device="cuda")
+    records = []
+    for r in range(world):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as fh:
+            records.append(json.load(fh))
+    return records
+
+
+def _rank_setup():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    fa.build_kernels()          # loads what the parent built
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rank_record(rank, **fields):
+    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as fh:
+        json.dump(fields, fh)
+
+
+def gloo_cuda_probe():
+    """Which gloo collectives take CUDA tensors in this torch (the mesh
+    layer does not use them on CUDA tensors whatever the answer: ranks that
+    share the card meet in CUDA IPC staging buffers): {op: "ok" or the
+    error's first line}."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    x = torch.ones(4, device="cuda", dtype=torch.bfloat16)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(2 * n, device="cuda"), torch.ones(2 * n,
+                                                          device="cuda")),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 -- reported, not relied on
+            out[name] = str(e).splitlines()[0][:80]
+        dist.barrier()
+    return out
+
+
+# How each sequence-parallel attention of a mesh runs -- (DiT self, VGGT
+# global, bicross both ways) -- written out, not asked of the port's
+# dispatch, so that a wrong dispatch shows as wrong launches. Keyed by the
+# config (small_configs: 2 heads everywhere; FusionConfig(): DiT 40, VGGT
+# 16, bicross 12), the mesh and Ulysses. "local": one seq rank, nothing
+# split; "gather": the keys gathered (no Ulysses); "ulysses": the heads
+# divide by the seq ranks (the DiT's over its 1/M model share); "ring":
+# they do not.
+MESH_MODES = {
+    ("small", (1, 2, 1), True): ("ulysses", "ulysses", "ulysses"),
+    ("small", (2, 2, 2), False): ("gather", "gather", "gather"),
+    ("small", (1, 4, 1), True): ("ring", "ring", "ring"),
+    ("small", (2, 1, 2), False): ("local", "local", "local"),
+    ("small", (1, 2, 2), True): ("ring", "ulysses", "ulysses"),
+    ("small", (4, 1, 1), False): ("local", "local", "local"),
+    ("full", (1, 1, 2), False): ("local", "local", "local"),
+    ("full", (1, 2, 1), True): ("ulysses", "ulysses", "ulysses"),
+    ("full", (1, 1, 4), False): ("local", "local", "local"),
+    ("full", (1, 4, 1), True): ("ulysses", "ulysses", "ulysses"),
+}
+
+
+def attention_mode_launches(mode, H, D, q_split, kv_split):
+    """{launch key: count} of one attention of this rank run as ``mode``
+    (``MESH_MODES``)."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    if mode in ("local", "gather"):
+        return {fa.route(H, D, kv_split.length): 1}
+    if mode == "ulysses":
+        return {fa.route(H // q_split.n, D, kv_split.length): 1}
+    if mode == "ring":
+        return {fa.route(H, D, max(kv_split.sizes)) + "_stats": kv_split.n}
+    raise ValueError(mode)
+
+
+def mesh_launches(cfg, fhw, shape, modes, steps, rank, text_len):
+    """Kernel launches of one rank of a ``shape`` mesh over a denoise of
+    ``steps`` steps with the heads on the last (rank 0's): per DiT block
+    its self-attention (seq-parallel) and cross-attentions at 1/M of the
+    heads, per IRG block frame attention (local) and global attention
+    (seq-parallel), per coupled block bicross both ways (seq-parallel);
+    the camera trunk on rank 0. ``modes``: a ``MESH_MODES`` entry."""
+    from collections import Counter
+
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import sharding
+    f, h, w = fhw
+    d, s, m = shape
+    psi = cfg.vggt.aggregator.patch_start_idx
+    sizes = tuple(len(c) for c in np.array_split(np.arange(f), s))
+    seq_index = int(np.unravel_index(rank, shape)[1])
+    frames = sharding.TokenSplit(None, sizes, seq_index)
+    s_dit, s_agg = frames.scaled(h * w), frames.scaled(h * w + psi)
+    dc, bc = cfg.dit, cfg.bicross
+    vb = cfg.vggt.aggregator.block_cfg
+    hd = dc.num_heads // m
+    step = Counter()
+    m_self, m_glob, m_bi = modes
+    self_attn = attention_mode_launches(m_self, hd, dc.head_dim, s_dit,
+                                        s_dit)
+    glob = attention_mode_launches(m_glob, vb.num_heads, vb.head_dim, s_agg,
+                                   s_agg)
+    v2g = attention_mode_launches(m_bi, bc.num_heads, bc.head_dim, s_dit,
+                                  s_agg)
+    g2v = attention_mode_launches(m_bi, bc.num_heads, bc.head_dim, s_agg,
+                                  s_dit)
+    for _ in range(dc.num_layers):
+        step.update(self_attn)
+        step[fa.route(hd, dc.head_dim, text_len)] += 1
+        if dc.has_image_input:
+            step[fa.route(hd, dc.head_dim, 257)] += 1
+    for i in range(cfg.num_irg):
+        step[fa.route(vb.num_heads, vb.head_dim, h * w + psi)] += 1
+        step.update(glob)
+        if i in cfg.xattn_set():
+            step.update(v2g)
+            step.update(g2v)
+    out = {k: 0 for k in fa.LAUNCHES}
+    for k, v in step.items():
+        out[k] += v * steps
+    if rank == 0:
+        out["onekv"] += 4 * cfg.vggt.camera_head.trunk_depth
+    return out
+
+
+def small_mesh_denoise(dev, mesh, ulysses):
+    """The reduced slice's denoise as this rank's part of ``mesh``: (rank
+    0's outputs as f32 CPU tensors, else None; the launches; seconds)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    fcfg, pcfg, cpu_f, cpu_p, cond = small_slice_setup()
+    (height, width, frames) = SMALL_GEOMETRY
+    fus = build(lambda: FusionModel(fcfg), device=dev, dtype=torch.bfloat16)
+    fus.load_state_dict(cpu_f.state_dict())
+    pose = build(lambda: CameraPoseEncoder(pcfg), device=dev,
+                 dtype=torch.bfloat16)
+    pose.load_state_dict(cpu_p.state_dict())
+    pipe = FantasyWorldPipeline(fus, pose)
+    pipe.shard(mesh)
+    pl = pipe.encode_plucker(cond[4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    lat, pred = pipe.denoise(*cond[:4], height, width, num_frames=frames,
+                             num_inference_steps=SMALL_STEPS, seed=SMALL_SEED,
+                             plucker_fea=pl, mesh=mesh, ulysses=ulysses)
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, dict(fa.LAUNCHES)
+    got = None
+    if mesh.rank == 0:
+        got = {k: v.float().cpu() for k, v in check_outputs(
+            fcfg, lat, pred, height, width, frames).items()}
+    return got, launches, seconds
+
+
+def _small_mesh_rank(rank, shape, ulysses, probe):
+    import torch
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    record = {"gloo_cuda": gloo_cuda_probe() if probe else None}
+    got, launches, seconds = small_mesh_denoise(
+        dev, sharding.make_mesh(*shape), ulysses)
+    record.update(launches=launches, seconds=seconds)
+    if rank == 0:
+        torch.save(got, os.path.join(MESH_DIR, "outputs.pt"))
+    _rank_record(rank, **record)
+
+
+def phase_small_mesh(device, cpu_outs):
+    """The reduced slice's denoise on meshes of ranks sharing this card,
+    each against the CPU's one-process run (``cpu_outs``, small_slice's):
+    8 ranks at (2, 2, 2), 2 at (1, 2, 1) with Ulysses, and 4 at (1, 4, 1)
+    with Ulysses, where 2 heads do not divide by 4 and the ring runs."""
+    import torch
+    fcfg, _ = small_configs()
+    height, width, frames = SMALL_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    total = {}
+    for shape, uly in (((1, 2, 1), True), ((2, 2, 2), False),
+                       ((1, 4, 1), True)):
+        t0 = time.perf_counter()
+        world = int(np.prod(shape))
+        records = mesh_run(_small_mesh_rank, world, shape, uly,
+                           shape == (1, 2, 1))
+        got = torch.load(os.path.join(MESH_DIR, "outputs.pt"))
+        errs = {k: ((got[k] - ref).norm() / ref.norm().clamp_min(1e-12)
+                    ).item() for k, ref in cpu_outs.items()}
+        launch_err = [r for r in range(world) if records[r]["launches"]
+                      != mesh_launches(fcfg, fhw, shape,
+                                       MESH_MODES["small", shape, uly],
+                                       SMALL_STEPS, r, 16)]
+        probe = records[0]["gloo_cuda"]
+        if probe:
+            say("gloo_cuda", **probe)
+        say("small_mesh", mesh="x".join(map(str, shape)), ulysses=uly,
+            ranks=world, seconds=f"{time.perf_counter() - t0:.2f}",
+            rank_denoise_seconds="|".join(f"{r['seconds']:.2f}"
+                                          for r in records),
+            device_vs_cpu_rel_l2=json.dumps(
+                {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
+                    " ", ""),
+            rank0_launches=_nonzero(records[0]["launches"]))
+        bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+        if bad:
+            raise AssertionError(f"small_mesh {shape}: beyond {SLICE_TOL} "
+                                 f"of the CPU: {bad}")
+        if launch_err:
+            raise AssertionError(
+                f"small_mesh {shape}: ranks {launch_err} launched "
+                f"{[records[r]['launches'] for r in launch_err]}")
+        for r in records:
+            total = _add(total, r["launches"])
+    return total
+
+
+# the full width's sequence-parallel attentions, 2 seq ranks: 21 latent
+# frames split 11 | 10, 777 video and 782 geometry tokens a frame
+MESH_ATTENTIONS = [
+    # name, (B, H, D), (q tokens a frame, k tokens a frame)
+    ("dit_self", (2, 40, 128), (777, 777)),
+    ("bicross_video_to_geometry", (2, 12, 96), (777, 782)),
+    ("vggt_global", (2, 16, 64), (782, 782)),
+]
+
+
+def mesh_attention_calls(dev, axis, reps):
+    """Each MESH_ATTENTIONS shape through Ulysses and the ring over the
+    ranks of ``axis`` (the 21 frames split over them), the whole inputs
+    drawn from one seed on every rank. Rank 0 returns one row per call:
+    the gathered output's error against the one-process kernel on the same
+    inputs, and both times (host clock around a synchronised call, after
+    every rank met at a barrier)."""
+    import torch
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import ring, sharding, ulysses
+    frames = sharding.even_split(21, axis)
+    out = []
+    for name, (B, H, D), (tq, tk) in MESH_ATTENTIONS:
+        g = torch.Generator(device=dev).manual_seed(11)
+        qs, ks = frames.scaled(tq), frames.scaled(tk)
+        q = torch.randn((B, qs.length, H, D), generator=g, device=dev
+                        ).bfloat16()
+        k, v = (torch.randn((B, ks.length, H, D), generator=g, device=dev
+                            ).bfloat16() for _ in range(2))
+        ql, kl, vl = qs.take(q), ks.take(k), ks.take(v)
+        ref = fa.flash_attention(q, k, v) if axis.index == 0 else None
+        for method in ("ulysses", "ring"):
+            def call():
+                if method == "ulysses":
+                    return ulysses.ulysses_attention(ql, kl, vl, q_split=qs,
+                                                     kv_split=ks)
+                return ring.ring_attention(ql, kl, vl, kv_split=ks)
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                dist.barrier(group=axis.group)
+                t0 = time.perf_counter()
+                o = call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            whole = qs.gather(o)
+            if axis.index == 0:
+                out.append({"shape": name, "method": method,
+                            "max_abs_err": _max_err(whole, ref),
+                            "err_bound": out_tol(ref),
+                            "ms": float(np.median(times))})
+            del o, whole
+        if axis.index == 0:
+            ms = time_ms(lambda: fa.flash_attention(q, k, v), reps)
+            for row in out[-2:]:
+                row["one_process_ms"] = ms
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_norm_check(dev, axis, tokens=16317):
+    """The DiT's q/k RMS norm as its blocks call it on a column split
+    (``models/wan/dit.py:_norm``: the sums of squares summed over the model
+    group), at the DiT self shape (2, tokens, 5120) in bf16 with columns of
+    scale 0.5 to 2 (a projection's channels differ in size), this rank's
+    columns gathered, against the one-process norm: (max abs error, its
+    bound). The bound is OUT_RTOL of the largest value, a few bf16 ulps
+    there: the two sides sum the squares in another order, and a rounding
+    may flip. A norm taken over each rank's own columns is off by tens of
+    percent here. Whole-model denoise checks cannot see that fault: a
+    random model's 2-step denoise amplifies every rounding difference
+    to a few 1e-2, and the wrong norm lands there too."""
+    import torch
+    from fantasy_world_tpu_torch.models.wan import dit
+    from fantasy_world_tpu_torch.ops.norms import rms_norm
+    from fantasy_world_tpu_torch.parallel import sharding
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn((2, tokens, 5120), generator=g, device=dev)
+         * torch.linspace(0.5, 2.0, 5120, device=dev)).bfloat16()
+    w = (1 + 0.1 * torch.randn(5120, generator=g, device=dev)).bfloat16()
+    ref = rms_norm(x, w, 1e-6)
+    got = sharding.gather_columns(
+        dit._norm(sharding.local_columns(x, axis), w, 1e-6, axis), axis)
+    return _max_err(got, ref), OUT_RTOL * ref.float().abs().max().item()
+
+
+def _mesh_attention_rank(rank, reps):
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    axis = sharding.Axis(dist.group.WORLD, dist.get_world_size(), rank)
+    err, bound = mesh_norm_check(dev, axis)
+    _rank_record(rank, calls=mesh_attention_calls(dev, axis, reps),
+                 norm={"max_abs_err": err, "err_bound": bound})
+
+
+def mesh_fusion_config(depth=None):
+    """FusionConfig() at full width; ``depth`` (layers, start index) cuts
+    the DiT and the VGGT stack to that many blocks, the DPT taps scaled
+    onto the cut stack."""
+    from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
+    cfg = FusionConfig()
+    if depth is None:
+        return cfg
+    import dataclasses
+    layers, si = depth
+    n_irg = layers - si
+    # the DPT taps scaled onto the cut stack (23, 17, 11, 7 of 24 -> 3, 2,
+    # 1, 1 of 4)
+    last = len(range(cfg.num_irg)) - 1
+    taps = tuple(round(i * (n_irg - 1) / last)
+                 for i in cfg.vggt.dpt_layer_idx)
+    vggt = dataclasses.replace(
+        cfg.vggt, dpt_layer_idx=taps,
+        aggregator=dataclasses.replace(cfg.vggt.aggregator, depth=n_irg))
+    return dataclasses.replace(
+        cfg, dit=dataclasses.replace(cfg.dit, num_layers=layers),
+        vggt=vggt, start_index=si)
+
+
+MESH_GEOMETRY = (336, 592, 81)
+MESH_STEPS = 2
+
+
+def mesh_denoise(device, cfg, seed, mesh=None, ulysses=False):
+    """Build the fusion model and the pose encoder on the card from
+    ``seed`` (sharded over ``mesh``), then the ``MESH_STEPS``-step denoise
+    with the heads on the full width's conditioning. Returns (latents,
+    prediction | None, seconds per step, peak GB, launches)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import (
+        CameraPoseEncoder, CameraPoseEncoderConfig)
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    height, width, frames = MESH_GEOMETRY
+    g = torch.Generator(device=device).manual_seed(seed)
+    fusion = build(lambda: FusionModel(cfg), device=device,
+                   dtype=torch.bfloat16, generator=g, mesh=mesh)
+    pose = build(lambda: CameraPoseEncoder(CameraPoseEncoderConfig()),
+                 device=device, dtype=torch.bfloat16, generator=g)
+    pipe = FantasyWorldPipeline(fusion, pose)
+    cond = conditioning(cfg.dit, height, width, frames,
+                        torch.Generator("cpu").manual_seed(seed), 512)
+    pl = pipe.encode_plucker(cond[4])
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(MESH_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    events[0].record()
+    kw = {} if mesh is None else {"mesh": mesh, "ulysses": ulysses}
+    lat, pred = pipe.denoise(*cond[:4], height, width, num_frames=frames,
+                             num_inference_steps=MESH_STEPS, seed=seed,
+                             plucker_fea=pl,
+                             progress_callback=lambda i, n: events[i].record(),
+                             **kw)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    steps = [events[i].elapsed_time(events[i + 1]) / 1e3
+             for i in range(MESH_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return lat, pred, steps, peak, launches
+
+
+def _full_mesh_rank(rank, shape, ulysses, depth, seed):
+    import torch
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    cfg = mesh_fusion_config(depth)
+    mesh = sharding.make_mesh(*shape)
+    lat, pred, steps, peak, launches = mesh_denoise(dev, cfg, seed, mesh,
+                                                    ulysses)
+    if rank == 0:
+        got = check_outputs(cfg, lat, pred, *MESH_GEOMETRY)
+        torch.save({k: v.float().cpu() for k, v in got.items()},
+                   os.path.join(MESH_DIR, "outputs.pt"))
+    _rank_record(rank, steps=steps, peak_gb=peak, launches=launches)
+
+
+def phase_full_mesh(device, seed=1024):
+    """At full width on ranks sharing this card: the q/k norm on a column
+    split (``mesh_norm_check``), Ulysses and the ring as direct calls at
+    the DiT self, bicross and VGGT global shapes (2 ranks) against the
+    one-process kernel; then the 2-step denoise with the heads
+    at (1, 1, 2), all 40 blocks, and at (1, 2, 1) with Ulysses at 4 + 4
+    blocks, each against the same seeded model and inputs run in one
+    process on the card. Returns the denoise runs' launches, all ranks
+    summed."""
+    import torch
+    t0 = time.perf_counter()
+    records = mesh_run(_mesh_attention_rank, 2, 3)
+    for row in records[0]["calls"]:
+        say("full_mesh_attention", ranks=2, **{
+            k: (f"{v:.3e}" if k in ("max_abs_err", "err_bound") else
+                f"{v:.3f}" if isinstance(v, float) else v)
+            for k, v in row.items()})
+        if not row["max_abs_err"] <= row["err_bound"]:
+            raise AssertionError(f"full_mesh {row['shape']} "
+                                 f"{row['method']}: {row['max_abs_err']} > "
+                                 f"{row['err_bound']}")
+    norm = records[0]["norm"]
+    say("full_mesh_norm", ranks=2, shape="2x16317x5120",
+        max_abs_err=f"{norm['max_abs_err']:.3e}",
+        err_bound=f"{norm['err_bound']:.3e}")
+    if not norm["max_abs_err"] <= norm["err_bound"]:
+        raise AssertionError(f"full_mesh q/k norm on a column split: "
+                             f"{norm['max_abs_err']} > {norm['err_bound']}")
+    say("full_mesh_attention_phase", seconds=f"{time.perf_counter() - t0:.2f}")
+    total = {}
+    height, width, frames = MESH_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    for shape, uly, depth in (((1, 1, 2), False, None),
+                              ((1, 2, 1), True, MESH_ULYSSES_DEPTH)):
+        t0 = time.perf_counter()
+        cfg = mesh_fusion_config(depth)
+        lat, pred, ref_steps, ref_peak, _ = mesh_denoise(device, cfg, seed)
+        ref = {k: v.float().cpu() for k, v in check_outputs(
+            cfg, lat, pred, height, width, frames).items()}
+        del lat, pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        world = int(np.prod(shape))
+        records = mesh_run(_full_mesh_rank, world, shape, uly, depth, seed)
+        got = torch.load(os.path.join(MESH_DIR, "outputs.pt"))
+        errs = {k: ((got[k] - r).norm() / r.norm().clamp_min(1e-12)).item()
+                for k, r in ref.items()}
+        launch_err = [r for r in range(world) if records[r]["launches"]
+                      != mesh_launches(cfg, fhw, shape,
+                                       MESH_MODES["full", shape, uly],
+                                       MESH_STEPS, r, 512)]
+        say("full_mesh", mesh="x".join(map(str, shape)), ulysses=uly,
+            blocks=f"{cfg.start_index}+{cfg.num_irg}", ranks=world,
+            one_process_step_seconds="|".join(f"{s:.3f}" for s in ref_steps),
+            one_process_peak_gb=f"{ref_peak:.2f}",
+            rank_step_seconds="|".join(
+                "/".join(f"{s:.3f}" for s in r["steps"]) for r in records),
+            rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in records),
+            mesh_seconds=f"{time.perf_counter() - t1:.2f}",
+            seconds=f"{time.perf_counter() - t0:.2f}",
+            card_vs_one_process_rel_l2=json.dumps(
+                {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
+                    " ", ""),
+            rank0_launches=_nonzero(records[0]["launches"]))
+        bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+        if bad:
+            raise AssertionError(f"full_mesh {shape}: beyond {SLICE_TOL} of "
+                                 f"the one-process run: {bad}")
+        if launch_err:
+            raise AssertionError(
+                f"full_mesh {shape}: ranks {launch_err} launched "
+                f"{[records[r]['launches'] for r in launch_err]}")
+        for r in records:
+            total = _add(total, r["launches"])
+    return total
 
 
 def phase_full_slice(device, steps=3, seed=1024, profile_dir=None):
@@ -4138,7 +4744,7 @@ def main(argv=None) -> int:
     per_kernel = phase_kernels(device)
     phase_train_kernels(device, per_kernel)
     phase_qlinear(device)
-    phase_small_slice(device)
+    small_cpu = phase_small_slice(device)
     phase_small_windowed(device)
     phase_small_clip(device)
     phase_small_wan22(device)
@@ -4150,6 +4756,11 @@ def main(argv=None) -> int:
     phase_small_verify()
     phase_small_track(device)
     phase_small_options(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the mesh phases: ranks that share the card, before the full model
+    # takes it
+    mesh = _add(phase_small_mesh(device, small_cpu), phase_full_mesh(device))
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
@@ -4196,8 +4807,10 @@ def main(argv=None) -> int:
             "launches": (denoise[k] + windowed[k] + clip_run[k] + serve[k]
                          + train[f"{k}_stats"] + data_train[k]
                          + data_train[f"{k}_stats"] + wan22[k] + quant[k]
-                         + ti2v[k] + verify[k] + track[k] + options[k]),
+                         + ti2v[k] + verify[k] + track[k] + options[k]
+                         + mesh.get(k, 0) + mesh.get(f"{k}_stats", 0)),
             "denoise_launches": denoise[k],
+            "mesh_launches": mesh.get(k, 0) + mesh.get(f"{k}_stats", 0),
             "verify_launches": verify[k],
             "track_launches": track[k],
             "options_launches": options[k],
@@ -4209,7 +4822,8 @@ def main(argv=None) -> int:
             "wan22_int8_step_launches": quant[k],
             "ti2v_clip_launches": ti2v[k],
             "launches_per_denoise_step": per_step[k],
-            "stats_launches": train[f"{k}_stats"] + data_train[f"{k}_stats"],
+            "stats_launches": (train[f"{k}_stats"] + data_train[f"{k}_stats"]
+                               + mesh.get(f"{k}_stats", 0)),
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
             "stats_ms": pk["stats_ms"],
@@ -4224,9 +4838,11 @@ def main(argv=None) -> int:
         "sources": sorted(set(SOURCES.values())),
         "replaces": f"{JAX_FA}:102",
         "launches": sum(train[f"{k}_stats"] + data_train[f"{k}_stats"]
-                        for k in fa.ROUTES),
+                        + mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
         "launches_by_route": {k: train[f"{k}_stats"]
-                              + data_train[f"{k}_stats"] for k in fa.ROUTES},
+                              + data_train[f"{k}_stats"]
+                              + mesh.get(f"{k}_stats", 0) for k in fa.ROUTES},
+        "mesh_launches": sum(mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
         "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
                            for k in fa.ROUTES),
         "ms": pk["stats_ms"], "plain_ms": pk["stats_plain_ms"],

@@ -25,9 +25,20 @@ its plan picks; ``--segment_size`` runs the denoise in segments with a
 progress line after each, and ``--gen_ckpt_path`` writes the partial state
 there after each segment, so that a run cut short resumes from it.
 ``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of the
-generation (conditioning, denoise, decode) to ``D/trace.json``. The flags
-of options not ported yet (``--mesh_*``, ``--ulysses``) end the run with
-the flag's name when set.
+generation (conditioning, denoise, decode) to ``D/trace.json``.
+
+Multi-GPU: ``--mesh_data D --mesh_seq S --mesh_model M [--ulysses true]``
+under torchrun, one process per rank (NCCL, one card each; gloo with
+``--device cpu``)::
+
+    torchrun --nproc_per_node 4 -m fantasy_world_tpu_torch.cli.infer_wan21 \
+        --mesh_seq 2 --mesh_model 2 --ulysses true ...
+
+The CFG pair splits over D, the latent frames over S, the DiT's heads and
+FFN over M (``parallel/sharding.py``); ``--ulysses`` re-shards the long
+attentions over S (``parallel/ulysses.py``). Rank 0 encodes, decodes and
+writes the outputs. A mesh does not combine with ``--quant`` or
+``--tea_cache_l1_thresh`` yet, and ``--ulysses`` needs ``--mesh_seq`` > 1.
 """
 from __future__ import annotations
 
@@ -37,9 +48,12 @@ import os
 import sys
 import time
 
-# flag -> the value that leaves the option off; anything else is refused
-NOT_PORTED = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
+# the mesh flags -> the values that leave the mesh off; the CLIs whose
+# multi-GPU path comes later refuse anything else
+MESH_FLAGS = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
               "ulysses": False}
+MESH_LATER = ("the multi-GPU path of this CLI is a later slice of the "
+              "port (ROADMAP queue A item 5(a))")
 
 
 def str2bool(v):
@@ -88,11 +102,17 @@ def parse_args(argv=None):
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
     add_serving_args(p)
-    g = p.add_argument_group("not ported yet (setting one exits)")
-    g.add_argument("--mesh_data", type=int, default=1)
-    g.add_argument("--mesh_seq", type=int, default=1)
-    g.add_argument("--mesh_model", type=int, default=1)
-    g.add_argument("--ulysses", type=str2bool, default=False)
+    g = p.add_argument_group("multi-GPU (under torchrun, one process per "
+                             "rank)")
+    g.add_argument("--mesh_data", type=int, default=1,
+                   help="ranks the CFG pair splits over")
+    g.add_argument("--mesh_seq", type=int, default=1,
+                   help="ranks the latent frames split over")
+    g.add_argument("--mesh_model", type=int, default=1,
+                   help="ranks the DiT's heads and FFN split over")
+    g.add_argument("--ulysses", type=str2bool, default=False,
+                   help="re-shard the long attentions over the seq ranks "
+                        "(all-to-all) instead of gathering their keys")
     return p.parse_args(argv)
 
 
@@ -141,16 +161,16 @@ def serving_kwargs(args) -> dict:
             "progress_callback": progress_printer(args)}
 
 
-def check_common(args, missing, not_ported=NOT_PORTED) -> None:
-    """Exit (SystemExit, naming the cause) for a flag of an option that is
-    not ported (``not_ported``: flag -> its off value), a missing MoGe
-    checkpoint, missing checkpoint files (``missing``), and ``--device
-    cuda`` without a card."""
+def check_common(args, missing, not_ported=None) -> None:
+    """Exit (SystemExit, naming the cause) for a mesh flag of a CLI whose
+    multi-GPU path is not ported (``not_ported``: flag -> its off value),
+    a missing MoGe checkpoint, missing checkpoint files (``missing``), and
+    ``--device cuda`` without a card."""
     import torch
 
-    for flag, off in not_ported.items():
+    for flag, off in (not_ported or {}).items():
         if getattr(args, flag) != off:
-            raise SystemExit(f"--{flag}: not ported yet")
+            raise SystemExit(f"--{flag}: not ported yet: {MESH_LATER}")
     if args.moge_ckpt is not None and not os.path.isfile(args.moge_ckpt):
         raise SystemExit(f"--moge_ckpt: no MoGe checkpoint at "
                          f"{args.moge_ckpt}")
@@ -173,8 +193,39 @@ def resolve_layout(args, preset: str, attr: str = "wan_ckpt_path") -> list:
         return [str(e)]
 
 
+def mesh_shape(args):
+    return args.mesh_data, args.mesh_seq, args.mesh_model
+
+
+def check_mesh(args) -> None:
+    """Exit for a mesh that cannot run: ``--ulysses`` without seq ranks,
+    a mesh with an option it does not combine with yet, or a process
+    count that is not the mesh's."""
+    shape = mesh_shape(args)
+    if args.ulysses and args.mesh_seq == 1:
+        raise SystemExit("--ulysses: re-shards attention over the seq "
+                         "ranks; give --mesh_seq > 1")
+    n = shape[0] * shape[1] * shape[2]
+    if n == 1:
+        return
+    for flag in ("quant", "tea_cache_l1_thresh"):
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag} with a mesh: comes with a later "
+                             f"slice of the port (ROADMAP queue A item "
+                             f"5(a))")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        first = next(f for f, v in zip(("mesh_data", "mesh_seq",
+                                        "mesh_model"), shape) if v > 1)
+        raise SystemExit(f"--{first}: a {shape[0]}x{shape[1]}x{shape[2]} "
+                         f"mesh needs {n} processes, one per rank: launch "
+                         f"with torchrun --nproc_per_node {n} (WORLD_SIZE "
+                         f"is {world})")
+
+
 def check_args(args) -> None:
     from ..convert.checkpoint import missing_files
+    check_mesh(args)
     missing = resolve_layout(args, "Wan2.1-I2V-14B-480P")
     check_common(args, missing + missing_files(args.wan_ckpt_path,
                                                args.model_ckpt))
@@ -182,7 +233,27 @@ def check_args(args) -> None:
 
 def run(args) -> dict:
     """The clip; returns {"frames", "prediction", "video": path written,
-    "ply": path written}."""
+    "ply": path written} (all None on a mesh rank other than 0)."""
+    import torch
+
+    check_args(args)
+    mesh = None
+    device = torch.device(args.device)
+    if max(mesh_shape(args)) > 1:
+        from ..parallel import distributed, sharding
+        distributed.initialize(device)
+        device = distributed.rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh = sharding.make_mesh(*mesh_shape(args))
+    result = _generate(args, device, mesh)
+    if mesh is not None:
+        # not on a failure: torchrun ends the other ranks
+        distributed.shutdown()
+    return result
+
+
+def _generate(args, device, mesh) -> dict:
     import torch
 
     from ..core.quant import count_quantized
@@ -190,8 +261,7 @@ def run(args) -> dict:
     from ..sampler import FantasyWorldSampler, read_image
     from ..utils.observability import profile_trace
 
-    check_args(args)
-    device = torch.device(args.device)
+    lead = mesh is None or mesh.rank == 0
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     with open(args.camera_json_path) as fh:
         cameras = cameras_json_to_camera_list(
@@ -200,21 +270,29 @@ def run(args) -> dict:
         args.wan_ckpt_path, args.model_ckpt, device=device, dtype=dtype,
         tokenizer_path=args.tokenizer_path, moge_ckpt=args.moge_ckpt,
         quant=args.quant)
+    if mesh is not None:
+        sampler.pipe.shard(mesh)
     if args.quant:
         print(f"[quant] {args.quant}: "
               f"{count_quantized(sampler.pipe.fusion)} linears")
-    image = read_image(args.image_path)
+    image = read_image(args.image_path) if lead else None
     t0 = time.perf_counter()
-    with profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir if lead else None):
         video, prediction = sampler.generate_video(
             prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
             camera_params=cameras, using_scale=args.using_scale,
             seed=args.seed, height=args.height, width=args.width,
             num_frames=args.frames, sample_steps=args.sample_steps,
-            **serving_kwargs(args))
+            mesh=mesh, ulysses=args.ulysses, **serving_kwargs(args))
+    if not lead:
+        return {"frames": None, "prediction": None, "video": None,
+                "ply": None}
     dt = time.perf_counter() - t0
+    where = args.device if mesh is None else (
+        f"{mesh.world} ranks ({'x'.join(map(str, mesh.shape))} mesh) on "
+        f"{args.device}")
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
-          f"({dt / args.sample_steps:.2f} s/step) on {args.device}")
+          f"({dt / args.sample_steps:.2f} s/step) on {where}")
     paths = sampler.export(video, prediction, args.output_dir, fps=args.fps,
                            conf_threshold=args.conf_threshold,
                            stride=args.stride)

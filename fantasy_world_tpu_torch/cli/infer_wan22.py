@@ -20,9 +20,9 @@ disk as in ``cli/infer_wan21.py``; ``--auto_download`` has no effect.
 boundary) and ``--gen_ckpt_path`` work as in ``cli/infer_wan21.py``; both
 experts are quantized the same way, each on the card, before the low one
 is pinned in host memory. ``--profile_dir`` writes a ``torch.profiler``
-trace of the generation, as in ``cli/infer_wan21.py``. The flags of
-options not ported yet (``--mesh_*``, ``--ulysses``) end the run with the
-flag's name when set.
+trace of the generation, as in ``cli/infer_wan21.py``. The mesh flags
+(``--mesh_*``, ``--ulysses``) end the run with the flag's name when set:
+this CLI's multi-GPU path is a later slice (ROADMAP queue A item 5(a)).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import json
 import sys
 import time
 
-from .infer_wan21 import (add_serving_args, check_common, resolve_layout,
+from .infer_wan21 import (MESH_FLAGS, add_serving_args, check_common,
+                          resolve_layout,
                           serving_kwargs,
                           str2bool)
 
@@ -70,7 +71,8 @@ def parse_args(argv=None):
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
     add_serving_args(p)
-    g = p.add_argument_group("not ported yet (setting one exits)")
+    g = p.add_argument_group("multi-GPU: a later slice (setting one "
+                             "exits)")
     g.add_argument("--mesh_data", type=int, default=1)
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
@@ -82,7 +84,8 @@ def check_args(args) -> None:
     from ..convert.checkpoint import missing_files_wan22
     missing = resolve_layout(args, "Wan2.2-Fun-A14B-Control-Camera")
     check_common(args, missing + missing_files_wan22(
-        args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low))
+        args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low),
+        MESH_FLAGS)
 
 
 def run(args) -> dict:

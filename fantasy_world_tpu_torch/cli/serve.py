@@ -27,7 +27,8 @@ required (``--model_ckpt``, or ``--model_ckpt_high`` and
 files end the run. ``--quant`` quantizes the denoiser once at start-up;
 ``--segment_size`` makes each batch report its progress on
 ``GET /v1/jobs/<id>``; a request's ``tea_cache_l1_thresh`` turns TeaCache
-on for its batch. ``--mesh_*`` and ``--ulysses`` are not ported and exit.
+on for its batch. ``--mesh_*`` and ``--ulysses`` exit: the server's
+multi-GPU path is a later slice (ROADMAP queue A item 5(a)).
 The CUDA allocator runs on expandable segments unless
 ``PYTORCH_CUDA_ALLOC_CONF`` says otherwise (``serving/server.py:
 expandable_segments``).
@@ -42,10 +43,7 @@ import sys
 
 import numpy as np
 
-from .infer_wan21 import check_common, resolve_layout, str2bool
-
-NOT_PORTED = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
-              "ulysses": False}
+from .infer_wan21 import MESH_FLAGS, check_common, resolve_layout, str2bool
 
 
 def parse_args(argv=None):
@@ -101,7 +99,8 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
-    g = p.add_argument_group("not ported yet (setting one exits)")
+    g = p.add_argument_group("multi-GPU: a later slice (setting one "
+                             "exits)")
     g.add_argument("--mesh_data", type=int, default=1)
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_model", type=int, default=1)
@@ -262,7 +261,7 @@ def load_sampler(args):
                             args.model_ckpt_low)
         if args.variant == "wan22" else
         missing_files(args.ckpt_dir, args.model_ckpt))
-    check_common(args, missing, NOT_PORTED)
+    check_common(args, missing, MESH_FLAGS)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     kw = dict(device=device, dtype=dtype, tokenizer_path=args.tokenizer_path,

@@ -37,7 +37,8 @@ The encoders stay on the card beside the fusion model. LoRA is what fits
 one 80 GB card at full width: full fine-tuning of the 18.5B model holds
 ~37 GB of bf16 weights, as much again in gradients and ~148 GB of f32
 AdamW moments, and runs out of memory. ``--pipe_stages`` and mesh axes
-above 1 come with the multi-GPU slice and exit.
+above 1 exit: the mesh trainer and the pipeline-parallel one are later
+multi-GPU slices (ROADMAP queue A items 5(b) and 5(c)).
 """
 from __future__ import annotations
 
@@ -268,14 +269,16 @@ def _data_batches(pipe, args, start: int = 0, stage_callback=None):
 
 
 def _check_args(args) -> None:
-    """SystemExit for the modes that the multi-GPU slice brings, and for a
-    real-data run without its paths or clips."""
+    """SystemExit for the modes that later multi-GPU slices bring, and for
+    a real-data run without its paths or clips."""
     if args.pipe_stages > 0:
-        raise SystemExit("--pipe_stages: the pipeline-parallel trainer "
-                         "comes with the multi-GPU slice of the port")
+        raise SystemExit("--pipe_stages: the pipeline-parallel trainer is a "
+                         "later multi-GPU slice of the port (ROADMAP queue "
+                         "A item 5(c))")
     if max(args.mesh_data, args.mesh_seq, args.mesh_model) > 1:
-        raise SystemExit("--mesh_data/--mesh_seq/--mesh_model > 1: meshes "
-                         "come with the multi-GPU slice of the port")
+        raise SystemExit("--mesh_data/--mesh_seq/--mesh_model > 1: the mesh "
+                         "trainer is a later multi-GPU slice of the port "
+                         "(ROADMAP queue A item 5(b))")
     if args.synthetic:
         return
     if not (args.wan_ckpt_path and args.model_ckpt and args.data_root):

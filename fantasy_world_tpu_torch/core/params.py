@@ -51,16 +51,33 @@ class RMSNorm(nn.Module):
 # model-specific inits of the JAX package
 # ---------------------------------------------------------------------------
 
+def _fill_whole(t: torch.Tensor, fill: Callable) -> None:
+    """``fill(t)``; for a mesh rank's part of a tensor (``t.part_of`` =
+    (dim, index, parts), ``parallel/sharding.py:shard_module_``) the whole
+    tensor is drawn and the part kept, so a seeded sharded build draws what
+    the unsharded one does."""
+    part = getattr(t, "part_of", None)
+    if part is None:
+        fill(t)
+        return
+    dim, index, parts = part
+    shape = list(t.shape)
+    shape[dim] *= parts
+    whole = t.new_empty(shape)
+    fill(whole)
+    t.copy_(whole.chunk(parts, dim)[index])
+
+
 @torch.no_grad()
 def uniform_fan_in_(weight: torch.Tensor, fan_in: int,
                     generator: torch.Generator) -> None:
     s = 1.0 / math.sqrt(fan_in)
-    weight.uniform_(-s, s, generator=generator)
+    _fill_whole(weight, lambda t: t.uniform_(-s, s, generator=generator))
 
 
 @torch.no_grad()
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    t.normal_(0.0, std, generator=generator)
+    _fill_whole(t, lambda w: w.normal_(0.0, std, generator=generator))
 
 
 @torch.no_grad()
@@ -90,20 +107,27 @@ def init_params_(root: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build(make: Callable[[], nn.Module], *, device, dtype: torch.dtype,
-          generator: Optional[torch.Generator] = None) -> nn.Module:
+          generator: Optional[torch.Generator] = None,
+          mesh=None) -> nn.Module:
     """Construct ``make()`` on the meta device, cast it to ``dtype`` (the
     submodules a module lists in ``fp32_children`` stay float32), allocate
     it directly on ``device`` and, given a generator, initialise it there.
     Nothing is materialised on the host: the 14B model is built in place on
     the card. Without a generator the parameters are uninitialised, for a
-    ``load_state_dict`` to fill."""
+    ``load_state_dict`` to fill. With a ``mesh`` the module's ``shard`` runs
+    on the meta device first, so a rank allocates only its parts, and the
+    seeded init gives each part the values of the unsharded build."""
     with torch.device("meta"):
         module = make()
     module = module.to(dtype)
     for m in module.modules():
         for name in getattr(m, "fp32_children", ()):
             getattr(m, name).float()
+    if mesh is not None:
+        module.shard(mesh)
     module = module.to_empty(device=device)
+    for name, part in getattr(module, "param_parts", {}).items():
+        module.get_parameter(name).part_of = part
     if generator is not None:
         init_params_(module, generator)
     return module

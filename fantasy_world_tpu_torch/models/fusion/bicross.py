@@ -91,10 +91,12 @@ class Bicross(nn.Module):
         self.gamma_m2.data.zero_()
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                rope_dit: Tuple, rope_agg: Tuple
+                rope_dit: Tuple, rope_agg: Tuple, splits=(None, None)
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``bicross_apply``: x1 (B, L1, m1) DiT tokens, x2 (B, L2, m2)
-        aggregator tokens -> the gated-residual-updated streams."""
+        aggregator tokens -> the gated-residual-updated streams.
+        ``splits``: the two streams' token splits over the seq group."""
+        s1, s2 = splits
         n, ca = self.cfg.num_heads, self.cross_attn
         B = x1.shape[0]
         x1n = layer_norm(x1, eps=1e-6)
@@ -105,8 +107,8 @@ class Bicross(nn.Module):
                                      *rope_agg)
         v1 = _heads(linear(x1n, ca.values_m1_proj), n)
         v2 = _heads(linear(x2n, ca.values_m2_proj), n)
-        o1 = dot_product_attention(q, k, v2)
-        o2 = dot_product_attention(k, q, v1)
+        o1 = dot_product_attention(q, k, v2, q_split=s1, kv_split=s2)
+        o2 = dot_product_attention(k, q, v1, q_split=s2, kv_split=s1)
         dx1 = linear(o1.reshape(B, -1, self.cfg.hidden), ca.out_m1_proj)
         dx2 = linear(o2.reshape(B, -1, self.cfg.hidden), ca.out_m2_proj)
         return self._gated(x1, x2, dx1, dx2)

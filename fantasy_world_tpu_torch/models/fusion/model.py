@@ -15,6 +15,16 @@ the backward.
 
 State-dict layout: ``dit.*`` (WanModel names), ``vggt.*`` (VGGT names, the
 IRG global blocks in ``vggt.aggregator.global_blocks``), ``bicross.{i}.*``.
+
+On a mesh (``parallel/sharding.py``; ``shard`` splits the DiT over the
+model axis) ``joint_forward(mesh=...)`` takes the whole inputs on every
+rank and returns the whole noise prediction on every rank: each rank runs
+its rows of the batch ('data', where it divides) and its latent frames
+('seq') of both token streams through the prologue's output, the block
+stack and the DiT head; the long attentions gather or re-shard their keys
+(``ulysses``), and the head's tokens and the intermediates the geometry
+heads read are gathered after. The geometry heads run on rank 0 alone,
+which gets the prediction (None elsewhere).
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops import rope as rope_ops
+from ...parallel import sharding
 from ..vggt.model import VGGT, VGGTConfig
 from ..wan.dit import WanDiT, WanDiTConfig
 from .bicross import Bicross, BicrossConfig
@@ -69,6 +80,25 @@ class FusionModel(nn.Module):
         self.bicross = nn.ModuleList([Bicross(cfg.bicross)
                                       for _ in range(cfg.num_irg)])
 
+    def shard(self, mesh) -> "FusionModel":
+        """Keep this rank's column / row parts of the DiT's projections
+        (``sharding.PARAM_RULES``) and give the blocks the model group; in
+        place, on any device (the meta device included), once (a model
+        built sharded, ``core.params.build(mesh=...)``, is left as it is).
+        The heads and the FFN width must divide by the model axis."""
+        axis = mesh.axis("model")
+        if axis.size == 1 or self.dit.blocks[0].tp is not None:
+            return self
+        dcfg = self.cfg.dit
+        if dcfg.num_heads % axis.size or dcfg.ffn_dim % axis.size:
+            raise ValueError(f"{dcfg.num_heads} heads and an FFN of "
+                             f"{dcfg.ffn_dim} do not split over "
+                             f"{axis.size} model ranks")
+        sharding.shard_module_(self, mesh)
+        for blk in self.dit.blocks:
+            blk.set_tensor_parallel(axis)
+        return self
+
     def forward_prologue(self, latents, timestep, context, clip_feature, y,
                          control_tokens=None):
         """Embeddings, patchify (plus the control-camera tokens) and the
@@ -96,11 +126,15 @@ class FusionModel(nn.Module):
     def run_stack(self, x, ctx, t_mod, timestep, ropes, rope_bi_dit,
                   rope_bi_agg, fhw, plucker_fea, collect_inters: bool,
                   remat: bool = False, camera_token=None,
-                  uncond: bool = False):
+                  uncond: bool = False, frames=None, inter_layers=None):
         """PCB prefix, geometry branch input, interleaved IRG loop. Returns
         (x, per-layer (B, S, P, 2C) intermediates | None).
         ``camera_token``: pose encodings for the geometry stream's camera
-        slots; ``uncond``: the IRG blocks skip their bicross coupling."""
+        slots; ``uncond``: the IRG blocks skip their bicross coupling.
+        ``frames``: the latent frames' split over the seq group (x, the
+        tables and the Plucker features then hold this rank's frames, and
+        fhw its frame count); ``inter_layers``: the layers whose
+        intermediates are kept (all when None; the others are None)."""
         cfg = self.cfg
         f, h, w = fhw
         B = x.shape[0]
@@ -117,18 +151,24 @@ class FusionModel(nn.Module):
                 "adaln, or the standalone WanDiT")
         blocks = self.dit.blocks
         si = cfg.start_index
+        psi = cfg.vggt.aggregator.patch_start_idx
+        s_dit = s_agg = None
+        if frames is not None:
+            s_dit, s_agg = frames.scaled(h * w), frames.scaled(h * w + psi)
 
         for i in range(si):
             x = _run(functools.partial(
                 blocks[i], context=ctx, t_mod=t_mod, rope_cos=cos_d,
                 rope_sin=sin_d, plucker_fea=plucker_fea,
-                apply_pose=apply_pose and cfg.dit.has_adapter(i)),
-                x, remat=remat)
+                apply_pose=apply_pose and cfg.dit.has_adapter(i),
+                seq=s_dit), x, remat=remat)
 
         agg = self.vggt.aggregator
         patch_tokens, e0 = self.vggt.process_wan_input(
             x.view(B, f, h, w, cfg.dit.dim), timestep)
-        tokens, pos = agg.assemble_tokens(patch_tokens, camera_token)
+        tokens, pos = agg.assemble_tokens(
+            patch_tokens, camera_token,
+            None if frames is None else (frames.start, frames.length))
         S = f
         P, C = tokens.shape[-2:]
         bcfg = cfg.vggt.aggregator.block_cfg
@@ -151,19 +191,22 @@ class FusionModel(nn.Module):
             if i in xattn:
                 x, mod_dit = dblk.attn_half(x, ctx, t_mod, cos_d, sin_d,
                                             plucker_fea=plucker_fea,
-                                            apply_pose=has_ad)
-                x_agg, mod_agg = gblk.attn_half(x_agg, rope_g, e0)
+                                            apply_pose=has_ad, seq=s_dit)
+                x_agg, mod_agg = gblk.attn_half(x_agg, rope_g, e0, s_agg)
                 if not uncond:
                     x, x_agg = self.bicross[i](x, x_agg, rope_bi_dit,
-                                               rope_bi_agg)
+                                               rope_bi_agg, (s_dit, s_agg))
                 x = dblk.ffn_half(x, mod_dit)
                 x_agg = gblk.ffn_half(x_agg, mod_agg)
             else:
                 x = dblk(x, ctx, t_mod, cos_d, sin_d,
-                         plucker_fea=plucker_fea, apply_pose=has_ad)
-                x_agg = gblk(x_agg, rope_g, e0)
+                         plucker_fea=plucker_fea, apply_pose=has_ad,
+                         seq=s_dit)
+                x_agg = gblk(x_agg, rope_g, e0, s_agg)
+            keep = collect_inters and (inter_layers is None
+                                       or i in inter_layers)
             inter = (torch.cat([frame_inter, x_agg.view(B, S, P, C)], dim=-1)
-                     if collect_inters else None)
+                     if keep else None)
             return x, x_agg, inter
 
         inters: List[torch.Tensor] = []
@@ -177,7 +220,7 @@ class FusionModel(nn.Module):
     def joint_forward(self, latents, timestep, context, clip_feature=None,
                       y=None, plucker_fea=None, return_prediction=False,
                       remat=False, control_tokens=None, camera_token=None,
-                      uncond: bool = False):
+                      uncond: bool = False, mesh=None, ulysses: bool = False):
         """One denoise evaluation. latents (B, 16, f, h', w'); timestep
         (B,); context (B, 512, text_dim); clip_feature (B, 257, 1280);
         y (B, 20, f, h', w'); plucker_fea (B, L, plucker_dim);
@@ -187,21 +230,58 @@ class FusionModel(nn.Module):
         slots (``Aggregator.assemble_tokens``); ``uncond``: the IRG blocks
         run without their bicross coupling.
         Returns (noise_pred (B, 16, f, h', w'), prediction dict | None).
-        ``remat``: recompute each block on the backward pass."""
-        (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
-            self.forward_prologue(latents, timestep, context, clip_feature, y,
-                                  control_tokens)
-        x, inters = self.run_stack(x, ctx, t_mod, timestep, ropes,
-                                   rope_bi_dit, rope_bi_agg, fhw, plucker_fea,
-                                   return_prediction, remat, camera_token,
-                                   uncond)
-        f, h, w = fhw
-        noise_pred = self.dit.unpatchify(self.dit.head(x, t), fhw)
+        ``remat``: recompute each block on the backward pass.
+
+        ``mesh``: a ``parallel.sharding.Mesh`` over which the model is
+        sharded (``shard``; None is one process): the whole inputs on every
+        rank, the whole noise prediction on every rank, the prediction on
+        rank 0 (None on the others). ``ulysses``: the attentions whose keys
+        are split over the seq group re-shard through Ulysses (or the ring)
+        instead of gathering their keys."""
+        from ...parallel.ulysses import ulysses_context
+        mesh = mesh or sharding.single()
+        rows = sharding.batch_rows(latents.shape[0], mesh)
+        B = latents.shape[0]
+
+        def mine(t):
+            return (t if t is None or t.shape[0] != B
+                    else sharding.take_rows(t, rows))
+
+        (x, ctx, t, t_mod, (f, h, w), ropes, rope_bi_dit, rope_bi_agg) = \
+            self.forward_prologue(mine(latents), mine(timestep),
+                                  mine(context), mine(clip_feature), mine(y),
+                                  mine(control_tokens))
+        frames = sharding.frame_split(f, mesh)
+        s_dit = frames.scaled(h * w)
+        s_agg = frames.scaled(h * w + self.cfg.vggt.aggregator.patch_start_idx)
+        x = s_dit.take(x)
+        ropes = tuple(s_dit.take(r, 0) for r in ropes)
+        rope_bi_dit = tuple(s_dit.take(r, 0) for r in rope_bi_dit)
+        rope_bi_agg = tuple(s_agg.take(r, 0) for r in rope_bi_agg)
+        pl = None if plucker_fea is None else s_dit.take(mine(plucker_fea))
+        keep = self.head_layers() if return_prediction else None
+        with ulysses_context(mesh if ulysses else None):
+            x, inters = self.run_stack(
+                x, ctx, t_mod, mine(timestep), ropes, rope_bi_dit,
+                rope_bi_agg, (frames.local, h, w), pl, return_prediction,
+                remat, mine(camera_token), uncond, frames, keep)
+        out = sharding.gather_rows(s_dit.gather(self.dit.head(x, t)), rows,
+                                   mesh)
+        noise_pred = self.dit.unpatchify(out, (f, h, w))
         if not return_prediction:
             return noise_pred, None
-        prediction = self.vggt.head_prediction(
+        inters = [None if i not in keep else sharding.gather_rows(
+            frames.gather(inter, 1), rows, mesh)
+            for i, inter in enumerate(inters)]
+        if mesh.rank != 0:
+            return noise_pred, None
+        return noise_pred, self.vggt.head_prediction(
             inters, (h, w), self.cfg.vggt.aggregator.patch_start_idx)
-        return noise_pred, prediction
+
+    def head_layers(self) -> frozenset:
+        """The IRG layers whose intermediates the geometry heads read."""
+        n, vcfg = self.cfg.num_irg, self.cfg.vggt
+        return frozenset({0, n - 1} | {i % n for i in vcfg.dpt_layer_idx})
 
     def joint_forward_tea(self, latents, timestep, context, clip_feature=None,
                           y=None, plucker_fea=None, skip: bool = False,

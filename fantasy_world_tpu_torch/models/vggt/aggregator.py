@@ -86,19 +86,31 @@ class Aggregator(nn.Module):
         normal_(self.register_token, 1e-6, generator)
 
     def assemble_tokens(self, patch_tokens: torch.Tensor,
-                        camera_token: Optional[torch.Tensor] = None
+                        camera_token: Optional[torch.Tensor] = None,
+                        frames: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S, H, W, C) patch tokens -> tokens (B*S, P, C) and int
         positions (B*S, P, 2) (aggregator._process_aggregator_input). The
         camera slot holds the learned token, or, given ``camera_token``
-        (B, V = 4S - 3, 9) pose encodings, their projection."""
+        (B, V = 4S - 3, 9) pose encodings, their projection. ``frames``
+        (first, total): the S frames are frames first.. of a clip of
+        total (a rank's part of the seq split)."""
         B, S, H, W, C = patch_tokens.shape
+        f0, total = frames or (0, S)
         patches = patch_tokens.reshape(B * S, H * W, C)
+
+        def special(token):
+            t = slice_expand_and_flatten(token, B, total)
+            return t.view(B, total, *t.shape[1:])[:, f0:f0 + S].reshape(
+                B * S, *t.shape[1:])
+
         if camera_token is not None:
             cam = self.CamTokenProjector(camera_token)
+            cam = cam.view(B, total, *cam.shape[1:])[:, f0:f0 + S].reshape(
+                B * S, *cam.shape[1:])
         else:
-            cam = slice_expand_and_flatten(self.camera_token, B, S)
-        reg = slice_expand_and_flatten(self.register_token, B, S)
+            cam = special(self.camera_token)
+        reg = special(self.register_token)
         tokens = torch.cat([cam.to(patches.dtype), reg.to(patches.dtype),
                             patches], dim=1)
         pos = torch.as_tensor(rope_ops.grid_positions_2d(

@@ -56,9 +56,11 @@ class Attention(nn.Module):
             self.k_norm = nn.LayerNorm(cfg.head_dim, eps=cfg.ln_eps)
 
     def forward(self, x: torch.Tensor,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                seq=None):
         """``vggt_attention``: x (B, N, C); rope a precomputed (cos, sin)
-        table pair or None. v stays a strided view of the fused qkv."""
+        table pair or None; ``seq``: x's token split over the seq group.
+        v stays a strided view of the fused qkv."""
         B, N, C = x.shape
         H, D = self.cfg.num_heads, self.cfg.head_dim
         qkv = linear(x, self.qkv).view(B, N, 3, H, D)
@@ -71,7 +73,7 @@ class Attention(nn.Module):
         if rope is not None and self.cfg.rope_frequency > 0:
             q = rope_ops.apply_rope_2d_tables(q, *rope)
             k = rope_ops.apply_rope_2d_tables(k, *rope)
-        o = dot_product_attention(q, k, v)
+        o = dot_product_attention(q, k, v, q_split=seq, kv_split=seq)
         return linear(o.reshape(B, N, C), self.proj)
 
 
@@ -112,9 +114,9 @@ class VGGTBlock(nn.Module):
         if self.modulation is not None:
             normal_(self.modulation, 1.0 / math.sqrt(self.cfg.dim), generator)
 
-    def attn_half(self, x, rope=None, e0=None):
+    def attn_half(self, x, rope=None, e0=None, seq=None):
         """Attention residual; returns (x, e) -- the reference Block's
-        return_partial."""
+        return_partial. ``seq``: x's token split over the seq group."""
         e = (modulation_from_e0(self.modulation, e0, x.shape[0])
              if self.modulation is not None else None)
         eps = self.cfg.ln_eps
@@ -123,7 +125,7 @@ class VGGTBlock(nn.Module):
                                     self.norm1.bias, eps)
         else:
             h = layer_norm(x, self.norm1.weight, self.norm1.bias, eps)
-        x = x + self.attn(h, rope) * self.ls1.gamma.to(x.dtype)
+        x = x + self.attn(h, rope, seq) * self.ls1.gamma.to(x.dtype)
         return x, e
 
     def ffn_half(self, x, e):
@@ -136,6 +138,6 @@ class VGGTBlock(nn.Module):
         out = (h.float() * (1 + e[4]) + e[3]).to(x.dtype) * gamma
         return x + (out.float() * e[5]).to(x.dtype)
 
-    def forward(self, x, rope=None, e0=None):
-        x, e = self.attn_half(x, rope, e0)
+    def forward(self, x, rope=None, e0=None, seq=None):
+        x, e = self.attn_half(x, rope, e0, seq)
         return self.ffn_half(x, e)

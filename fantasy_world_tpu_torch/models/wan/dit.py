@@ -21,6 +21,16 @@ cross attention's ``processor``, by ``pose_inject_method``: 'adaln'
 'latent_overall' (``LatentPoseAdapter``, an attention onto the projected
 Plucker tokens). ``WanDiT.forward`` passes the grid's latent frame count,
 which 'latent_split' splits by.
+
+On a mesh (``FusionModel.shard``) the blocks take megatron splits over the
+model group (``parallel/sharding.py:PARAM_RULES``): q, k, v, ``k_img``,
+``v_img`` and the FFN's first layer keep this rank's output columns -- whole
+heads, in the de-interleaved RoPE order, since the order permutes within a
+head -- and ``o`` and the FFN's second layer its input columns, summed over
+the group. The q/k RMS norms span the whole width, so their sums of squares
+are summed over the group too; a pose adapter sees the whole attention
+output. A block's ``seq`` is its tokens' split over the seq group, which
+the self-attention hands to the attention dispatch.
 """
 from __future__ import annotations
 
@@ -37,6 +47,8 @@ from ...core.params import RMSNorm, linear, normal_
 from ...ops import rope as rope_ops
 from ...ops.attention import dot_product_attention
 from ...ops.norms import layer_norm, layer_norm_modulate, rms_norm
+from ...parallel.sharding import (gather_columns, local_columns,
+                                  sharded_rms_norm, row_linear)
 from .camera import SimpleAdapter
 
 
@@ -99,8 +111,20 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, l, h * d)
 
 
-def _gelu_tanh_mlp(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    return linear(F.gelu(linear(x, seq[0]), approximate="tanh"), seq[2])
+def _gelu_tanh_mlp(seq: nn.Sequential, x: torch.Tensor,
+                   tp=None) -> torch.Tensor:
+    """``tp``: the model axis its first layer's outputs and its second
+    layer's inputs are split over."""
+    return row_linear(F.gelu(linear(x, seq[0]), approximate="tanh"), seq[2],
+                      tp)
+
+
+def _norm(x, weight, eps, tp):
+    """The RMS norm over the whole width of x's columns (split over
+    ``tp``)."""
+    if tp is None:
+        return rms_norm(x, weight, eps)
+    return sharded_rms_norm(x, weight, eps, tp)
 
 
 class SelfAttention(nn.Module):
@@ -113,17 +137,22 @@ class SelfAttention(nn.Module):
         self.o = nn.Linear(dim, dim)
         self.norm_q = RMSNorm(dim)
         self.norm_k = RMSNorm(dim)
+        # the model axis of a sharded block (FusionModel.shard)
+        self.tp = None
 
-    def forward(self, x, rope_cos, rope_sin):
-        """RMS-normed q/k with 3D RoPE."""
-        n = self.num_heads
-        q = rms_norm(linear(x, self.q), self.norm_q.weight, self.eps)
-        k = rms_norm(linear(x, self.k), self.norm_k.weight, self.eps)
+    def forward(self, x, rope_cos, rope_sin, seq=None):
+        """RMS-normed q/k with 3D RoPE; ``seq``: x's token split over the
+        seq group."""
+        tp = self.tp
+        n = self.num_heads // (1 if tp is None else tp.size)
+        q = _norm(linear(x, self.q), self.norm_q.weight, self.eps, tp)
+        k = _norm(linear(x, self.k), self.norm_k.weight, self.eps, tp)
         v = linear(x, self.v)
         q = rope_ops.apply_rope_half(_split_heads(q, n), rope_cos, rope_sin)
         k = rope_ops.apply_rope_half(_split_heads(k, n), rope_cos, rope_sin)
-        o = dot_product_attention(q, k, _split_heads(v, n))
-        return linear(_merge_heads(o), self.o)
+        o = dot_product_attention(q, k, _split_heads(v, n), q_split=seq,
+                                  kv_split=seq)
+        return row_linear(_merge_heads(o), self.o, tp)
 
 
 class _KProj(nn.Module):
@@ -241,6 +270,7 @@ class CrossAttention(nn.Module):
             self.v_img = nn.Linear(dim, dim)
             self.norm_k_img = RMSNorm(dim)
         self.processor = pose_adapter(*camera) if camera else None
+        self.tp = None
 
     def forward(self, x, context, plucker_fea=None, apply_pose=False,
                 plucker_frames=None):
@@ -251,30 +281,35 @@ class CrossAttention(nn.Module):
         by). The split is at 257 whatever the image tokens: with FLF2V's
         514 the end image's 257 join the text keys, as in the
         reference."""
-        n = self.num_heads
+        tp = self.tp
+        n = self.num_heads // (1 if tp is None else tp.size)
         if self.has_image_input:
             img, ctx = context[:, :CLIP_TOKENS], context[:, CLIP_TOKENS:]
         else:
             ctx = context
-        q = rms_norm(linear(x, self.q), self.norm_q.weight, self.eps)
-        k = rms_norm(linear(ctx, self.k), self.norm_k.weight, self.eps)
+        q = _norm(linear(x, self.q), self.norm_q.weight, self.eps, tp)
+        k = _norm(linear(ctx, self.k), self.norm_k.weight, self.eps, tp)
         v = linear(ctx, self.v)
         qh = _split_heads(q, n)
         o = _merge_heads(dot_product_attention(qh, _split_heads(k, n),
                                                _split_heads(v, n)))
         if self.has_image_input:
-            k_img = rms_norm(linear(img, self.k_img), self.norm_k_img.weight,
-                             self.eps)
+            k_img = _norm(linear(img, self.k_img), self.norm_k_img.weight,
+                          self.eps, tp)
             v_img = linear(img, self.v_img)
             o = o + _merge_heads(dot_product_attention(
                 qh, _split_heads(k_img, n), _split_heads(v_img, n)))
         if apply_pose and self.processor is not None \
                 and plucker_fea is not None:
+            # the adapters are replicated: they see the whole width
+            o = gather_columns(o, tp)
             if isinstance(self.processor, LatentPoseAdapter):
-                o = self.processor(o, q, plucker_fea, n, plucker_frames)
+                o = self.processor(o, gather_columns(q, tp), plucker_fea,
+                                   self.num_heads, plucker_frames)
             else:
                 o = self.processor(o, plucker_fea)
-        return linear(o, self.o)
+            o = local_columns(o, tp)
+        return row_linear(o, self.o, tp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,19 +390,27 @@ class DiTBlock(nn.Module):
                                  nn.GELU(approximate="tanh"),
                                  nn.Linear(cfg.ffn_dim, cfg.dim))
         self.modulation = nn.Parameter(torch.empty(1, 6, cfg.dim))
+        self.tp = None
 
     def init_extra_(self, generator):
         normal_(self.modulation, 1.0 / math.sqrt(self.modulation.shape[-1]),
                 generator)
 
+    def set_tensor_parallel(self, axis) -> None:
+        """Run as this rank's part of the block on the model ``axis``: its
+        projections already hold their column/row splits."""
+        self.tp = self.self_attn.tp = self.cross_attn.tp = axis
+
     def attn_half(self, x, context, t_mod, rope_cos, rope_sin, *,
-                  plucker_fea=None, apply_pose=False, plucker_frames=None):
+                  plucker_fea=None, apply_pose=False, plucker_frames=None,
+                  seq=None):
         """Self- and cross-attention residuals; returns (x, the three FFN
-        modifiers). The modulation and gated residual are f32."""
+        modifiers). The modulation and gated residual are f32. ``seq``:
+        x's token split over the seq group."""
         sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = dit_block_modulation(
             self.modulation, t_mod)
         h = _modulated(x, sh_msa, sc_msa, self.eps)
-        x = _gated(x, g_msa, self.self_attn(h, rope_cos, rope_sin))
+        x = _gated(x, g_msa, self.self_attn(h, rope_cos, rope_sin, seq))
         x = x + self.cross_attn(
             layer_norm(x, self.norm3.weight, self.norm3.bias, self.eps),
             context, plucker_fea, apply_pose, plucker_frames)
@@ -376,14 +419,15 @@ class DiTBlock(nn.Module):
     def ffn_half(self, x, modifiers):
         sh_mlp, sc_mlp, g_mlp = modifiers
         h = _modulated(x, sh_mlp, sc_mlp, self.eps)
-        return _gated(x, g_mlp, _gelu_tanh_mlp(self.ffn, h))
+        return _gated(x, g_mlp, _gelu_tanh_mlp(self.ffn, h, self.tp))
 
     def forward(self, x, context, t_mod, rope_cos, rope_sin, *,
-                plucker_fea=None, apply_pose=False, plucker_frames=None):
+                plucker_fea=None, apply_pose=False, plucker_frames=None,
+                seq=None):
         x, mods = self.attn_half(x, context, t_mod, rope_cos, rope_sin,
                                  plucker_fea=plucker_fea,
                                  apply_pose=apply_pose,
-                                 plucker_frames=plucker_frames)
+                                 plucker_frames=plucker_frames, seq=seq)
         return self.ffn_half(x, mods)
 
 

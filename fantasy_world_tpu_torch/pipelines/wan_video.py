@@ -24,7 +24,12 @@ from which an identically conditioned call resumes. Its sliding-window
 option evaluates each step over temporal windows of the latents
 (``pipelines/temporal_tiler.py``) and blends them.
 
-Not ported here: multi-device meshes.
+On a mesh (``shard``, then ``denoise(mesh=...)``; one process per rank)
+every rank draws the same seeded noise and runs the same schedule: each
+step's CFG pair goes through the sharded ``joint_forward``, which splits it
+over 'data' where it divides and gathers the whole prediction for the CFG
+combine, so the latents stay equal on every rank. The heads step's
+prediction is rank 0's; rank 0 alone writes the partial state.
 """
 from __future__ import annotations
 
@@ -323,6 +328,13 @@ class FantasyWorldPipeline:
                             device=self.device)
         return self.pose_encoder(x)
 
+    def shard(self, mesh) -> None:
+        """Split the fusion model over ``mesh`` (``FusionModel.shard``: the
+        DiT's projections over 'model'); the encoders, the VAE and the pose
+        encoder stay whole, they run once per clip. Pass the same mesh to
+        ``denoise``."""
+        self.fusion.shard(mesh)
+
     def quantize(self, mode: str = "int8", **kw) -> int:
         """int8 w8a8 or fp8 storage over the fusion model's eligible
         linears, in place (``core.quant.quantize_model``; the encoders, the
@@ -343,7 +355,8 @@ class FantasyWorldPipeline:
                 segment_size: Optional[int] = None,
                 gen_ckpt_path: Optional[str] = None,
                 sliding_window_size: Optional[int] = None,
-                sliding_window_stride: Optional[int] = None
+                sliding_window_stride: Optional[int] = None,
+                mesh=None, ulysses: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Returns (final latents (B, 16, f, h, w), geometry prediction of
         the positive rows). Each step runs the CFG pair as batch 2 (rows
@@ -369,7 +382,14 @@ class FantasyWorldPipeline:
         pair over temporal windows of the latents, y and the Plucker
         features and blends them (``temporal_tiled_forward``). The geometry
         heads do not run, so the prediction is None; TeaCache,
-        ``segment_size`` and ``gen_ckpt_path`` do not combine with it."""
+        ``segment_size`` and ``gen_ckpt_path`` do not combine with it.
+
+        ``mesh`` / ``ulysses``: the multi-GPU denoise over a
+        ``parallel.sharding.Mesh`` the model was sharded over (``shard``),
+        every attention whose keys are split over 'seq' re-sharded through
+        Ulysses (or the ring) under ``ulysses``; every rank
+        returns the latents, rank 0 the prediction (None on the others).
+        TeaCache and the sliding window do not combine with it."""
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
         f = (num_frames - 1) // 4 + 1
@@ -391,6 +411,14 @@ class FantasyWorldPipeline:
 
         pairs = sched.sigma_pairs()
         n = len(sched.timesteps)
+        meshed = mesh is not None and not mesh.trivial
+        if meshed:
+            given = [name for name, v in (
+                ("tea_cache_l1_thresh", tea_cache_l1_thresh),
+                ("sliding_window_size", sliding_window_size)) if v is not None]
+            if given:
+                raise ValueError(f"a mesh does not combine with "
+                                 f"{', '.join(given)} yet")
         if sliding_window_size is not None:
             given = [name for name, v in (
                 ("tea_cache_l1_thresh", tea_cache_l1_thresh),
@@ -416,8 +444,12 @@ class FantasyWorldPipeline:
                                    dtype=dtype, device=dev)
         start, latents, residual = load_partial(gen_ckpt_path, n - 1,
                                                 latents, residual, tea)
-        report = StepReport(n, start, segment_size, gen_ckpt_path,
+        # every rank resumes from the partial state; rank 0 alone writes it
+        writer = not meshed or mesh.rank == 0
+        report = StepReport(n, start, segment_size,
+                            gen_ckpt_path if writer else None,
                             progress_callback)
+        fwd = {"mesh": mesh, "ulysses": ulysses} if meshed else {}
         prediction = None
         for i in range(start, n):
             last = i == n - 1
@@ -431,14 +463,15 @@ class FantasyWorldPipeline:
             else:
                 noise, prediction = self.fusion.joint_forward(
                     lat2, t, ctx, clip2, y2, plucker_fea=pl2,
-                    return_prediction=last)
+                    return_prediction=last, **fwd)
             pos, neg = noise[:B].float(), noise[B:].float()
             pred = neg + cfg_scale * (pos - neg)
             latents = (latents.float() + pred * float(pairs[i, 1] - pairs[i, 0])
                        ).to(dtype)
             report(i + 1, latents, residual)
         # the heads ran on the CFG-doubled batch; keep the positive rows
-        prediction = {k: v[:B] for k, v in prediction.items()}
+        if prediction is not None:
+            prediction = {k: v[:B] for k, v in prediction.items()}
         return latents, prediction
 
     def _denoise_windowed(self, latents, sched, ctx, clip2, y2, pl2,

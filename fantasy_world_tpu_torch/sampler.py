@@ -16,7 +16,12 @@ options (``tea_cache_l1_thresh``, ``tea_cache_model_id``,
 ``from_checkpoint`` (or the pipelines' ``quantize``) rewrites the
 denoiser's large linears.
 
-Not ported here: the mesh and Ulysses arguments.
+``FantasyWorldSampler.generate_video(mesh=..., ulysses=...)`` is the
+multi-GPU clip, one process per rank over a pipeline sharded with
+``pipe.shard(mesh)``: rank 0 runs the encoders (umT5, CLIP, the VAE
+encode, MoGe) and broadcasts the conditioning, so the ranks cannot
+diverge; every rank denoises; rank 0 alone decodes and returns the clip
+(the others return (None, None)) and exports it.
 """
 from __future__ import annotations
 
@@ -140,26 +145,40 @@ class FantasyWorldSampler:
                        tea_cache_l1_thresh: Optional[float] = None,
                        tea_cache_model_id: str = DEFAULT_MODEL_ID,
                        segment_size: Optional[int] = None,
-                       gen_ckpt_path: Optional[str] = None
+                       gen_ckpt_path: Optional[str] = None,
+                       mesh=None, ulysses: bool = False
                        ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
         """image (H, W, 3) in [0, 1], or image_path -> (uint8 frames
         (T, H, W, 3), geometry prediction {name: f32 numpy}). The serving
-        options go to ``FantasyWorldPipeline.denoise``."""
+        options go to ``FantasyWorldPipeline.denoise``. ``mesh`` /
+        ``ulysses``: the multi-GPU clip (every rank calls this; rank 0
+        returns the clip, the others (None, None))."""
+        from .parallel.distributed import broadcast_tensors
         stage = stage_callback or (lambda name: None)
-        if image is None:
-            image = read_image(image_path)
-        pl, clip, y, ctx_pos = self._condition(
-            prompt, image, camera_params, using_scale, height, width,
-            num_frames, stage)
-        ctx_neg = self.pipe.encode_prompt(neg_prompt)
-        stage("t5_neg")
+        meshed = mesh is not None and not mesh.trivial
+        cond = [None] * 5
+        if not meshed or mesh.rank == 0:
+            if image is None:
+                image = read_image(image_path)
+            pl, clip, y, ctx_pos = self._condition(
+                prompt, image, camera_params, using_scale, height, width,
+                num_frames, stage)
+            ctx_neg = self.pipe.encode_prompt(neg_prompt)
+            stage("t5_neg")
+            cond = [pl, clip, y, ctx_pos, ctx_neg]
+        if meshed:
+            cond = broadcast_tensors(cond, src=0, device=self.pipe.device)
+        pl, clip, y, ctx_pos, ctx_neg = cond
         latents, prediction = self.pipe.denoise(
             ctx_pos, ctx_neg, clip, y, height, width, num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
             plucker_fea=pl, progress_callback=progress_callback,
             tea_cache_l1_thresh=tea_cache_l1_thresh,
             tea_cache_model_id=tea_cache_model_id,
-            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path,
+            **({"mesh": mesh, "ulysses": ulysses} if meshed else {}))
+        if meshed and mesh.rank != 0:
+            return None, None
         video = self.pipe.decode_video(latents)
         stage("vae_decode")
         return video, {k: v.float().cpu().numpy()
@@ -177,37 +196,52 @@ class FantasyWorldSampler:
                         tea_cache_l1_thresh: Optional[float] = None,
                         tea_cache_model_id: str = DEFAULT_MODEL_ID,
                         segment_size: Optional[int] = None,
-                        gen_ckpt_path: Optional[str] = None
+                        gen_ckpt_path: Optional[str] = None,
+                        mesh=None, ulysses: bool = False
                         ) -> List[Tuple[np.ndarray, Dict[str, np.ndarray]]]:
         """B clips in one denoise (a CFG batch of 2B); conditioning and the
         decode run per clip. Row i is ``generate_video(prompts[i], ...,
-        seed=seeds[i])`` (seeds default to 0..B-1)."""
+        seed=seeds[i])`` (seeds default to 0..B-1). ``mesh`` /
+        ``ulysses``: as in ``generate_video`` (the 2B rows split over
+        'data' where they divide); rank 0 returns the clips, the others an
+        empty list."""
+        from .parallel.distributed import broadcast_tensors
         B = len(prompts)
-        if images is None:
-            images = [read_image(p) for p in image_paths]
         seeds = list(range(B)) if seeds is None else list(seeds)
-        if len(images) != B or len(seeds) != B:
-            raise ValueError(f"{B} prompts, {len(images)} images, "
-                             f"{len(seeds)} seeds")
-        # the negative prompt is the same for every clip: encoded once
-        ctx_n = self.pipe.encode_prompt(neg_prompt)
-        rows = [self._condition(prompts[i], images[i],
-                                None if camera_params is None
-                                else camera_params[i], using_scale, height,
-                                width, num_frames, lambda name: None)
-                for i in range(B)]
-        pls, clips, ys, ctx_p = (list(c) for c in zip(*rows))
+        meshed = mesh is not None and not mesh.trivial
+        cond = [None] * 5
+        if not meshed or mesh.rank == 0:
+            if images is None:
+                images = [read_image(p) for p in image_paths]
+            if len(images) != B or len(seeds) != B:
+                raise ValueError(f"{B} prompts, {len(images)} images, "
+                                 f"{len(seeds)} seeds")
+            # the negative prompt is the same for every clip: encoded once
+            ctx_n = self.pipe.encode_prompt(neg_prompt)
+            rows = [self._condition(prompts[i], images[i],
+                                    None if camera_params is None
+                                    else camera_params[i], using_scale,
+                                    height, width, num_frames,
+                                    lambda name: None)
+                    for i in range(B)]
+            pls, clips, ys, ctx_p = (list(c) for c in zip(*rows))
+            cond = [torch.cat(ctx_p), torch.cat([ctx_n] * B),
+                    None if clips[0] is None else torch.cat(clips),
+                    torch.cat(ys),
+                    None if pls[0] is None else torch.cat(pls)]
+        if meshed:
+            cond = broadcast_tensors(cond, src=0, device=self.pipe.device)
         latents, prediction = self.pipe.denoise(
-            torch.cat(ctx_p), torch.cat([ctx_n] * B),
-            None if clips[0] is None else torch.cat(clips), torch.cat(ys),
-            height, width, num_frames=num_frames,
+            *cond[:4], height, width, num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale,
-            seed=seeds,
-            plucker_fea=None if pls[0] is None else torch.cat(pls),
+            seed=seeds, plucker_fea=cond[4],
             progress_callback=progress_callback,
             tea_cache_l1_thresh=tea_cache_l1_thresh,
             tea_cache_model_id=tea_cache_model_id,
-            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path,
+            **({"mesh": mesh, "ulysses": ulysses} if meshed else {}))
+        if meshed and mesh.rank != 0:
+            return []
         return [(self.pipe.decode_video(latents[i:i + 1]),
                  {k: v[i:i + 1].float().cpu().numpy()
                   for k, v in (prediction or {}).items()})

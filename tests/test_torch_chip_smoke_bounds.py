@@ -722,3 +722,22 @@ def test_tea_serve_launch_contract(monkeypatch):
                      tea_cache_l1_thresh=tea)
         counts.append(dict(seen))
     assert counts[0] == counts[1] and any(counts[0].values())
+
+
+@pytest.mark.parametrize("per_shard", [False, True],
+                         ids=["whole_width", "per_shard"])
+def test_mesh_norm_check_catches_a_per_shard_norm(tmp_path, per_shard):
+    """full_mesh's q/k norm check on two gloo ranks: the port's column
+    split within its bound, a norm over each rank's own columns far
+    beyond it."""
+    import json
+
+    import torch_mesh_workers as workers
+    from fantasy_world_tpu_torch.parallel import distributed
+    out = tmp_path / "norm.json"
+    distributed.spawn(workers.norm_check_case, 2, per_shard, str(out))
+    err, bound = json.loads(out.read_text())
+    if per_shard:
+        assert err > 10 * bound
+    else:
+        assert err <= bound

@@ -183,6 +183,38 @@ def test_kernel_at_option_shapes(device, name, shape, Lk, kernel):
     assert _out_err(out, ref) <= 1
 
 
+# the multi-GPU path, one rank's calls at 336x592, 81 frames: the DiT at 20
+# of 40 heads (mesh_model 2, or Ulysses at mesh_seq 2), Ulysses' bicross at
+# 6 of 12 heads and VGGT global at 8 of 16, and the ring's stats calls at
+# mesh_seq 2 (11 frames against a part of 11)
+MESH = [(name, shape, lk, kernel) for name, shape, lk, kernel in SHAPES
+        if name.startswith(("mesh_", "ulysses_", "ring_"))]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", MESH,
+                         ids=[s[0] for s in MESH])
+def test_kernel_at_mesh_shapes(device, name, shape, Lk, kernel):
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel
+    q, k, v = _qkv(shape, Lk, device, seed=19)
+    scale = D ** -0.5
+    if name.startswith("ring_"):
+        before = fa.LAUNCHES[f"{kernel}_stats"]
+        o, m2, l = fa.flash_attention_stats(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES[f"{kernel}_stats"] == before + 1
+        ro, rm, rl = fa.attention_plain_stats(q, k, v, scale)
+        assert _out_err(o, ro) <= 1
+        assert ((m2 - rm).abs() / rm.abs().clamp_min(1.0)).max() <= STATS_RTOL
+        assert ((l - rl).abs() / rl).max() <= STATS_RTOL
+        return
+    before = fa.LAUNCHES[kernel]
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel] == before + 1
+    assert _out_err(out, fa.attention_plain(q, k, v, scale)) <= 1
+
+
 @pytest.mark.parametrize("D,kernel", [(64, "d64"), (128, "generic"),
                                       (128, "onekv")])
 def test_kernel_reads_strided_views(device, D, kernel):

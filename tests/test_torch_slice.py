@@ -117,7 +117,7 @@ def test_from_jax_loads_strictly(pipes):
     assert m.dit.blocks[0].self_attn.q.weight.dtype == torch.bfloat16
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """The port and chip_smoke.py import nothing of JAX or of the JAX
     package (checked in a fresh interpreter: this one has JAX loaded),
     with the samplers, the loaders, MoGe, the Wan2.2 pipeline, the
@@ -127,9 +127,11 @@ def test_port_never_imports_jax():
     denoise, the temporal tiler, the convert and verify_weights CLIs with
     the registry, ModelManager, bundles and local resolution, the track
     head, the DDIM and continuous-ODE schedules, and the fusion, bicross,
-    aggregator and DiT modules of the single-card options among the
-    modules, chip_smoke's option set-up and the CLIs' argument checks
-    run."""
+    aggregator and DiT modules of the single-card options, and the mesh
+    layer (``parallel.distributed``, ``sharding``, ``ulysses``, ``ring``)
+    among the modules, chip_smoke's option set-up and the CLIs' argument
+    checks run; and a rank it spawns (two gloo processes, one collective)
+    loads neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -147,7 +149,9 @@ def test_port_never_imports_jax():
         " 'convert.bundle', 'convert.downloader', 'utils.configio',"
         " 'schedulers.ddim', 'schedulers.continuous_ode',"
         " 'models.fusion.bicross', 'models.fusion.model',"
-        " 'models.vggt.aggregator', 'models.wan.dit'):\n"
+        " 'models.vggt.aggregator', 'models.wan.dit',"
+        " 'parallel.distributed', 'parallel.sharding', 'parallel.ulysses',"
+        " 'parallel.ring'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"
@@ -170,10 +174,17 @@ def test_port_never_imports_jax():
         " or m == 'fantasy_world_tpu' or m.startswith('fantasy_world_tpu.')]"
         "\n"
         "assert not bad, bad\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_mesh_workers\n"
+        "from fantasy_world_tpu_torch.parallel.distributed import spawn\n"
+        "spawn(torch_mesh_workers.report_modules, 2, sys.argv[1])\n"
+        "assert open(sys.argv[1]).read() == '', open(sys.argv[1]).read()\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "rank_modules.txt")], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
 
