@@ -26,7 +26,10 @@ non-zero):
      then the reduced clip the same way: ``FantasyWorldSampler.
      generate_video`` and ``export`` with reduced umT5, CLIP (2 heads of 80,
      onekv) and VAE (latents, prediction and float decode within SLICE_TOL,
-     exact launch counts with CLIP's);
+     exact launch counts with CLIP's). The CPU sides of this clip, of
+     ``small_wan22`` and of ``small_ti2v`` run from step 2 on in one
+     spawned process of their own (``start_cpu_sides``), beside the card;
+     the three are checked against them after the mesh phases;
   5. reduced-width training on the card in bf16 against the CPU in f32:
      two LoRA steps (losses, factor gradients; every stats-forward and
      backward kernel at D 64, 96 and 128 launched) and one full
@@ -164,24 +167,51 @@ The multi-GPU path (``parallel/``), with ranks that are spawned processes
 sharing this one card over gloo (NCCL refuses two ranks on one device),
 the collectives' data moving through staging buffers on the card that
 every rank maps (CUDA IPC):
-  * after small_options, ``small_mesh``: the reduced slice's denoise on
-    meshes of 2 ranks (1x2x1, Ulysses), 8 (2x2x2) and 4 (1x4x1, Ulysses:
-    2 heads over 4 ranks take the ring), each against the CPU run of
-    small_slice within SLICE_TOL, with exact launches on every rank, and
-    which gloo collectives take CUDA tensors (``[gloo_cuda]``);
-  * then ``full_mesh``: Ulysses and the ring as direct calls at the DiT
-    self, bicross and VGGT global shapes over 2 ranks against the
-    one-process kernel on the same inputs; the full-width 2-step denoise
-    with the heads at 1x1x2 (all 40 blocks, the DiT's megatron splits)
-    and at 1x2x1 with Ulysses (4 + 4 blocks), each against the same
-    seeded model run in this process, within SLICE_TOL, exact launches;
-    seconds per step and peak GB per rank -- one card's, not multi-GPU
-    times;
-  * kernel cells ``mesh_*`` (the DiT at 20 of 40 heads), ``ulysses_*``
-    (bicross at 6 of 12 heads, VGGT global at 8 of 16) and ``ring_*``
-    (the ring's stats calls at 2 seq ranks).
+  * after small_options, ``small_meshes``: one spawn of ranks per world
+    size (2, 4, 8), each running its meshes one after another --
+    ``small_mesh``: the reduced slice's denoise on meshes of 2 ranks
+    (1x2x1, Ulysses), 8 (2x2x2) and 4 (1x4x1, Ulysses: 2 heads over 4
+    ranks take the ring), each against the CPU run of small_slice within
+    SLICE_TOL, with exact launches on every rank, and which gloo
+    collectives take CUDA tensors (``[gloo_cuda]``); and
+    ``small_mesh_serving``: the serving options at reduced widths, each
+    against the CPU's one-process run within SLICE_TOL with exact
+    launches on every rank -- int8 and fp8 at 1x1x2 and 2x1x2, TeaCache
+    (a skipped step, cut after a segment and resumed from rank 0's
+    partial state) and the windows (split 2 | 1) at 1x2x1 with Ulysses,
+    the Wan2.2 dual denoise and the HTTP server (two jobs as one batch,
+    the other rank following, stopped through rank 0) at 1x1x2;
+  * then ``full_mesh``, one spawn of 2 ranks: Ulysses and the ring as
+    direct calls at the DiT self, bicross and VGGT global shapes against
+    the one-process kernel on the same inputs; the full-width 2-step
+    denoise with the heads, cut to 4 + 4 blocks, at 1x1x2 (the DiT's
+    megatron splits) and at 1x2x1 with Ulysses, each against the same
+    seeded model run once in this process, within SLICE_TOL, exact
+    launches; seconds per step and peak GB per rank -- one card's, not
+    multi-GPU times;
+  * then ``full_mesh_serving``: the serve CLI's mesh at full width cut
+    to 4 + 4 blocks, 1x1x2, through its entry points (rank 0 a
+    ``GenerationServer`` over ``serve.make_batch_fn``, rank 1
+    ``serve.follow``), rank 0 alone holding umT5, CLIP, the VAE and MoGe:
+    the int8 model (quantized whole, then split) serving two jobs at
+    336x592x81 as one batch and a TeaCache job, then the Wan2.2 server
+    at 480x832x81 (``Wan22Sampler.generate_video(mesh=)``, the experts'
+    parts swapping); seconds, s per step and peak GB per rank, exact
+    launches, the exported clips; then ``wan22_both_resident`` in one
+    process: two experts each of a full expert's part at M = 2 kept on
+    the card beside umT5 (``place``), a clip with the tiled decode, its
+    peak within the reserve;
+  * kernel cells ``mesh_*`` (the DiT at 20 of 40 heads, a served batch's
+    4 rows, Wan2.2's 32,760 tokens), ``ulysses_*`` (bicross at 6 of 12
+    heads, VGGT global at 8 of 16; a window of 11 latent frames) and
+    ``ring_*`` (the ring's stats calls at 2 seq ranks).
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
+
+    python3 chip_smoke.py --phases small_meshes,full_mesh_serving
+
+runs the build and only the named phases (``ALONE``), and prints neither
+the kernels line nor the device line.
 
     python3 chip_smoke.py --profile DIR
 
@@ -335,6 +365,26 @@ SHAPES = [
     ("ring_bicross_geometry_to_video", (2, 11 * 782, 12, 96), 11 * 777,
      "generic"),
     ("ring_vggt_global", (2, 11 * 782, 16, 64), 11 * 782, "d64"),
+    # the serving options on a mesh, one rank's calls: a served batch of 2
+    # clips (4 CFG rows) at mesh_model 2; the Wan2.2 DiT at 480x832 at
+    # mesh_model 2 (21 x 30 x 52 tokens, text keys only); a window of 11
+    # latent frames (11 x 777 video, 11 x 782 geometry tokens) through
+    # Ulysses at mesh_seq 2, after its all-to-all
+    ("mesh_serve_dit_self_20_heads", (4, 16317, 20, 128), 16317, "generic"),
+    ("mesh_serve_dit_cross_text_20_heads", (4, 16317, 20, 128), 512,
+     "onekv"),
+    ("mesh_serve_dit_cross_clip_20_heads", (4, 16317, 20, 128), 257,
+     "onekv"),
+    ("mesh_wan22_dit_self_20_heads", (2, 32760, 20, 128), 32760, "generic"),
+    ("mesh_wan22_dit_cross_text_20_heads", (2, 32760, 20, 128), 512,
+     "onekv"),
+    ("ulysses_window_dit_self", (2, 11 * 777, 20, 128), 11 * 777,
+     "generic"),
+    ("ulysses_window_bicross_video_to_geometry", (2, 11 * 777, 6, 96),
+     11 * 782, "generic"),
+    ("ulysses_window_bicross_geometry_to_video", (2, 11 * 782, 6, 96),
+     11 * 777, "generic"),
+    ("ulysses_window_vggt_global", (2, 11 * 782, 8, 64), 11 * 782, "d64"),
 ]
 # the multi-GPU cells: one rank's calls per denoise step of its mesh (DiT
 # self and cross at mesh_model 2 for 40 blocks; the Ulysses and ring cells
@@ -346,7 +396,19 @@ MESH_CELLS = {"mesh_dit_self_20_heads": 40, "mesh_dit_cross_text_20_heads": 40,
               "ulysses_vggt_global": 24, "ring_dit_self": 2 * 40,
               "ring_bicross_video_to_geometry": 2 * 24,
               "ring_bicross_geometry_to_video": 2 * 24,
-              "ring_vggt_global": 2 * 24}
+              "ring_vggt_global": 2 * 24,
+              # a served batch's and a Wan2.2 step's 40 blocks at
+              # mesh_model 2; each window of a windowed step through
+              # Ulysses at mesh_seq 2
+              "mesh_serve_dit_self_20_heads": 40,
+              "mesh_serve_dit_cross_text_20_heads": 40,
+              "mesh_serve_dit_cross_clip_20_heads": 40,
+              "mesh_wan22_dit_self_20_heads": 40,
+              "mesh_wan22_dit_cross_text_20_heads": 40,
+              "ulysses_window_dit_self": 40,
+              "ulysses_window_bicross_video_to_geometry": 24,
+              "ulysses_window_bicross_geometry_to_video": 24,
+              "ulysses_window_vggt_global": 24}
 # full_serve's batch: SERVE_CLIPS clips denoised as one CFG batch, so each
 # Wan2.1 denoise attention above runs on SERVE_CLIPS times its rows (CLIP
 # and MoGe still run once per clip, at batch 1)
@@ -386,15 +448,23 @@ def grad_tol(ref) -> float:
                               OUT_RTOL * largest))
 
 
+# this process's start: every line ends with the seconds since it
+# (``elapsed_s``), which time the phases without a clock of their own
+STARTED = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    fields["elapsed_s"] = f"{time.perf_counter() - STARTED:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
+def time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up
+    (``warm=False``: the caller has just run ``fn`` on these inputs)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -561,11 +631,14 @@ def phase_kernels(device):
         v = torch.randn((B, Lk, H, D), generator=g, device=device).bfloat16()
         scale = D ** -0.5
         out = fa.flash_attention(q, k, v)
+        # the reference is the plain version's warm-up; one timed call
+        # after it (the plain versions are the slowest part of this phase)
         ref = fa.attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err, tol = _max_err(out, ref), out_tol(ref)
+        plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, scale), 1,
+                           warm=False)
         ms = time_ms(lambda: fa.flash_attention(q, k, v), 5)
-        plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, scale), 3)
         y = yardsticks("fwd", (B, Lq, Lk, H, D), ms, time_sdpa(q, k, v, 5))
         # beside onekv, the online-softmax kernel on the same inputs: a
         # yardstick the main path never takes (it routes by Lk)
@@ -670,12 +743,13 @@ def phase_train_kernels(device, per_kernel):
               "dkv": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, lse2, do,
                                                         delta, scale), 5)}
         # the plain backward computes dq, dk and dv in one pass: it stands
-        # beside the sum of the two kernels
+        # beside the sum of the two kernels; each plain version was warmed
+        # by its reference above and is timed once
         plain = {
             "stats": time_ms(lambda: fa.attention_plain_stats(q, k, v, scale),
-                             3),
+                             1, warm=False),
             "bwd": time_ms(lambda: fa.attention_backward_plain(
-                q, k, v, o, lse2, do, scale), 3)}
+                q, k, v, o, lse2, do, scale), 1, warm=False)}
         ms["bwd"] = ms["dq"] + ms["dkv"]
         # the library's forward stands beside the stats forward, its
         # backward (dq, dk and dv in one call) beside each backward kernel
@@ -1049,12 +1123,59 @@ def saved_as(path: str) -> str:
     return "mp4" if path.endswith(".mp4") else "npy"
 
 
-def phase_small_clip(device):
-    """``FantasyWorldSampler.generate_video`` and ``export`` at reduced
-    widths, on the card in bf16 (kernels) and on the CPU in f32 (plain
-    versions) from the same weights: the latents, the prediction and the
-    float decode within SLICE_TOL, exact launch counts with CLIP's."""
-    import shutil
+# the CPU sides of the reduced clips (f32, the kernels' plain versions):
+# host work, run from the start in a process of its own beside the card's
+# phases (``start_cpu_sides``), each collected by its phase (``cpu_side``)
+CPU_SIDES = ("small_clip", "small_wan22", "small_ti2v")
+_CPU_PENDING = {}
+
+
+def _cpu_side(name):
+    import torch
+    t0 = time.perf_counter()
+    out = globals()[f"{name}_run"](torch.device("cpu"), torch.float32)
+    # what goes back to the parent is data: no function of this side's
+    out = {k: v for k, v in out.items() if not callable(v)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _cpu_side_init():
+    import torch
+    # two cores stay with the parent, which launches the card's work, and
+    # the parent's own host work goes first where both want a core
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    os.nice(10)
+
+
+def start_cpu_sides():
+    """One spawned process (no CUDA) that runs every ``CPU_SIDES`` run in
+    turn; returns its pool, for the caller to close."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        1, initializer=_cpu_side_init)
+    for name in CPU_SIDES:
+        _CPU_PENDING[name] = pool.apply_async(_cpu_side, (name,))
+    return pool
+
+
+def cpu_side(name):
+    """``name``'s CPU run: the background process's result (its failure
+    raised here), or run here when none was started."""
+    pending = _CPU_PENDING.pop(name, None)
+    return _cpu_side(name) if pending is None else pending.get()
+
+
+SMALL_CLIP_RUN = (256, 384, 21, 2)     # height, width, frames, steps
+
+
+def small_clip_run(dev, dtype):
+    """One side of ``small_clip``: ``FantasyWorldSampler.generate_video``
+    and ``export`` on ``dev`` in ``dtype``, the modules loaded from f32
+    weights built on the CPU from a seed (the same in every process).
+    Returns the checked outputs and the float decode of the latents (f32
+    CPU tensors), the video, the launches, the exported paths and the
+    tokenizer's kind."""
     import torch
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import FusionModel
@@ -1066,61 +1187,80 @@ def phase_small_clip(device):
     from fantasy_world_tpu_torch.pipelines.wan_video import (
         FantasyWorldPipeline)
     from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
-    t_phase = time.perf_counter()
     fcfg, pcfg, t5c, clipc, vaec = small_clip_configs()
     ctors = {"fusion": (FusionModel, fcfg), "pose": (CameraPoseEncoder, pcfg),
              "t5": (T5Encoder, t5c), "clip": (CLIPVision, clipc),
              "vae": (WanVAE, vaec)}
-    height, width, frames, steps = 256, 384, 21, 2
+    height, width, frames, steps = SMALL_CLIP_RUN
     g = torch.Generator("cpu").manual_seed(11)
-    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
-                        generator=g) for n, (c, cfg) in ctors.items()}
-    wake_zero_inits(weights["fusion"], g)
+    mods = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                     generator=g) for n, (c, cfg) in ctors.items()}
+    wake_zero_inits(mods["fusion"], g)
+    if dev.type != "cpu":
+        weights, mods = mods, {}
+        for n, (c, cfg) in ctors.items():
+            mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+            mods[n].load_state_dict(weights[n].state_dict())
+        del weights
     image, cams = clip_inputs(height, width, frames)
     out_root = os.path.join(REPO, "build", "clip_export")
-    outs = {}
-    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
-        mods = weights
-        if dev != "cpu":
-            mods = {}
-            for n, (c, cfg) in ctors.items():
-                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
-                mods[n].load_state_dict(weights[n].state_dict())
-        pipe = FantasyWorldPipeline(mods["fusion"], mods["pose"],
-                                    t5=mods["t5"], clip=mods["clip"],
-                                    vae=mods["vae"])
-        tok = install_tokenizer(pipe, t5c.vocab,
-                                os.path.join(out_root, "tokenizer"))
-        decode, seen = pipe.decode_video, {}
+    pipe = FantasyWorldPipeline(mods["fusion"], mods["pose"], t5=mods["t5"],
+                                clip=mods["clip"], vae=mods["vae"])
+    tok = install_tokenizer(pipe, t5c.vocab,
+                            os.path.join(out_root, f"tokenizer_{dev.type}"))
+    decode, seen = pipe.decode_video, {}
 
-        def record(latents, **kw):
-            seen["latents"] = latents
-            return decode(latents, **kw)
-        pipe.decode_video = record
-        fa.reset_launch_counts()
-        video, pred = FantasyWorldSampler(pipe).generate_video(
-            PROMPT, NEG_PROMPT, image=image, camera_params=cams,
-            using_scale=True, seed=3, height=height, width=width,
-            num_frames=frames, sample_steps=steps)
-        launches = dict(fa.LAUNCHES)
-        with torch.no_grad():
-            dec = pipe.vae.decode(seen["latents"])
-        paths = FantasyWorldSampler.export(
-            video, pred, os.path.join(out_root, str(dev)), stride=8)
-        got = check_outputs(fcfg, seen["latents"],
-                            {k: torch.from_numpy(v) for k, v in pred.items()},
-                            height, width, frames)
-        outs[str(dev)] = {"t": {k: v.float().cpu() for k, v in got.items()},
-                          "decode": dec.float().cpu(), "video": video,
-                          "launches": launches, "paths": paths}
-        del mods, pipe, dec
-    shutil.rmtree(out_root, ignore_errors=True)
-    cpu, card = outs["cpu"], outs[str(device)]
+    def record(latents, **kw):
+        seen["latents"] = latents
+        return decode(latents, **kw)
+    pipe.decode_video = record
+    fa.reset_launch_counts()
+    video, pred = FantasyWorldSampler(pipe).generate_video(
+        PROMPT, NEG_PROMPT, image=image, camera_params=cams,
+        using_scale=True, seed=3, height=height, width=width,
+        num_frames=frames, sample_steps=steps)
+    launches = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        dec = pipe.vae.decode(seen["latents"])
+    paths = FantasyWorldSampler.export(
+        video, pred, os.path.join(out_root, str(dev)), stride=8)
+    got = check_outputs(fcfg, seen["latents"],
+                        {k: torch.from_numpy(v) for k, v in pred.items()},
+                        height, width, frames)
+    return {"t": {k: v.float().cpu() for k, v in got.items()},
+            "decode": dec.float().cpu(), "video": video,
+            "launches": launches, "paths": paths, "tok": tok}
+
+
+def phase_small_clip(device):
+    """``FantasyWorldSampler.generate_video`` and ``export`` at reduced
+    widths, on the card in bf16 (kernels) and on the CPU in f32 (plain
+    versions) from the same weights (``small_clip_run``): the latents, the
+    prediction and the float decode within SLICE_TOL, exact launch counts
+    with CLIP's. Runs the card side; returns the check, which takes the
+    CPU side when called (after the mesh phases)."""
+    import torch
+    t0 = time.perf_counter()
+    card = small_clip_run(device, torch.bfloat16)
+    card_s = time.perf_counter() - t0
+    return lambda: check_small_clip(card, card_s)
+
+
+def check_small_clip(card, card_s):
+    import shutil
+    t0 = time.perf_counter()
+    fcfg, _, _, clipc, _ = small_clip_configs()
+    height, width, frames, steps = SMALL_CLIP_RUN
+    cpu = cpu_side("small_clip")
+    shutil.rmtree(os.path.join(REPO, "build", "clip_export"),
+                  ignore_errors=True)
     errs = {k: _rel_l2([card["t"][k]], [cpu["t"][k]]) for k in cpu["t"]}
     errs["decode"] = _rel_l2([card["decode"]], [cpu["decode"]])
     want = expected_launches(fcfg, steps, clip=clipc)
-    say("small_clip", seconds=f"{time.perf_counter() - t_phase:.2f}",
-        tokenizer=tok, image="example_png",
+    # the card side's seconds and this check's; the CPU side's apart
+    say("small_clip", seconds=f"{card_s + time.perf_counter() - t0:.2f}",
+        cpu_side_seconds=f"{cpu['seconds']:.2f}",
+        tokenizer=card["tok"], image="example_png",
         video_file=saved_as(card["paths"]["video"]),
         ply=os.path.basename(card["paths"]["ply"]),
         video_shape="x".join(map(str, card["video"].shape)),
@@ -1164,14 +1304,16 @@ def small_wan22_configs():
     return fusion, t5, vae, moge
 
 
-def phase_small_wan22(device):
-    """``Wan22Sampler.generate_video`` at reduced widths with MoGe and an
-    end image, 3 steps (t ~ 1000 and 909 on the high expert, t ~ 715 on
-    the low one with the heads), on the card in bf16 -- the low expert in
-    pinned host memory until the swap -- and on the CPU in f32 from the
-    same weights: the latents, the prediction and the float decode within
-    SLICE_TOL, exact launch counts with MoGe's."""
-    import shutil
+SMALL_WAN22_RUN = (256, 384, 21, 3)    # height, width, frames, steps
+
+
+def small_wan22_run(dev, dtype):
+    """One side of ``small_wan22``: ``Wan22Sampler.generate_video`` (with
+    MoGe and an end image) and ``export`` on ``dev`` in ``dtype`` -- on the
+    card the low expert in pinned host memory until the swap -- the modules
+    loaded from f32 weights built on the CPU from a seed. Returns the
+    checked outputs and the float decode (f32 CPU tensors), the video, the
+    launches, the exported paths and the stages."""
     import torch
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import FusionModel
@@ -1185,67 +1327,88 @@ def phase_small_wan22(device):
     from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
         DualModelDenoiser, pin_to_host)
     from fantasy_world_tpu_torch.sampler import Wan22Sampler
-    t_phase = time.perf_counter()
     fcfg, t5c, vaec, mcfg = small_wan22_configs()
     ctors = {"high": (FusionModel, fcfg), "low": (FusionModel, fcfg),
              "t5": (T5Encoder, t5c), "vae": (WanVAE, vaec),
              "moge": (MoGe, mcfg)}
-    height, width, frames, steps = 256, 384, 21, 3
+    height, width, frames, steps = SMALL_WAN22_RUN
     g = torch.Generator("cpu").manual_seed(13)
-    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
-                        generator=g) for n, (c, cfg) in ctors.items()}
+    mods = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                     generator=g) for n, (c, cfg) in ctors.items()}
     for n in ("high", "low"):
-        wake_zero_inits(weights[n], g)
+        wake_zero_inits(mods[n], g)
+    if dev.type != "cpu":
+        weights, mods = mods, {}
+        for n, (c, cfg) in ctors.items():
+            mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+            mods[n].load_state_dict(weights[n].state_dict())
+        del weights
+        pin_to_host(mods["low"])
     image, cams = clip_inputs(height, width, frames)
     end = np.ascontiguousarray(image[::-1])
     out_root = os.path.join(REPO, "build", "wan22_export")
-    outs = {}
-    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
-        mods = weights
-        if dev != "cpu":
-            mods = {}
-            for n, (c, cfg) in ctors.items():
-                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
-                mods[n].load_state_dict(weights[n].state_dict())
-            pin_to_host(mods["low"])
-        pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"])
-        install_tokenizer(pipe, t5c.vocab, os.path.join(out_root, "tok"))
-        decode, seen, stages = pipe.decode_video, {}, []
+    pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"])
+    install_tokenizer(pipe, t5c.vocab,
+                      os.path.join(out_root, f"tok_{dev.type}"))
+    decode, seen, stages = pipe.decode_video, {}, []
 
-        def record(latents, **kw):
-            seen["latents"] = latents
-            return decode(latents, **kw)
-        pipe.decode_video = record
-        fa.reset_launch_counts()
-        sampler = Wan22Sampler(pipe, DualModelDenoiser(mods["high"],
-                                                       mods["low"]),
-                               mods["moge"])
-        video, pred = sampler.generate_video(
-            PROMPT, NEG_PROMPT, image=image, end_image=end,
-            camera_params=cams, seed=3, height=height, width=width,
-            num_frames=frames, sample_steps=steps,
-            stage_callback=stages.append)
-        launches = dict(fa.LAUNCHES)
-        with torch.no_grad():
-            dec = vae_decode_tiled(pipe.vae, seen["latents"])
-        paths = Wan22Sampler.export(video, pred,
-                                    os.path.join(out_root, str(dev)),
-                                    stride=8)
-        got = check_outputs(fcfg, seen["latents"],
-                            {k: torch.from_numpy(v) for k, v in pred.items()},
-                            height, width, frames)
-        outs[str(dev)] = {"t": {k: v.float().cpu() for k, v in got.items()},
-                          "decode": dec.float().cpu(), "video": video,
-                          "launches": launches, "paths": paths,
-                          "stages": stages}
-        del mods, pipe, sampler, dec
-    shutil.rmtree(out_root, ignore_errors=True)
-    cpu, card = outs["cpu"], outs[str(device)]
+    def record(latents, **kw):
+        seen["latents"] = latents
+        return decode(latents, **kw)
+    pipe.decode_video = record
+    fa.reset_launch_counts()
+    sampler = Wan22Sampler(pipe, DualModelDenoiser(mods["high"],
+                                                   mods["low"]),
+                           mods["moge"])
+    video, pred = sampler.generate_video(
+        PROMPT, NEG_PROMPT, image=image, end_image=end,
+        camera_params=cams, seed=3, height=height, width=width,
+        num_frames=frames, sample_steps=steps,
+        stage_callback=stages.append)
+    launches = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        dec = vae_decode_tiled(pipe.vae, seen["latents"])
+    paths = Wan22Sampler.export(video, pred, os.path.join(out_root, str(dev)),
+                                stride=8)
+    got = check_outputs(fcfg, seen["latents"],
+                        {k: torch.from_numpy(v) for k, v in pred.items()},
+                        height, width, frames)
+    return {"t": {k: v.float().cpu() for k, v in got.items()},
+            "decode": dec.float().cpu(), "video": video,
+            "launches": launches, "paths": paths, "stages": stages}
+
+
+def phase_small_wan22(device):
+    """``Wan22Sampler.generate_video`` at reduced widths with MoGe and an
+    end image, 3 steps (t ~ 1000 and 909 on the high expert, t ~ 715 on
+    the low one with the heads), on the card in bf16 -- the low expert in
+    pinned host memory until the swap -- and on the CPU in f32 from the
+    same weights (``small_wan22_run``): the latents, the prediction and
+    the float decode within SLICE_TOL, exact launch counts with MoGe's.
+    Runs the card side; returns the check, which takes the CPU side when
+    called (after the mesh phases)."""
+    import torch
+    t0 = time.perf_counter()
+    card = small_wan22_run(device, torch.bfloat16)
+    card_s = time.perf_counter() - t0
+    return lambda: check_small_wan22(card, card_s)
+
+
+def check_small_wan22(card, card_s):
+    import shutil
+    t0 = time.perf_counter()
+    fcfg, _, _, mcfg = small_wan22_configs()
+    height, width, frames, steps = SMALL_WAN22_RUN
+    cpu = cpu_side("small_wan22")
+    shutil.rmtree(os.path.join(REPO, "build", "wan22_export"),
+                  ignore_errors=True)
     errs = {k: _rel_l2([card["t"][k]], [cpu["t"][k]]) for k in cpu["t"]}
     errs["decode"] = _rel_l2([card["decode"]], [cpu["decode"]])
     want = expected_launches(fcfg, steps, moge=(mcfg, moge_tokens(
-        mcfg, image.shape[:2])))
-    say("small_wan22", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        mcfg, clip_inputs(height, width, frames)[0].shape[:2])))
+    # the card side's seconds and this check's; the CPU side's apart
+    say("small_wan22", seconds=f"{card_s + time.perf_counter() - t0:.2f}",
+        cpu_side_seconds=f"{cpu['seconds']:.2f}",
         tokenizer="transformers-wordlevel", image="example_png",
         end_image="example_png_flipped", stages="|".join(card["stages"]),
         video_file=saved_as(card["paths"]["video"]),
@@ -2160,26 +2323,63 @@ def phase_small_options(device):
 # barriers, and a collective's data moves through staging buffers on the
 # card that every rank maps (CUDA IPC, parallel/distributed.py). The mesh's
 # math and its kernel launches are checked; its times are one card's, not
-# multi-GPU times. Each rank writes what it found into MESH_DIR.
+# multi-GPU times. Each rank writes what it found into MESH_DIR. One
+# spawn of ranks runs several jobs in turn (``mesh_jobs``): its ranks'
+# start (the interpreter, torch, the card, the process group) costs more
+# than a reduced mesh's whole denoise.
 MESH_DIR = os.path.join(REPO, "build", "mesh")
-# full_mesh's Ulysses denoise: full width, 4 PCB + 4 IRG blocks (a Ulysses
-# mesh replicates the weights on each rank, two of them on one card)
-MESH_ULYSSES_DEPTH = (8, 4)
+# full_mesh's denoises at (1, 1, 2) and (1, 2, 1): full width, 4 PCB + 4
+# IRG blocks (a Ulysses mesh replicates the weights on each rank, two of
+# them on one card; the tensor split's fault would show in any block)
+MESH_DEPTH = (8, 4)
+# the running job's prefix of its files in MESH_DIR (``_jobs_rank``)
+MESH_TAG = ""
+
+
+def mesh_path(name: str, tag=None) -> str:
+    """The file ``name`` of job ``tag`` in MESH_DIR (this rank's running
+    job's when None)."""
+    return os.path.join(MESH_DIR, (MESH_TAG if tag is None else tag) + name)
+
+
+def _jobs_rank(rank, jobs):
+    """Each ``(tag, fn, args)`` of ``jobs`` in turn on this rank,
+    ``fn(rank, *args)`` writing its files under ``tag``; between two jobs
+    their card memory and the shared staging buffers are given back."""
+    global MESH_TAG
+    import torch
+    from fantasy_world_tpu_torch.parallel import distributed
+    for tag, fn, args in jobs:
+        MESH_TAG = tag
+        fn(rank, *args)
+        gc.collect()
+        distributed.release_shared()
+        torch.cuda.empty_cache()
+    MESH_TAG = ""
+
+
+def mesh_jobs(world, jobs):
+    """``jobs`` [(tag, fn, args)] one after another on ``world`` ranks
+    spawned once on this card over gloo (``_jobs_rank``); then {tag: each
+    rank's JSON record}."""
+    from fantasy_world_tpu_torch.parallel.distributed import spawn
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for name in os.listdir(MESH_DIR):
+        os.remove(os.path.join(MESH_DIR, name))
+    spawn(_jobs_rank, world, jobs, backend="gloo", device="cuda")
+    records = {}
+    for tag, _, _ in jobs:
+        records[tag] = []
+        for r in range(world):
+            with open(mesh_path(f"rank{r}.json", tag)) as fh:
+                records[tag].append(json.load(fh))
+    return records
 
 
 def mesh_run(fn, world, *args):
     """``fn(rank, *args)`` in ``world`` spawned ranks on this card over
     gloo; then each rank's JSON record (``MESH_DIR/rank{r}.json``)."""
-    from fantasy_world_tpu_torch.parallel.distributed import spawn
-    os.makedirs(MESH_DIR, exist_ok=True)
-    for name in os.listdir(MESH_DIR):
-        os.remove(os.path.join(MESH_DIR, name))
-    spawn(fn, world, *args, backend="gloo", device="cuda")
-    records = []
-    for r in range(world):
-        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as fh:
-            records.append(json.load(fh))
-    return records
+    return mesh_jobs(world, [("", fn, args)])[""]
 
 
 def _rank_setup():
@@ -2192,7 +2392,7 @@ def _rank_setup():
 
 
 def _rank_record(rank, **fields):
-    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as fh:
+    with open(mesh_path(f"rank{rank}.json"), "w") as fh:
         json.dump(fields, fh)
 
 
@@ -2241,6 +2441,12 @@ MESH_MODES = {
     ("small", (2, 1, 2), False): ("local", "local", "local"),
     ("small", (1, 2, 2), True): ("ring", "ulysses", "ulysses"),
     ("small", (4, 1, 1), False): ("local", "local", "local"),
+    # small_mesh_serving: int8 / fp8, Wan2.2 (same heads) and the server
+    # at 1x1x2; the windows of 3 latent frames (split 2 | 1) at 1x2x1
+    ("small", (1, 1, 2), False): ("local", "local", "local"),
+    ("small_window", (1, 2, 1), True): ("ulysses", "ulysses", "ulysses"),
+    # tools/torch_mesh_check.py's windows over 4 cards
+    ("small_window", (1, 2, 2), True): ("ring", "ulysses", "ulysses"),
     ("full", (1, 1, 2), False): ("local", "local", "local"),
     ("full", (1, 2, 1), True): ("ulysses", "ulysses", "ulysses"),
     ("full", (1, 1, 4), False): ("local", "local", "local"),
@@ -2261,13 +2467,16 @@ def attention_mode_launches(mode, H, D, q_split, kv_split):
     raise ValueError(mode)
 
 
-def mesh_launches(cfg, fhw, shape, modes, steps, rank, text_len):
+def mesh_launches(cfg, fhw, shape, modes, steps, rank, text_len, skipped=0,
+                  heads=True):
     """Kernel launches of one rank of a ``shape`` mesh over a denoise of
     ``steps`` steps with the heads on the last (rank 0's): per DiT block
     its self-attention (seq-parallel) and cross-attentions at 1/M of the
     heads, per IRG block frame attention (local) and global attention
     (seq-parallel), per coupled block bicross both ways (seq-parallel);
-    the camera trunk on rank 0. ``modes``: a ``MESH_MODES`` entry."""
+    the camera trunk on rank 0. ``modes``: a ``MESH_MODES`` entry.
+    ``skipped``: TeaCache steps whose block stack did not run; ``heads``
+    False: no heads step (a window's forward)."""
     from collections import Counter
 
     from fantasy_world_tpu_torch.ops import flash_attention as fa
@@ -2305,10 +2514,21 @@ def mesh_launches(cfg, fhw, shape, modes, steps, rank, text_len):
             step.update(g2v)
     out = {k: 0 for k in fa.LAUNCHES}
     for k, v in step.items():
-        out[k] += v * steps
-    if rank == 0:
+        out[k] += v * (steps - skipped)
+    if rank == 0 and heads:
         out["onekv"] += 4 * cfg.vggt.camera_head.trunk_depth
     return out
+
+
+def mesh_window_launches(cfg, hw, frames, window, shape, modes, steps, rank,
+                         text_len):
+    """``mesh_launches`` of a sliding-window denoise over ``frames`` latent
+    frames in windows of ``window`` = (size, stride): each window a
+    forward over its frames, no heads."""
+    from fantasy_world_tpu_torch.pipelines.temporal_tiler import window_plan
+    return _add(*(mesh_launches(cfg, (t1 - t0, *hw), shape, modes, steps,
+                                rank, text_len, heads=False)
+                  for t0, t1 in window_plan(frames, *window)))
 
 
 def small_mesh_denoise(dev, mesh, ulysses):
@@ -2355,54 +2575,54 @@ def _small_mesh_rank(rank, shape, ulysses, probe):
         dev, sharding.make_mesh(*shape), ulysses)
     record.update(launches=launches, seconds=seconds)
     if rank == 0:
-        torch.save(got, os.path.join(MESH_DIR, "outputs.pt"))
+        torch.save(got, mesh_path("outputs.pt"))
     _rank_record(rank, **record)
 
 
-def phase_small_mesh(device, cpu_outs):
-    """The reduced slice's denoise on meshes of ranks sharing this card,
-    each against the CPU's one-process run (``cpu_outs``, small_slice's):
-    8 ranks at (2, 2, 2), 2 at (1, 2, 1) with Ulysses, and 4 at (1, 4, 1)
-    with Ulysses, where 2 heads do not divide by 4 and the ring runs."""
+# small_mesh's meshes: (shape, Ulysses); 2 heads do not divide by 4 seq
+# ranks, so (1, 4, 1) runs the ring
+SMALL_MESH_RUNS = (((1, 2, 1), True), ((2, 2, 2), False), ((1, 4, 1), True))
+
+
+def check_small_mesh(shape, uly, records, cpu_outs):
+    """small_mesh's denoise at ``shape`` (its ranks' ``records`` and rank
+    0's outputs) against the CPU's one-process run (``cpu_outs``,
+    small_slice's), and every rank's launches exact. Returns the launches,
+    all ranks summed."""
     import torch
     fcfg, _ = small_configs()
     height, width, frames = SMALL_GEOMETRY
     fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    world = len(records)
+    got = torch.load(mesh_path("outputs.pt", "mesh" + mesh_tag(shape)))
+    errs = {k: ((got[k] - ref).norm() / ref.norm().clamp_min(1e-12)
+                ).item() for k, ref in cpu_outs.items()}
+    launch_err = [r for r in range(world) if records[r]["launches"]
+                  != mesh_launches(fcfg, fhw, shape,
+                                   MESH_MODES["small", shape, uly],
+                                   SMALL_STEPS, r, 16)]
+    probe = records[0]["gloo_cuda"]
+    if probe:
+        say("gloo_cuda", **probe)
+    say("small_mesh", mesh="x".join(map(str, shape)), ulysses=uly,
+        ranks=world,
+        rank_denoise_seconds="|".join(f"{r['seconds']:.2f}"
+                                      for r in records),
+        device_vs_cpu_rel_l2=json.dumps(
+            {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
+                " ", ""),
+        rank0_launches=_nonzero(records[0]["launches"]))
+    bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"small_mesh {shape}: beyond {SLICE_TOL} "
+                             f"of the CPU: {bad}")
+    if launch_err:
+        raise AssertionError(
+            f"small_mesh {shape}: ranks {launch_err} launched "
+            f"{[records[r]['launches'] for r in launch_err]}")
     total = {}
-    for shape, uly in (((1, 2, 1), True), ((2, 2, 2), False),
-                       ((1, 4, 1), True)):
-        t0 = time.perf_counter()
-        world = int(np.prod(shape))
-        records = mesh_run(_small_mesh_rank, world, shape, uly,
-                           shape == (1, 2, 1))
-        got = torch.load(os.path.join(MESH_DIR, "outputs.pt"))
-        errs = {k: ((got[k] - ref).norm() / ref.norm().clamp_min(1e-12)
-                    ).item() for k, ref in cpu_outs.items()}
-        launch_err = [r for r in range(world) if records[r]["launches"]
-                      != mesh_launches(fcfg, fhw, shape,
-                                       MESH_MODES["small", shape, uly],
-                                       SMALL_STEPS, r, 16)]
-        probe = records[0]["gloo_cuda"]
-        if probe:
-            say("gloo_cuda", **probe)
-        say("small_mesh", mesh="x".join(map(str, shape)), ulysses=uly,
-            ranks=world, seconds=f"{time.perf_counter() - t0:.2f}",
-            rank_denoise_seconds="|".join(f"{r['seconds']:.2f}"
-                                          for r in records),
-            device_vs_cpu_rel_l2=json.dumps(
-                {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
-                    " ", ""),
-            rank0_launches=_nonzero(records[0]["launches"]))
-        bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
-        if bad:
-            raise AssertionError(f"small_mesh {shape}: beyond {SLICE_TOL} "
-                                 f"of the CPU: {bad}")
-        if launch_err:
-            raise AssertionError(
-                f"small_mesh {shape}: ranks {launch_err} launched "
-                f"{[records[r]['launches'] for r in launch_err]}")
-        for r in records:
-            total = _add(total, r["launches"])
+    for r in records:
+        total = _add(total, r["launches"])
     return total
 
 
@@ -2504,12 +2724,12 @@ def _mesh_attention_rank(rank, reps):
                  norm={"max_abs_err": err, "err_bound": bound})
 
 
-def mesh_fusion_config(depth=None):
-    """FusionConfig() at full width; ``depth`` (layers, start index) cuts
-    the DiT and the VGGT stack to that many blocks, the DPT taps scaled
-    onto the cut stack."""
+def mesh_fusion_config(depth=None, base=None):
+    """FusionConfig() (or ``base``) at full width; ``depth`` (layers, start
+    index) cuts the DiT and the VGGT stack to that many blocks, the DPT
+    taps scaled onto the cut stack."""
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
-    cfg = FusionConfig()
+    cfg = base or FusionConfig()
     if depth is None:
         return cfg
     import dataclasses
@@ -2586,23 +2806,44 @@ def _full_mesh_rank(rank, shape, ulysses, depth, seed):
     if rank == 0:
         got = check_outputs(cfg, lat, pred, *MESH_GEOMETRY)
         torch.save({k: v.float().cpu() for k, v in got.items()},
-                   os.path.join(MESH_DIR, "outputs.pt"))
+                   mesh_path("outputs.pt"))
     _rank_record(rank, steps=steps, peak_gb=peak, launches=launches)
+
+
+# full_mesh's denoises: (mesh shape, Ulysses)
+FULL_MESH_RUNS = (((1, 1, 2), False), ((1, 2, 1), True))
+
+
+def mesh_tag(shape) -> str:
+    return "x".join(map(str, shape)) + "_"
 
 
 def phase_full_mesh(device, seed=1024):
     """At full width on ranks sharing this card: the q/k norm on a column
     split (``mesh_norm_check``), Ulysses and the ring as direct calls at
     the DiT self, bicross and VGGT global shapes (2 ranks) against the
-    one-process kernel; then the 2-step denoise with the heads
-    at (1, 1, 2), all 40 blocks, and at (1, 2, 1) with Ulysses at 4 + 4
-    blocks, each against the same seeded model and inputs run in one
-    process on the card. Returns the denoise runs' launches, all ranks
-    summed."""
+    one-process kernel; then the 2-step denoise with the heads at (1, 1, 2)
+    and at (1, 2, 1) with Ulysses, both at ``MESH_DEPTH``, against the same
+    seeded model and inputs run once in one process on the card. The three
+    run as jobs of one spawn of 2 ranks. Returns the denoise runs'
+    launches, all ranks summed."""
     import torch
     t0 = time.perf_counter()
-    records = mesh_run(_mesh_attention_rank, 2, 3)
-    for row in records[0]["calls"]:
+    height, width, frames = MESH_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    cfg = mesh_fusion_config(MESH_DEPTH)
+    lat, pred, ref_steps, ref_peak, _ = mesh_denoise(device, cfg, seed)
+    ref = {k: v.float().cpu() for k, v in check_outputs(
+        cfg, lat, pred, height, width, frames).items()}
+    del lat, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    records = mesh_jobs(2, [("attention_", _mesh_attention_rank, (3,))] + [
+        (mesh_tag(shape), _full_mesh_rank, (shape, uly, MESH_DEPTH, seed))
+        for shape, uly in FULL_MESH_RUNS])
+    mesh_s = time.perf_counter() - t1
+    for row in records["attention_"][0]["calls"]:
         say("full_mesh_attention", ranks=2, **{
             k: (f"{v:.3e}" if k in ("max_abs_err", "err_bound") else
                 f"{v:.3f}" if isinstance(v, float) else v)
@@ -2611,34 +2852,21 @@ def phase_full_mesh(device, seed=1024):
             raise AssertionError(f"full_mesh {row['shape']} "
                                  f"{row['method']}: {row['max_abs_err']} > "
                                  f"{row['err_bound']}")
-    norm = records[0]["norm"]
+    norm = records["attention_"][0]["norm"]
     say("full_mesh_norm", ranks=2, shape="2x16317x5120",
         max_abs_err=f"{norm['max_abs_err']:.3e}",
         err_bound=f"{norm['err_bound']:.3e}")
     if not norm["max_abs_err"] <= norm["err_bound"]:
         raise AssertionError(f"full_mesh q/k norm on a column split: "
                              f"{norm['max_abs_err']} > {norm['err_bound']}")
-    say("full_mesh_attention_phase", seconds=f"{time.perf_counter() - t0:.2f}")
     total = {}
-    height, width, frames = MESH_GEOMETRY
-    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
-    for shape, uly, depth in (((1, 1, 2), False, None),
-                              ((1, 2, 1), True, MESH_ULYSSES_DEPTH)):
-        t0 = time.perf_counter()
-        cfg = mesh_fusion_config(depth)
-        lat, pred, ref_steps, ref_peak, _ = mesh_denoise(device, cfg, seed)
-        ref = {k: v.float().cpu() for k, v in check_outputs(
-            cfg, lat, pred, height, width, frames).items()}
-        del lat, pred
-        gc.collect()
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
+    for shape, uly in FULL_MESH_RUNS:
+        runs = records[mesh_tag(shape)]
         world = int(np.prod(shape))
-        records = mesh_run(_full_mesh_rank, world, shape, uly, depth, seed)
-        got = torch.load(os.path.join(MESH_DIR, "outputs.pt"))
+        got = torch.load(mesh_path("outputs.pt", mesh_tag(shape)))
         errs = {k: ((got[k] - r).norm() / r.norm().clamp_min(1e-12)).item()
                 for k, r in ref.items()}
-        launch_err = [r for r in range(world) if records[r]["launches"]
+        launch_err = [r for r in range(world) if runs[r]["launches"]
                       != mesh_launches(cfg, fhw, shape,
                                        MESH_MODES["full", shape, uly],
                                        MESH_STEPS, r, 512)]
@@ -2647,14 +2875,12 @@ def phase_full_mesh(device, seed=1024):
             one_process_step_seconds="|".join(f"{s:.3f}" for s in ref_steps),
             one_process_peak_gb=f"{ref_peak:.2f}",
             rank_step_seconds="|".join(
-                "/".join(f"{s:.3f}" for s in r["steps"]) for r in records),
-            rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in records),
-            mesh_seconds=f"{time.perf_counter() - t1:.2f}",
-            seconds=f"{time.perf_counter() - t0:.2f}",
+                "/".join(f"{s:.3f}" for s in r["steps"]) for r in runs),
+            rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in runs),
             card_vs_one_process_rel_l2=json.dumps(
                 {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
                     " ", ""),
-            rank0_launches=_nonzero(records[0]["launches"]))
+            rank0_launches=_nonzero(runs[0]["launches"]))
         bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
         if bad:
             raise AssertionError(f"full_mesh {shape}: beyond {SLICE_TOL} of "
@@ -2662,9 +2888,945 @@ def phase_full_mesh(device, seed=1024):
         if launch_err:
             raise AssertionError(
                 f"full_mesh {shape}: ranks {launch_err} launched "
-                f"{[records[r]['launches'] for r in launch_err]}")
-        for r in records:
+                f"{[runs[r]['launches'] for r in launch_err]}")
+        for r in runs:
             total = _add(total, r["launches"])
+    say("full_mesh_phase", seconds=f"{time.perf_counter() - t0:.2f}",
+        mesh_seconds=f"{mesh_s:.2f}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the serving options on a mesh: int8 / fp8, TeaCache, the sliding window,
+# the Wan2.2 dual-expert denoise and the server, on ranks sharing this card
+# (as small_mesh and full_mesh run them: their times are one card's)
+# ---------------------------------------------------------------------------
+
+SERVING_DIR = os.path.join(REPO, "build", "mesh_serving")
+# small_mesh_serving at 128x192: 9 frames (3 latent frames of 8 x 12
+# tokens, split 2 | 1 over 2 seq ranks) for all but the windows, which
+# take 17 frames (5 latent frames) in windows of 3 every 2 -- (0, 3) and
+# (2, 5), each split 2 | 1
+SMALL_SERVING_GEOMETRY = (128, 192, 9)
+SMALL_WINDOW_GEOMETRY = (128, 192, 17)
+SMALL_WINDOW = (3, 2)
+SMALL_SERVING_CASES = {
+    (1, 1, 2): (False, ("int8", "fp8", "wan22", "server")),
+    (2, 1, 2): (False, ("int8", "fp8")),
+    (1, 2, 1): (True, ("tea", "window")),
+}
+# full_mesh_serving: 4 PCB + 4 IRG blocks of the full width (the whole run
+# must stay within the script's time limit; two ranks on one card run a
+# step ~2.2x one process's, full_mesh)
+MESH_SERVING_DEPTH = (8, 4)
+
+
+def full_serving_configs():
+    """full_mesh_serving's (Wan2.1 fusion config, pose encoder config,
+    Wan2.2 expert config, Wan2.1 geometry, Wan2.2 geometry): the full
+    widths cut to ``MESH_SERVING_DEPTH``."""
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
+    from fantasy_world_tpu_torch.models.wan.camera import (
+        CameraPoseEncoderConfig)
+    return (mesh_fusion_config(MESH_SERVING_DEPTH), CameraPoseEncoderConfig(),
+            mesh_fusion_config(MESH_SERVING_DEPTH, wan22_fusion_config()),
+            MESH_GEOMETRY, (480, 832, 81))
+
+
+def mesh_mode_frames(name):
+    """The latent frames over which ``MESH_MODES[name, ...]`` is taken."""
+    return {"small": (SMALL_GEOMETRY[2] - 1) // 4 + 1,
+            "small_window": SMALL_WINDOW[0],
+            "full": (MESH_GEOMETRY[2] - 1) // 4 + 1}[name]
+
+
+def small_serving_inputs():
+    """The reduced models from seeds (f32, the zero gates woken) and the
+    conditioning of every small_mesh_serving case, as state dicts and CPU
+    tensors: the Wan2.1 fusion model and pose encoder (``small_configs``),
+    the two Wan2.2 experts (``small_wan22_configs``), the server's umT5,
+    CLIP and VAE (``small_clip_configs``)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVision
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    g = torch.Generator("cpu").manual_seed(41)
+    fcfg, pcfg = small_configs()
+    ccfg, _, t5c, clipc, vaec = small_clip_configs()
+    wcfg = small_wan22_configs()[0]
+
+    def made(ctor, cfg, wake=False):
+        m = build(lambda: ctor(cfg), device="cpu", dtype=torch.float32,
+                  generator=g)
+        if wake:
+            wake_zero_inits(m, g)
+        return m.state_dict()
+
+    sds = {"fusion": made(FusionModel, fcfg, True),
+           "pose": made(CameraPoseEncoder, pcfg),
+           "high": made(FusionModel, wcfg, True),
+           "low": made(FusionModel, wcfg, True),
+           "clip_fusion": made(FusionModel, ccfg, True),
+           "clip_pose": made(CameraPoseEncoder, pcfg),
+           "t5": made(T5Encoder, t5c), "clip": made(CLIPVision, clipc),
+           "vae": made(WanVAE, vaec)}
+    h, w, n = SMALL_SERVING_GEOMETRY
+    cg = torch.Generator("cpu").manual_seed(42)
+    f = (n - 1) // 4 + 1
+    cond = {"serving": conditioning(fcfg.dit, h, w, n, cg, 16),
+            "window": conditioning(fcfg.dit, *SMALL_WINDOW_GEOMETRY, cg, 16),
+            "wan22": [torch.randn((1, 16, wcfg.dit.text_dim), generator=cg),
+                      torch.randn((1, 16, wcfg.dit.text_dim), generator=cg),
+                      torch.randn((1, wcfg.dit.in_dim - wcfg.dit.out_dim, f,
+                                   h // 8, w // 8), generator=cg),
+                      torch.randn((1, 24, f, h, w), generator=cg)]}
+    return {"sds": sds, "cond": cond}
+
+
+def _serving_modules(inputs, dev, dtype, names_ctors):
+    """Modules built on ``dev`` in ``dtype`` and filled from the inputs'
+    state dicts: {name: module} for each (name, (ctor, cfg))."""
+    from fantasy_world_tpu_torch.core.params import build
+    out = {}
+    for name, (ctor, cfg) in names_ctors.items():
+        out[name] = build(lambda: ctor(cfg), device=dev, dtype=dtype)
+        out[name].load_state_dict(inputs["sds"][name])
+    return out
+
+
+def serving_case(case, inputs, dev, mesh=None, ulysses=False):
+    """One small_mesh_serving case on ``dev`` (bf16 on the card, f32 on the
+    CPU), on ``mesh`` or in one process: (rank 0's outputs as f32 CPU
+    tensors, else None; this rank's launches). ``case``: "int8" / "fp8"
+    (quantized, then split: JAX's order; 2 steps with the heads),
+    "tea" (4 steps whose plan skips the second, cut after a segment of 2
+    and resumed from the partial state), "window" (2 steps in windows),
+    "wan22" (the dual-expert denoise over the boundary, 3 steps), "server"
+    (two clips over HTTP as one batch, on a mesh; in one process the same
+    batch through ``generate_videos``)."""
+    import torch
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    meshed = mesh is not None and not mesh.trivial
+    dtype = torch.float32 if str(dev) == "cpu" else torch.bfloat16
+    fcfg, pcfg = small_configs()
+    lead = not meshed or mesh.rank == 0
+    kw = {"mesh": mesh, "ulysses": ulysses} if meshed else {}
+    if case == "server":
+        return _serving_server_case(inputs, dev, dtype, mesh)
+    if case == "wan22":
+        from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+            DualModelDenoiser)
+        wcfg = small_wan22_configs()[0]
+        mods = _serving_modules(inputs, dev, dtype, {
+            "high": (FusionModel, wcfg), "low": (FusionModel, wcfg)})
+        den = DualModelDenoiser(mods["high"], mods["low"])
+        if meshed:
+            den.shard(mesh)
+        ctx_p, ctx_n, y, ctrl = inputs["cond"]["wan22"]
+        h, w, n = SMALL_SERVING_GEOMETRY
+        fa.reset_launch_counts()
+        lat, pred = den.denoise(ctx_p, ctx_n, y, h, w, num_frames=n,
+                                num_inference_steps=3, seed=5,
+                                control_camera_latents=ctrl, **kw)
+        launches = dict(fa.LAUNCHES)
+        if not lead:
+            return None, launches
+        return {k: v.float().cpu() for k, v in check_outputs(
+            wcfg, lat, pred, h, w, n).items()}, launches
+    mods = _serving_modules(inputs, dev, dtype, {
+        "fusion": (FusionModel, fcfg), "pose": (CameraPoseEncoder, pcfg)})
+    pipe = FantasyWorldPipeline(mods["fusion"], mods["pose"])
+    if case in ("int8", "fp8"):
+        pipe.quantize(case, min_dim=SMALL_QUANT_MIN_DIM)
+    if meshed:
+        pipe.shard(mesh)
+    window = case == "window"
+    cond = inputs["cond"]["window" if window else "serving"]
+    h, w, n = SMALL_WINDOW_GEOMETRY if window else SMALL_SERVING_GEOMETRY
+    pl = pipe.encode_plucker(cond[4])
+
+    def denoise(**more):
+        return pipe.denoise(*cond[:4], h, w, num_frames=n, seed=3,
+                            plucker_fea=pl, **kw, **more)
+    fa.reset_launch_counts()
+    if case == "tea":
+        thresh = float(inputs["thresh"])
+        path = os.path.join(SERVING_DIR, f"partial_{dev.type}.npz")
+        tea = dict(num_inference_steps=4, tea_cache_l1_thresh=thresh,
+                   gen_ckpt_path=path)
+        if meshed:
+            try:
+                denoise(segment_size=2, progress_callback=_cut_after_first,
+                        **tea)
+                raise AssertionError("the cut mesh run was not cut")
+            except _Cut:
+                pass
+            lat, pred = denoise(segment_size=1, **tea)
+        else:
+            lat, pred = denoise(num_inference_steps=4,
+                                tea_cache_l1_thresh=thresh)
+    elif case == "window":
+        lat, pred = denoise(num_inference_steps=2,
+                            sliding_window_size=SMALL_WINDOW[0],
+                            sliding_window_stride=SMALL_WINDOW[1])
+    else:
+        lat, pred = denoise(num_inference_steps=2)
+    launches = dict(fa.LAUNCHES)
+    if not lead:
+        return None, launches
+    if case == "window":
+        return {"latents": lat.float().cpu()}, launches
+    return {k: v.float().cpu() for k, v in check_outputs(
+        fcfg, lat, pred, h, w, n).items()}, launches
+
+
+SERVE_PROMPTS = (PROMPT, "a river at dawn")
+
+
+def _serving_server_case(inputs, dev, dtype, mesh):
+    """The server's batch: two clips of ``SMALL_SERVING_GEOMETRY`` with
+    the example image and a 9-frame orbit, seeds 3 and 4, 2 steps. On a
+    mesh rank 0 serves them over HTTP (port 0 on 127.0.0.1), batched as
+    one B = 2 run, and the other ranks follow; rank 0 then stops the
+    server, which stops the followers. Returns (rank 0's latents per clip
+    and whether its files were written, the launches)."""
+    import argparse
+    import torch
+    from fantasy_world_tpu_torch.cli import serve
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVision
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import WanVAE
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
+    ccfg, pcfg, t5c, clipc, vaec = small_clip_configs()
+    mods = _serving_modules(inputs, dev, dtype, {
+        "clip_fusion": (FusionModel, ccfg), "clip_pose": (CameraPoseEncoder,
+                                                          pcfg),
+        "t5": (T5Encoder, t5c), "clip": (CLIPVision, clipc),
+        "vae": (WanVAE, vaec)})
+    pipe = FantasyWorldPipeline(mods["clip_fusion"], mods["clip_pose"],
+                                t5=mods["t5"], clip=mods["clip"],
+                                vae=mods["vae"],
+                                tokenizer_path=os.path.join(SERVING_DIR,
+                                                            "tok"))
+    meshed = mesh is not None and not mesh.trivial
+    if meshed:
+        pipe.shard(mesh)
+    seen = []
+    denoise = pipe.denoise
+
+    def record(*a, **k):
+        lat, pred = denoise(*a, **k)
+        seen.append(lat)
+        return lat, pred
+    pipe.denoise = record
+    sampler = FantasyWorldSampler(pipe)
+    h, w, n = SMALL_SERVING_GEOMETRY
+    req = {"image_path": EXAMPLE_IMAGE, "height": h, "width": w,
+           "num_frames": n, "sample_steps": 2, "neg_prompt": NEG_PROMPT,
+           "camera_json": os.path.join(SERVING_DIR, "cams.json")}
+    reqs = [{**req, "prompt": p, "seed": s}
+            for p, s in zip(SERVE_PROMPTS, (3, 4))]
+    out_root = os.path.join(SERVING_DIR, f"out_{dev.type}")
+    args = argparse.Namespace(segment_size=None, output_root=out_root,
+                              ulysses=False, variant="wan21")
+    fa.reset_launch_counts()
+    written = True
+    if not meshed:
+        from fantasy_world_tpu_torch.serving.server import DEFAULTS
+        cams = [serve._cameras({**DEFAULTS, **r}) for r in reqs]
+        serve.make_run_fn(sampler, args)([{**DEFAULTS, **r} for r in reqs],
+                                         cams, None)
+    else:
+        for result in (serve_on_mesh(mesh.rank, mesh, sampler, args, [reqs],
+                                     2) or [[]])[0]:
+            names = os.listdir(result["output_dir"])
+            written = written and any(x.startswith("video") for x in names) \
+                and "recon_confthresh1.0.ply" in names
+    launches = dict(fa.LAUNCHES)
+    if meshed and mesh.rank != 0:
+        return None, launches
+    if len(seen) != 1 or seen[0].shape[0] != 2:
+        raise AssertionError(f"the two jobs ran as {[t.shape for t in seen]}")
+    return {"latents": seen[0].float().cpu(),
+            "written": torch.tensor(bool(written))}, launches
+
+
+def serving_launches(case, shape, uly, rank):
+    """The launches a small_mesh_serving case makes on ``rank``."""
+    fcfg = small_configs()[0]
+    h, w, n = SMALL_SERVING_GEOMETRY
+    fhw = ((n - 1) // 4 + 1, h // 16, w // 16)
+    modes = MESH_MODES["small", shape, uly]
+    if case in ("int8", "fp8"):
+        return mesh_launches(fcfg, fhw, shape, modes, 2, rank, 16)
+    if case == "wan22":
+        return mesh_launches(small_wan22_configs()[0], fhw, shape, modes, 3,
+                             rank, 16)
+    if case == "server":
+        ccfg, _, _, clipc, _ = small_clip_configs()
+        out = mesh_launches(ccfg, fhw, shape, modes, 2, rank, 512)
+        if rank == 0:
+            for _ in SERVE_PROMPTS:
+                out = _add(out, encoder_launches(clip=clipc))
+        return out
+    if case == "tea":
+        return mesh_launches(fcfg, fhw, shape, modes, 4, rank, 16,
+                             skipped=1)
+    h, w, n = SMALL_WINDOW_GEOMETRY
+    f = (n - 1) // 4 + 1
+    return mesh_window_launches(
+        fcfg, (h // 16, w // 16), f, SMALL_WINDOW, shape,
+        MESH_MODES["small_window", shape, uly], 2, rank, 16)
+
+
+def _small_serving_rank(rank, shape, ulysses, cases):
+    import torch
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    mesh = sharding.make_mesh(*shape)
+    # written by this script's parent process: numpy arrays among them
+    inputs = torch.load(os.path.join(SERVING_DIR, "inputs.pt"),
+                        weights_only=False)
+    record, outs = {}, {}
+    for case in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, launches = serving_case(case, inputs, dev, mesh, ulysses)
+        torch.cuda.synchronize()
+        record[case] = {"launches": launches,
+                        "seconds": time.perf_counter() - t0}
+        outs[case] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(outs, mesh_path("outputs.pt"))
+    _rank_record(rank, **record)
+
+
+def small_serving_prepare():
+    """small_mesh_serving's inputs and TeaCache threshold written to
+    SERVING_DIR for the ranks, with the tokenizer and the cameras of the
+    server case; then each case's one-process CPU run (f32, the kernels'
+    plain versions): {case: outputs}."""
+    import shutil
+    import torch
+    from fantasy_world_tpu_torch.cli import make_camera_json
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    os.makedirs(SERVING_DIR)
+    inputs = small_serving_inputs()
+    fcfg = small_configs()[0]
+    cpu_f = FusionModel(fcfg)
+    cpu_f.load_state_dict(inputs["sds"]["fusion"])
+    thresh, plan = tea_threshold(cpu_f.dit, 4)
+    del cpu_f
+    inputs["thresh"] = thresh
+    torch.save(inputs, os.path.join(SERVING_DIR, "inputs.pt"))
+    write_tokenizer(small_clip_configs()[2].vocab,
+                    os.path.join(SERVING_DIR, "tok"))
+    make_camera_json.main(["--out", os.path.join(SERVING_DIR, "cams.json"),
+                           "--motion", "orbit_left", "--frames",
+                           str(SMALL_SERVING_GEOMETRY[2])])
+    t0 = time.perf_counter()
+    cpu = {case: serving_case(case, inputs, torch.device("cpu"))[0]
+           for case in ("int8", "fp8", "tea", "window", "wan22", "server")}
+    say("small_mesh_serving_cpu", seconds=f"{time.perf_counter() - t0:.2f}",
+        tea_thresh=f"{thresh:.6g}",
+        tea_plan="".join("s" if s else "c" for s in plan))
+    if not plan[1] or plan.sum() != 1:
+        raise AssertionError(f"TeaCache plan {plan}: one skip, the second")
+    return cpu
+
+
+def check_small_serving(shape, uly, cases, records, cpu):
+    """small_mesh_serving's ``cases`` at ``shape`` (its ranks' ``records``
+    and rank 0's outputs) against their CPU runs (``cpu``) within
+    SLICE_TOL, and every rank's launches exact. Returns the launches, all
+    ranks summed."""
+    import torch
+    world = len(records)
+    got = torch.load(mesh_path("outputs.pt", "serving" + mesh_tag(shape)))
+    total = {}
+    for case in cases:
+        ref = cpu[case]
+        errs = {k: ((got[case][k] - v).norm()
+                    / v.norm().clamp_min(1e-12)).item()
+                for k, v in ref.items() if k != "written"}
+        launch_err = [r for r in range(world)
+                      if records[r][case]["launches"]
+                      != serving_launches(case, shape, uly, r)]
+        fields = {}
+        if case == "server":
+            fields["files_written"] = bool(got[case]["written"])
+        say("small_mesh_serving", case=case,
+            mesh="x".join(map(str, shape)), ulysses=uly, ranks=world,
+            rank_seconds="|".join(f"{r[case]['seconds']:.2f}"
+                                  for r in records),
+            device_vs_cpu_rel_l2=json.dumps(
+                {k: float(f"{v:.3e}") for k, v in errs.items()}
+            ).replace(" ", ""),
+            rank0_launches=_nonzero(records[0][case]["launches"]),
+            **fields)
+        bad = {k: v for k, v in errs.items() if not v <= SLICE_TOL}
+        if bad:
+            raise AssertionError(f"small_mesh_serving {case} {shape}: "
+                                 f"beyond {SLICE_TOL} of the CPU: {bad}")
+        if launch_err:
+            raise AssertionError(
+                f"small_mesh_serving {case} {shape}: ranks {launch_err} "
+                f"launched "
+                f"{[records[r][case]['launches'] for r in launch_err]}")
+        if case == "server" and not fields["files_written"]:
+            raise AssertionError("the served jobs wrote no MP4/PLY")
+        for r in records:
+            total = _add(total, r[case]["launches"])
+    return total
+
+
+def phase_small_meshes(device, cpu_outs):
+    """small_mesh and small_mesh_serving at reduced widths, on meshes of
+    ranks sharing this card, one spawn of ranks per world size running
+    each mesh of that size as a job (``mesh_jobs``).
+
+    small_mesh: the reduced slice's denoise (``SMALL_MESH_RUNS``) against
+    the CPU's one-process run (``cpu_outs``, small_slice's).
+
+    small_mesh_serving: the serving options, each against the CPU's
+    one-process run of the same case (f32, the kernels' plain versions)
+    within SLICE_TOL, with exact launches on every rank: int8 and fp8
+    (quantized whole, then split) at 1x1x2 and 2x1x2; TeaCache at 1x2x1
+    with Ulysses, the plan skipping a step, cut after a segment and resumed
+    from rank 0's partial state; the windowed denoise at 1x2x1 with
+    Ulysses on windows split 2 | 1; the Wan2.2 dual-expert denoise at 1x1x2
+    across the boundary; the server at 1x1x2 (the last job of its spawn):
+    two jobs over HTTP batched as one B = 2 run on both ranks, the files
+    written, the ranks stopped through rank 0's shutdown (each rank exits
+    0: the spawn raises otherwise).
+
+    Returns (small_mesh's launches, small_mesh_serving's), all ranks
+    summed."""
+    import shutil
+    t_phase = time.perf_counter()
+    cpu = small_serving_prepare()
+    # the 2-rank server case last: it stops the ranks' serving loop
+    jobs = {}
+    for shape, uly in SMALL_MESH_RUNS:
+        jobs.setdefault(int(np.prod(shape)), []).append(
+            ("mesh" + mesh_tag(shape), _small_mesh_rank,
+             (shape, uly, shape == (1, 2, 1))))
+    for shape, (uly, cases) in sorted(SMALL_SERVING_CASES.items(),
+                                      key=lambda kv: "server" in kv[1][1]):
+        jobs.setdefault(int(np.prod(shape)), []).append(
+            ("serving" + mesh_tag(shape), _small_serving_rank,
+             (shape, uly, cases)))
+    mesh, serving = {}, {}
+    for world, world_jobs in sorted(jobs.items()):
+        t0 = time.perf_counter()
+        records = mesh_jobs(world, world_jobs)
+        for tag, _, (shape, uly, third) in world_jobs:
+            if tag.startswith("mesh"):
+                mesh = _add(mesh, check_small_mesh(shape, uly, records[tag],
+                                                   cpu_outs))
+            else:
+                serving = _add(serving, check_small_serving(
+                    shape, uly, third, records[tag], cpu))
+        say("small_mesh_world", ranks=world,
+            meshes="|".join(tag.rstrip("_") for tag, _, _ in world_jobs),
+            seconds=f"{time.perf_counter() - t0:.2f}")
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    say("small_meshes_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return mesh, serving
+
+
+FULL_SERVING_DIR = os.path.join(REPO, "build", "mesh_serving_full")
+FULL_SERVING_CAMERAS = os.path.join(REPO, "examples", "cameras",
+                                    "camera_data.json")
+
+
+def full_encoders(device, g, clip=True):
+    """umT5-XXL, CLIP ViT-H/14 (unless ``clip`` is False) and the Wan VAE
+    ({"t5", "clip", "vae"}), and MoGe-2, built on ``device`` in bf16 from
+    the generator ``g``."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.moge.model import MoGe, MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.clip import (CLIPVision,
+                                                         CLIPVisionConfig)
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config, T5Encoder
+    from fantasy_world_tpu_torch.models.wan.vae import VAEConfig, WanVAE
+    kw = dict(device=device, dtype=torch.bfloat16, generator=g)
+    enc = {"t5": build(lambda: T5Encoder(T5Config()), **kw)}
+    if clip:
+        enc["clip"] = build(lambda: CLIPVision(CLIPVisionConfig()), **kw)
+    enc["vae"] = build(lambda: WanVAE(VAEConfig()), **kw)
+    return enc, build(lambda: MoGe(MoGeConfig()), **kw)
+
+
+def instrument_entry(sampler, entry, denoiser, runs, stages):
+    """Wrap ``sampler``'s generate call ``entry`` and its ``denoiser``'s
+    ``denoise`` in place: each generate call appends to ``runs`` its
+    seconds, s per denoise step (CUDA events from the denoise's progress
+    callback, which the serve path leaves free), peak GB and kernel
+    launches (the counts set to 0 at its start); the denoise's stages
+    (Wan2.2: the control adapters, "swap") go to ``stages``."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    generate, denoise, steps = getattr(sampler, entry), denoiser.denoise, []
+
+    def timed_denoise(*a, **k):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def progress(done, total):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        if k.get("progress_callback") is not None:
+            raise AssertionError("the serve path passed a progress callback")
+        k["progress_callback"] = progress
+        inner = k.get("stage_callback") or (lambda name: None)
+        if "stage_callback" in k:
+            k["stage_callback"] = lambda name: (stages.append(name),
+                                                inner(name))
+        out = denoise(*a, **k)
+        steps.append(events)
+        return out
+
+    def timed_generate(*a, **k):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        steps.clear()
+        t0 = time.perf_counter()
+        out = generate(*a, **k)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "steps": [e[i].elapsed_time(e[i + 1]) / 1e3
+                               for e in steps for i in range(len(e) - 1)],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": dict(fa.LAUNCHES)})
+        return out
+    setattr(sampler, entry, timed_generate)
+    denoiser.denoise = timed_denoise
+
+
+def serve_on_mesh(rank, mesh, sampler, args, batches, max_batch):
+    """The served mesh as ``cli.serve`` runs it: rank 0 a
+    ``GenerationServer`` over ``serve.make_batch_fn`` on 127.0.0.1:0, each
+    batch of ``batches`` (lists of requests) posted over HTTP once the one
+    before is done, then ``serve.stop``; the other ranks ``serve.follow``.
+    Rank 0 returns the jobs' results (statuses checked), the others None."""
+    import urllib.request
+    from fantasy_world_tpu_torch.cli import serve
+    from fantasy_world_tpu_torch.serving.server import GenerationServer
+    if rank != 0:
+        ran = serve.follow(sampler, args, mesh)
+        if ran != len(batches):
+            raise AssertionError(f"rank {rank} followed {ran} batches")
+        return None
+    server = GenerationServer(
+        serve.make_batch_fn(sampler, args, mesh, args.variant == "wan22"),
+        port=0, max_batch=max_batch, linger_s=1.0)
+    server.start()
+    done = []
+    try:
+        for batch in batches:
+            ids = []
+            for r in batch:
+                post = urllib.request.Request(
+                    f"http://127.0.0.1:{server.port}/v1/generate",
+                    data=json.dumps(r).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(post, timeout=30) as resp:
+                    ids.append(json.loads(resp.read())["job_id"])
+            deadline, jobs = time.time() + 600, []
+            while time.time() < deadline:
+                jobs = [server.get(i) for i in ids]
+                if all(j.status in ("done", "error") for j in jobs):
+                    break
+                time.sleep(0.05)
+            bad = [(j.status, j.error) for j in jobs if j.status != "done"]
+            if bad:
+                raise AssertionError(f"served jobs: {bad}")
+            done.append([j.result for j in jobs])
+    finally:
+        serve.stop(server, mesh)
+    return done
+
+
+def _full_serving_rank(rank, seed):
+    """full_mesh_serving on one rank of the 1x1x2 mesh, through the serve
+    CLI's entry points (``serve_on_mesh``), each rank's sampler built as
+    ``serve.load_sampler`` builds it, from seeded weights: umT5-XXL, CLIP,
+    the VAE and MoGe-2 on rank 0 only, the fusion model built whole,
+    quantized to int8 and then split (``pipe.shard``). The Wan2.1 server
+    takes two jobs (one B = 2 batch, 2 steps), then one TeaCache job (3
+    steps, the plan skipping the second); then, CLIP and the fusion model
+    gone, the Wan2.2 server (``--variant wan22``): both experts built as
+    this rank's parts and placed (``DualModelDenoiser.place``), one job
+    of 2 steps across the boundary. Records per generate call s per step,
+    seconds, peak GB and launches; rank 0 its exports and the plan."""
+    import argparse
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.core.quant import count_quantized
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser, expert_bytes)
+    from fantasy_world_tpu_torch.sampler import (FantasyWorldSampler,
+                                                 Wan22Sampler)
+    from fantasy_world_tpu_torch.serving.server import expandable_segments
+    # as cli.serve's main does on every rank, before the models load (the
+    # ranks share this card: the default segments stay)
+    alloc = expandable_segments()
+    dev = _rank_setup()
+    mesh = sharding.make_mesh(1, 1, 2)
+    cfg, pcfg, wcfg, (h, w, n), (wh, ww, wn) = full_serving_configs()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tok = os.path.join(FULL_SERVING_DIR, "tok")
+    record, runs, stages, exported = {"alloc": alloc}, [], [], {}
+
+    def recording_export(sampler):
+        export = sampler.export
+
+        def recorded(video, pred, out_dir, **kw):
+            exported[os.path.basename(out_dir)] = (
+                list(video.shape), str(video.dtype),
+                {k: list(v.shape) for k, v in pred.items()},
+                bool(all(np.isfinite(v).all() for v in pred.values())))
+            paths = export(video, pred, out_dir, **kw)
+            exported[os.path.basename(out_dir)] += (
+                sorted(os.listdir(out_dir)),)
+            return paths
+        sampler.export = recorded
+
+    t0 = time.perf_counter()
+    # rank 0 alone conditions and decodes (``serve.load_sampler``'s
+    # ``encoders``); the encoders' own seed keeps every rank's models equal
+    enc, moge = ({}, None) if rank else full_encoders(
+        dev, torch.Generator(device=dev).manual_seed(seed + 1))
+    fusion = build(lambda: FusionModel(cfg), device=dev, dtype=torch.bfloat16,
+                   generator=g)
+    pose = build(lambda: CameraPoseEncoder(pcfg), device=dev,
+                 dtype=torch.bfloat16, generator=g)
+    pipe = FantasyWorldPipeline(fusion, pose, **enc, tokenizer_path=tok)
+    # the serve CLI's order: quantized whole, then split
+    layers = pipe.quantize("int8")
+    pipe.shard(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    record["build"] = {"seconds": time.perf_counter() - t0, "layers": layers,
+                       "weights_gb": torch.cuda.memory_allocated() / 1e9,
+                       "quantized": count_quantized(fusion)}
+    sampler = FantasyWorldSampler(pipe, moge)
+    instrument_entry(sampler, "generate_videos", pipe, runs, stages)
+    recording_export(sampler)
+    thresh, plan = tea_threshold(fusion.dit, 3, dev)
+    record["tea_plan"] = "".join("s" if s else "c" for s in plan)
+    req = {"image_path": EXAMPLE_IMAGE, "camera_json": FULL_SERVING_CAMERAS,
+           "height": h, "width": w, "num_frames": n, "sample_steps": 2,
+           "neg_prompt": NEG_PROMPT}
+    batches = [[dict(req, prompt=p, seed=seed + i)
+                for i, p in enumerate(SERVE_PROMPTS[:SERVE_CLIPS])],
+               [dict(req, prompt=PROMPT, seed=seed + 2, sample_steps=3,
+                     tea_cache_l1_thresh=thresh)]]
+    args = argparse.Namespace(segment_size=None, ulysses=False,
+                              output_root=os.path.join(FULL_SERVING_DIR,
+                                                       "wan21"),
+                              variant="wan21")
+    record["wan21_results"] = serve_on_mesh(rank, mesh, sampler, args,
+                                            batches, SERVE_CLIPS)
+    del sampler, pipe, fusion, pose
+    enc.pop("clip", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Wan2.2: each expert built as this rank's part (no whole expert on
+    # any rank), then placed beside umT5, the VAE and MoGe
+    t0 = time.perf_counter()
+    experts = []
+    for _ in range(2):
+        m = build(lambda: FusionModel(wcfg), device=dev, dtype=torch.bfloat16,
+                  generator=g, mesh=mesh)
+        wake_zero_inits(m, g)
+        experts.append(m)
+    den = DualModelDenoiser(*experts).place()
+    torch.cuda.synchronize()
+    record["wan22_build"] = {
+        "seconds": time.perf_counter() - t0,
+        "expert_gb": expert_bytes(experts[0]) / 1e9,
+        "devices": "|".join(str(den._device_of(m)) for m in experts),
+        "resident_gb": torch.cuda.memory_allocated() / 1e9}
+    sampler = Wan22Sampler(FantasyWorldPipeline(
+        t5=enc.get("t5"), vae=enc.get("vae"), tokenizer_path=tok), den, moge)
+    instrument_entry(sampler, "generate_video", den, runs, stages)
+    recording_export(sampler)
+    args = argparse.Namespace(segment_size=None, ulysses=False,
+                              output_root=os.path.join(FULL_SERVING_DIR,
+                                                       "wan22"),
+                              variant="wan22")
+    record["wan22_results"] = serve_on_mesh(
+        rank, mesh, sampler, args,
+        [[dict(req, prompt=PROMPT, seed=seed, height=wh, width=ww,
+               num_frames=wn)]], 1)
+    record["wan22_stages"] = "|".join(stages)
+    record["runs"] = runs
+    record["exported"] = exported
+    _rank_record(rank, **record)
+
+
+def expert_part_bytes(cfg, model_ranks: int) -> int:
+    """The bytes of one rank's part of a bf16 fusion model of ``cfg`` at
+    a model split of ``model_ranks`` (``sharding.PARAM_RULES``), reckoned
+    on the meta device."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.parallel import sharding
+    model = build(lambda: FusionModel(cfg), device="meta",
+                  dtype=torch.bfloat16)
+    sizes = {"data": 1, "seq": 1, "model": model_ranks}
+    total = 0
+    for name, t in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        spec = sharding.param_spec(name, t.shape, sizes)
+        total += t.numel() * t.element_size() // math.prod(
+            sizes[a] for a in spec if a)
+    return total
+
+
+# the one-process Wan2.2 clip of wan22_both_resident: each expert cut to
+# the fewest blocks (half PCB, half IRG) at which it holds at least a rank's
+# part of the full expert at a model split of 2
+BOTH_RESIDENT_DEPTHS = tuple((2 * k, k) for k in range(8, 20))
+
+
+def wan22_both_resident(device, seed=1024, steps=2):
+    """The placement a rank takes from ``--mesh_model 2`` on, one rank a
+    card, exercised in one process: two experts of the full width, each cut
+    to the first of ``BOTH_RESIDENT_DEPTHS`` that holds at least a rank's
+    part of the full expert at M = 2 (``expert_part_bytes``), built on the
+    card beside umT5-XXL, the VAE and MoGe-2; ``DualModelDenoiser.place``
+    must keep both there (``both_fit``); then ``Wan22Sampler.generate_video``
+    at 480x832x81, ``steps`` steps with the heads and the tiled decode.
+    One process holds the whole activations, more than a rank of the split
+    does, so its peak bounds the rank's from above. Prints the resident and
+    peak GB (through the decode and before it), checks that no expert
+    swapped, the peak above the two experts within
+    ``ACTIVATION_RESERVE_BYTES``, finite outputs of their shapes and the
+    exact launches; returns the launches."""
+    import torch
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.pipelines import wan_video_22 as w22
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    from fantasy_world_tpu_torch.sampler import Wan22Sampler
+    height, width, frames = 480, 832, 81
+    t_phase = time.perf_counter()
+    base = wan22_fusion_config()
+    part = expert_part_bytes(base, 2)
+    depth = next(d for d in BOTH_RESIDENT_DEPTHS
+                 if expert_part_bytes(mesh_fusion_config(d, base), 1) >= part)
+    cfg = mesh_fusion_config(depth, base)
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    enc, moge = full_encoders(device, g, clip=False)
+    experts = []
+    for _ in range(2):
+        m = build(lambda: FusionModel(cfg), device=device,
+                  dtype=torch.bfloat16, generator=g)
+        wake_zero_inits(m, g)
+        experts.append(m)
+    den = w22.DualModelDenoiser(*experts).place()
+    devices = [str(den._device_of(m)) for m in experts]
+    tok = os.path.join(FULL_SERVING_DIR, "tok_one")
+    write_tokenizer(T5Config().vocab, tok)
+    sampler = Wan22Sampler(FantasyWorldPipeline(
+        t5=enc["t5"], vae=enc["vae"], tokenizer_path=tok), den, moge)
+    image, cams = clip_inputs(height, width, frames)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    stages, denoised = [], []
+    denoise = den.denoise
+
+    def measured(*a, **k):
+        out = denoise(*a, **k)
+        torch.cuda.synchronize()
+        denoised.append(torch.cuda.max_memory_allocated())
+        return out
+    den.denoise = measured
+    stage = stages.append
+    t0 = time.perf_counter()
+    video, pred = sampler.generate_video(
+        PROMPT, NEG_PROMPT, image=image, camera_params=cams, seed=seed,
+        height=height, width=width, num_frames=frames, sample_steps=steps,
+        stage_callback=stage)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    pair = 2 * w22.expert_bytes(experts[0])
+    mcfg = MoGeConfig()
+    want = expected_launches(cfg, steps, moge=(
+        mcfg, moge_tokens(mcfg, image.shape[:2])))
+    shapes = expected_shapes(cfg, height, width, frames)
+    say("wan22_both_resident", seconds=f"{seconds:.2f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.2f}",
+        blocks=f"{cfg.start_index}+{cfg.num_irg}",
+        expert_gb=f"{pair / 2e9:.2f}",
+        rank_part_gb_at_model_2=f"{part / 1e9:.2f}", devices="|".join(devices),
+        resident_gb=f"{resident / 1e9:.2f}",
+        peak_gb_before_decode=f"{denoised[0] / 1e9:.2f}",
+        peak_gb=f"{peak / 1e9:.2f}",
+        peak_above_experts_gb=f"{(peak - pair) / 1e9:.2f}",
+        reserve_gb=f"{w22.ACTIVATION_RESERVE_BYTES / 1e9:.2f}",
+        stages="|".join(stages), video_shape="x".join(map(str, video.shape)),
+        launches=_nonzero(launches))
+    if any(d != str(device) for d in devices) or "swap" in stages:
+        raise AssertionError(f"both experts should stay on {device}: "
+                             f"{devices}, stages {stages}")
+    if peak - pair > w22.ACTIVATION_RESERVE_BYTES:
+        raise AssertionError(f"the clip took {(peak - pair) / 1e9:.2f} GB "
+                             f"beside the experts, beyond the reserve")
+    if video.shape != (frames, height, width, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"video {video.shape} {video.dtype}")
+    for k, v in pred.items():
+        if tuple(v.shape) != shapes[k] or not np.isfinite(v).all():
+            raise AssertionError(f"{k} {v.shape}, finite "
+                                 f"{np.isfinite(v).all()}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    return launches
+
+
+def phase_full_mesh_serving(device, seed=1024):
+    """The serve CLI's mesh at full width on 2 ranks sharing this card
+    (1x1x2), cut to ``MESH_SERVING_DEPTH`` (``_full_serving_rank``): the
+    Wan2.1 server (``FusionConfig()`` at 336x592x81, int8) with a batch of
+    2 jobs and a TeaCache job over HTTP, then the Wan2.2 server
+    (480x832x81, 2 steps, one per expert: two ranks' parts of both experts
+    do not fit one card beside the reserve, ``both_fit``, so the low one
+    waits in pinned host memory and swaps in). Prints s per step, seconds
+    and peak GB per rank for each generate call, rank 0 with the encoders,
+    and the launches, which must be exact; the exported
+    clips of their shapes, finite, their MP4 and PLY written. Then
+    ``wan22_both_resident`` in this process. Returns the launches, both
+    ranks and this process summed."""
+    import shutil
+    from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
+    from fantasy_world_tpu_torch.sampler import read_image
+    t0 = time.perf_counter()
+    shutil.rmtree(FULL_SERVING_DIR, ignore_errors=True)
+    write_tokenizer(T5Config().vocab, os.path.join(FULL_SERVING_DIR, "tok"))
+    records = mesh_run(_full_serving_rank, 2, seed)
+    shape, modes = (1, 1, 2), MESH_MODES["full", (1, 1, 2), False]
+    cfg, _, wcfg, (h, w, n), (wh, ww, wn) = full_serving_configs()
+    fhw = ((n - 1) // 4 + 1, h // 16, w // 16)
+    wfhw = ((wn - 1) // 4 + 1, wh // 16, ww // 16)
+    mcfg = MoGeConfig()
+    # MoGe sees the image as it is on disk
+    moge = (mcfg, moge_tokens(mcfg, read_image(EXAMPLE_IMAGE).shape[:2]))
+    per_clip = encoder_launches(CLIPVisionConfig(), moge)
+    want = {"serve": lambda r: _add(mesh_launches(cfg, fhw, shape, modes, 2,
+                                                  r, 512),
+                                    *([per_clip] * SERVE_CLIPS
+                                      if r == 0 else [])),
+            "tea": lambda r: _add(mesh_launches(cfg, fhw, shape, modes, 3, r,
+                                                512, skipped=1),
+                                  *([per_clip] if r == 0 else [])),
+            "wan22": lambda r: _add(mesh_launches(wcfg, wfhw, shape, modes, 2,
+                                                  r, 512),
+                                    *([encoder_launches(moge=moge)]
+                                      if r == 0 else []))}
+    total = {}
+    for i, (run, expect) in enumerate(want.items()):
+        got = [r["runs"][i] for r in records]
+        say("full_mesh_serving", run=run, mesh="1x1x2", ranks=2,
+            blocks=f"{cfg.start_index}+{cfg.num_irg}",
+            rank_seconds="|".join(f"{x['seconds']:.3f}" for x in got),
+            rank_step_seconds="|".join(
+                "/".join(f"{s:.3f}" for s in x["steps"]) for x in got),
+            rank_peak_gb="|".join(f"{x['peak_gb']:.2f}" for x in got),
+            rank0_launches=_nonzero(got[0]["launches"]))
+        bad = [r for r in range(2) if got[r]["launches"] != expect(r)]
+        if bad:
+            raise AssertionError(
+                f"full_mesh_serving {run}: ranks {bad} launched "
+                f"{[got[r]['launches'] for r in bad]}, want "
+                f"{[expect(r) for r in bad]}")
+        for x in got:
+            total = _add(total, x["launches"])
+    r0 = records[0]
+    if any(len(r["runs"]) != 3 for r in records):
+        raise AssertionError(f"generate calls per rank: "
+                             f"{[len(r['runs']) for r in records]}")
+    # the exports: 2 + 1 Wan2.1 clips and 1 Wan2.2 clip
+    served = {os.path.basename(job["output_dir"]): geometry
+              for results, geometry in ((r0["wan21_results"], (cfg, h, w, n)),
+                                        (r0["wan22_results"],
+                                         (wcfg, wh, ww, wn)))
+              for batch in results for job in batch}
+    if sorted(r0["exported"]) != sorted(served) or len(served) != 4:
+        raise AssertionError(f"exported {sorted(r0['exported'])}, served "
+                             f"{sorted(served)}")
+    for job, (vshape, vdtype, pshapes, finite, files) in \
+            r0["exported"].items():
+        jcfg, jh, jw, jn = served[job]
+        shapes = expected_shapes(jcfg, jh, jw, jn)
+        if (tuple(vshape) != (jn, jh, jw, 3) or vdtype != "uint8"
+                or not finite or not pshapes
+                or any(tuple(v) != shapes[k] for k, v in pshapes.items())
+                or not any(f.startswith("video") for f in files)
+                or not any(f.endswith(".ply") for f in files)):
+            raise AssertionError(f"job {job}: video {vshape} {vdtype}, "
+                                 f"finite {finite}, {pshapes}, {files}")
+    say("full_mesh_serving_phase", seconds=f"{time.perf_counter() - t0:.2f}",
+        int8_layers=r0["build"]["quantized"],
+        weights_gb="|".join(f"{r['build']['weights_gb']:.2f}"
+                            for r in records),
+        build_seconds=f"{r0['build']['seconds']:.2f}",
+        tea_plan=r0["tea_plan"],
+        wan22_expert_gb=f"{r0['wan22_build']['expert_gb']:.2f}",
+        wan22_resident_gb="|".join(f"{r['wan22_build']['resident_gb']:.2f}"
+                                   for r in records),
+        wan22_devices=r0["wan22_build"]["devices"],
+        wan22_stages=r0["wan22_stages"], allocator=r0["alloc"],
+        exported="|".join(f"{k}:{'x'.join(map(str, v[0]))}"
+                          for k, v in sorted(r0["exported"].items())))
+    if r0["tea_plan"] != "csc":
+        raise AssertionError(f"full-width TeaCache plan {r0['tea_plan']}")
+    if "swap" not in r0["wan22_stages"].split("|"):
+        raise AssertionError(f"Wan2.2 stages {r0['wan22_stages']}: the "
+                             f"experts did not trade places")
+    total = _add(total, wan22_both_resident(device, seed))
+    shutil.rmtree(FULL_SERVING_DIR, ignore_errors=True)
     return total
 
 
@@ -2770,12 +3932,9 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
     the clip's pipeline and MoGe, which the serve phase uses."""
     import shutil
     import torch
-    from fantasy_world_tpu_torch.core.params import build
-    from fantasy_world_tpu_torch.models.moge.model import MoGe, MoGeConfig
-    from fantasy_world_tpu_torch.models.wan.clip import (CLIPVision,
-                                                         CLIPVisionConfig)
-    from fantasy_world_tpu_torch.models.wan.t5 import T5Config, T5Encoder
-    from fantasy_world_tpu_torch.models.wan.vae import VAEConfig, WanVAE
+    from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
+    from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from fantasy_world_tpu_torch.models.wan.t5 import T5Config
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     from fantasy_world_tpu_torch.pipelines.wan_video import (
         FantasyWorldPipeline)
@@ -2784,14 +3943,7 @@ def phase_full_clip(device, pipe, steps=2, seed=1024):
     height, width, frames = 336, 592, 81
     t_phase = t0 = time.perf_counter()
     g = torch.Generator(device=device).manual_seed(seed + 2)
-    enc = {"t5": build(lambda: T5Encoder(T5Config()), device=device,
-                       dtype=torch.bfloat16, generator=g),
-           "clip": build(lambda: CLIPVision(CLIPVisionConfig()),
-                         device=device, dtype=torch.bfloat16, generator=g),
-           "vae": build(lambda: WanVAE(VAEConfig()), device=device,
-                        dtype=torch.bfloat16, generator=g)}
-    moge = build(lambda: MoGe(MoGeConfig()), device=device,
-                 dtype=torch.bfloat16, generator=g)
+    enc, moge = full_encoders(device, g)
     torch.cuda.synchronize()
     say("full_clip_build", seconds=f"{time.perf_counter() - t0:.2f}",
         **{f"{n}_params": sum(p.numel() for p in m.parameters())
@@ -4306,14 +5458,18 @@ def run_ti2v(pipe, image, height, width, frames, steps, seed, mark=None,
     return latents, shared["first_frame_latents"], video
 
 
-def phase_small_ti2v(device):
-    """The TI2V-5B path at the widths of ``small_ti2v_configs``, 512x768,
-    21 frames, 2 steps, on the card in bf16 against the CPU in f32 from the
-    same weights: the first-frame latent, the latents, the float decode of
-    each run's latents, the card's decode of the CPU's latents and both
-    decodes of unit-normal latents within SLICE_TOL, frame 0 equal to the
-    clean latent after the loop, exact launches."""
-    import shutil
+SMALL_TI2V_RUN = (512, 768, 21, 2)     # height, width, frames, steps
+
+
+def small_ti2v_run(dev, dtype):
+    """One side of ``small_ti2v``: the TI2V-5B clip (``run_ti2v``) on
+    ``dev`` in ``dtype`` from f32 weights built on the CPU from a seed,
+    then the float decode of its latents and of unit-normal latents (the
+    VAE's own bf16 error, apart from the range of the denoised latents).
+    Returns these (f32 CPU tensors), the first-frame latent, the video,
+    the launches, whether frame 0 was clamped to it and the tokenizer's
+    kind, and ``decode_here``: the float decode of given latents by this
+    side's VAE (the card's, of the CPU side's latents)."""
     import torch
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.wan.dit import WanDiT
@@ -4323,53 +5479,77 @@ def phase_small_ti2v(device):
     from fantasy_world_tpu_torch.pipelines.wan_video import (
         FantasyWorldPipeline)
     from fantasy_world_tpu_torch.sampler import image_pm1
-    t_phase = time.perf_counter()
     dcfg, t5c, vcfg = small_ti2v_configs()
     ctors = {"dit": (WanDiT, dcfg), "t5": (T5Encoder, t5c),
              "vae": (WanVAE38, vcfg)}
-    height, width, frames, steps = 512, 768, 21, 2
+    height, width, frames, steps = SMALL_TI2V_RUN
     g = torch.Generator("cpu").manual_seed(17)
-    weights = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
-                        generator=g) for n, (c, cfg) in ctors.items()}
+    mods = {n: build(lambda: c(cfg), device="cpu", dtype=torch.float32,
+                     generator=g) for n, (c, cfg) in ctors.items()}
     image, _ = clip_inputs(height, width, frames)
     image = image_pm1(image, height, width)
-    lat_shape = (1, 48, (frames - 1) // 4 + 1, height // 16, width // 16)
-    # unit-normal latents: the VAE's own bf16 error, apart from the range
-    # of the denoised latents
-    rand_lat = torch.randn(lat_shape, generator=g)
-    work = os.path.join(REPO, "build", "small_ti2v")
-    outs = {}
-    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
-        mods = weights
-        if dev != "cpu":
-            mods = {}
-            for n, (c, cfg) in ctors.items():
-                mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
-                mods[n].load_state_dict(weights[n].state_dict())
-        pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"],
-                                    dit=mods["dit"])
-        tok = install_tokenizer(pipe, t5c.vocab, os.path.join(work, "tok"))
-        fa.reset_launch_counts()
-        lat, first, video = run_ti2v(pipe, image, height, width, frames,
-                                     steps, seed=3)
-        launches = dict(fa.LAUNCHES)
-        with torch.no_grad():
-            dec = pipe.vae.decode(lat)
-            # the VAE alone: the CPU run's latents decoded on the card too
-            same = dec if not outs else pipe.vae.decode(
-                outs["cpu"]["latents"].to(dev, dtype))
-            rand = pipe.vae.decode(rand_lat.to(dev, dtype))
-        outs[str(dev)] = {"latents": lat.float().cpu(),
-                          "decode_random_latents": rand.float().cpu(),
-                          "decode_same_latents": same.float().cpu(),
-                          "first": first.float().cpu(),
-                          "decode": dec.float().cpu(), "video": video,
-                          "launches": launches,
-                          "clamped": torch.equal(lat[:, :, :1],
-                                                 first.to(lat.dtype))}
-        del mods, pipe, dec, same, rand
-    shutil.rmtree(work, ignore_errors=True)
-    cpu, card = outs["cpu"], outs[str(device)]
+    rand_lat = torch.randn(small_ti2v_latent_shape(), generator=g)
+    if dev.type != "cpu":
+        weights, mods = mods, {}
+        for n, (c, cfg) in ctors.items():
+            mods[n] = build(lambda: c(cfg), device=dev, dtype=dtype)
+            mods[n].load_state_dict(weights[n].state_dict())
+        del weights
+    pipe = FantasyWorldPipeline(t5=mods["t5"], vae=mods["vae"],
+                                dit=mods["dit"])
+    tok = install_tokenizer(pipe, t5c.vocab, os.path.join(
+        REPO, "build", "small_ti2v", f"tok_{dev.type}"))
+    fa.reset_launch_counts()
+    lat, first, video = run_ti2v(pipe, image, height, width, frames, steps,
+                                 seed=3)
+    launches = dict(fa.LAUNCHES)
+    out = {"latents": lat.float().cpu(), "first": first.float().cpu(),
+           "video": video, "launches": launches, "tok": tok,
+           "clamped": torch.equal(lat[:, :, :1], first.to(lat.dtype))}
+    with torch.no_grad():
+        out["decode"] = pipe.vae.decode(lat).float().cpu()
+        out["decode_random_latents"] = pipe.vae.decode(
+            rand_lat.to(dev, dtype)).float().cpu()
+    vae = pipe.vae
+
+    @torch.no_grad()
+    def decode_here(latents):
+        return vae.decode(latents.to(dev, dtype)).float().cpu()
+    out["decode_here"] = decode_here
+    return out
+
+
+def small_ti2v_latent_shape():
+    height, width, frames, _ = SMALL_TI2V_RUN
+    return (1, 48, (frames - 1) // 4 + 1, height // 16, width // 16)
+
+
+def phase_small_ti2v(device):
+    """The TI2V-5B path at the widths of ``small_ti2v_configs``, 512x768,
+    21 frames, 2 steps, on the card in bf16 against the CPU in f32 from the
+    same weights (``small_ti2v_run``): the first-frame latent, the latents,
+    the float decode of each run's latents, the card's decode of the CPU's
+    latents and both decodes of unit-normal latents within SLICE_TOL,
+    frame 0 equal to the clean latent after the loop, exact launches.
+    Runs the card side; returns the check, which takes the CPU side when
+    called (after the mesh phases)."""
+    import torch
+    t0 = time.perf_counter()
+    card = small_ti2v_run(device, torch.bfloat16)
+    card_s = time.perf_counter() - t0
+    return lambda: check_small_ti2v(card, card_s)
+
+
+def check_small_ti2v(card, card_s):
+    import shutil
+    t0 = time.perf_counter()
+    dcfg = small_ti2v_configs()[0]
+    height, width, frames, steps = SMALL_TI2V_RUN
+    cpu = cpu_side("small_ti2v")
+    # the CPU's latents through the card's VAE: the VAE alone
+    card["decode_same_latents"] = card.pop("decode_here")(cpu["latents"])
+    shutil.rmtree(os.path.join(REPO, "build", "small_ti2v"),
+                  ignore_errors=True)
     errs = {k: _rel_l2([card[k]], [cpu[k]])
             for k in ("first", "latents", "decode")}
     errs["decode_same_latents"] = _rel_l2([card["decode_same_latents"]],
@@ -4377,8 +5557,10 @@ def phase_small_ti2v(device):
     errs["decode_random_latents"] = _rel_l2(
         [card["decode_random_latents"]], [cpu["decode_random_latents"]])
     want = ti2v_launches(dcfg, steps)
-    say("small_ti2v", seconds=f"{time.perf_counter() - t_phase:.2f}",
-        tokenizer=tok, image="example_png",
+    # the card side's seconds and this check's; the CPU side's apart
+    say("small_ti2v", seconds=f"{card_s + time.perf_counter() - t0:.2f}",
+        cpu_side_seconds=f"{cpu['seconds']:.2f}",
+        tokenizer=card["tok"], image="example_png",
         latents_shape="x".join(map(str, card["latents"].shape)),
         video_shape="x".join(map(str, card["video"].shape)),
         frame0_clamped=f"{card['clamped']}|{cpu['clamped']}",
@@ -4391,7 +5573,7 @@ def phase_small_ti2v(device):
     if card["launches"] != want:
         raise AssertionError(f"small TI2V launches {card['launches']} != "
                              f"{want}")
-    if tuple(card["latents"].shape) != lat_shape \
+    if tuple(card["latents"].shape) != small_ti2v_latent_shape() \
             or card["video"].shape != (frames, height, width, 3):
         raise AssertionError(f"small TI2V shapes {card['latents'].shape} "
                              f"{card['video'].shape}")
@@ -4711,6 +5893,13 @@ def ti2v_reload_check(device, dit, latents, context, first):
     torch.cuda.empty_cache()
 
 
+# the phases that ``--phases`` runs alone: each needs only the card
+ALONE = {"kernels": phase_kernels, "full_mesh": phase_full_mesh,
+         "small_meshes": lambda device: phase_small_meshes(
+             device, phase_small_slice(device)),
+         "full_mesh_serving": phase_full_mesh_serving}
+
+
 def main(argv=None) -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4719,7 +5908,14 @@ def main(argv=None) -> int:
                         "full-depth denoise, a third full-width training "
                         "step and both steps of one more Wan2.2 clip into "
                         "DIR")
+    p.add_argument("--phases", default=None,
+                   help="run only these phases (comma-separated: "
+                        f"{', '.join(ALONE)}) after the build, and print no "
+                        "kernels line and no device line: a partial check")
     args = p.parse_args(argv)
+    only = None if args.phases is None else args.phases.split(",")
+    if only is not None and not set(only) <= set(ALONE):
+        p.error(f"--phases takes {', '.join(ALONE)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4741,14 +5937,22 @@ def main(argv=None) -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
 
     phase_build()
+    if only is not None:
+        for name in only:
+            ALONE[name](device)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}",
+            phases=args.phases)
+        return 0
+    # the reduced clips' CPU sides run beside the card's phases from here;
+    # their checks wait until after the mesh phases
+    cpu_pool = start_cpu_sides()
     per_kernel = phase_kernels(device)
     phase_train_kernels(device, per_kernel)
     phase_qlinear(device)
     small_cpu = phase_small_slice(device)
     phase_small_windowed(device)
-    phase_small_clip(device)
-    phase_small_wan22(device)
-    phase_small_ti2v(device)
+    small_checks = [phase_small_clip(device), phase_small_wan22(device),
+                    phase_small_ti2v(device)]
     phase_small_serve(device)
     phase_small_train(device)
     phase_train_cli()
@@ -4760,7 +5964,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the mesh phases: ranks that share the card, before the full model
     # takes it
-    mesh = _add(phase_small_mesh(device, small_cpu), phase_full_mesh(device))
+    mesh, mesh_serving = phase_small_meshes(device, small_cpu)
+    mesh = _add(mesh, phase_full_mesh(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_serving = _add(mesh_serving, phase_full_mesh_serving(device))
+    # the reduced clips against their CPU sides, done by now
+    for check in small_checks:
+        check()
+    cpu_pool.close()
+    cpu_pool.join()
+    del small_checks
     gc.collect()
     torch.cuda.empty_cache()
     denoise, per_step, pipe, cond, plucker_fea = phase_full_slice(
@@ -4808,9 +6022,13 @@ def main(argv=None) -> int:
                          + train[f"{k}_stats"] + data_train[k]
                          + data_train[f"{k}_stats"] + wan22[k] + quant[k]
                          + ti2v[k] + verify[k] + track[k] + options[k]
-                         + mesh.get(k, 0) + mesh.get(f"{k}_stats", 0)),
+                         + mesh.get(k, 0) + mesh.get(f"{k}_stats", 0)
+                         + mesh_serving.get(k, 0)
+                         + mesh_serving.get(f"{k}_stats", 0)),
             "denoise_launches": denoise[k],
             "mesh_launches": mesh.get(k, 0) + mesh.get(f"{k}_stats", 0),
+            "mesh_serving_launches": (mesh_serving.get(k, 0)
+                                      + mesh_serving.get(f"{k}_stats", 0)),
             "verify_launches": verify[k],
             "track_launches": track[k],
             "options_launches": options[k],
@@ -4823,7 +6041,8 @@ def main(argv=None) -> int:
             "ti2v_clip_launches": ti2v[k],
             "launches_per_denoise_step": per_step[k],
             "stats_launches": (train[f"{k}_stats"] + data_train[f"{k}_stats"]
-                               + mesh.get(f"{k}_stats", 0)),
+                               + mesh.get(f"{k}_stats", 0)
+                               + mesh_serving.get(f"{k}_stats", 0)),
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
             "stats_ms": pk["stats_ms"],
@@ -4838,10 +6057,14 @@ def main(argv=None) -> int:
         "sources": sorted(set(SOURCES.values())),
         "replaces": f"{JAX_FA}:102",
         "launches": sum(train[f"{k}_stats"] + data_train[f"{k}_stats"]
-                        + mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
+                        + mesh.get(f"{k}_stats", 0)
+                        + mesh_serving.get(f"{k}_stats", 0)
+                        for k in fa.ROUTES),
         "launches_by_route": {k: train[f"{k}_stats"]
                               + data_train[f"{k}_stats"]
-                              + mesh.get(f"{k}_stats", 0) for k in fa.ROUTES},
+                              + mesh.get(f"{k}_stats", 0)
+                              + mesh_serving.get(f"{k}_stats", 0)
+                              for k in fa.ROUTES},
         "mesh_launches": sum(mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
         "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
                            for k in fa.ROUTES),

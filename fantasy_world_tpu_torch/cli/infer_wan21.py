@@ -37,8 +37,11 @@ under torchrun, one process per rank (NCCL, one card each; gloo with
 The CFG pair splits over D, the latent frames over S, the DiT's heads and
 FFN over M (``parallel/sharding.py``); ``--ulysses`` re-shards the long
 attentions over S (``parallel/ulysses.py``). Rank 0 encodes, decodes and
-writes the outputs. A mesh does not combine with ``--quant`` or
-``--tea_cache_l1_thresh`` yet, and ``--ulysses`` needs ``--mesh_seq`` > 1.
+writes the outputs. Every serving option combines with a mesh:
+``--quant`` quantizes before the split (the int8 activation scales then
+span the model ranks), TeaCache takes rank 0's plan on every rank, and
+rank 0 writes ``--gen_ckpt_path``. ``--ulysses`` needs ``--mesh_seq`` > 1;
+without torchrun a mesh exits naming the process count it needs.
 """
 from __future__ import annotations
 
@@ -47,14 +50,6 @@ import json
 import os
 import sys
 import time
-
-# the mesh flags -> the values that leave the mesh off; the CLIs whose
-# multi-GPU path comes later refuse anything else
-MESH_FLAGS = {"mesh_data": 1, "mesh_seq": 1, "mesh_model": 1,
-              "ulysses": False}
-MESH_LATER = ("the multi-GPU path of this CLI is a later slice of the "
-              "port (ROADMAP queue A item 5(a))")
-
 
 def str2bool(v):
     if isinstance(v, bool):
@@ -102,10 +97,17 @@ def parse_args(argv=None):
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
     add_serving_args(p)
+    add_mesh_args(p)
+    return p.parse_args(argv)
+
+
+def add_mesh_args(p) -> None:
+    """The multi-GPU flags (under torchrun, one process per rank)."""
     g = p.add_argument_group("multi-GPU (under torchrun, one process per "
                              "rank)")
     g.add_argument("--mesh_data", type=int, default=1,
-                   help="ranks the CFG pair splits over")
+                   help="ranks the CFG pair (and a served batch) splits "
+                        "over")
     g.add_argument("--mesh_seq", type=int, default=1,
                    help="ranks the latent frames split over")
     g.add_argument("--mesh_model", type=int, default=1,
@@ -113,7 +115,6 @@ def parse_args(argv=None):
     g.add_argument("--ulysses", type=str2bool, default=False,
                    help="re-shard the long attentions over the seq ranks "
                         "(all-to-all) instead of gathering their keys")
-    return p.parse_args(argv)
 
 
 def add_serving_args(p) -> None:
@@ -152,25 +153,22 @@ def progress_printer(args):
                                      flush=True)
 
 
-def serving_kwargs(args) -> dict:
-    """The generate_video arguments of the per-run serving flags."""
+def serving_kwargs(args, lead: bool = True) -> dict:
+    """The generate_video arguments of the per-run serving flags (the
+    progress lines only where ``lead``: rank 0 of a mesh)."""
     return {"tea_cache_l1_thresh": args.tea_cache_l1_thresh,
             "tea_cache_model_id": args.tea_cache_model_id,
             "segment_size": args.segment_size,
             "gen_ckpt_path": args.gen_ckpt_path,
-            "progress_callback": progress_printer(args)}
+            "progress_callback": progress_printer(args) if lead else None}
 
 
-def check_common(args, missing, not_ported=None) -> None:
-    """Exit (SystemExit, naming the cause) for a mesh flag of a CLI whose
-    multi-GPU path is not ported (``not_ported``: flag -> its off value),
-    a missing MoGe checkpoint, missing checkpoint files (``missing``), and
-    ``--device cuda`` without a card."""
+def check_common(args, missing) -> None:
+    """Exit (SystemExit, naming the cause) for a missing MoGe checkpoint,
+    missing checkpoint files (``missing``), and ``--device cuda`` without
+    a card."""
     import torch
 
-    for flag, off in (not_ported or {}).items():
-        if getattr(args, flag) != off:
-            raise SystemExit(f"--{flag}: not ported yet: {MESH_LATER}")
     if args.moge_ckpt is not None and not os.path.isfile(args.moge_ckpt):
         raise SystemExit(f"--moge_ckpt: no MoGe checkpoint at "
                          f"{args.moge_ckpt}")
@@ -199,8 +197,7 @@ def mesh_shape(args):
 
 def check_mesh(args) -> None:
     """Exit for a mesh that cannot run: ``--ulysses`` without seq ranks,
-    a mesh with an option it does not combine with yet, or a process
-    count that is not the mesh's."""
+    or a process count that is not the mesh's."""
     shape = mesh_shape(args)
     if args.ulysses and args.mesh_seq == 1:
         raise SystemExit("--ulysses: re-shards attention over the seq "
@@ -208,11 +205,6 @@ def check_mesh(args) -> None:
     n = shape[0] * shape[1] * shape[2]
     if n == 1:
         return
-    for flag in ("quant", "tea_cache_l1_thresh"):
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag} with a mesh: comes with a later "
-                             f"slice of the port (ROADMAP queue A item "
-                             f"5(a))")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != n:
         first = next(f for f, v in zip(("mesh_data", "mesh_seq",
@@ -237,20 +229,36 @@ def run(args) -> dict:
     import torch
 
     check_args(args)
-    mesh = None
-    device = torch.device(args.device)
-    if max(mesh_shape(args)) > 1:
-        from ..parallel import distributed, sharding
-        distributed.initialize(device)
-        device = distributed.rank_device(device)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        mesh = sharding.make_mesh(*mesh_shape(args))
+    device, mesh = start_mesh(args)
     result = _generate(args, device, mesh)
     if mesh is not None:
         # not on a failure: torchrun ends the other ranks
+        from ..parallel import distributed
         distributed.shutdown()
     return result
+
+
+def start_mesh(args):
+    """(this rank's device, its mesh, or None without one): the process
+    group opened from torchrun's environment and the mesh of the flags;
+    the device as ``--device`` names it in one process."""
+    import torch
+    device = torch.device(args.device)
+    if max(mesh_shape(args)) == 1:
+        return device, None
+    from ..parallel import distributed, sharding
+    distributed.initialize(device)
+    device = distributed.rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device, sharding.make_mesh(*mesh_shape(args))
+
+
+def where(args, mesh) -> str:
+    """What the timing line says the run ran on."""
+    return args.device if mesh is None else (
+        f"{mesh.world} ranks ({'x'.join(map(str, mesh.shape))} mesh) on "
+        f"{args.device}")
 
 
 def _generate(args, device, mesh) -> dict:
@@ -266,10 +274,12 @@ def _generate(args, device, mesh) -> dict:
     with open(args.camera_json_path) as fh:
         cameras = cameras_json_to_camera_list(
             json.load(fh), image_size=(args.height, args.width))
+    # quantized whole, then split (JAX's order; the split of a quantized
+    # model holds the bits its whole has)
     sampler = FantasyWorldSampler.from_checkpoint(
         args.wan_ckpt_path, args.model_ckpt, device=device, dtype=dtype,
         tokenizer_path=args.tokenizer_path, moge_ckpt=args.moge_ckpt,
-        quant=args.quant)
+        quant=args.quant, encoders=lead)
     if mesh is not None:
         sampler.pipe.shard(mesh)
     if args.quant:
@@ -283,16 +293,13 @@ def _generate(args, device, mesh) -> dict:
             camera_params=cameras, using_scale=args.using_scale,
             seed=args.seed, height=args.height, width=args.width,
             num_frames=args.frames, sample_steps=args.sample_steps,
-            mesh=mesh, ulysses=args.ulysses, **serving_kwargs(args))
+            mesh=mesh, ulysses=args.ulysses, **serving_kwargs(args, lead))
     if not lead:
         return {"frames": None, "prediction": None, "video": None,
                 "ply": None}
     dt = time.perf_counter() - t0
-    where = args.device if mesh is None else (
-        f"{mesh.world} ranks ({'x'.join(map(str, mesh.shape))} mesh) on "
-        f"{args.device}")
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
-          f"({dt / args.sample_steps:.2f} s/step) on {where}")
+          f"({dt / args.sample_steps:.2f} s/step) on {where(args, mesh)}")
     paths = sampler.export(video, prediction, args.output_dir, fps=args.fps,
                            conf_threshold=args.conf_threshold,
                            stride=args.stride)

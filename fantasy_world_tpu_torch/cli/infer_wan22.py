@@ -20,9 +20,22 @@ disk as in ``cli/infer_wan21.py``; ``--auto_download`` has no effect.
 boundary) and ``--gen_ckpt_path`` work as in ``cli/infer_wan21.py``; both
 experts are quantized the same way, each on the card, before the low one
 is pinned in host memory. ``--profile_dir`` writes a ``torch.profiler``
-trace of the generation, as in ``cli/infer_wan21.py``. The mesh flags
-(``--mesh_*``, ``--ulysses``) end the run with the flag's name when set:
-this CLI's multi-GPU path is a later slice (ROADMAP queue A item 5(a)).
+trace of the generation, as in ``cli/infer_wan21.py``.
+
+Multi-GPU: ``--mesh_data D --mesh_seq S --mesh_model M [--ulysses true]``
+under torchrun, one process per rank, as ``cli/infer_wan21.py`` takes
+them::
+
+    torchrun --nproc_per_node 2 -m fantasy_world_tpu_torch.cli.infer_wan22 \
+        --mesh_model 2 ...
+
+Each rank builds its part of both experts (``place_experts(mesh=)``:
+split before anything is pinned, then quantized with ``--quant``); where
+both parts fit the rank's card by ``wan_video_22.both_fit``'s reckoning
+-- from M = 2 on, one rank a card; checked in one process, not yet on
+cards of their own -- no expert waits on the host. Rank 0 conditions,
+decodes and writes;
+without torchrun a mesh exits naming the process count it needs.
 """
 from __future__ import annotations
 
@@ -31,10 +44,9 @@ import json
 import sys
 import time
 
-from .infer_wan21 import (MESH_FLAGS, add_serving_args, check_common,
-                          resolve_layout,
-                          serving_kwargs,
-                          str2bool)
+from .infer_wan21 import (add_mesh_args, add_serving_args, check_common,
+                          check_mesh, resolve_layout, serving_kwargs,
+                          start_mesh, str2bool, where)
 
 
 def parse_args(argv=None):
@@ -71,34 +83,39 @@ def parse_args(argv=None):
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
     add_serving_args(p)
-    g = p.add_argument_group("multi-GPU: a later slice (setting one "
-                             "exits)")
-    g.add_argument("--mesh_data", type=int, default=1)
-    g.add_argument("--mesh_seq", type=int, default=1)
-    g.add_argument("--mesh_model", type=int, default=1)
-    g.add_argument("--ulysses", type=str2bool, default=False)
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
     from ..convert.checkpoint import missing_files_wan22
+    check_mesh(args)
     missing = resolve_layout(args, "Wan2.2-Fun-A14B-Control-Camera")
     check_common(args, missing + missing_files_wan22(
-        args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low),
-        MESH_FLAGS)
+        args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low))
 
 
 def run(args) -> dict:
     """The clip; returns {"frames", "prediction", "video": path written,
-    "ply": path written}."""
+    "ply": path written} (all None on a mesh rank other than 0)."""
+    check_args(args)
+    device, mesh = start_mesh(args)
+    result = _generate(args, device, mesh)
+    if mesh is not None:
+        # not on a failure: torchrun ends the other ranks
+        from ..parallel import distributed
+        distributed.shutdown()
+    return result
+
+
+def _generate(args, device, mesh) -> dict:
     import torch
 
     from ..hostops.camera import cameras_json_to_camera_list
     from ..sampler import Wan22Sampler, read_image
     from ..utils.observability import profile_trace
 
-    check_args(args)
-    device = torch.device(args.device)
+    lead = mesh is None or mesh.rank == 0
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     with open(args.camera_json_path) as fh:
         cameras = cameras_json_to_camera_list(
@@ -107,21 +124,27 @@ def run(args) -> dict:
         args.wan_ckpt_path, args.model_ckpt_high, args.model_ckpt_low,
         device=device, dtype=dtype, tokenizer_path=args.tokenizer_path,
         moge_ckpt=args.moge_ckpt, timestep_boundary=args.timestep_boundary,
-        quant=args.quant)
-    image = read_image(args.image_path)
-    end_image = (read_image(args.end_image_path) if args.end_image_path
-                 else None)
+        quant=args.quant, mesh=mesh, encoders=lead)
+    image = end_image = None
+    if lead:
+        image = read_image(args.image_path)
+        end_image = (read_image(args.end_image_path)
+                     if args.end_image_path else None)
     t0 = time.perf_counter()
-    with profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir if lead else None):
         video, prediction = sampler.generate_video(
             prompt=args.prompt, neg_prompt=args.neg_prompt, image=image,
             end_image=end_image, camera_params=cameras,
             using_scale=args.using_scale, seed=args.seed,
             height=args.height, width=args.width,
-            sample_steps=args.sample_steps, **serving_kwargs(args))
+            sample_steps=args.sample_steps, mesh=mesh, ulysses=args.ulysses,
+            **serving_kwargs(args, lead))
+    if not lead:
+        return {"frames": None, "prediction": None, "video": None,
+                "ply": None}
     dt = time.perf_counter() - t0
     print(f"[timing] generate {args.sample_steps} steps + decode: {dt:.1f}s "
-          f"({dt / args.sample_steps:.2f} s/step) on {args.device}")
+          f"({dt / args.sample_steps:.2f} s/step) on {where(args, mesh)}")
     paths = sampler.export(video, prediction, args.output_dir, fps=args.fps,
                            conf_threshold=args.conf_threshold,
                            stride=args.stride)

@@ -27,23 +27,43 @@ required (``--model_ckpt``, or ``--model_ckpt_high`` and
 files end the run. ``--quant`` quantizes the denoiser once at start-up;
 ``--segment_size`` makes each batch report its progress on
 ``GET /v1/jobs/<id>``; a request's ``tea_cache_l1_thresh`` turns TeaCache
-on for its batch. ``--mesh_*`` and ``--ulysses`` exit: the server's
-multi-GPU path is a later slice (ROADMAP queue A item 5(a)).
+on for its batch.
+
+Multi-GPU: ``--mesh_* [--ulysses]`` under torchrun, one process per rank::
+
+    torchrun --nproc_per_node 2 -m fantasy_world_tpu_torch.cli.serve \
+        --mesh_model 2 --ckpt_dir ... --port 8000 --max_batch 2
+
+Rank 0 runs the server (HTTP, validation, the queue, batching, progress,
+export); before each batch it broadcasts the batch's requests, and every
+rank generates it over the mesh. The other ranks listen on no port: they
+follow rank 0 (``follow``) until it stops, waiting for each batch over
+a group of their own with no time limit (``distributed.control_group``),
+so an idle server keeps its ranks. An interrupt of rank 0 (Ctrl-C,
+SIGINT) stops the server, lets the batch in flight finish and sends the
+stop, so every rank exits 0; a failure inside a batch ends the ranks, as
+in ``cli/infer_wan21.py``. A request that fails validation never reaches
+the other ranks.
 The CUDA allocator runs on expandable segments unless
-``PYTORCH_CUDA_ALLOC_CONF`` says otherwise (``serving/server.py:
-expandable_segments``).
+``PYTORCH_CUDA_ALLOC_CONF`` says otherwise or ranks share a card
+(``serving/server.py:expandable_segments``).
 The bound address is printed, so ``--port 0`` takes a free port.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import signal
 import sys
+import traceback
 
 import numpy as np
 
-from .infer_wan21 import MESH_FLAGS, check_common, resolve_layout, str2bool
+from ..parallel import distributed
+from .infer_wan21 import (check_common, check_mesh, resolve_layout,
+                          start_mesh, str2bool, where)
 
 
 def parse_args(argv=None):
@@ -99,12 +119,16 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: bf16 through the hand-written kernels; cpu: "
                         "f32 through their plain versions")
-    g = p.add_argument_group("multi-GPU: a later slice (setting one "
-                             "exits)")
-    g.add_argument("--mesh_data", type=int, default=1)
-    g.add_argument("--mesh_seq", type=int, default=1)
-    g.add_argument("--mesh_model", type=int, default=1)
-    g.add_argument("--ulysses", action="store_true")
+    g = p.add_argument_group("multi-GPU (under torchrun, one process per "
+                             "rank; rank 0 serves)")
+    g.add_argument("--mesh_data", type=int, default=1,
+                   help="ranks a batch's CFG rows split over")
+    g.add_argument("--mesh_seq", type=int, default=1,
+                   help="ranks the latent frames split over")
+    g.add_argument("--mesh_model", type=int, default=1,
+                   help="ranks the DiT's heads and FFN split over")
+    g.add_argument("--ulysses", action="store_true",
+                   help="re-shard the long attentions over the seq ranks")
     return p.parse_args(argv)
 
 
@@ -169,28 +193,24 @@ def _export(sampler, args, job, req, video, pred, conf_threshold):
             "frames": int(np.asarray(video).shape[0])}
 
 
-def make_batch_fn(sampler, args):
-    """jobs -> result dicts: one ``generate_videos`` call for the batch,
-    then one export per job."""
-    from ..serving.server import DEFAULTS
+def make_run_fn(sampler, args, mesh=None, wan22: bool = False):
+    """(merged request dicts, the camera paths they name read (or None),
+    ``progress(done, total, index=None)`` or None) -> one batch's clips:
+    [(video, prediction)] per request on rank 0 (or in one process), [] on
+    the other ranks of ``mesh``, which call it with the same requests.
+    Wan2.1: one ``generate_videos`` call (a CFG batch of 2B rows); Wan2.2
+    (``wan22``): one ``generate_video`` per request, its progress under
+    its index."""
+    kw = {}
+    if mesh is not None and not mesh.trivial:
+        kw = {"mesh": mesh, "ulysses": getattr(args, "ulysses", False)}
 
-    def batch_fn(jobs):
-        reqs = [{**DEFAULTS, **j.request} for j in jobs]
+    def run21(reqs, cams, progress):
         r0 = reqs[0]
-        camera_params = None
-        if any(r.get("camera_json") for r in reqs):
-            if not all(r.get("camera_json") for r in reqs):
-                raise ValueError("mixed camera/no-camera batch")
-            camera_params = [_cameras(r) for r in reqs]
-        progress = None
-        if args.segment_size:
-            def progress(done, total):
-                for j in jobs:
-                    j.progress = {"done": done, "total": total}
-        results = sampler.generate_videos(
+        return sampler.generate_videos(
             prompts=[r["prompt"] for r in reqs],
             image_paths=[r["image_path"] for r in reqs],
-            camera_params=camera_params, neg_prompt=r0["neg_prompt"],
+            camera_params=cams, neg_prompt=r0["neg_prompt"],
             using_scale=all(r["using_scale"] for r in reqs),
             seeds=[r["seed"] if r["seed"] is not None else 1024
                    for r in reqs],
@@ -198,31 +218,15 @@ def make_batch_fn(sampler, args):
             num_frames=r0["num_frames"], sample_steps=r0["sample_steps"],
             cfg_scale=r0["cfg_scale"], segment_size=args.segment_size,
             progress_callback=progress,
-            tea_cache_l1_thresh=r0["tea_cache_l1_thresh"])
-        return [_export(sampler, args, job, req, video, pred, 1.0)
-                for job, req, (video, pred) in zip(jobs, reqs, results)]
+            tea_cache_l1_thresh=r0["tea_cache_l1_thresh"], **kw)
 
-    return batch_fn
-
-
-def make_batch_fn22(sampler, args):
-    """Wan2.2 jobs: denoised one at a time (the dual-expert denoise takes
-    one clip), each exported on its own."""
-    from ..serving.server import DEFAULTS
-
-    def batch_fn(jobs):
+    def run22(reqs, cams, progress):
         out = []
-        for job in jobs:
-            req = {**DEFAULTS, **job.request}
-            progress = None
-            if args.segment_size:
-                def progress(done, total, job=job):
-                    job.progress = {"done": done, "total": total}
+        for i, req in enumerate(reqs):
             video, pred = sampler.generate_video(
                 prompt=req["prompt"], neg_prompt=req["neg_prompt"],
                 image_path=req["image_path"],
-                camera_params=_cameras(req) if req.get("camera_json")
-                else None,
+                camera_params=None if cams is None else cams[i],
                 using_scale=req["using_scale"],
                 seed=req["seed"] if req["seed"] is not None else 42,
                 height=req["height"], width=req["width"],
@@ -230,19 +234,93 @@ def make_batch_fn22(sampler, args):
                 sample_steps=req["sample_steps"],
                 cfg_scale=req["cfg_scale"],
                 tea_cache_l1_thresh=req["tea_cache_l1_thresh"],
-                segment_size=args.segment_size, progress_callback=progress)
-            out.append(_export(sampler, args, job, req, video, pred, 1.5))
+                segment_size=args.segment_size,
+                progress_callback=None if progress is None else
+                functools.partial(progress, index=i), **kw)
+            if video is not None:
+                out.append((video, pred))
         return out
+
+    return run22 if wan22 else run21
+
+
+def make_batch_fn(sampler, args, mesh=None, wan22: bool = False):
+    """jobs -> result dicts: the batch's requests merged with the defaults,
+    their camera files read, the batch generated (``make_run_fn``), then
+    one export per job.
+
+    On a ``mesh`` this runs on rank 0, whose server owns the queue: the
+    requests go to the other ranks (``follow``) first, over the control
+    group (``distributed.control_group``, which waits out any idle time),
+    so that every rank generates the same batch. A failure between that
+    broadcast and the last collective ends this process (exit 1), as a
+    failed ``cli.infer_wan21`` rank does: torchrun then ends the others,
+    where a job error would leave them waiting in a collective."""
+    from ..serving.server import DEFAULTS
+    run = make_run_fn(sampler, args, mesh, wan22)
+    meshed = mesh is not None and not mesh.trivial
+    control = distributed.control_group() if meshed else None
+    conf = 1.5 if wan22 else 1.0
+
+    def batch_fn(jobs):
+        reqs = [{**DEFAULTS, **j.request} for j in jobs]
+        cams = None
+        if any(r.get("camera_json") for r in reqs):
+            if not wan22 and not all(r.get("camera_json") for r in reqs):
+                raise ValueError("mixed camera/no-camera batch")
+            cams = [_cameras(r) if r.get("camera_json") else None
+                    for r in reqs]
+        progress = None
+        if args.segment_size:
+            def progress(done, total, index=None):
+                for j in (jobs if index is None else [jobs[index]]):
+                    j.progress = {"done": done, "total": total}
+        if not meshed:
+            results = run(reqs, cams, progress)
+        else:
+            try:
+                distributed.broadcast_object(reqs, group=control)
+                results = run(reqs, cams, progress)
+            except Exception:               # noqa: BLE001 -- ends the rank
+                traceback.print_exc()
+                sys.stderr.flush()
+                os._exit(1)
+        return [_export(sampler, args, job, req, video, pred, conf)
+                for job, req, (video, pred) in zip(jobs, reqs, results)]
 
     return batch_fn
 
 
-def load_sampler(args):
-    """The sampler of ``--variant`` on ``--device``, quantized with
-    ``--quant``; exits first on the checks of ``check_common``."""
+def follow(sampler, args, mesh) -> int:
+    """A mesh rank other than 0: generate each batch that rank 0's server
+    broadcasts, with the same arguments, until it broadcasts the stop
+    (None), over the control group: the wait for a batch has no time
+    limit, the server may idle as long as it likes. Listens on no port; an
+    interrupt is left to rank 0, whose shutdown stops this loop. Returns
+    how many batches it ran."""
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    run = make_run_fn(sampler, args, mesh, args.variant == "wan22")
+    control = distributed.control_group()
+    batches = 0
+    while True:
+        reqs = distributed.broadcast_object(None, group=control)
+        if reqs is None:
+            return batches
+        run(reqs, None, None)
+        batches += 1
+
+
+def load_sampler(args, device=None, mesh=None):
+    """The sampler of ``--variant`` on ``device`` (``--device`` when None),
+    quantized with ``--quant`` and split over ``mesh``: the Wan2.1 model
+    quantized whole, then split (JAX's order); the Wan2.2 experts built as
+    this rank's parts (``place_experts``); umT5, CLIP, the VAE and MoGe on
+    rank 0 only. Exits first on the checks of ``check_mesh`` and
+    ``check_common``."""
     import torch
     from ..convert.bundle import is_bundle
     from ..convert.checkpoint import missing_files, missing_files_wan22
+    check_mesh(args)
     resolved = resolve_layout(args, "Wan2.2-Fun-A14B-Control-Camera"
                               if args.variant == "wan22" else
                               "Wan2.1-I2V-14B-480P", attr="ckpt_dir")
@@ -261,30 +339,42 @@ def load_sampler(args):
                             args.model_ckpt_low)
         if args.variant == "wan22" else
         missing_files(args.ckpt_dir, args.model_ckpt))
-    check_common(args, missing, MESH_FLAGS)
-    device = torch.device(args.device)
+    check_common(args, missing)
+    device = torch.device(args.device) if device is None else device
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    # rank 0 alone conditions and decodes: the other ranks load no encoders
     kw = dict(device=device, dtype=dtype, tokenizer_path=args.tokenizer_path,
-              moge_ckpt=args.moge_ckpt, quant=args.quant)
+              moge_ckpt=args.moge_ckpt, quant=args.quant,
+              encoders=mesh is None or mesh.rank == 0)
     if args.variant == "wan22":
         from ..sampler import Wan22Sampler
         return Wan22Sampler.from_checkpoint(
             args.ckpt_dir, args.model_ckpt_high, args.model_ckpt_low,
-            timestep_boundary=args.timestep_boundary, **kw)
+            timestep_boundary=args.timestep_boundary, mesh=mesh, **kw)
     from ..sampler import FantasyWorldSampler
-    return FantasyWorldSampler.from_checkpoint(args.ckpt_dir,
-                                               args.model_ckpt, **kw)
+    sampler = FantasyWorldSampler.from_checkpoint(args.ckpt_dir,
+                                                  args.model_ckpt, **kw)
+    if mesh is not None:
+        sampler.pipe.shard(mesh)
+    return sampler
 
 
 def main(argv=None) -> None:
     from ..serving.server import GenerationServer, expandable_segments
     args = parse_args(argv)
-    # before the models take the card: the whole process allocates from
-    # expandable segments
+    # before the models take the card: every rank allocates from
+    # expandable segments (unless ranks share a card)
     expandable_segments()
-    sampler = load_sampler(args)
-    batch_fn = (make_batch_fn22 if args.variant == "wan22"
-                else make_batch_fn)(sampler, args)
+    check_mesh(args)
+    device, mesh = start_mesh(args)
+    sampler = load_sampler(args, device, mesh)
+    if mesh is not None and mesh.rank != 0:
+        batches = follow(sampler, args, mesh)
+        print(f"[serve] rank {mesh.rank}: {batches} batches, stopped",
+              flush=True)
+        distributed.shutdown()
+        return
+    batch_fn = make_batch_fn(sampler, args, mesh, args.variant == "wan22")
     if args.host not in ("127.0.0.1", "localhost", "::1") \
             and not (args.auth_token and args.io_root):
         print("WARNING: non-loopback --host without --auth_token/--io_root: "
@@ -296,11 +386,26 @@ def main(argv=None) -> None:
                               auth_token=args.auth_token)
     print(f"serving on http://{args.host}:{server.port}  "
           f"(max_batch={args.max_batch}, linger={args.linger_s}s, "
-          f"device={args.device}, quant={args.quant})", flush=True)
+          f"device={args.device}, quant={args.quant}, "
+          f"{where(args, mesh)}, pid={os.getpid()})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
-        server.shutdown()
+        pass
+    stop(server, mesh)
+    if mesh is not None:
+        print("[serve] rank 0: stopped", flush=True)
+        distributed.shutdown()
+
+
+def stop(server, mesh=None) -> None:
+    """Shut rank 0's server down (the listen socket closed, queued jobs
+    marked failed) and, on a mesh, let the batch in flight end and then
+    send the other ranks the stop that ends ``follow``."""
+    server.shutdown()
+    if mesh is not None and not mesh.trivial:
+        server.worker.join()
+        distributed.broadcast_object(None, group=distributed.control_group())
 
 
 if __name__ == "__main__":

@@ -476,14 +476,18 @@ def _encoder_state_dicts(wan_ckpt_path: str, names) -> Dict[str, Dict]:
 
 
 def pipeline_state_dicts(wan_ckpt_path: str, model_ckpt: Optional[str],
-                         cfg: FusionConfig) -> Dict[str, Dict]:
+                         cfg: FusionConfig, encoders: bool = True
+                         ) -> Dict[str, Dict]:
     """The Wan2.1 reference layout (or bundle) -> {"fusion", "pose" (when
-    the fusion file holds one), "t5", "clip", "vae"}: each a state dict in
-    the port's names, tensors mapped from the files."""
+    the fusion file holds one), "t5", "clip", "vae" (unless ``encoders``
+    is False)}: each a state dict in the port's names, tensors mapped from
+    the files."""
+    enc = ("t5", "clip", "vae") if encoders else ()
     if is_bundle(wan_ckpt_path):
         have = bundle_components(wan_ckpt_path)
-        return load_bundle(wan_ckpt_path, [c for c in (*WAN21_COMPONENTS,
-                                                       "pose") if c in have])
+        return load_bundle(wan_ckpt_path, [
+            c for c in (*WAN21_COMPONENTS, "pose")
+            if c in have and (c in enc or c not in ("t5", "clip", "vae"))])
     fusion_sd = read_pth(model_ckpt)
     out = {"fusion": fusion_state_dict_from(
         read_shards(dit_shards(wan_ckpt_path)), fusion_sd, cfg)}
@@ -491,7 +495,7 @@ def pipeline_state_dicts(wan_ckpt_path: str, model_ckpt: Optional[str],
                if k.startswith(POSE_PREFIX)}
     if pose_sd:
         out["pose"] = pose_sd
-    out.update(_encoder_state_dicts(wan_ckpt_path, ("t5", "clip", "vae")))
+    out.update(_encoder_state_dicts(wan_ckpt_path, enc))
     return out
 
 
@@ -530,17 +534,21 @@ def pipeline_from_state_dicts(sds: Mapping[str, Mapping], cfgs: Mapping, *,
 def load_pipeline(wan_ckpt_path: str, model_ckpt: Optional[str], *, device,
                   dtype: torch.dtype = torch.bfloat16,
                   tokenizer_path: Optional[str] = None,
-                  configs: Optional[Mapping[str, object]] = None):
+                  configs: Optional[Mapping[str, object]] = None,
+                  encoders: bool = True):
     """The reference layout, or a bundle (``convert/bundle.py``; then
     ``model_ckpt`` is not read) -> a ``FantasyWorldPipeline`` with the
     fusion model, the pose encoder, umT5, CLIP and the VAE built on
-    ``device`` in ``dtype``. ``configs`` override ``read_configs``'."""
+    ``device`` in ``dtype``; without umT5, CLIP and the VAE when
+    ``encoders`` is False (a mesh rank other than 0, which neither
+    conditions nor decodes). ``configs`` override ``read_configs``'."""
     cfgs = {**read_configs(wan_ckpt_path), **(configs or {})}
     missing = missing_files(wan_ckpt_path, model_ckpt)
     if missing:
         raise FileNotFoundError(f"checkpoint files missing: {missing}")
     return pipeline_from_state_dicts(
-        pipeline_state_dicts(wan_ckpt_path, model_ckpt, cfgs["fusion"]),
+        pipeline_state_dicts(wan_ckpt_path, model_ckpt, cfgs["fusion"],
+                             encoders),
         cfgs, device=device, dtype=dtype,
         tokenizer_path=_tokenizer(wan_ckpt_path, tokenizer_path))
 
@@ -573,25 +581,42 @@ def wan22_encoder_state_dicts(wan_ckpt_path: str) -> Dict[str, Dict]:
 def place_experts(expert_sds, cfg: FusionConfig, *, device,
                   dtype: torch.dtype = torch.bfloat16,
                   quant: Optional[str] = None,
-                  timestep_boundary: float = 900.0):
+                  timestep_boundary: float = 900.0, mesh=None):
     """((high, state dict or a callable that returns it), (low, ...))
     -> a ``DualModelDenoiser``. On a card the high expert is built there
     and the low one in pinned host memory, to trade places at the
     boundary; on the CPU both are built there. ``quant`` ("int8" / "fp8")
     quantizes each expert as it loads, layer by layer on ``device``,
     before the low one is pinned. A callable is called only when its
-    expert is built, so one expert's tensors are read at a time."""
-    from ..pipelines.wan_video_22 import DualModelDenoiser, place_expert
+    expert is built, so one expert's tensors are read at a time.
+
+    ``mesh``: each expert is built as this rank's part (``FusionModel.
+    shard`` on the meta device), filled from its part of the state dict
+    and quantized over the model axis, so no rank holds or pins a whole
+    expert; the low one then goes to the card beside the high one where
+    both parts fit (``wan_video_22.both_fit``), else to pinned host
+    memory."""
+    from ..parallel import sharding
+    from ..parallel.distributed import ranks_per_card
+    from ..pipelines.wan_video_22 import (DualModelDenoiser, both_fit,
+                                          expert_bytes, place_expert)
     device = torch.device(device)
+    meshed = mesh is not None and not mesh.trivial
     experts = {}
+    both = device.type == "cpu"
     for high, sd in expert_sds:
-        on_card = high or device.type == "cpu"
+        on_card = high or both
         model = build(lambda: FusionModel(cfg), dtype=dtype,
-                      device=device if on_card else "cpu")
-        load_into(model, sd() if callable(sd) else sd,
-                  "high expert" if high else "low expert")
+                      device=device if on_card else "cpu",
+                      mesh=mesh if meshed else None)
+        sd = sd() if callable(sd) else sd
+        if meshed:
+            sd = sharding.shard_state_dict(sd, mesh)
+        load_into(model, sd, "high expert" if high else "low expert")
         experts[high] = place_expert(model, device, on_host=not on_card,
                                      quant=quant)
+        if high and meshed:
+            both = both_fit(expert_bytes(model), device, ranks_per_card())
     return DualModelDenoiser(experts[True], experts[False],
                              timestep_boundary)
 
@@ -602,10 +627,13 @@ def load_wan22(wan_ckpt_path: str, model_ckpt_high: Optional[str],
                tokenizer_path: Optional[str] = None,
                timestep_boundary: float = 900.0,
                quant: Optional[str] = None,
-               configs: Optional[Mapping[str, object]] = None):
+               configs: Optional[Mapping[str, object]] = None, mesh=None,
+               encoders: bool = True):
     """The Wan2.2 layout, or a bundle -> (a ``FantasyWorldPipeline`` with
-    umT5 and the VAE, a ``DualModelDenoiser`` (``place_experts``)), all in
-    ``dtype``. ``configs`` override ``read_configs``'."""
+    umT5 and the VAE -- empty when ``encoders`` is False, as on a mesh
+    rank other than 0 --, a ``DualModelDenoiser`` (``place_experts``,
+    split over ``mesh`` when given)), all in ``dtype``. ``configs``
+    override ``read_configs``'."""
     from ..pipelines.wan_video import FantasyWorldPipeline
     cfgs = {**read_configs(wan_ckpt_path, wan22_fusion_config()),
             **(configs or {})}
@@ -620,8 +648,8 @@ def load_wan22(wan_ckpt_path: str, model_ckpt_high: Optional[str],
          for high, ckpt in ((True, model_ckpt_high),
                             (False, model_ckpt_low))],
         cfg, device=device, dtype=dtype, quant=quant,
-        timestep_boundary=timestep_boundary)
-    sds = wan22_encoder_state_dicts(wan_ckpt_path)
+        timestep_boundary=timestep_boundary, mesh=mesh)
+    sds = wan22_encoder_state_dicts(wan_ckpt_path) if encoders else {}
     pipe = pipeline_from_state_dicts(
         sds, cfgs, device=device, dtype=dtype,
         tokenizer_path=_tokenizer(wan_ckpt_path, tokenizer_path))

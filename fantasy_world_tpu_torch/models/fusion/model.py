@@ -240,6 +240,30 @@ class FusionModel(nn.Module):
         instead of gathering their keys."""
         from ...parallel.ulysses import ulysses_context
         mesh = mesh or sharding.single()
+        p = self._mesh_prologue(latents, timestep, context, clip_feature, y,
+                                plucker_fea, control_tokens, mesh)
+        keep = self.head_layers() if return_prediction else None
+        with ulysses_context(mesh if ulysses else None):
+            x, inters = self.run_stack(
+                p.x, p.ctx, p.t_mod, p.timestep, p.ropes, p.rope_bi_dit,
+                p.rope_bi_agg, p.local_fhw, p.plucker_fea, return_prediction,
+                remat, p.mine(camera_token), uncond, p.frames, keep)
+        noise_pred = self._mesh_head(x, p, mesh)
+        if not return_prediction:
+            return noise_pred, None
+        inters = [None if i not in keep else sharding.gather_rows(
+            p.frames.gather(inter, 1), p.rows, mesh)
+            for i, inter in enumerate(inters)]
+        if mesh.rank != 0:
+            return noise_pred, None
+        _, h, w = p.fhw
+        return noise_pred, self.vggt.head_prediction(
+            inters, (h, w), self.cfg.vggt.aggregator.patch_start_idx)
+
+    def _mesh_prologue(self, latents, timestep, context, clip_feature, y,
+                       plucker_fea, control_tokens, mesh):
+        """The prologue on this rank's rows ('data') and the DiT tokens, the
+        RoPE tables and the Plucker features of its frames ('seq')."""
         rows = sharding.batch_rows(latents.shape[0], mesh)
         B = latents.shape[0]
 
@@ -254,29 +278,23 @@ class FusionModel(nn.Module):
         frames = sharding.frame_split(f, mesh)
         s_dit = frames.scaled(h * w)
         s_agg = frames.scaled(h * w + self.cfg.vggt.aggregator.patch_start_idx)
-        x = s_dit.take(x)
-        ropes = tuple(s_dit.take(r, 0) for r in ropes)
-        rope_bi_dit = tuple(s_dit.take(r, 0) for r in rope_bi_dit)
-        rope_bi_agg = tuple(s_agg.take(r, 0) for r in rope_bi_agg)
-        pl = None if plucker_fea is None else s_dit.take(mine(plucker_fea))
-        keep = self.head_layers() if return_prediction else None
-        with ulysses_context(mesh if ulysses else None):
-            x, inters = self.run_stack(
-                x, ctx, t_mod, mine(timestep), ropes, rope_bi_dit,
-                rope_bi_agg, (frames.local, h, w), pl, return_prediction,
-                remat, mine(camera_token), uncond, frames, keep)
-        out = sharding.gather_rows(s_dit.gather(self.dit.head(x, t)), rows,
-                                   mesh)
-        noise_pred = self.dit.unpatchify(out, (f, h, w))
-        if not return_prediction:
-            return noise_pred, None
-        inters = [None if i not in keep else sharding.gather_rows(
-            frames.gather(inter, 1), rows, mesh)
-            for i, inter in enumerate(inters)]
-        if mesh.rank != 0:
-            return noise_pred, None
-        return noise_pred, self.vggt.head_prediction(
-            inters, (h, w), self.cfg.vggt.aggregator.patch_start_idx)
+        return _Prologue(
+            x=s_dit.take(x), ctx=ctx, t=t, t_mod=t_mod, fhw=(f, h, w),
+            local_fhw=(frames.local, h, w),
+            ropes=tuple(s_dit.take(r, 0) for r in ropes),
+            rope_bi_dit=tuple(s_dit.take(r, 0) for r in rope_bi_dit),
+            rope_bi_agg=tuple(s_agg.take(r, 0) for r in rope_bi_agg),
+            plucker_fea=(None if plucker_fea is None
+                         else s_dit.take(mine(plucker_fea))),
+            timestep=mine(timestep), rows=rows, frames=frames, s_dit=s_dit,
+            mine=mine)
+
+    def _mesh_head(self, x, p, mesh):
+        """The DiT head on this rank's tokens, the whole batch's tokens
+        gathered, unpatchified."""
+        out = sharding.gather_rows(p.s_dit.gather(self.dit.head(x, p.t)),
+                                   p.rows, mesh)
+        return self.dit.unpatchify(out, p.fhw)
 
     def head_layers(self) -> frozenset:
         """The IRG layers whose intermediates the geometry heads read."""
@@ -285,20 +303,51 @@ class FusionModel(nn.Module):
 
     def joint_forward_tea(self, latents, timestep, context, clip_feature=None,
                           y=None, plucker_fea=None, skip: bool = False,
-                          residual=None, control_tokens=None):
+                          residual=None, control_tokens=None, mesh=None,
+                          ulysses: bool = False):
         """The TeaCache-gated evaluation (``joint_forward_tea``): ``skip``
         replaces the PCB + IRG stack by ``x + residual``; otherwise the
         stack runs and its output minus its input is the new residual.
         Returns (noise_pred, residual). The geometry heads do not run here:
-        the last step always computes, through ``joint_forward``."""
-        (x, ctx, t, t_mod, fhw, ropes, rope_bi_dit, rope_bi_agg) = \
-            self.forward_prologue(latents, timestep, context, clip_feature, y,
-                                  control_tokens)
+        the last step always computes, through ``joint_forward``.
+
+        ``mesh`` / ``ulysses`` as in ``joint_forward``: the whole noise
+        prediction on every rank. The residual is this rank's part of the
+        (B, f*h*w, dim) stack residual -- its rows and its frames' tokens
+        (``parallel.sharding.token_split``) -- as both branches keep it
+        where the tokens are, so the carried residual never moves."""
+        from ...parallel.ulysses import ulysses_context
+        mesh = mesh or sharding.single()
+        p = self._mesh_prologue(latents, timestep, context, clip_feature, y,
+                                plucker_fea, control_tokens, mesh)
         if skip:
-            x = x + residual
+            x = p.x + residual
         else:
-            x_in = x
-            x, _ = self.run_stack(x, ctx, t_mod, timestep, ropes, rope_bi_dit,
-                                  rope_bi_agg, fhw, plucker_fea, False)
-            residual = x - x_in
-        return self.dit.unpatchify(self.dit.head(x, t), fhw), residual
+            with ulysses_context(mesh if ulysses else None):
+                x, _ = self.run_stack(
+                    p.x, p.ctx, p.t_mod, p.timestep, p.ropes, p.rope_bi_dit,
+                    p.rope_bi_agg, p.local_fhw, p.plucker_fea, False,
+                    frames=p.frames)
+            residual = x - p.x
+        return self._mesh_head(x, p, mesh), residual
+
+
+@dataclasses.dataclass
+class _Prologue:
+    """``FusionModel._mesh_prologue``'s output: this rank's part of the
+    stack's inputs and where it lies."""
+    x: torch.Tensor
+    ctx: torch.Tensor
+    t: torch.Tensor
+    t_mod: torch.Tensor
+    fhw: Tuple[int, int, int]
+    local_fhw: Tuple[int, int, int]
+    ropes: tuple
+    rope_bi_dit: tuple
+    rope_bi_agg: tuple
+    plucker_fea: Optional[torch.Tensor]
+    timestep: torch.Tensor
+    rows: Optional[slice]
+    frames: object
+    s_dit: object
+    mine: object

@@ -93,6 +93,14 @@ def rank_device(device) -> torch.device:
     return torch.device("cuda", local % max(1, torch.cuda.device_count()))
 
 
+def ranks_per_card() -> int:
+    """How many of this host's ranks share each card (1 on the CPU and in
+    one process): ``LOCAL_WORLD_SIZE`` over the cards, rounded up."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return max(1, -(-local // max(1, cards)))
+
+
 def runtime_info() -> dict:
     """Process topology summary (for logs and sanity asserts)."""
     up = dist.is_initialized()
@@ -104,18 +112,29 @@ def runtime_info() -> dict:
             "initialized": up}
 
 
+def release_shared() -> None:
+    """Free the staging buffers of the groups whose ranks share a card;
+    the next collective over such a group maps new ones. A process that
+    runs one job after another gives their memory back between them.
+    Every rank of the default group calls it: they meet at a barrier."""
+    # every rank unmaps the others' buffers before any is freed
+    for card in _SHARED.values():
+        card.unmap()
+    if _SHARED:
+        torch.cuda.synchronize()
+    dist.barrier()
+    _SHARED.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
+
+
 def shutdown() -> None:
     """Release the shared staging buffers and close the default group;
     every rank calls it (the buffers are released at a barrier)."""
     if dist.is_initialized():
         if _SHARED:
-            # every rank unmaps the others' buffers before any is freed
-            for card in _SHARED.values():
-                card.unmap()
-            torch.cuda.synchronize()
-            dist.barrier()
-            torch.cuda.ipc_collect()
-        _SHARED.clear()
+            release_shared()
+        _CONTROL.clear()
         dist.destroy_process_group()
 
 
@@ -206,13 +225,67 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
         return t
     if _route(t, group) == "card":
         parts = _SHARED[group].exchange(t, lambda r, x: x)
-        total = parts[0].float()
+        # integers (int8 products' int32 partials) sum exactly as they are
+        wide = (lambda p: p.float()) if t.is_floating_point() else (
+            lambda p: p)
+        total = wide(parts[0])
         for p in parts[1:]:
-            total = total + p.float()
+            total = total + wide(p)
         return total.to(t.dtype)
     t = t.clone()
     dist.all_reduce(t, group=group)
     return t
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``group`` (``t`` itself when
+    the group has one rank); the same bits on every rank."""
+    if group_size(group) == 1:
+        return t
+    if _route(t, group) == "card":
+        return torch.stack(_SHARED[group].exchange(t, lambda r, x: x)
+                           ).amax(dim=0)
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def barrier() -> None:
+    """Every rank of the default group meets here (nothing in one
+    process)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """Rank ``src``'s picklable ``obj`` on every rank of ``group`` (the
+    default group when None); ``obj`` itself in a single process."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+# how long a message of ``control_group`` may be waited for: a served mesh's
+# followers wait there for the next batch for as long as the server idles
+CONTROL_TIMEOUT = datetime.timedelta(days=3650)
+_CONTROL: Dict[str, object] = {}
+
+
+def control_group():
+    """A gloo group of every rank, whose collectives wait up to
+    ``CONTROL_TIMEOUT`` (the default group's wait at most its ``timeout_s``,
+    after which gloo raises and NCCL's watchdog ends the rank): for
+    ``broadcast_object`` of messages that come when they come, such as the
+    server's batches. Made once, by every rank in the same order as its
+    other groups; None in one process."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    if "group" not in _CONTROL:
+        _CONTROL["group"] = dist.new_group(backend="gloo",
+                                           timeout=CONTROL_TIMEOUT)
+    return _CONTROL["group"]
 
 
 def all_gather_cat(t: torch.Tensor, group, dim: int,
@@ -334,7 +407,7 @@ def free_port() -> int:
 
 
 def _rank_main(rank: int, fn: Callable, world: int, port: int, backend: str,
-               device: str, args: tuple) -> None:
+               device: str, timeout_s: float, args: tuple) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -343,7 +416,7 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, backend: str,
         torch.cuda.set_device(rank_device(device))
     initialize(device, backend=backend,
                init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-               rank=rank)
+               rank=rank, timeout_s=timeout_s)
     fn(rank, *args)
     # not on a failure: the rank exits at once and the launcher ends the
     # others, which a barrier here would keep waiting
@@ -351,12 +424,13 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, backend: str,
 
 
 def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
-          device: str = "cpu") -> None:
+          device: str = "cpu", timeout_s: float = 600.0) -> None:
     """Run ``fn(rank, *args)`` in ``world`` fresh processes (the spawn start
     method: nothing of this process is inherited, CUDA included), each a
-    rank of a process group on ``tcp://127.0.0.1:<free port>``. ``fn``
-    must be importable by name. Raises if any rank fails."""
+    rank of a process group on ``tcp://127.0.0.1:<free port>`` whose
+    collectives time out after ``timeout_s``. ``fn`` must be importable by
+    name. Raises if any rank fails."""
     import torch.multiprocessing as mp
     mp.start_processes(_rank_main, args=(fn, world, free_port(), backend,
-                                         device, args),
+                                         device, timeout_s, args),
                        nprocs=world, join=True, start_method="spawn")

@@ -10,8 +10,12 @@ group per slice of each axis. The fusion denoise shards over it:
     rewritten on the port's names, the checkpoint's state-dict keys: JAX's
     ``P(None, "model")`` on an (in, out) kernel is a split of dim 0 of
     torch's (out, in) weight, ``P("model", None)`` a split of dim 1;
-    biases follow their kernel. Everything else is replicated -- the VGGT
-    (1024) and bicross (1152) towers, norms, embeddings, heads;
+    biases follow their kernel. A quantized layer (``core/quant.py``)
+    keeps its int8 / fp8 ``weight`` under the float weight's name, so it
+    splits the same way; its per-output-channel ``kscale`` follows the
+    bias of a column-parallel layer and stays whole on a row-parallel one.
+    Everything else is replicated -- the VGGT (1024) and bicross (1152)
+    towers, norms, embeddings, heads;
   * ``data``: the CFG pair (the batch), where it divides;
   * ``seq``: the latent frames (``frame_split``), so both token streams --
     the DiT's f*h*w and the geometry stream's f*(h*w + 5) -- split at
@@ -40,13 +44,14 @@ AXES = ("data", "seq", "model")
 _ATTN = r"(.*\.)?(self_attn|cross_attn)\."
 PARAM_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     # column-parallel: the output features of q/k/v and the FFN's first
-    # layer, with their biases
+    # layer, with their biases and (quantized) per-channel scales
     (_ATTN + r"(q|k|v|k_img|v_img)\.weight$", ("model", None)),
-    (_ATTN + r"(q|k|v|k_img|v_img)\.bias$", ("model",)),
+    (_ATTN + r"(q|k|v|k_img|v_img)\.(bias|kscale)$", ("model",)),
     (r"(.*\.)?ffn\.0\.weight$", ("model", None)),
-    (r"(.*\.)?ffn\.0\.bias$", ("model",)),
+    (r"(.*\.)?ffn\.0\.(bias|kscale)$", ("model",)),
     # row-parallel: the input features of the output projections (their
-    # bias is added once, after the sum over the model group)
+    # bias is added once, after the sum over the model group; their kscale
+    # is over the whole output axis and falls through to replicated)
     (_ATTN + r"o\.weight$", (None, "model")),
     (r"(.*\.)?ffn\.2\.weight$", (None, "model")),
     (r".*", ()),
@@ -193,22 +198,29 @@ def shard_state_dict(sd: Mapping[str, torch.Tensor], mesh: Mesh, rules=None
 
 def shard_module_(module: nn.Module, mesh: Mesh, rules=None
                   ) -> Dict[str, Tuple[int, int, int]]:
-    """Replace every parameter that the rules split by this rank's part, in
-    place (on the meta device too). Returns {name: (dim, index, parts)},
-    also kept as ``module.param_parts`` (``core/params.py:build`` fills a
-    part from the seeded whole, so a seeded sharded build equals the
-    unsharded one)."""
+    """Replace every parameter and buffer that the rules split by this
+    rank's part, in place (on the meta device too): a quantized layer's
+    int8 / fp8 weight and its scales are buffers. Returns {name: (dim,
+    index, parts)}, also kept as ``module.param_parts``
+    (``core/params.py:build`` fills a part from the seeded whole, so a
+    seeded sharded build equals the unsharded one; ``core/quant.py:
+    quantize_model`` reads which parts are row-parallel)."""
     sizes = sizes_of(mesh)
     parts = {}
-    for name, p in list(module.named_parameters()):
-        part = split_of(param_spec(name, p.shape, sizes, rules), mesh)
+    tensors = [(n, t, True) for n, t in module.named_parameters()] + \
+        [(n, t, False) for n, t in module.named_buffers()]
+    for name, t, is_param in tensors:
+        part = split_of(param_spec(name, t.shape, sizes, rules), mesh)
         if part is None:
             continue
         owner = module.get_submodule(name.rsplit(".", 1)[0]) \
             if "." in name else module
         leaf = name.rsplit(".", 1)[-1]
-        setattr(owner, leaf, nn.Parameter(shard_tensor(p.data, part),
-                                          requires_grad=p.requires_grad))
+        if is_param:
+            setattr(owner, leaf, nn.Parameter(shard_tensor(t.data, part),
+                                              requires_grad=t.requires_grad))
+        else:
+            owner._buffers[leaf] = shard_tensor(t, part)
         parts[name] = part
     module.param_parts = parts
     return parts
@@ -298,6 +310,28 @@ def gather_rows(t: torch.Tensor, rows: Optional[slice], mesh: Mesh
     return all_gather_cat(t, mesh.axis("data").group, 0)
 
 
+def token_split(batch: int, fhw: Sequence[int], mesh: Mesh
+                ) -> Tuple[Optional[slice], TokenSplit]:
+    """Where this rank's part of a (batch, f*h*w, ...) token tensor lies, as
+    ``FusionModel.joint_forward`` splits its DiT tokens: (its rows over
+    'data', its frames' tokens over 'seq')."""
+    f, h, w = fhw
+    return (batch_rows(batch, mesh),
+            frame_split(f, mesh).scaled(h * w))
+
+
+def take_tokens(t: torch.Tensor, part) -> torch.Tensor:
+    """This rank's part (``token_split``) of a whole token tensor."""
+    rows, tokens = part
+    return tokens.take(take_rows(t, rows))
+
+
+def gather_tokens(t: torch.Tensor, part, mesh: Mesh) -> torch.Tensor:
+    """The whole token tensor from every rank's part (``token_split``)."""
+    rows, tokens = part
+    return gather_rows(tokens.gather(t), rows, mesh)
+
+
 # ---------------------------------------------------------------------------
 # megatron pieces: a width split in column parts over the model axis
 # ---------------------------------------------------------------------------
@@ -318,10 +352,16 @@ def row_linear(x: torch.Tensor, layer: nn.Linear,
                axis: Optional[Axis]) -> torch.Tensor:
     """``core.params.linear(x, layer)`` for a layer whose input features
     are split over ``axis`` (x holds this rank's): the partial products are
-    summed over the model group and the bias is added once, in f32."""
+    summed over the model group and the bias is added once, in f32. A
+    quantized layer takes ``core.quant.qlinear``'s row-parallel path (the
+    int8 activation scale over the whole row, the int32 partials summed
+    exactly)."""
     from ..core.params import linear
     if axis is None or axis.size == 1:
         return linear(x, layer)
+    from ..core.quant import QuantLinear, qlinear
+    if isinstance(layer, QuantLinear):
+        return qlinear(x, layer, axis.group)
     from .distributed import all_reduce_sum
     w = layer.weight
     y = (torch.nn.functional.linear(x, w) if w.dtype == x.dtype else

@@ -29,7 +29,12 @@ every rank draws the same seeded noise and runs the same schedule: each
 step's CFG pair goes through the sharded ``joint_forward``, which splits it
 over 'data' where it divides and gathers the whole prediction for the CFG
 combine, so the latents stay equal on every rank. The heads step's
-prediction is rank 0's; rank 0 alone writes the partial state.
+prediction is rank 0's. TeaCache takes rank 0's skip plan on every rank
+(a rank that skipped alone would leave the others waiting in a
+collective) and carries each rank's part of the stack residual; rank 0
+alone writes the partial state, with the whole residual gathered from the
+ranks, and each rank takes its part back on resume. The sliding window
+runs each window's CFG pair through the sharded forward.
 """
 from __future__ import annotations
 
@@ -72,11 +77,13 @@ def synchronize(t: torch.Tensor) -> None:
 
 
 def load_partial(path: Optional[str], n_scan: int, latents: torch.Tensor,
-                 residual: Optional[torch.Tensor], tea: bool):
+                 residual: Optional[torch.Tensor], tea: bool,
+                 take: Optional[Callable] = None):
     """(start step, latents, residual) from a partial-state file when it
     belongs to this run: the same step count and latent shape, and -- for
     a TeaCache run -- a residual (without one, a planned skip would add a
-    zero residual in place of the stack). Else (0, latents, residual)."""
+    zero residual in place of the stack). Else (0, latents, residual).
+    ``take``: the file's whole residual -> this mesh rank's part."""
     if not path or not os.path.exists(path):
         return 0, latents, residual
     with np.load(path) as data:
@@ -88,8 +95,9 @@ def load_partial(path: Optional[str], n_scan: int, latents: torch.Tensor,
         latents = torch.as_tensor(data["latents"]).to(latents.device,
                                                       latents.dtype)
         if tea:
-            residual = torch.as_tensor(data["residual"]).to(residual.device,
-                                                            residual.dtype)
+            whole = torch.as_tensor(data["residual"])
+            residual = (whole if take is None else take(whole)).to(
+                residual.device, residual.dtype)
     return start, latents, residual
 
 
@@ -107,17 +115,53 @@ def save_partial(path: str, step: int, n_scan: int, latents: torch.Tensor,
     os.replace(tmp, path)
 
 
+def tea_setup(skips: np.ndarray, batch: int, grid: Sequence[int], dim: int,
+              dtype, device, mesh=None):
+    """A TeaCache denoise's (plan, zero residual, take, gather) for DiT
+    tokens forming ``grid`` (f, h, w): the residual (batch, f*h*w, dim).
+    On a ``mesh``: rank 0's plan on every rank (a step skipped by some
+    ranks and computed by others would leave the latter waiting in the
+    stack's collectives; the plan comes from the replicated time MLP, so
+    the ranks' own agree), this rank's part of the residual
+    (``sharding.token_split``), and the partial state's hooks, ``take``
+    (the whole residual -> this rank's part) and ``gather`` (the reverse,
+    a collective); in one process both hooks are None."""
+    from ..parallel import distributed, sharding
+    f, h, w = grid
+    if mesh is None:
+        return skips, torch.zeros((batch, f * h * w, dim), dtype=dtype,
+                                  device=device), None, None
+    part = sharding.token_split(batch, grid, mesh)
+    rows = part[0]
+    n = batch if rows is None else rows.stop - rows.start
+    return (np.asarray(distributed.broadcast_object(np.asarray(skips, bool)),
+                       bool),
+            torch.zeros((n, part[1].local, dim), dtype=dtype, device=device),
+            lambda whole: sharding.take_tokens(whole, part),
+            lambda mine: sharding.gather_tokens(mine, part, mesh))
+
+
 class StepReport:
     """What follows each denoise step: with ``segment_size`` or
     ``gen_ckpt_path``, at each segment's end, a synchronisation, the
     partial state written and ``progress(done, n)``; else ``progress``
     after the step is queued. After the last step the partial state is
-    removed. A resumed run (``start`` > 0) reports its start first."""
+    removed. A resumed run (``start`` > 0) reports its start first.
+
+    On a ``mesh`` every rank makes one (each at the same steps):
+    ``gather`` (this rank's residual part -> the whole, a collective) runs
+    on every rank before the state is written, only rank 0 writes and
+    removes the file, and the ranks meet after it, so that on every rank
+    the file is as rank 0 left it when ``progress`` runs."""
 
     def __init__(self, n: int, start: int, segment_size: Optional[int],
                  path: Optional[str], progress: Optional[Callable],
-                 cuts: Sequence[int] = ()):
+                 cuts: Sequence[int] = (), mesh=None,
+                 gather: Optional[Callable] = None):
         self.n, self.path, self.progress = n, path, progress
+        self.meshed = mesh is not None and not mesh.trivial
+        self.writer = not self.meshed or mesh.rank == 0
+        self.gather = gather
         self.segmented = segment_size is not None or path is not None
         self.ends = segment_ends(start, n - 1, segment_size or n - 1, cuts)
         if progress is not None and start:
@@ -126,18 +170,31 @@ class StepReport:
     def __call__(self, done: int, latents: torch.Tensor,
                  residual: Optional[torch.Tensor]) -> None:
         if done == self.n:
-            if self.path:
+            if self.path and self.writer:
                 synchronize(latents)
                 if os.path.exists(self.path):
                     os.remove(self.path)
+            self._meet()
         elif self.segmented:
             if done not in self.ends:
                 return
             synchronize(latents)
             if self.path:
-                save_partial(self.path, done, self.n - 1, latents, residual)
+                if residual is not None and self.gather is not None:
+                    residual = self.gather(residual)
+                if self.writer:
+                    save_partial(self.path, done, self.n - 1, latents,
+                                 residual)
+            self._meet()
         if self.progress is not None:
             self.progress(done, self.n)
+
+    def _meet(self) -> None:
+        """On a mesh with a partial-state file, every rank waits for rank
+        0's write or removal."""
+        if self.meshed and self.path:
+            from ..parallel.distributed import barrier
+            barrier()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,9 +396,12 @@ class FantasyWorldPipeline:
         """int8 w8a8 or fp8 storage over the fusion model's eligible
         linears, in place (``core.quant.quantize_model``; the encoders, the
         VAE and the pose encoder run once per clip and stay as they are).
-        Returns how many layers were rewritten."""
+        Returns how many layers were rewritten. A model already sharded
+        (``shard``) quantizes its parts to the bits the whole model's
+        quantization would split into; every rank calls it."""
         from ..core.quant import quantize_model
-        return quantize_model(self.fusion, mode, **kw)
+        return quantize_model(self.fusion, mode,
+                              axis=self.fusion.dit.blocks[0].tp, **kw)
 
     @torch.no_grad()
     def denoise(self, context_pos, context_neg, clip_feature, y,
@@ -389,7 +449,8 @@ class FantasyWorldPipeline:
         every attention whose keys are split over 'seq' re-sharded through
         Ulysses (or the ring) under ``ulysses``; every rank
         returns the latents, rank 0 the prediction (None on the others).
-        TeaCache and the sliding window do not combine with it."""
+        Every option above combines with it; every rank passes the same
+        arguments (the same ``gen_ckpt_path``, which rank 0 writes)."""
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
         f = (num_frames - 1) // 4 + 1
@@ -412,13 +473,7 @@ class FantasyWorldPipeline:
         pairs = sched.sigma_pairs()
         n = len(sched.timesteps)
         meshed = mesh is not None and not mesh.trivial
-        if meshed:
-            given = [name for name, v in (
-                ("tea_cache_l1_thresh", tea_cache_l1_thresh),
-                ("sliding_window_size", sliding_window_size)) if v is not None]
-            if given:
-                raise ValueError(f"a mesh does not combine with "
-                                 f"{', '.join(given)} yet")
+        fwd = {"mesh": mesh, "ulysses": ulysses} if meshed else {}
         if sliding_window_size is not None:
             given = [name for name, v in (
                 ("tea_cache_l1_thresh", tea_cache_l1_thresh),
@@ -431,25 +486,23 @@ class FantasyWorldPipeline:
                 latents, sched, ctx, clip2, y2, pl2, cfg_scale, f, height,
                 width, sliding_window_size,
                 sliding_window_stride or max(1, sliding_window_size // 2),
-                progress_callback), None
+                progress_callback, fwd), None
         tea = tea_cache_l1_thresh is not None
         skips, residual = np.zeros((n,), bool), None
+        take = gather = None
         if tea:
-            skips = compute_skip_schedule(
-                self.fusion.dit, sched.timesteps, tea_cache_l1_thresh,
-                tea_cache_model_id)
             pt = self.cfg.dit.patch_size
-            n_tok = f * (height // 8 // pt[1]) * (width // 8 // pt[2])
-            residual = torch.zeros((2 * B, n_tok, self.cfg.dit.dim),
-                                   dtype=dtype, device=dev)
+            skips, residual, take, gather = tea_setup(
+                compute_skip_schedule(self.fusion.dit, sched.timesteps,
+                                      tea_cache_l1_thresh,
+                                      tea_cache_model_id),
+                2 * B, (f, height // 8 // pt[1], width // 8 // pt[2]),
+                self.cfg.dit.dim, dtype, dev, mesh if meshed else None)
         start, latents, residual = load_partial(gen_ckpt_path, n - 1,
-                                                latents, residual, tea)
+                                                latents, residual, tea, take)
         # every rank resumes from the partial state; rank 0 alone writes it
-        writer = not meshed or mesh.rank == 0
-        report = StepReport(n, start, segment_size,
-                            gen_ckpt_path if writer else None,
-                            progress_callback)
-        fwd = {"mesh": mesh, "ulysses": ulysses} if meshed else {}
+        report = StepReport(n, start, segment_size, gen_ckpt_path,
+                            progress_callback, mesh=mesh, gather=gather)
         prediction = None
         for i in range(start, n):
             last = i == n - 1
@@ -459,7 +512,7 @@ class FantasyWorldPipeline:
             if tea and not last:
                 noise, residual = self.fusion.joint_forward_tea(
                     lat2, t, ctx, clip2, y2, plucker_fea=pl2,
-                    skip=bool(skips[i]), residual=residual)
+                    skip=bool(skips[i]), residual=residual, **fwd)
             else:
                 noise, prediction = self.fusion.joint_forward(
                     lat2, t, ctx, clip2, y2, plucker_fea=pl2,
@@ -476,10 +529,12 @@ class FantasyWorldPipeline:
 
     def _denoise_windowed(self, latents, sched, ctx, clip2, y2, pl2,
                           cfg_scale, f, height, width, size, stride,
-                          progress_callback):
+                          progress_callback, fwd):
         """The step loop with each CFG-pair prediction tiled over temporal
         windows; the Plucker features (B2, L, D) enter as (B2, D, f, h, w)
-        so that they slice by frame like the latents."""
+        so that they slice by frame like the latents. ``fwd``: the mesh
+        arguments of each window's ``joint_forward`` (its frames split over
+        'seq' as a whole clip's are, raggedly where they do not divide)."""
         from .temporal_tiler import temporal_tiled_forward
         pl_bcthw = None
         if pl2 is not None:
@@ -497,7 +552,7 @@ class FantasyWorldPipeline:
             noise, _ = self.fusion.joint_forward(
                 lat2, torch.full((lat2.shape[0],), t, dtype=torch.float32,
                                  device=lat2.device), ctx, clip2, y,
-                plucker_fea=pl)
+                plucker_fea=pl, **fwd)
             nb = latents.shape[0]
             pos, neg = noise[:nb].float(), noise[nb:].float()
             return neg + cfg_scale * (pos - neg)

@@ -22,7 +22,23 @@ the dual plan (the residual carried across the boundary) and runs segmented
 and resumable as ``FantasyWorldPipeline.denoise`` does, with no segment
 across the boundary.
 
-Not ported here: meshes.
+On a mesh (``convert/checkpoint.py:place_experts(mesh=)``, which builds
+each expert split before anything is pinned, or ``shard`` of two experts
+on one device) each rank holds its part of both experts, and where they
+fit its card holds both (``both_fit``). That is a reckoning: one expert
+of 16.54B parameters is 33.10 GB in bf16, of which the DiT's split
+projections are 28.11 GB, so at a model split of M a rank's part is
+4.99 + 28.11 / M GB -- 19.05 GB at M = 2 -- and two of them beside
+``ACTIVATION_RESERVE_BYTES`` (38.65 GB) fit an 80 GB card (85.0 GB; one
+rank a card) from M = 2 on, with no swap. One process holding two
+experts of that size, umT5 and the whole clip's activations through the
+tiled decode stays within it on the card (``chip_smoke.py``'s
+``wan22_both_resident``); ranks on cards of their own have not run it.
+In one process, or with ranks sharing a card, the swap stays.
+``denoise(mesh=)`` draws the same noise on every
+rank, takes rank 0's TeaCache plan, switches experts at the same step on
+every rank (the step index decides it), runs the control adapter (whole
+on every rank) and returns the heads on rank 0.
 """
 from __future__ import annotations
 
@@ -35,7 +51,8 @@ import torch.nn as nn
 from ..models.fusion.model import FusionModel
 from ..schedulers.flow_match import FlowMatchScheduler
 from .tea_cache import DEFAULT_MODEL_ID, compute_skip_schedule_dual
-from .wan_video import FantasyWorldPipeline, StepReport, load_partial
+from .wan_video import (FantasyWorldPipeline, StepReport, load_partial,
+                        tea_setup)
 
 
 def control_camera_latents_from_plucker(plucker: np.ndarray) -> np.ndarray:
@@ -53,6 +70,29 @@ def control_camera_latents_from_plucker(plucker: np.ndarray) -> np.ndarray:
 
 def _tensors(module: nn.Module):
     return list(module.parameters()) + list(module.buffers())
+
+
+def expert_bytes(module: nn.Module) -> int:
+    """The bytes of ``module``'s tensors (a mesh rank's part of them)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(module))
+
+
+# what a rank keeps free on its card beside the two experts: umT5 (11.4
+# GB, on rank 0) and the activations of the 480x832x81 heads step (PERF.md
+# section 5: 45.60 GB resident and a 67.89 GB peak in one process, so ~22
+# GB above the weights)
+ACTIVATION_RESERVE_BYTES = 36 << 30
+
+
+def both_fit(nbytes: int, device, ranks_per_card: int = 1) -> bool:
+    """Whether two experts of ``nbytes`` each and the reserve fit on the
+    card of ``device`` for each of the ``ranks_per_card`` ranks on it
+    (always on the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    total = torch.cuda.get_device_properties(device).total_memory
+    return ranks_per_card * (2 * nbytes + ACTIVATION_RESERVE_BYTES) <= total
 
 
 # pinned host memory is taken in slabs of this size, each packed with
@@ -84,12 +124,14 @@ def place_expert(model: nn.Module, device, *, on_host: bool,
                  quant: Optional[str] = None, **quant_kw) -> nn.Module:
     """One expert as ``DualModelDenoiser`` takes it: quantized first when
     ``quant`` is "int8" or "fp8" (``core.quant.quantize_model``, layer by
-    layer on ``device``; ``quant_kw`` goes to it), then moved to pinned host
-    memory when ``on_host``. Quantizing before pinning leaves both experts
-    the same tensor lists, which ``swap_residency`` needs."""
+    layer on ``device``; ``quant_kw`` goes to it; a sharded expert's parts
+    quantize over its model axis), then moved to pinned host memory when
+    ``on_host``. Quantizing before pinning leaves both experts the same
+    tensor lists, which ``swap_residency`` needs."""
     from ..core.quant import quantize_model
     if quant:
-        quantize_model(model, quant, work_device=device, **quant_kw)
+        quantize_model(model, quant, work_device=device,
+                       axis=model.dit.blocks[0].tp, **quant_kw)
     return pin_to_host(model) if on_host else model
 
 
@@ -140,6 +182,37 @@ class DualModelDenoiser:
     def dtype(self) -> torch.dtype:
         return self.experts[True].dit.patch_embedding.weight.dtype
 
+    def shard(self, mesh) -> "DualModelDenoiser":
+        """Split both experts over ``mesh`` (``FusionModel.shard``), in
+        place, then ``place`` them; every rank calls it, and passes the
+        same mesh to ``denoise``. Both experts must be on one device: one
+        waiting in pinned host memory is refused, since its whole would
+        stay pinned -- build the experts split instead
+        (``place_experts(mesh=)``, or ``core.params.build(mesh=)``)."""
+        if len({self._device_of(m) for m in self.experts.values()}) > 1:
+            raise ValueError("an expert waits in host memory: build the "
+                             "experts split (place_experts(mesh=) or "
+                             "core.params.build(mesh=)), then place()")
+        for model in self.experts.values():
+            model.shard(mesh)
+        return self.place()
+
+    def place(self) -> "DualModelDenoiser":
+        """With both experts on the card: both stay where this rank's parts
+        fit beside the reserve (``both_fit``, with the ranks that share the
+        card), so that no swap remains; else the low one goes to pinned
+        host memory, to trade places at the boundary. Nothing moves on the
+        CPU, or when an expert already waits on the host."""
+        from ..parallel.distributed import ranks_per_card
+        dev = self.device
+        if dev.type != "cuda" or any(self._device_of(m) != dev
+                                     for m in self.experts.values()):
+            return self
+        if not both_fit(expert_bytes(self.experts[True]), dev,
+                        ranks_per_card()):
+            pin_to_host(self.experts[False])
+        return self
+
     def activate(self, high: bool) -> bool:
         """Bring the wanted expert to the compute device, swapping it with
         the other when it waits on the host. Returns whether it swapped."""
@@ -162,8 +235,9 @@ class DualModelDenoiser:
                 tea_cache_l1_thresh: Optional[float] = None,
                 tea_cache_model_id: str = DEFAULT_MODEL_ID,
                 segment_size: Optional[int] = None,
-                gen_ckpt_path: Optional[str] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                gen_ckpt_path: Optional[str] = None,
+                mesh=None, ulysses: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Returns (final latents (1, z, f, h, w), geometry prediction of
         the positive row). ``progress_callback(done, total)`` runs after
         each step is queued, or after each segment once synchronised when
@@ -173,7 +247,10 @@ class DualModelDenoiser:
         ``stage_callback`` after an expert's control tokens
         ("control_adapter_high" / "_low") and after a swap ("swap").
         ``tea_cache_l1_thresh``: TeaCache with the dual plan
-        (``compute_skip_schedule_dual``)."""
+        (``compute_skip_schedule_dual``). ``mesh`` / ``ulysses``: as in
+        ``FantasyWorldPipeline.denoise``, over experts split with
+        ``shard``: every rank returns the latents, rank 0 the prediction
+        (None on the others)."""
         stage = stage_callback or (lambda name: None)
         if num_frames % 4 != 1:
             num_frames = (num_frames + 2) // 4 * 4 + 1
@@ -191,21 +268,26 @@ class DualModelDenoiser:
         ctx = torch.cat([context_pos, context_neg]).to(dev, dtype)
         y2 = torch.cat([y, y]).to(dev, dtype)
         ctrl = None if control_camera_latents is None else torch.as_tensor(
-            np.asarray(control_camera_latents), device=dev, dtype=dtype)
+            control_camera_latents, device=dev, dtype=dtype)
+        meshed = mesh is not None and not mesh.trivial
+        fwd = {"mesh": mesh, "ulysses": ulysses} if meshed else {}
         tea = tea_cache_l1_thresh is not None
         skips, residual = np.zeros((n,), bool), None
+        take = gather = None
         if tea:
-            skips = compute_skip_schedule_dual(
-                self.experts[True].dit, self.experts[False].dit, ts, n_high,
-                tea_cache_l1_thresh, tea_cache_model_id, device=dev)
             pt = dcfg.patch_size
-            n_tok = f * (height // 8 // pt[1]) * (width // 8 // pt[2])
-            residual = torch.zeros((2 * B, n_tok, dcfg.dim), dtype=dtype,
-                                   device=dev)
+            skips, residual, take, gather = tea_setup(
+                compute_skip_schedule_dual(
+                    self.experts[True].dit, self.experts[False].dit, ts,
+                    n_high, tea_cache_l1_thresh, tea_cache_model_id,
+                    device=dev),
+                2 * B, (f, height // 8 // pt[1], width // 8 // pt[2]),
+                dcfg.dim, dtype, dev, mesh if meshed else None)
         start, latents, residual = load_partial(gen_ckpt_path, n - 1,
-                                                latents, residual, tea)
+                                                latents, residual, tea, take)
         report = StepReport(n, start, segment_size, gen_ckpt_path,
-                            progress_callback, cuts=(n_high,))
+                            progress_callback, cuts=(n_high,), mesh=mesh,
+                            gather=gather)
         tokens: Dict[bool, Optional[torch.Tensor]] = {}
         prediction = None
         for i in range(start, n):
@@ -223,14 +305,16 @@ class DualModelDenoiser:
             if tea and not last:
                 noise, residual = expert.joint_forward_tea(
                     lat2, t, ctx, None, y2, skip=bool(skips[i]),
-                    residual=residual, control_tokens=tokens[high])
+                    residual=residual, control_tokens=tokens[high], **fwd)
             else:
                 noise, prediction = expert.joint_forward(
                     lat2, t, ctx, None, y2, return_prediction=last,
-                    control_tokens=tokens[high])
+                    control_tokens=tokens[high], **fwd)
             pos, neg = noise[:B].float(), noise[B:].float()
             pred = neg + cfg_scale * (pos - neg)
             latents = (latents.float() + pred * float(pairs[i, 1] - pairs[i, 0])
                        ).to(dtype)
             report(i + 1, latents, residual)
+        if prediction is None:
+            return latents, None
         return latents, {k: v[:B] for k, v in prediction.items()}

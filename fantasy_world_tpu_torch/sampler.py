@@ -21,7 +21,13 @@ multi-GPU clip, one process per rank over a pipeline sharded with
 ``pipe.shard(mesh)``: rank 0 runs the encoders (umT5, CLIP, the VAE
 encode, MoGe) and broadcasts the conditioning, so the ranks cannot
 diverge; every rank denoises; rank 0 alone decodes and returns the clip
-(the others return (None, None)) and exports it.
+(the others return (None, None)) and exports it. The other ranks need
+no encoders (``from_checkpoint(encoders=False)``, as the CLIs load
+them). ``Wan22Sampler`` does
+the same over a ``DualModelDenoiser`` split with ``denoiser.shard(mesh)``
+(or ``from_checkpoint(mesh=)``, which builds each expert split): rank 0
+conditions (umT5, the tiled VAE encode, MoGe, the control latents) and
+decodes.
 """
 from __future__ import annotations
 
@@ -79,18 +85,20 @@ class FantasyWorldSampler:
                         device, dtype: torch.dtype = torch.bfloat16,
                         tokenizer_path: Optional[str] = None,
                         moge_ckpt: Optional[str] = None,
-                        quant: Optional[str] = None
+                        quant: Optional[str] = None, encoders: bool = True
                         ) -> "FantasyWorldSampler":
         """``quant`` ("int8" / "fp8") quantizes the fusion model after
-        load."""
+        load. ``encoders`` False: no umT5, CLIP, VAE or MoGe, for a mesh
+        rank other than 0 (rank 0 conditions and decodes)."""
         from .convert.checkpoint import load_pipeline
         from .convert.moge import load_moge
         pipe = load_pipeline(wan_ckpt_path, model_ckpt, device=device,
-                             dtype=dtype, tokenizer_path=tokenizer_path)
+                             dtype=dtype, tokenizer_path=tokenizer_path,
+                             encoders=encoders)
         if quant:
             pipe.quantize(quant)
-        return cls(pipe, None if moge_ckpt is None else load_moge(
-            moge_ckpt, device=device, dtype=dtype))
+        return cls(pipe, None if moge_ckpt is None or not encoders
+                   else load_moge(moge_ckpt, device=device, dtype=dtype))
 
     # -- conditioning -------------------------------------------------------
 
@@ -300,16 +308,20 @@ class Wan22Sampler:
                         tokenizer_path: Optional[str] = None,
                         moge_ckpt: Optional[str] = None,
                         timestep_boundary: float = 900.0,
-                        quant: Optional[str] = None) -> "Wan22Sampler":
-        """``quant`` quantizes both experts as they load."""
+                        quant: Optional[str] = None,
+                        mesh=None, encoders: bool = True) -> "Wan22Sampler":
+        """``quant`` quantizes both experts as they load; ``mesh`` builds
+        each as this rank's part of it (``place_experts``); ``encoders``
+        False: no umT5, VAE or MoGe, as on a mesh rank other than 0."""
         from .convert.checkpoint import load_wan22
         from .convert.moge import load_moge
         pipe, denoiser = load_wan22(
             wan_ckpt_path, model_ckpt_high, model_ckpt_low, device=device,
             dtype=dtype, tokenizer_path=tokenizer_path,
-            timestep_boundary=timestep_boundary, quant=quant)
-        return cls(pipe, denoiser, None if moge_ckpt is None else load_moge(
-            moge_ckpt, device=device, dtype=dtype))
+            timestep_boundary=timestep_boundary, quant=quant, mesh=mesh,
+            encoders=encoders)
+        return cls(pipe, denoiser, None if moge_ckpt is None or not encoders
+                   else load_moge(moge_ckpt, device=device, dtype=dtype))
 
     prepare_camera = FantasyWorldSampler.prepare_camera
 
@@ -326,34 +338,54 @@ class Wan22Sampler:
                        tea_cache_l1_thresh: Optional[float] = None,
                        tea_cache_model_id: str = DEFAULT_MODEL_ID,
                        segment_size: Optional[int] = None,
-                       gen_ckpt_path: Optional[str] = None
+                       gen_ckpt_path: Optional[str] = None,
+                       mesh=None, ulysses: bool = False
                        ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
         """image and end_image (H, W, 3) in [0, 1], or image_path ->
         (uint8 frames (T, H, W, 3), geometry prediction {name: f32
-        numpy}). The serving options go to ``DualModelDenoiser.denoise``."""
+        numpy}). The serving options go to ``DualModelDenoiser.denoise``.
+        ``mesh`` / ``ulysses``: the multi-GPU clip (every rank calls this
+        with the same arguments; rank 0 reads the images, conditions and
+        returns the clip, the others (None, None))."""
+        from .parallel.distributed import broadcast_tensors
         stage = stage_callback or (lambda name: None)
-        if image is None:
-            image = read_image(image_path)
-        img = image_pm1(image, height, width)
-        end = None if end_image is None else image_pm1(end_image, height,
-                                                       width)
-        ctrl = None
-        if camera_params is not None:
-            ctrl = control_camera_latents_from_plucker(self.prepare_camera(
-                camera_params, image, height, width, using_scale, stage))
-        stage("camera")
-        shared, posi, nega = run_condition(
-            self.pipe, prompt, neg_prompt, input_image=img, end_image=end,
-            height=height, width=width, num_frames=num_frames, seed=seed,
-            cfg_scale=cfg_scale, tiled=True, stage_callback=stage)
+        meshed = mesh is not None and not mesh.trivial
+        cond = [None] * 4
+        if not meshed or mesh.rank == 0:
+            if image is None:
+                image = read_image(image_path)
+            img = image_pm1(image, height, width)
+            end = None if end_image is None else image_pm1(end_image, height,
+                                                           width)
+            ctrl = None
+            if camera_params is not None:
+                ctrl = torch.as_tensor(control_camera_latents_from_plucker(
+                    self.prepare_camera(camera_params, image, height, width,
+                                        using_scale, stage)))
+            stage("camera")
+            shared, posi, nega = run_condition(
+                self.pipe, prompt, neg_prompt, input_image=img,
+                end_image=end, height=height, width=width,
+                num_frames=num_frames, seed=seed, cfg_scale=cfg_scale,
+                tiled=True, stage_callback=stage)
+            cond = [posi["context"], nega["context"], shared["y"], ctrl]
+        if meshed:
+            if cond[3] is not None:
+                cond[3] = cond[3].to(self.denoiser.device)
+            cond = broadcast_tensors(cond, src=0,
+                                     device=self.denoiser.device)
         latents, prediction = self.denoiser.denoise(
-            posi["context"], nega["context"], shared["y"], height, width,
+            cond[0], cond[1], cond[2], height, width,
             num_frames=num_frames,
             num_inference_steps=sample_steps, cfg_scale=cfg_scale, seed=seed,
-            control_camera_latents=ctrl, progress_callback=progress_callback,
+            control_camera_latents=cond[3],
+            progress_callback=progress_callback,
             stage_callback=stage, tea_cache_l1_thresh=tea_cache_l1_thresh,
             tea_cache_model_id=tea_cache_model_id,
-            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path)
+            segment_size=segment_size, gen_ckpt_path=gen_ckpt_path,
+            **({"mesh": mesh, "ulysses": ulysses} if meshed else {}))
+        if meshed and mesh.rank != 0:
+            return None, None
         video = self.pipe.decode_video(latents, tiled=True)
         stage("vae_decode")
         return video, {k: v.float().cpu().numpy()

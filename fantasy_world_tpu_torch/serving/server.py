@@ -57,11 +57,17 @@ def expandable_segments() -> str:
     instead of leaving per-size holes. Before CUDA starts the setting goes
     into ``PYTORCH_CUDA_ALLOC_CONF``; once it runs, into the allocator,
     for the segments it makes from then on. A ``PYTORCH_CUDA_ALLOC_CONF``
-    the caller set wins. Returns what was done: "env", "runtime" or
-    "caller"."""
+    the caller set wins. Ranks that share a card
+    (``parallel.distributed.ranks_per_card``) keep the default segments:
+    they map each other's staging buffers through CUDA IPC, which refuses
+    an expandable segment on a kernel without the pidfd_open syscall.
+    Returns what was done: "env", "runtime", "caller" or "shared"."""
     if os.environ.get(ALLOC_CONF):
         return "caller"
     import torch
+    from ..parallel.distributed import ranks_per_card
+    if ranks_per_card() > 1:
+        return "shared"
     if not torch.cuda.is_initialized():
         os.environ[ALLOC_CONF] = "expandable_segments:True"
         return "env"

@@ -162,6 +162,18 @@ def tiny(tmp_path_factory):
     return root, env, {"wan": wan, "model": ckpt}
 
 
+def test_release_shared_between_jobs(tmp_path):
+    """``distributed.release_shared`` between two jobs of one process
+    group: every rank meets it, and collectives over groups made after it
+    still sum and take the maximum (on the CPU no staging buffer exists;
+    on a shared card it frees them, as chip_smoke's jobs do)."""
+    out = tmp_path / "release.pt"
+    distributed.spawn(workers.release_case, 2, str(out))
+    got = torch.load(out)
+    assert torch.equal(got["sum"], torch.full((3,), 3.0))
+    assert torch.equal(got["max"], torch.full((3,), 1.0))
+
+
 def test_sampler_batch_on_mesh_matches_one_process(tiny):
     """``generate_videos`` of two clips on a (1, 2, 1) Ulysses mesh: rank 0
     conditions and broadcasts, every rank denoises, rank 0 decodes; the
@@ -226,3 +238,48 @@ def test_cli_mesh_under_torchrun_matches_one_process(tiny):
     np.testing.assert_allclose(b["xyz"], a["xyz"], rtol=PRED_TOL,
                                atol=PRED_TOL)
     assert np.abs(a["rgb"].astype(int) - b["rgb"].astype(int)).max() <= 1
+
+
+def test_cli_mesh_with_serving_options_matches_one_process(tiny):
+    """``--quant int8 --tea_cache_l1_thresh`` with ``--segment_size`` and
+    ``--gen_ckpt_path`` on a 1x1x2 mesh under torchrun (the options a mesh
+    refused before) write what the same options write in one process
+    (THRESH makes a plan that skips at these random weights,
+    ``test_torch_tea_cache.py``); rank 0 prints the progress, writes the
+    partial state after each segment and removes it at the end."""
+    from test_torch_tea_cache import THRESH
+    root, env, layout = tiny
+    env_vars = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env_vars["OMP_NUM_THREADS"] = "1"
+    outs = {}
+    for name, launch, extra in (
+            ("one", [sys.executable, "-m"], ()),
+            ("mesh", [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", "2", "-m"],
+             ("--mesh_model", "2"))):
+        out = root / f"options_{name}"
+        res = subprocess.run(
+            [*launch, "fantasy_world_tpu_torch.cli.infer_wan21",
+             *_cli_argv(env, layout, out, "--device", "cpu", "--quant",
+                        "int8", "--tea_cache_l1_thresh", str(THRESH),
+                        "--sample_steps", "4", "--segment_size", "1",
+                        "--gen_ckpt_path", str(root / f"{name}.npz"),
+                        *extra)],
+            cwd=REPO, env=env_vars, capture_output=True, text=True,
+            timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        assert res.stdout.count("outputs written") == 1, res.stdout
+        assert res.stdout.count("[denoise] step 4/4") == 1
+        assert not (root / f"{name}.npz").exists()
+        outs[name] = out
+    assert "2 ranks (1x1x2 mesh)" in res.stdout
+    assert sorted(os.listdir(outs["one"])) == sorted(os.listdir(outs["mesh"]))
+    video = [n for n in os.listdir(outs["one"]) if n.startswith("video")][0]
+    if video.endswith(".npy"):
+        a, b = (np.load(outs[k] / video).astype(int) for k in outs)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1
+    (ha, a), (hb, b) = (_ply(outs[k] / "recon_confthresh0.0.ply")
+                        for k in outs)
+    assert ha == hb
+    np.testing.assert_allclose(b["xyz"], a["xyz"], rtol=PRED_TOL,
+                               atol=PRED_TOL)

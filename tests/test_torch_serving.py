@@ -21,7 +21,6 @@ import pytest
 import torch
 
 from fantasy_world_tpu_torch.cli.serve import (make_batch_fn,
-                                               make_batch_fn22,
                                                make_validate_fn)
 from fantasy_world_tpu_torch.serving.server import GenerationServer, Job
 
@@ -159,6 +158,21 @@ def test_server_turns_on_expandable_segments(monkeypatch):
     assert os.environ[ALLOC_CONF] == "expandable_segments:False"
 
 
+def test_ranks_sharing_a_card_keep_the_default_segments(monkeypatch):
+    """Two local ranks with no card of their own each (here: the CPU, no
+    cards) map each other's staging buffers through CUDA IPC, which an
+    expandable segment refuses on kernels without pidfd_open: neither
+    serve's start nor a server turns expandable segments on for them."""
+    from fantasy_world_tpu_torch.serving.server import (ALLOC_CONF,
+                                                        expandable_segments)
+    monkeypatch.delenv(ALLOC_CONF, raising=False)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    assert expandable_segments() == "shared"
+    srv = GenerationServer(lambda jobs: [{} for _ in jobs], port=0)
+    srv.httpd.server_close()
+    assert ALLOC_CONF not in os.environ
+
+
 def test_make_batch_fn22_per_job_loop(tmp_path):
     """--variant wan22: one generate_video per job, each job its own
     export directory, progress only on its own job."""
@@ -180,7 +194,7 @@ def test_make_batch_fn22_per_job_loop(tmp_path):
             return {"video": path, "ply": None}
 
     args = argparse.Namespace(segment_size=2, output_root=str(tmp_path))
-    fn = make_batch_fn22(StubSampler(), args)
+    fn = make_batch_fn(StubSampler(), args, wan22=True)
     jobs = [Job(id=f"j{i}", request={"prompt": f"p{i}",
                                      "image_path": "img.png"})
             for i in range(2)]
@@ -338,12 +352,14 @@ def test_serve_cli_answers_a_request(tiny, tmp_path):
 
 @pytest.mark.parametrize("extra,cuda,want", [
     ((), False, "--device cpu"),
-    (("--device", "cpu", "--mesh_seq", "2"), True, "--mesh_seq"),
+    (("--device", "cpu", "--mesh_seq", "2"), True,
+     "--mesh_seq: a 1x2x1 mesh needs 2 processes"),
     (("--device", "cpu", "--ulysses"), True, "--ulysses"),
     (("--device", "cpu", "--variant", "wan22"), True, "--model_ckpt_high")])
 def test_serve_cli_exits(tiny, monkeypatch, extra, cuda, want):
-    """Without a card and without --device cpu the server exits, as do the
-    flags not ported and a variant without its checkpoints; it never
+    """Without a card and without --device cpu the server exits, as do a
+    mesh without torchrun (naming the process count it needs), --ulysses
+    without seq ranks and a variant without its checkpoints; it never
     starts listening."""
     from fantasy_world_tpu_torch.cli import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
@@ -352,3 +368,96 @@ def test_serve_cli_exits(tiny, monkeypatch, extra, cuda, want):
         serve.main(["--ckpt_dir", tiny["wan"], "--model_ckpt", tiny["model"],
                     "--port", "0", *extra])
     assert want in str(exc.value)
+
+
+def test_served_mesh_survives_idling_past_the_group_timeout(tmp_path):
+    """A served 1x1x2 mesh whose process group times out after 2 s idles
+    for 5 s, then serves a job: the follower waits for the batch over the
+    control group (no time limit), the batch's own collective still runs
+    over the default group, and the stop ends both ranks (the spawn raises
+    if either fails). Over the default group the follower's wait would
+    time out after 2 s."""
+    import torch_mesh_workers as workers
+    from fantasy_world_tpu_torch.parallel import distributed
+    out = tmp_path / "follower.json"
+    distributed.spawn(workers.idle_serve_case, 2, 5.0, str(tmp_path / "o"),
+                      str(out), timeout_s=2.0)
+    got = json.loads(out.read_text())
+    assert got == {"batches": 1, "calls": [[["p"], 2]]}
+
+
+def test_serve_cli_mesh_under_torchrun(tiny, tmp_path):
+    """``torchrun --nproc_per_node 2 -m ...cli.serve --device cpu
+    --mesh_model 2``: rank 0 serves, rank 1 follows. Two POSTs are batched
+    as one B = 2 run on both ranks; the exported clips equal the
+    one-process server's batch function on the same checkpoint; SIGINT to
+    rank 0 stops the server, the stop reaches rank 1, and every rank and
+    torchrun exit 0."""
+    import re
+    from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
+    ts, env = tiny["ts"], tiny["env"]
+    env_vars = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env_vars["OMP_NUM_THREADS"] = "1"
+    out_root = tmp_path / "mesh"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "fantasy_world_tpu_torch.cli.serve",
+         "--device", "cpu", "--port", "0", "--mesh_model", "2",
+         "--ckpt_dir", tiny["wan"], "--model_ckpt", tiny["model"],
+         "--tokenizer_path", env["tok"], "--output_root", str(out_root),
+         "--max_batch", "2", "--linger_s", "5"],
+        cwd=REPO, env=env_vars, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # a server that never comes up must not hold the suite
+    watchdog = threading.Timer(400, lambda: proc.kill())
+    watchdog.start()
+    req = {"image_path": env["image_path"], "camera_json": env["cams"],
+           "height": ts.H, "width": ts.W, "num_frames": ts.FRAMES,
+           "sample_steps": 2, "neg_prompt": ts.NEG}
+    reqs = [{**req, "prompt": ts.PROMPT, "seed": 5},
+            {**req, "prompt": "a valley", "seed": 9}]
+    lines = []
+    try:
+        while True:
+            line = proc.stdout.readline()
+            assert line, (lines, proc.stderr.read())
+            lines.append(line)
+            m = re.search(r"serving on http://127.0.0.1:(\d+) .*pid=(\d+)",
+                          line)
+            if m:
+                port, pid = int(m.group(1)), int(m.group(2))
+                break
+        assert "2 ranks (1x1x2 mesh)" in line
+        ids = [_post(port, r)[0]["job_id"] for r in reqs]
+        done = [_wait_done(port, i, timeout=300) for i in ids]
+        assert [d["status"] for d in done] == ["done", "done"], done
+    finally:
+        if "pid" in locals():
+            os.kill(pid, signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+        watchdog.cancel()
+    out = "".join(lines) + out
+    assert proc.returncode == 0, err[-3000:]
+    assert "[serve] rank 0: stopped" in out
+    # one batch of two jobs on the follower
+    assert "[serve] rank 1: 1 batches, stopped" in out
+    sampler = FantasyWorldSampler.from_checkpoint(
+        tiny["wan"], tiny["model"], device="cpu", dtype=torch.float32,
+        tokenizer_path=env["tok"])
+    jobs = [Job(id=d["job_id"], request=r) for d, r in zip(done, reqs)]
+    make_batch_fn(sampler, argparse.Namespace(
+        segment_size=None, output_root=str(tmp_path / "one")))(jobs)
+    for d in done:
+        one, mesh = tmp_path / "one" / d["job_id"], out_root / d["job_id"]
+        assert d["result"]["output_dir"] == str(mesh)
+        assert sorted(os.listdir(one)) == sorted(os.listdir(mesh))
+        for name in os.listdir(one):
+            if name.endswith(".npy"):
+                a, b = (np.load(p / name).astype(int) for p in (one, mesh))
+                assert a.shape == b.shape and np.abs(a - b).max() <= 1
+        from test_torch_multigpu import PRED_TOL, _ply
+        (ha, a), (hb, b) = (_ply(p / "recon_confthresh1.0.ply")
+                            for p in (one, mesh))
+        assert ha == hb
+        np.testing.assert_allclose(b["xyz"], a["xyz"], rtol=PRED_TOL,
+                                   atol=PRED_TOL)

@@ -261,13 +261,13 @@ def test_dispatch_matches_the_chip_check_mode_table(key):
     """chip_smoke.py writes out how each mesh's sequence-parallel
     attentions run (its expected launches follow that table, not the
     dispatch); the dispatch must agree: (DiT self at 1/M of the heads,
-    VGGT global, bicross) over this config's latent frames."""
+    VGGT global, bicross) over this config's latent frames (a window's
+    for the windowed denoise's entries)."""
     from fantasy_world_tpu_torch.parallel import ulysses
     name, (d, s, m), uly = key
-    cfg = (chip_smoke.small_configs()[0] if name == "small"
+    cfg = (chip_smoke.small_configs()[0] if name.startswith("small")
            else FusionConfig())
-    frames = ((chip_smoke.SMALL_GEOMETRY if name == "small"
-               else chip_smoke.MESH_GEOMETRY)[2] - 1) // 4 + 1
+    frames = chip_smoke.mesh_mode_frames(name)
     split = sharding.TokenSplit(
         None, tuple(len(c) for c in np.array_split(np.arange(frames), s)),
         0)

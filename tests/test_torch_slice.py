@@ -130,8 +130,10 @@ def test_port_never_imports_jax(tmp_path):
     aggregator and DiT modules of the single-card options, and the mesh
     layer (``parallel.distributed``, ``sharding``, ``ulysses``, ``ring``)
     among the modules, chip_smoke's option set-up and the CLIs' argument
-    checks run; and a rank it spawns (two gloo processes, one collective)
-    loads neither."""
+    checks run (their mesh checks too, the serve CLI's among them); and a
+    rank it spawns (two gloo processes, the collectives of the mesh
+    serving path, with the serve CLI, the samplers and the Wan2.2 pipeline
+    loaded) loads neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fantasy_world_tpu_torch as pkg\n"
@@ -163,6 +165,18 @@ def test_port_never_imports_jax(tmp_path):
         " '--device', 'cpu'] + extra)\n"
         "    except SystemExit as e:\n"
         "        assert 'checkpoint files missing' in str(e), e\n"
+        "    try:\n"
+        "        main(['--wan_ckpt_path', 'nowhere', '--image_path', 'x',"
+        " '--camera_json_path', 'y', '--prompt', 'p', '--output_dir', 'o',"
+        " '--device', 'cpu', '--mesh_model', '2'] + extra)\n"
+        "    except SystemExit as e:\n"
+        "        assert 'needs 2 processes' in str(e), e\n"
+        "from fantasy_world_tpu_torch.cli import serve\n"
+        "try:\n"
+        "    serve.main(['--ckpt_dir', 'nowhere', '--model_ckpt', 'n.pth',"
+        " '--device', 'cpu', '--mesh_model', '2'])\n"
+        "except SystemExit as e:\n"
+        "    assert 'needs 2 processes' in str(e), e\n"
         "import chip_smoke\n"
         "chip_smoke.small_configs()\n"
         "chip_smoke.small_clip_configs()\n"

@@ -211,6 +211,20 @@ def _dual(env):
     return w22.DualModelDenoiser(m["high"], m["low"])
 
 
+def test_dual_shard_refuses_an_expert_waiting_on_the_host():
+    """``DualModelDenoiser.shard`` splits experts that sit on one device
+    only: an expert on another device (the meta device standing in for
+    pinned host memory) is refused before anything splits, pointing to the
+    experts built split."""
+    from fantasy_world_tpu_torch.parallel import sharding
+    cfg = fusion_config_from(J_CFG)
+    high = _cpu(lambda: FusionModel(cfg))
+    low = build(lambda: FusionModel(cfg), device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="place_experts"):
+        w22.DualModelDenoiser(high, low).shard(sharding.single())
+    assert high.dit.blocks[0].tp is None
+
+
 @pytest.mark.parametrize("boundary,n_high", [(900.0, 2), (0.0, 3)])
 def test_dual_denoise_matches_jax(env, monkeypatch, boundary, n_high):
     """3 steps (t ~ 1000, 909, 715): the high expert while t > boundary,
@@ -583,12 +597,16 @@ def _cli_exit(argv, monkeypatch, cuda=False):
 @pytest.mark.parametrize("extra,flag", [
     ((), "--device cpu"),
     (("--device", "cpu", "--moge_ckpt", "nowhere.pt"), "--moge_ckpt"),
-    (("--device", "cpu", "--mesh_model", "2"), "--mesh_model"),
+    (("--device", "cpu", "--mesh_model", "2"),
+     "--mesh_model: a 1x1x2 mesh needs 2 processes"),
     (("--device", "cpu", "--ulysses", "true"), "--ulysses"),
-    (("--device", "cpu", "--mesh_seq", "2"), "--mesh_seq")])
+    (("--device", "cpu", "--mesh_seq", "2"),
+     "--mesh_seq: a 1x2x1 mesh needs 2 processes")])
 def test_cli_wan22_exits(env, layout, tmp_path, monkeypatch, extra, flag):
-    """Not-ported options and a missing MoGe checkpoint exit naming the
-    flag; without a card and without --device cpu it exits too."""
+    """A missing MoGe checkpoint exits naming the flag, and so does a mesh
+    without torchrun (naming the process count it needs) or --ulysses
+    without seq ranks; without a card and without --device cpu it exits
+    too."""
     msg = _cli_exit(_cli_argv(env, layout, tmp_path, *extra), monkeypatch,
                     cuda=flag != "--device cpu")
     assert flag in msg
@@ -603,3 +621,125 @@ def test_cli_wan22_names_missing_files(env, layout, tmp_path, monkeypatch):
     for name in (*ckpt.EXPERT_SHARDS.values(), *ckpt.EXPERT_LORAS.values(),
                  ckpt.VAE_FILE, ckpt.T5_FILE):
         assert name in msg
+
+
+# ---------------------------------------------------------------------------
+# the dual-expert denoise and the CLI on a mesh
+# ---------------------------------------------------------------------------
+
+# f32, one device against a mesh (JAX's tests/test_wan22.py bound):
+# summation order and the collectives' order of addition; the heads
+# relative to each output's largest value, as above
+MESH_TOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def dual_mesh(tmp_path_factory):
+    """JAX's one-device ``DualModelDenoiser.denoise`` at the geometry of
+    ``tests/test_wan22.py``'s sharded test (``_tiny_dual_cfg()``, f, h, w
+    = 3, 64, 96, 3 steps, seed 5; random conditioning, the zero gates
+    woken) and the port's experts and inputs on disk, JAX's noise among
+    them."""
+    from test_wan22 import _tiny_dual_cfg
+    tmp = tmp_path_factory.mktemp("dual_mesh")
+    cfg = _tiny_dual_cfg()
+    rng = np.random.default_rng(6)
+    trees = [_wake(init_fusion(jax.random.PRNGKey(k), cfg, jnp.float32), rng)
+             for k in (0, 1)]
+    pcfg = fusion_config_from(cfg)
+    files = []
+    for i, tree in enumerate(trees):
+        m = _cpu(lambda: FusionModel(pcfg))
+        torch.save(fusion_state_dict(tree, m), tmp / f"expert{i}.pt")
+        files.append(str(tmp / f"expert{i}.pt"))
+    f, h, w, steps, seed = 3, 64, 96, 3, 5
+    d = cfg.dit
+    inp = {"ctx_pos": rng.standard_normal((1, 20, d.text_dim)),
+           "ctx_neg": rng.standard_normal((1, 20, d.text_dim)),
+           "y": rng.standard_normal((1, d.in_dim - d.out_dim, f, h // 8,
+                                     w // 8)),
+           "ctrl": rng.standard_normal((1, 24, f, h, w)) * 0.5}
+    inp = {k: v.astype(np.float32) for k, v in inp.items()}
+    kw = dict(num_frames=4 * (f - 1) + 1, num_inference_steps=steps,
+              seed=seed, control_camera_latents=jnp.asarray(inp["ctrl"]))
+    want, wpred = jw22.DualModelDenoiser(
+        cfg=cfg, params_high=trees[0], params_low=trees[1]).denoise(
+        jnp.asarray(inp["ctx_pos"]), jnp.asarray(inp["ctx_neg"]),
+        jnp.asarray(inp["y"]), h, w, **kw)
+    noise = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(seed), (1, d.out_dim, f, h // 8, w // 8),
+        jnp.float32))
+    np.savez(tmp / "inputs.npz", noise=noise, dims=np.asarray(
+        [h, w, 4 * (f - 1) + 1, steps, seed]), **inp)
+    yield {"tmp": tmp, "pcfg": pcfg, "files": files,
+           "want": np.asarray(want), "wpred": {k: np.asarray(v)
+                                               for k, v in wpred.items()}}
+    # 0.8 GB an expert (the DPT heads at their production width)
+    for name in files:
+        os.remove(name)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (1, 1, 2)],
+                         ids=["2x2x2", "1x1x2"])
+def test_dual_denoise_on_mesh_matches_jax(dual_mesh, shape):
+    """``DualModelDenoiser.shard(mesh)`` and ``denoise(mesh=)`` on spawned
+    gloo ranks -- the CFG pair over 'data', the 3 latent frames over 'seq'
+    (2 | 1), both experts over 'model' -- against JAX's one-device dual
+    denoise: the high expert while t > 900, the low one after (the switch
+    at the same step on every rank), the heads on rank 0, and every rank's
+    control tokens equal."""
+    import torch_mesh_workers as workers
+    from fantasy_world_tpu_torch.parallel import distributed
+    out = dual_mesh["tmp"] / f"out_{'x'.join(map(str, shape))}.npz"
+    distributed.spawn(workers.dual_case, int(np.prod(shape)),
+                      dual_mesh["pcfg"], shape, False, dual_mesh["files"],
+                      str(dual_mesh["tmp"] / "inputs.npz"), str(out))
+    got = np.load(out)
+    np.testing.assert_allclose(got["latents"], dual_mesh["want"],
+                               rtol=MESH_TOL, atol=MESH_TOL)
+    assert str(got["stages"]) == "control_adapter_high|control_adapter_low"
+    sums = got["token_sums"]
+    assert sums.shape == (int(np.prod(shape)), 2)
+    assert (sums == sums[0]).all(), sums
+    assert {k[5:] for k in got.files if k.startswith("pred/")} == \
+        set(dual_mesh["wpred"])
+    for k, v in dual_mesh["wpred"].items():
+        assert _rel_max(got[f"pred/{k}"], v) <= RTOL, k
+
+
+def test_cli_wan22_mesh_under_torchrun_matches_one_process(env, layout,
+                                                           tmp_path):
+    """``torchrun --nproc_per_node 2 -m ...cli.infer_wan22 --device cpu
+    --mesh_model 2`` writes what the one-process run writes (rank 0 only),
+    each rank building its half of both experts."""
+    env_vars = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env_vars["OMP_NUM_THREADS"] = "1"
+    outs = {}
+    for name, launch, extra in (
+            ("one", [sys.executable, "-m"], ()),
+            ("mesh", [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", "2", "-m"],
+             ("--mesh_model", "2"))):
+        out = tmp_path / name
+        res = subprocess.run(
+            [*launch, "fantasy_world_tpu_torch.cli.infer_wan22",
+             *_cli_argv(env, layout, out, "--device", "cpu", "--sample_steps",
+                        "2", *extra)],
+            cwd=REPO, env=env_vars, capture_output=True, text=True,
+            timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        assert res.stdout.count("outputs written") == 1, res.stdout
+        outs[name] = out
+    assert "2 ranks (1x1x2 mesh)" in res.stdout
+    assert sorted(os.listdir(outs["one"])) == sorted(os.listdir(outs["mesh"]))
+    video = [n for n in os.listdir(outs["one"]) if n.startswith("video")][0]
+    if video.endswith(".npy"):
+        a, b = (np.load(outs[k] / video).astype(int) for k in outs)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1
+    from test_torch_multigpu import PRED_TOL, _ply
+    (ha, a), (hb, b) = (_ply(outs[k] / "recon_confthresh0.0.ply")
+                        for k in outs)
+    assert ha == hb
+    np.testing.assert_allclose(b["xyz"], a["xyz"], rtol=PRED_TOL,
+                               atol=PRED_TOL)
+    assert np.abs(a["rgb"].astype(int) - b["rgb"].astype(int)).max() <= 1

@@ -130,10 +130,17 @@ def report_modules(rank, out_file):
     """After a collective, rank 0 writes what this rank has loaded of JAX
     and of the JAX package (one name per line) to ``out_file``."""
     import torch.distributed as dist
+    from fantasy_world_tpu_torch.cli import serve  # noqa: F401
     from fantasy_world_tpu_torch.parallel import distributed, sharding  # noqa
     from fantasy_world_tpu_torch.parallel import ring, ulysses  # noqa: F401
+    from fantasy_world_tpu_torch.pipelines import wan_video_22  # noqa: F401
+    from fantasy_world_tpu_torch import sampler  # noqa: F401
     t = distributed.all_reduce_sum(torch.ones(1), dist.group.WORLD)
     assert t.item() == dist.get_world_size()
+    t = distributed.all_reduce_max(torch.tensor([float(rank)]),
+                                   dist.group.WORLD)
+    assert t.item() == dist.get_world_size() - 1
+    assert distributed.broadcast_object({"rank": rank}) == {"rank": 0}
     if rank == 0:
         with open(out_file, "w") as fh:
             fh.write("\n".join(foreign_modules()))
@@ -184,3 +191,266 @@ def norm_check_case(rank, per_shard, out_file):
     if rank == 0:
         with open(out_file, "w") as fh:
             json.dump([err, bound], fh)
+
+
+def _mapped_model(cfg, sd):
+    """A ``FusionModel`` whose tensors are those of ``sd`` (a state dict
+    loaded with ``mmap=True``): the ranks share the file's pages instead
+    of each holding a copy -- the DPT heads keep their production width,
+    0.8-1.5 GB in f32. Nothing writes to them; a rank's split parts are
+    its own copies."""
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    model = build(lambda: FusionModel(cfg), device="meta",
+                  dtype=torch.float32)
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+class _Cut(Exception):
+    """Raised from a progress callback to cut a denoise after a segment."""
+
+
+def _cut(done, total):
+    raise _Cut
+
+
+def serving_cases(rank, cfg, shape, ulysses_on, cases, sd_file, in_file,
+                  out_file):
+    """The serving options of the port's fusion model on a data x seq x
+    model mesh, each case on a model loaded from ``sd_file`` afresh; rank 0
+    writes every case's outputs to ``out_file`` (``{case}/{name}``):
+
+      * ``{int8,fp8}_{qs,sq}``: the model quantized (``min_dim`` 16) then
+        sharded, or sharded then quantized; one ``joint_forward``;
+      * ``tea``: ``joint_forward_tea``'s compute branch from a zero
+        residual, then its reuse branch with the residual it returned (the
+        whole residual gathered from the ranks' parts);
+      * ``tea_denoise``: the TeaCache denoise (``inputs['thresh']``, 4
+        steps, the heads) in segments of 2 with a partial-state file, cut
+        after the first segment and resumed from the file;
+      * ``window``: the sliding-window denoise (windows of
+        ``inputs['window']``, 2 steps) on the ``w_`` inputs.
+    """
+    import gc
+    import os
+
+    from fantasy_world_tpu_torch.core.quant import count_quantized
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.pipelines.wan_video import (
+        FantasyWorldPipeline)
+    mesh = sharding.make_mesh(*shape)
+    sd = torch.load(sd_file, mmap=True)
+    inp = {k: torch.from_numpy(v) for k, v in np.load(in_file).items()}
+    out = {}
+
+    def pipe_of(order=(), mode=None):
+        pipe = FantasyWorldPipeline(_mapped_model(cfg, sd))
+        for step in order:
+            if step == "q":
+                pipe.quantize(mode, min_dim=16)
+            else:
+                pipe.shard(mesh)
+        return pipe
+
+    fwd = dict(mesh=mesh, ulysses=ulysses_on)
+    for case in cases:
+        # one case's model at a time
+        pipe = model = None
+        gc.collect()
+        with torch.no_grad():
+            if case.startswith(("int8", "fp8")):
+                mode, order = case.split("_")
+                pipe = pipe_of(order, mode)
+                out[f"{case}/layers"] = torch.tensor(count_quantized(
+                    pipe.fusion))
+                out[f"{case}/noise"], _ = pipe.fusion.joint_forward(
+                    inp["lat"], inp["t"], inp["ctx"], inp["clip"], inp["y"],
+                    plucker_fea=inp["pl"], **fwd)
+            elif case == "tea":
+                model = pipe_of("s").fusion
+                f, h, w = (int(x) for x in inp["grid"])
+                B = inp["lat"].shape[0]
+                part = sharding.token_split(B, (f, h, w), mesh)
+                zero = sharding.take_tokens(
+                    torch.zeros((B, f * h * w, cfg.dit.dim)), part)
+                args = (inp["lat"], inp["t"], inp["ctx"], inp["clip"],
+                        inp["y"])
+                noise_c, res = model.joint_forward_tea(
+                    *args, plucker_fea=inp["pl"], skip=False, residual=zero,
+                    **fwd)
+                noise_s, res_s = model.joint_forward_tea(
+                    *args, plucker_fea=inp["pl"], skip=True, residual=res,
+                    **fwd)
+                assert res_s is res
+                out.update({"tea/noise_compute": noise_c,
+                            "tea/noise_reuse": noise_s,
+                            "tea/residual": sharding.gather_tokens(res, part,
+                                                                   mesh)})
+            else:
+                pipe = pipe_of("s")
+                pre = "w_" if case == "window" else ""
+                f, lh, lw = (int(x) for x in inp[pre + "fhw"])
+                kw = dict(num_frames=4 * (f - 1) + 1, seed=7,
+                          plucker_fea=inp[pre + "c_pl"], **fwd)
+                cond = tuple(inp[pre + k] for k in ("ctx_pos", "ctx_neg",
+                                                    "c_clip", "c_y")) + (
+                    8 * lh, 8 * lw)
+                if case == "window":
+                    lat, pred = pipe.denoise(
+                        *cond, num_inference_steps=2,
+                        sliding_window_size=int(inp["window"][0]),
+                        sliding_window_stride=int(inp["window"][1]), **kw)
+                else:
+                    path = os.path.join(os.path.dirname(out_file),
+                                        f"partial_{'x'.join(map(str, shape))}"
+                                        ".npz")
+                    tea = dict(num_inference_steps=4,
+                               tea_cache_l1_thresh=float(inp["thresh"]),
+                               gen_ckpt_path=path, **kw)
+                    try:
+                        pipe.denoise(*cond, segment_size=2,
+                                     progress_callback=_cut, **tea)
+                        raise AssertionError("the cut run was not cut")
+                    except _Cut:
+                        pass
+                    # rank 0 wrote it before any rank's progress ran
+                    assert os.path.exists(path)
+                    calls = []
+                    lat, pred = pipe.denoise(
+                        *cond, segment_size=1,
+                        progress_callback=lambda *a: calls.append(a), **tea)
+                    assert calls == [(2, 4), (3, 4), (4, 4)], calls
+                    assert not os.path.exists(path)
+                assert (pred is None) == (rank != 0 or case == "window")
+                out[f"{case}/latents"] = lat
+                for k, v in (pred or {}).items():
+                    out[f"{case}/pred/{k}"] = v
+    assert not foreign_modules(), foreign_modules()
+    if rank == 0:
+        np.savez(out_file, **{k: v.numpy() for k, v in out.items()})
+
+
+def dual_case(rank, cfg, shape, ulysses_on, sd_files, in_file, out_file):
+    """The port's Wan2.2 ``DualModelDenoiser`` on a mesh: both experts
+    loaded from ``sd_files`` (high, low), ``shard``, then ``denoise`` with
+    the inputs of ``in_file`` (its ``noise`` handed to the denoiser, as
+    JAX drew it); rank 0 writes the latents, the prediction, the stages and
+    every rank's control tokens' sum."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.pipelines import wan_video_22 as w22
+    mesh = sharding.make_mesh(*shape)
+    inp = {k: torch.from_numpy(v) for k, v in np.load(in_file).items()}
+    noise = inp.pop("noise")
+    w22.DualModelDenoiser.generate_noise = staticmethod(
+        lambda shp, seed: noise.reshape(shp).clone())
+    experts = [_mapped_model(cfg, torch.load(f, mmap=True))
+               for f in sd_files]
+    den = w22.DualModelDenoiser(*experts).shard(mesh)
+    tokens = []
+    for m in experts:
+        ctrl_tok = m.dit.control_adapter_tokens
+        m.dit.control_adapter_tokens = (
+            lambda c, _f=ctrl_tok: tokens.append(_f(c)) or tokens[-1])
+    stages, calls = [], []
+    kw = {k: int(v) for k, v in zip(("height", "width", "num_frames",
+                                     "num_inference_steps", "seed"),
+                                    inp.pop("dims"))}
+    with torch.no_grad():
+        lat, pred = den.denoise(
+            inp["ctx_pos"], inp["ctx_neg"], inp["y"],
+            control_camera_latents=inp["ctrl"], stage_callback=stages.append,
+            progress_callback=lambda *a: calls.append(a), mesh=mesh,
+            ulysses=ulysses_on, **kw)
+    assert (pred is None) == (rank != 0)
+    assert calls == [(i, kw["num_inference_steps"])
+                     for i in range(1, kw["num_inference_steps"] + 1)]
+    # the control adapter runs on every rank: its tokens must agree
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, [float(t.double().sum()) for t in tokens])
+    assert not foreign_modules(), foreign_modules()
+    if rank == 0:
+        out = {"latents": lat.numpy(),
+               "stages": np.asarray("|".join(stages)),
+               "token_sums": np.asarray(sums, np.float64)}
+        out.update({f"pred/{k}": v.numpy() for k, v in pred.items()})
+        np.savez(out_file, **out)
+
+
+class _CollectiveStubSampler:
+    """A sampler whose ``generate_videos`` meets the other ranks in an
+    all-reduce over the default group (the data collectives' group) and
+    returns one blank clip per prompt on rank 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def generate_videos(self, prompts, mesh=None, **kw):
+        import torch.distributed as dist
+        total = torch.ones(1)
+        dist.all_reduce(total)
+        self.calls.append((list(prompts), int(total.item())))
+        if mesh.rank != 0:
+            return []
+        return [(np.zeros((5, 8, 8, 3), np.uint8), {}) for _ in prompts]
+
+    @staticmethod
+    def export(video, pred, out_dir, **kw):
+        import os
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "video.mp4")
+        with open(path, "wb") as fh:
+            fh.write(b"x")
+        return {"video": path, "ply": None}
+
+
+def idle_serve_case(rank, idle_s, out_root, out_file):
+    """The served mesh (1x1x2) idling: rank 0 starts a ``GenerationServer``
+    over ``serve.make_batch_fn``, waits ``idle_s`` with no job (longer than
+    the process group's timeout), then serves one job and stops; rank 1
+    follows. Rank 1 writes how many batches it ran and the collective's
+    sum; rank 0 the job's status."""
+    import argparse
+    import json
+    import time
+    from fantasy_world_tpu_torch.cli import serve
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.serving.server import GenerationServer
+    mesh = sharding.make_mesh(1, 1, 2)
+    sampler = _CollectiveStubSampler()
+    args = argparse.Namespace(segment_size=None, output_root=out_root,
+                              ulysses=False, variant="wan21")
+    if rank != 0:
+        batches = serve.follow(sampler, args, mesh)
+        with open(out_file, "w") as fh:
+            json.dump({"batches": batches, "calls": sampler.calls}, fh)
+        return
+    server = GenerationServer(serve.make_batch_fn(sampler, args, mesh),
+                              port=0, max_batch=1, linger_s=0.0)
+    server.start()
+    time.sleep(idle_s)
+    job = server.submit({"prompt": "p", "image_path": "img.png"})
+    deadline = time.time() + 60
+    while job.status not in ("done", "error") and time.time() < deadline:
+        time.sleep(0.05)
+    serve.stop(server, mesh)
+    assert job.status == "done", (job.status, job.error)
+    assert sampler.calls == [(["p"], 2)], sampler.calls
+
+
+def release_case(rank, out_file):
+    """An all-reduce, ``release_shared`` (every rank meets at its barrier
+    and drops its staging buffers), then another all-reduce over a group
+    made after it; rank 0 saves both sums."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel import distributed
+    world = dist.get_world_size()
+    first = distributed.all_reduce_sum(torch.full((3,), rank + 1.0), None
+                                       if world == 1 else dist.group.WORLD)
+    distributed.release_shared()
+    assert not distributed._SHARED
+    group = dist.new_group(list(range(world)))
+    second = distributed.all_reduce_max(torch.full((3,), float(rank)), group)
+    if rank == 0:
+        torch.save({"sum": first, "max": second}, out_file)

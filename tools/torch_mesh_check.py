@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The multi-GPU path over NCCL, one rank per card, against one process.
 
-    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE]
+    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE] [--sections 4,5]
 
 For a host with four cards (``chip_smoke.py``'s mesh phases run their
 ranks on its one card over gloo instead). Every rank, on its own card:
@@ -16,10 +16,22 @@ ranks on its one card over gloo instead). Every rank, on its own card:
      the one-process kernel on the same inputs, timed;
   3. the full-width 2-step denoise with the heads at (1, 1, 4), all 40
      blocks, and at (1, 4, 1) with Ulysses, against the same seeded model
-     run in one process on rank 0's card: seconds per step, peak GB.
+     run in one process on rank 0's card: seconds per step, peak GB;
+  4. the serving options at reduced widths (``chip_smoke.serving_case``):
+     int8 and fp8 at (2, 1, 2), TeaCache (a skipped step, cut after a
+     segment and resumed from rank 0's partial state) and the windowed
+     denoise at (1, 2, 2) with Ulysses, the Wan2.2 dual denoise at
+     (2, 1, 2), each against the one-process run on rank 0's card within
+     SLICE_TOL, with exact launches on every rank;
+  5. the Wan2.2 dual-expert denoise at full width and depth at (1, 1, 4),
+     480x832x81, 2 steps: each rank's parts of both experts on its card
+     (``DualModelDenoiser.place``: no swap), against the same seeded
+     experts in one process on rank 0's card (the low one pinned on the
+     host, one swap).
 
-Rank 0 prints one line per check, the cards' names and power limits, and a
-JSON line last (also written to ``--json``); a failed check raises.
+``--sections`` runs only the numbered checks. Rank 0 prints one line per
+check, the cards' names and power limits, and a JSON line last (also
+written to ``--json``); a failed check raises.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_MESHES = (((1, 4, 1), True), ((2, 1, 2), False), ((1, 2, 2), True),
                 ((4, 1, 1), False))
+SERVING_MESHES = (((2, 1, 2), False, ("int8", "fp8", "wan22")),
+                  ((1, 2, 2), True, ("tea", "window")))
 FULL_MESHES = (((1, 1, 4), False), ((1, 4, 1), True))
 
 
@@ -62,10 +76,140 @@ def check(name, errs, launches, want, lead, out):
         raise AssertionError(f"{name}: {bad or 'launch counts differ'}")
 
 
+def serving(dev, lead, out):
+    """Section 4: every rank makes the same seeded inputs; rank 0 runs
+    each case in one process on its card first."""
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.parallel import sharding
+    os.makedirs(cs.SERVING_DIR, exist_ok=True)
+    inputs = cs.small_serving_inputs()
+    cpu_f = FusionModel(cs.small_configs()[0])
+    cpu_f.load_state_dict(inputs["sds"]["fusion"])
+    inputs["thresh"], _ = cs.tea_threshold(cpu_f.dit, 4)
+    del cpu_f
+    for shape, uly, cases in SERVING_MESHES:
+        mesh = sharding.make_mesh(*shape)
+        for case in cases:
+            ref = (cs.serving_case(case, inputs, dev)[0] if lead else None)
+            dist.barrier()
+            got, launches = cs.serving_case(case, inputs, dev, mesh, uly)
+            check(f"serving_{case}_{'x'.join(map(str, shape))}"
+                  f"{'_ulysses' * uly}",
+                  rel_l2(got, ref) if lead else None, launches,
+                  cs.serving_launches(case, shape, uly, mesh.rank), lead,
+                  out)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def wan22_full(dev, lead, world, out, steps=2, seed=1024):
+    """Section 5: the two experts of ``wan22_fusion_config()`` from one
+    seed, 480x832x81, random conditioning (CPU-seeded, the same on every
+    rank)."""
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.pipelines.wan_video_22 import (
+        DualModelDenoiser)
+    cfg = wan22_fusion_config()
+    h, w, n = 480, 832, 81
+    f = (n - 1) // 4 + 1
+    cg = torch.Generator("cpu").manual_seed(seed)
+    ctx = [torch.randn((1, 512, cfg.dit.text_dim), generator=cg)
+           for _ in range(2)]
+    y = torch.randn((1, cfg.dit.in_dim - cfg.dit.out_dim, f, h // 8, w // 8),
+                    generator=cg)
+    ctrl = torch.randn((1, 24, f, h, w), generator=cg)
+
+    def run(mesh=None):
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        experts = []
+        for _ in range(2):
+            m = build(lambda: FusionModel(cfg), device=dev,
+                      dtype=torch.bfloat16, generator=g, mesh=mesh)
+            cs.wake_zero_inits(m, g)
+            experts.append(m)
+        den = DualModelDenoiser(*experts)
+        if mesh is None:
+            den.place()
+        else:
+            den.shard(mesh)
+        devices = "|".join(str(den._device_of(m)) for m in experts)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        stages = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        events[0].record()
+        lat, pred = den.denoise(
+            ctx[0], ctx[1], y, h, w, num_frames=n, num_inference_steps=steps,
+            seed=seed, control_camera_latents=ctrl,
+            progress_callback=lambda i, _: events[i].record(),
+            stage_callback=stages.append,
+            **({} if mesh is None else {"mesh": mesh}))
+        torch.cuda.synchronize()
+        out = None
+        if pred is not None:
+            out = {k: v.float().cpu() for k, v in cs.check_outputs(
+                cfg, lat, pred, h, w, n).items()}
+        step_s = [events[i].elapsed_time(events[i + 1]) / 1e3
+                  for i in range(steps)]
+        return (out, step_s, torch.cuda.max_memory_allocated() / 1e9,
+                dict(fa.LAUNCHES), devices, "|".join(stages))
+
+    ref = None
+    if lead:
+        ref, step_s, peak, _, devices, stages = run()
+        cs.say("mesh_check_wan22_one_process", step_seconds="|".join(
+            f"{s:.3f}" for s in step_s), peak_gb=f"{peak:.2f}",
+            devices=devices, stages=stages)
+        out.append({"check": "wan22_one_process", "step_seconds": step_s,
+                    "peak_gb": peak, "devices": devices})
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    shape = (1, 1, world)
+    mesh = sharding.make_mesh(*shape)
+    got, step_s, peak, launches, devices, stages = run(mesh)
+    stats = torch.tensor([*step_s, peak], device="cuda")
+    rows = [torch.empty_like(stats) for _ in range(world)]
+    dist.all_gather(rows, stats)
+    if lead:
+        cs.say("mesh_check_wan22", mesh="x".join(map(str, shape)),
+               devices=devices, stages=stages, rank_step_seconds="|".join(
+                   "/".join(f"{s:.3f}" for s in r[:-1].tolist())
+                   for r in rows),
+               rank_peak_gb="|".join(f"{r[-1].item():.2f}" for r in rows))
+    if "swap" in stages or "cpu" in devices:
+        raise AssertionError(f"Wan2.2 on {shape}: devices {devices}, "
+                             f"stages {stages}")
+    fhw = (21, h // 16, w // 16)
+    check(f"wan22_full_{'x'.join(map(str, shape))}",
+          rel_l2(got, ref) if lead else None, launches,
+          cs.mesh_launches(cfg, fhw, shape,
+                           cs.MESH_MODES["full", (1, 1, 4), False], steps,
+                           mesh.rank, 512), lead, out)
+    if lead:
+        out[-1].update(rank_step_seconds=[r[:-1].tolist() for r in rows],
+                       rank_peak_gb=[r[-1].item() for r in rows])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None)
+    p.add_argument("--sections", default="1,2,3,4,5",
+                   help="the checks to run (comma-separated numbers)")
     args = p.parse_args(argv)
+    sections = {int(x) for x in args.sections.split(",")}
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
@@ -93,80 +237,95 @@ def main(argv=None) -> int:
                world=world, torch=torch.__version__)
 
     # 1. the reduced slice on every mesh of the world
-    ref = None
-    if lead:
-        ref, _, _ = cs.small_mesh_denoise(dev, sharding.single(), False)
-    fcfg, _ = cs.small_configs()
-    height, width, frames = cs.SMALL_GEOMETRY
-    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
-    for shape, uly in SMALL_MESHES:
-        mesh = sharding.make_mesh(*shape)
-        got, launches, seconds = cs.small_mesh_denoise(dev, mesh, uly)
-        check(f"small_{'x'.join(map(str, shape))}{'_ulysses' * uly}",
-              rel_l2(got, ref) if lead else None, launches,
-              cs.mesh_launches(fcfg, fhw, shape,
-                               cs.MESH_MODES["small", shape, uly],
-                               cs.SMALL_STEPS, mesh.rank, 16), lead, out)
+    if 1 in sections:
+        ref = None
+        if lead:
+            ref, _, _ = cs.small_mesh_denoise(dev, sharding.single(), False)
+        fcfg, _ = cs.small_configs()
+        height, width, frames = cs.SMALL_GEOMETRY
+        fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+        for shape, uly in SMALL_MESHES:
+            mesh = sharding.make_mesh(*shape)
+            got, launches, seconds = cs.small_mesh_denoise(dev, mesh, uly)
+            check(f"small_{'x'.join(map(str, shape))}{'_ulysses' * uly}",
+                  rel_l2(got, ref) if lead else None, launches,
+                  cs.mesh_launches(fcfg, fhw, shape,
+                                   cs.MESH_MODES["small", shape, uly],
+                                   cs.SMALL_STEPS, mesh.rank, 16), lead, out)
 
     # 2. the sequence-parallel attentions at full width
-    axis = sharding.Axis(dist.group.WORLD, world, dist.get_rank())
-    for row in cs.mesh_attention_calls(dev, axis, 5):
-        row = dict(row, ranks=world)
-        out.append(row)
-        cs.say("mesh_check_attention", **{
-            k: (f"{v:.3e}" if k in ("max_abs_err", "err_bound") else
-                f"{v:.3f}" if isinstance(v, float) else v)
-            for k, v in row.items()})
-        if not row["max_abs_err"] <= row["err_bound"]:
-            raise AssertionError(f"{row['shape']} {row['method']}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if 2 in sections:
+        axis = sharding.Axis(dist.group.WORLD, world, dist.get_rank())
+        for row in cs.mesh_attention_calls(dev, axis, 5):
+            row = dict(row, ranks=world)
+            out.append(row)
+            cs.say("mesh_check_attention", **{
+                k: (f"{v:.3e}" if k in ("max_abs_err", "err_bound") else
+                    f"{v:.3f}" if isinstance(v, float) else v)
+                for k, v in row.items()})
+            if not row["max_abs_err"] <= row["err_bound"]:
+                raise AssertionError(f"{row['shape']} {row['method']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 3. the full-width denoise
-    height, width, frames = cs.MESH_GEOMETRY
-    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
-    cfg = cs.mesh_fusion_config()
-    if lead:
-        lat, pred, steps, peak, _ = cs.mesh_denoise(dev, cfg, 1024)
-        ref = {k: v.float().cpu() for k, v in cs.check_outputs(
-            cfg, lat, pred, height, width, frames).items()}
-        cs.say("mesh_check_one_process", step_seconds="|".join(
-            f"{s:.3f}" for s in steps), peak_gb=f"{peak:.2f}")
-        out.append({"check": "full_one_process", "step_seconds": steps,
-                    "peak_gb": peak})
-        del lat, pred
-        gc.collect()
-        torch.cuda.empty_cache()
-    dist.barrier()
-    for shape, uly in FULL_MESHES:
-        mesh = sharding.make_mesh(*shape)
-        lat, pred, steps, peak, launches = cs.mesh_denoise(dev, cfg, 1024,
-                                                           mesh, uly)
-        stats = torch.tensor([*steps, peak], device="cuda")
-        rows = [torch.empty_like(stats) for _ in range(world)]
-        dist.all_gather(rows, stats)
-        errs = None
+    if 3 in sections:
+        height, width, frames = cs.MESH_GEOMETRY
+        fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+        cfg = cs.mesh_fusion_config()
         if lead:
-            got = {k: v.float().cpu() for k, v in cs.check_outputs(
+            lat, pred, steps, peak, _ = cs.mesh_denoise(dev, cfg, 1024)
+            ref = {k: v.float().cpu() for k, v in cs.check_outputs(
                 cfg, lat, pred, height, width, frames).items()}
-            errs = rel_l2(got, ref)
-            cs.say("mesh_check_full", mesh="x".join(map(str, shape)),
-                   ulysses=uly, rank_step_seconds="|".join(
-                       "/".join(f"{s:.3f}" for s in r[:-1].tolist())
-                       for r in rows),
-                   rank_peak_gb="|".join(f"{r[-1].item():.2f}"
-                                         for r in rows))
-        check(f"full_{'x'.join(map(str, shape))}{'_ulysses' * uly}", errs,
-              launches, cs.mesh_launches(cfg, fhw, shape,
-                                         cs.MESH_MODES["full", shape, uly],
-                                         cs.MESH_STEPS, mesh.rank, 512),
-              lead, out)
-        if lead:
-            out[-1].update(rank_step_seconds=[r[:-1].tolist() for r in rows],
-                           rank_peak_gb=[r[-1].item() for r in rows])
-        del lat, pred
+            cs.say("mesh_check_one_process", step_seconds="|".join(
+                f"{s:.3f}" for s in steps), peak_gb=f"{peak:.2f}")
+            out.append({"check": "full_one_process", "step_seconds": steps,
+                        "peak_gb": peak})
+            del lat, pred
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        for shape, uly in FULL_MESHES:
+            mesh = sharding.make_mesh(*shape)
+            lat, pred, steps, peak, launches = cs.mesh_denoise(dev, cfg, 1024,
+                                                               mesh, uly)
+            stats = torch.tensor([*steps, peak], device="cuda")
+            rows = [torch.empty_like(stats) for _ in range(world)]
+            dist.all_gather(rows, stats)
+            errs = None
+            if lead:
+                got = {k: v.float().cpu() for k, v in cs.check_outputs(
+                    cfg, lat, pred, height, width, frames).items()}
+                errs = rel_l2(got, ref)
+                cs.say("mesh_check_full", mesh="x".join(map(str, shape)),
+                       ulysses=uly, rank_step_seconds="|".join(
+                           "/".join(f"{s:.3f}" for s in r[:-1].tolist())
+                           for r in rows),
+                       rank_peak_gb="|".join(f"{r[-1].item():.2f}"
+                                             for r in rows))
+            check(f"full_{'x'.join(map(str, shape))}{'_ulysses' * uly}", errs,
+                  launches, cs.mesh_launches(cfg, fhw, shape,
+                                             cs.MESH_MODES["full", shape, uly],
+                                             cs.MESH_STEPS, mesh.rank, 512),
+                  lead, out)
+            if lead:
+                out[-1].update(
+                    rank_step_seconds=[r[:-1].tolist() for r in rows],
+                    rank_peak_gb=[r[-1].item() for r in rows])
+            del lat, pred
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # 4. the serving options at reduced widths
+    if 4 in sections:
+        serving(dev, lead, out)
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 5. the Wan2.2 dual denoise at full width, both experts resident
+    if 5 in sections:
+        wan22_full(dev, lead, world, out)
+
     if lead:
         cs.say("mesh_check_done",
                seconds=f"{time.perf_counter() - t_all:.1f}")
