@@ -180,7 +180,14 @@ every rank maps (CUDA IPC):
     (a skipped step, cut after a segment and resumed from rank 0's
     partial state) and the windows (split 2 | 1) at 1x2x1 with Ulysses,
     the Wan2.2 dual denoise and the HTTP server (two jobs as one batch,
-    the other rank following, stopped through rank 0) at 1x1x2;
+    the other rank following, stopped through rank 0) at 1x1x2; and
+    ``small_mesh_train``: one step of the train step with per-block
+    recompute -- LoRA rank 4 and full fine-tuning at 1x1x2, LoRA at 1x2x1
+    with Ulysses, at 1x4x1 with the ring and at 2x2x2 on a batch of 2 --
+    each against the CPU's one-process f32 step of the same seeded model
+    and batch (run in the background process) within TRAIN_TOL: the loss,
+    every gradient and updated value gathered whole; exact launches on
+    every rank, the backward kernels' included;
   * then ``full_mesh``, one spawn of 2 ranks: Ulysses and the ring as
     direct calls at the DiT self, bicross and VGGT global shapes against
     the one-process kernel on the same inputs; the full-width 2-step
@@ -188,7 +195,15 @@ every rank maps (CUDA IPC):
     megatron splits) and at 1x2x1 with Ulysses, each against the same
     seeded model run once in this process, within SLICE_TOL, exact
     launches; seconds per step and peak GB per rank -- one card's, not
-    multi-GPU times;
+    multi-GPU times; ``full_mesh_train``, two jobs of the same spawn: two
+    LoRA rank-16 steps with per-block recompute at full width, 4 + 4
+    blocks, 336x592x81, batch 1, at 1x1x2 and at 1x2x1 with Ulysses,
+    against the same seeded model and batches stepped in this process
+    (losses and LoRA gradients gathered whole within TRAIN_TOL, exact
+    launches, seconds per step and peak GB per rank); and
+    ``train_cli_mesh``, the last job: ``cli.train``'s entry point on a
+    1x1x2 mesh (``--synthetic --mesh_model 2 --lora_rank 4``), 2 steps
+    saved, resumed to 3;
   * then ``full_mesh_serving``: the serve CLI's mesh at full width cut
     to 4 + 4 blocks, 1x1x2, through its entry points (rank 0 a
     ``GenerationServer`` over ``serve.make_batch_fn``, rank 1
@@ -204,7 +219,11 @@ every rank maps (CUDA IPC):
   * kernel cells ``mesh_*`` (the DiT at 20 of 40 heads, a served batch's
     4 rows, Wan2.2's 32,760 tokens), ``ulysses_*`` (bicross at 6 of 12
     heads, VGGT global at 8 of 16; a window of 11 latent frames) and
-    ``ring_*`` (the ring's stats calls at 2 seq ranks).
+    ``ring_*`` (the ring's stats calls at 2 seq ranks); train_kernel cells
+    ``ulysses_train_*`` (the backward at the Ulysses head groups over the
+    whole sequence) and ``ring_train_*`` (one hop of the ring's backward
+    at 3 seq ranks, where 40 DiT heads do not divide: 7 latent frames a
+    part).
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -432,6 +451,17 @@ TRAIN_SHAPES = [
     ("bicross_geometry_to_video", (1, 16422, 12, 96), 16317, "generic"),
     ("vggt_frame", (21, 782, 16, 64), 782, "d64"),
     ("vggt_global", (1, 16422, 16, 64), 16422, "d64"),
+]
+# the mesh trainer's backward shapes: Ulysses at 2 seq ranks (every head
+# group over the whole sequence) and the ring's hops at 3 seq ranks (21
+# latent frames, 7 a part), whose 40 DiT heads do not divide
+MESH_TRAIN_SHAPES = [
+    ("ulysses_train_dit_self", (1, 16317, 20, 128), 16317, "generic"),
+    ("ulysses_train_vggt_global", (1, 16422, 8, 64), 16422, "d64"),
+    ("ulysses_train_bicross_video_to_geometry", (1, 16317, 6, 96), 16422,
+     "generic"),
+    ("ring_train_dit_self", (1, 7 * 777, 40, 128), 7 * 777, "generic"),
+    ("ring_train_vggt_global", (1, 7 * 782, 16, 64), 7 * 782, "d64"),
 ]
 
 
@@ -705,13 +735,14 @@ def _max_err(got, ref):
 
 def phase_train_kernels(device, per_kernel):
     """Stats forward, dq and dk/dv against their plain versions at the
-    training shapes; adds the stats and backward numbers to per_kernel."""
+    training shapes, one process's and the mesh trainer's; adds the stats
+    and backward numbers to per_kernel."""
     import torch
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=device).manual_seed(1)
     for k in ("bwd_dq", "bwd_dkv"):
         per_kernel[k] = {"max_abs_err": 0.0, "by_shape": []}
-    for name, (B, Lq, H, D), Lk, kernel in TRAIN_SHAPES:
+    for name, (B, Lq, H, D), Lk, kernel in TRAIN_SHAPES + MESH_TRAIN_SHAPES:
         if fa.route(H, D, Lk) != kernel:
             raise AssertionError(f"{name} routes to {fa.route(H, D, Lk)}")
         q = torch.randn((B, Lq, H, D), generator=g, device=device).bfloat16()
@@ -1126,7 +1157,7 @@ def saved_as(path: str) -> str:
 # the CPU sides of the reduced clips (f32, the kernels' plain versions):
 # host work, run from the start in a process of its own beside the card's
 # phases (``start_cpu_sides``), each collected by its phase (``cpu_side``)
-CPU_SIDES = ("small_clip", "small_wan22", "small_ti2v")
+CPU_SIDES = ("small_clip", "small_wan22", "small_ti2v", "small_mesh_train")
 _CPU_PENDING = {}
 
 
@@ -2351,10 +2382,14 @@ def _jobs_rank(rank, jobs):
     from fantasy_world_tpu_torch.parallel import distributed
     for tag, fn, args in jobs:
         MESH_TAG = tag
+        t0 = time.perf_counter()
         fn(rank, *args)
         gc.collect()
         distributed.release_shared()
         torch.cuda.empty_cache()
+        if rank == 0:
+            say("mesh_job", job=tag.rstrip("_"),
+                seconds=f"{time.perf_counter() - t0:.2f}")
     MESH_TAG = ""
 
 
@@ -2824,9 +2859,17 @@ def phase_full_mesh(device, seed=1024):
     the DiT self, bicross and VGGT global shapes (2 ranks) against the
     one-process kernel; then the 2-step denoise with the heads at (1, 1, 2)
     and at (1, 2, 1) with Ulysses, both at ``MESH_DEPTH``, against the same
-    seeded model and inputs run once in one process on the card. The three
-    run as jobs of one spawn of 2 ranks. Returns the denoise runs'
-    launches, all ranks summed."""
+    seeded model and inputs run once in one process on the card;
+    ``full_mesh_train``: two LoRA rank-16 steps with per-block recompute at
+    full width and ``MESH_DEPTH``, 336x592x81, batch 1, at (1, 1, 2) and at
+    (1, 2, 1) with Ulysses, against the same seeded model and batches
+    stepped in one process on the card (the losses and each step's LoRA
+    gradients gathered whole within TRAIN_TOL, exact launches); and the
+    trainer's entry point on a 1x1x2 mesh (``train_cli_mesh``). All run as
+    jobs of one spawn of 2 ranks. Returns (the denoise runs' launches, the
+    training runs'), all ranks summed."""
+    import shutil
+
     import torch
     t0 = time.perf_counter()
     height, width, frames = MESH_GEOMETRY
@@ -2838,10 +2881,20 @@ def phase_full_mesh(device, seed=1024):
     del lat, pred
     gc.collect()
     torch.cuda.empty_cache()
+    losses, grads, seconds, peak, _ = mesh_lora_steps(device, cfg, seed)
+    train_ref = {"losses": losses, "grads": grads, "seconds": seconds,
+                 "peak": peak}
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CLI_MESH_DIR, ignore_errors=True)
     t1 = time.perf_counter()
     records = mesh_jobs(2, [("attention_", _mesh_attention_rank, (3,))] + [
         (mesh_tag(shape), _full_mesh_rank, (shape, uly, MESH_DEPTH, seed))
-        for shape, uly in FULL_MESH_RUNS])
+        for shape, uly in FULL_MESH_RUNS] + [
+        ("train" + mesh_tag(shape), _full_mesh_train_rank,
+         (shape, uly, MESH_DEPTH, seed))
+        for shape, uly in FULL_MESH_RUNS] + [
+        ("train_cli_", _train_cli_rank, ())])
     mesh_s = time.perf_counter() - t1
     for row in records["attention_"][0]["calls"]:
         say("full_mesh_attention", ranks=2, **{
@@ -2891,8 +2944,472 @@ def phase_full_mesh(device, seed=1024):
                 f"{[runs[r]['launches'] for r in launch_err]}")
         for r in runs:
             total = _add(total, r["launches"])
+    train = _add(check_full_mesh_train(cfg, train_ref, records),
+                 check_train_cli_mesh(records["train_cli_"]))
+    shutil.rmtree(TRAIN_CLI_MESH_DIR, ignore_errors=True)
     say("full_mesh_phase", seconds=f"{time.perf_counter() - t0:.2f}",
         mesh_seconds=f"{mesh_s:.2f}")
+    return total, train
+
+
+# ---------------------------------------------------------------------------
+# the mesh trainer: the train step on meshes of ranks sharing this card (as
+# small_mesh and full_mesh run them: their times are one card's)
+# ---------------------------------------------------------------------------
+
+# small_mesh_train's meshes: (shape, Ulysses, modes); one step each, batch
+# 2 where the data axis splits it. MESH_MODES gives each one's attentions:
+# local at 1x1x2, Ulysses at 1x2x1, the ring at 1x4x1, the gather at 2x2x2
+SMALL_MESH_TRAIN_RUNS = (((1, 1, 2), False, ("lora", "full")),
+                         ((1, 2, 1), True, ("lora",)),
+                         ((1, 4, 1), True, ("lora",)),
+                         ((2, 2, 2), False, ("lora",)))
+TRAIN_LORA_RANK = 4
+MESH_TRAIN_LR = 1e-4
+# full_mesh_train: LoRA rank 16, 2 steps at MESH_DEPTH, batch 1, on the
+# meshes of FULL_MESH_RUNS
+FULL_TRAIN_RANK, FULL_TRAIN_STEPS = 16, 2
+
+
+def attention_mode_backward(mode, H, D, q_split, kv_split):
+    """{launch key: count} of the backward of one attention of this rank
+    run as ``mode`` (``MESH_MODES``): dq and dk/dv once, at the head dim
+    the kernels run at; the ring's once per hop."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    if mode in ("local", "gather"):
+        d, n = fa.kernel_dim(H, D, kv_split.length), 1
+    elif mode == "ulysses":
+        d, n = fa.kernel_dim(H // q_split.n, D, kv_split.length), 1
+    elif mode == "ring":
+        d, n = fa.kernel_dim(H, D, max(kv_split.sizes)), kv_split.n
+    else:
+        raise ValueError(mode)
+    return {f"bwd_dq_{d}": n, f"bwd_dkv_{d}": n}
+
+
+def mesh_train_launches(cfg, fhw, shape, modes, rank, steps, text_len):
+    """Kernel launches of one rank of a ``shape`` mesh over ``steps``
+    training steps (``expected_train_launches`` on a mesh): every
+    attention's stats forward, twice under per-block recompute, and its
+    backward, as ``modes`` (a ``MESH_MODES`` entry) runs them -- the DiT's
+    at 1/M of its heads -- less the last bicross's geometry-side backward
+    (its output feeds only the heads, which the loss does not run)."""
+    from collections import Counter
+
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import sharding
+    f, h, w = fhw
+    d, s, m = shape
+    psi = cfg.vggt.aggregator.patch_start_idx
+    sizes = tuple(len(c) for c in np.array_split(np.arange(f), s))
+    frames = sharding.TokenSplit(None, sizes,
+                                 int(np.unravel_index(rank, shape)[1]))
+    s_dit, s_agg = frames.scaled(h * w), frames.scaled(h * w + psi)
+    dc, bc = cfg.dit, cfg.bicross
+    vb = cfg.vggt.aggregator.block_cfg
+    hd = dc.num_heads // m
+    fwd, bwd = Counter(), Counter()
+
+    def attention(mode, H, D, q_split, kv_split, backward=True):
+        for k, v in attention_mode_launches(mode, H, D, q_split,
+                                            kv_split).items():
+            fwd[k if k.endswith("_stats") else k + "_stats"] += v
+        if backward:
+            bwd.update(attention_mode_backward(mode, H, D, q_split,
+                                               kv_split))
+
+    def whole(n):
+        return sharding.TokenSplit(None, (n,), 0)
+
+    m_self, m_glob, m_bi = modes
+    for _ in range(dc.num_layers):
+        attention(m_self, hd, dc.head_dim, s_dit, s_dit)
+        attention("local", hd, dc.head_dim, None, whole(text_len))
+        if dc.has_image_input:
+            attention("local", hd, dc.head_dim, None, whole(257))
+    last = cfg.num_irg - 1
+    for i in range(cfg.num_irg):
+        attention("local", vb.num_heads, vb.head_dim, None,
+                  whole(h * w + psi))
+        attention(m_glob, vb.num_heads, vb.head_dim, s_agg, s_agg)
+        if i in cfg.xattn_set():
+            attention(m_bi, bc.num_heads, bc.head_dim, s_dit, s_agg)
+            attention(m_bi, bc.num_heads, bc.head_dim, s_agg, s_dit,
+                      backward=i != last)
+    out = {k: 0 for k in fa.LAUNCHES}
+    for k, v in fwd.items():
+        out[k] += v * 2 * steps
+    for k, v in bwd.items():
+        out[k] += v * steps
+    return out
+
+
+def stack_batches(batches):
+    """Numpy batches of one sample (``train_batches``) as one batch, a
+    sigma per sample, (B, 1, 1, 1, 1)."""
+    out = {k: np.concatenate([b[k] for b in batches])
+           for k in batches[0] if k != "sigma"}
+    out["sigma"] = np.asarray([b["sigma"] for b in batches],
+                              np.float32).reshape(-1, 1, 1, 1, 1)
+    return out
+
+
+def small_train_setup():
+    """The reduced model in f32 on the CPU from seed 41 (the zero gates
+    woken), its rank-4 LoRA factors (up drawn nonzero: both factors learn)
+    and small_mesh_train's batches: (fusion config, base state dict, LoRA
+    factors, {1: one sample, 2: two})."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.training.lora import init_lora, lora_state
+    fcfg, _ = small_configs()
+    g = torch.Generator("cpu").manual_seed(41)
+    model = build(lambda: FusionModel(fcfg), device="cpu",
+                  dtype=torch.float32, generator=g)
+    wake_zero_inits(model, g)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    init_lora(model, TRAIN_LORA_RANK,
+              generator=torch.Generator("cpu").manual_seed(42))
+    with torch.no_grad():
+        for n, t in lora_state(model).items():
+            if n.endswith(".up"):
+                t.normal_(0.0, 0.02, generator=g)
+    lora = {n: t.detach().clone() for n, t in lora_state(model).items()}
+    two = train_batches(fcfg.dit, *SMALL_GEOMETRY, 2, seed=43)
+    return fcfg, base, lora, {1: two[0], 2: stack_batches(two)}
+
+
+def train_on(model, trainable, batch, mesh=None, ulysses=False):
+    """One AdamW step (lr ``MESH_TRAIN_LR``, no warm-up) of the LoRA or
+    full train step over ``trainable``, per-block recompute; the loss."""
+    import torch
+    from fantasy_world_tpu_torch.training.lora import make_lora_train_step
+    from fantasy_world_tpu_torch.training.step import make_train_step
+    opt = torch.optim.AdamW(list(trainable.values()), lr=MESH_TRAIN_LR,
+                            eps=1e-8)
+    lora = all(".lora." in n for n in trainable)
+    make = make_lora_train_step if lora else make_train_step
+    return float(make(model, opt, remat=True, mesh=mesh,
+                      ulysses=ulysses)(batch))
+
+
+def small_train_model(setup, mode, dev, dtype, mesh=None):
+    """``setup``'s (small_train_setup's) model as this rank's part of
+    ``mesh`` (or whole) on ``dev``: (model, {name: trainable}) -- the LoRA
+    factors, or every parameter."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.training.lora import init_lora, lora_state
+    fcfg, base, lora, _ = setup
+    model = build(lambda: FusionModel(fcfg), device=dev, dtype=dtype,
+                  mesh=mesh)
+    model.load_state_dict(base if mesh is None
+                          else sharding.shard_state_dict(base, mesh))
+    if mode == "full":
+        return model, dict(model.named_parameters())
+    init_lora(model, TRAIN_LORA_RANK,
+              generator=torch.Generator(dev).manual_seed(0))
+    trainable = lora_state(model)
+    with torch.no_grad():
+        for n, p in trainable.items():
+            p.copy_(sharding.part_of_whole(lora[n], n, model))
+    return model, trainable
+
+
+def whole_trainable(model, trainable, mesh=None):
+    """({name: gradient}, {name: value}) of ``trainable``, each tensor
+    gathered whole over the model group, as f32 CPU tensors."""
+    from fantasy_world_tpu_torch.parallel import sharding
+
+    def whole(t, n):
+        t = t if mesh is None else sharding.whole_tensor(t, n, model, mesh)
+        return t.detach().float().cpu()
+    return ({n: whole(p.grad, n) for n, p in trainable.items()},
+            {n: whole(p, n) for n, p in trainable.items()})
+
+
+def small_mesh_train_run(dev, dtype):
+    """The CPU side of small_mesh_train: one step of each mode and batch
+    the meshes run, in one process. {f"{mode}{B}": {loss, grads,
+    params}}."""
+    setup = small_train_setup()
+    out = {}
+    for shape, _, modes in SMALL_MESH_TRAIN_RUNS:
+        B = 2 if shape[0] > 1 else 1
+        for mode in modes:
+            if f"{mode}{B}" in out:
+                continue
+            model, trainable = small_train_model(setup, mode, dev, dtype)
+            loss = train_on(model, trainable, _to(setup[3][B], dev))
+            grads, params = whole_trainable(model, trainable)
+            out[f"{mode}{B}"] = {"loss": loss, "grads": grads,
+                                 "params": params}
+    return out
+
+
+def _small_mesh_train_rank(rank, shape, ulysses, modes):
+    """small_mesh_train on this rank: one step of each mode, its loss,
+    seconds and launches; rank 0 saves the gradients and the updated
+    values, gathered whole."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    mesh = sharding.make_mesh(*shape)
+    setup = small_train_setup()
+    batch = _to(setup[3][2 if shape[0] > 1 else 1], dev)
+    record, saved = {}, {}
+    for mode in modes:
+        model, trainable = small_train_model(setup, mode, dev,
+                                             torch.bfloat16, mesh)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = train_on(model, trainable, batch, mesh, ulysses)
+        torch.cuda.synchronize()
+        record[mode] = {"loss": loss, "seconds": time.perf_counter() - t0,
+                        "launches": dict(fa.LAUNCHES)}
+        grads, params = whole_trainable(model, trainable, mesh)
+        saved[mode] = {"grads": grads, "params": params}
+        del model, trainable
+        gc.collect()
+    if rank == 0:
+        torch.save(saved, mesh_path("train.pt"))
+    _rank_record(rank, **record)
+
+
+def check_small_mesh_train(shape, uly, modes, records, cpu):
+    """small_mesh_train at ``shape`` against the CPU's one-process step
+    (``cpu``, small_mesh_train_run's): the loss, every gradient and
+    updated value gathered whole (relative L2 over all of them, as
+    small_train holds them) within TRAIN_TOL, every rank's launches exact.
+    Returns the launches, all ranks summed."""
+    import torch
+    fcfg, _ = small_configs()
+    height, width, frames = SMALL_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    B = 2 if shape[0] > 1 else 1
+    saved = torch.load(mesh_path("train.pt", "train" + mesh_tag(shape)))
+    want_launches = [mesh_train_launches(
+        fcfg, fhw, shape, MESH_MODES["small", shape, uly], r, 1, 16)
+        for r in range(len(records))]
+    total = {}
+    for mode in modes:
+        ref = cpu[f"{mode}{B}"]
+        got = saved[mode]
+        names = sorted(ref["grads"])
+        if sorted(got["grads"]) != names:
+            raise AssertionError(f"small_mesh_train {shape} {mode}: other "
+                                 f"trainable tensors than one process")
+        loss = records[0][mode]["loss"]
+        checks = {"loss": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                  "grads": _rel_l2([got["grads"][n] for n in names],
+                                   [ref["grads"][n] for n in names]),
+                  "params": _rel_l2([got["params"][n] for n in names],
+                                    [ref["params"][n] for n in names])}
+        losses = {r[mode]["loss"] for r in records}
+        launch_err = [r for r, rec in enumerate(records)
+                      if rec[mode]["launches"] != want_launches[r]]
+        say("small_mesh_train", mesh="x".join(map(str, shape)), ulysses=uly,
+            mode=mode, batch=B, ranks=len(records),
+            loss=f"{loss:.5f}|{ref['loss']:.5f}",
+            device_vs_cpu_rel=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                          checks.items()}).replace(" ", ""),
+            rank_step_seconds="|".join(f"{r[mode]['seconds']:.2f}"
+                                       for r in records),
+            rank0_launches=_nonzero(records[0][mode]["launches"]))
+        bad = {k: v for k, v in checks.items() if not v <= TRAIN_TOL}
+        if bad or len(losses) != 1:
+            raise AssertionError(f"small_mesh_train {shape} {mode}: beyond "
+                                 f"{TRAIN_TOL} of the CPU: {bad}; the "
+                                 f"ranks' losses {sorted(losses)}")
+        if launch_err:
+            got = [records[r][mode]["launches"] for r in launch_err]
+            raise AssertionError(
+                f"small_mesh_train {shape} {mode}: ranks {launch_err} "
+                f"launched {got}, not "
+                f"{[want_launches[r] for r in launch_err]}")
+        for r in records:
+            total = _add(total, r[mode]["launches"])
+    return total
+
+
+def mesh_lora_steps(device, cfg, seed, mesh=None, ulysses=False,
+                    steps=FULL_TRAIN_STEPS):
+    """The model at ``cfg`` built on the card from ``seed`` (this rank's
+    part of ``mesh``; the zero gates woken), LoRA rank FULL_TRAIN_RANK on
+    it from seed + 1, and ``steps`` steps on seeded batches at
+    MESH_GEOMETRY (512 text tokens): (losses, each step's LoRA gradients
+    gathered whole, seconds per step, peak GB, launches)."""
+    import torch
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.training.lora import (init_lora, lora_state,
+                                                       make_lora_train_step)
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = build(lambda: FusionModel(cfg), device=device,
+                  dtype=torch.bfloat16, generator=g, mesh=mesh)
+    wake_zero_inits(model, g)
+    init_lora(model, FULL_TRAIN_RANK,
+              generator=torch.Generator(device=device).manual_seed(seed + 1))
+    trainable = lora_state(model)
+    opt = torch.optim.AdamW(list(trainable.values()), lr=MESH_TRAIN_LR,
+                            eps=1e-8)
+    step = make_lora_train_step(model, opt, remat=True, mesh=mesh,
+                                ulysses=ulysses)
+    batches = [_to(b, device) for b in train_batches(
+        cfg.dit, *MESH_GEOMETRY, steps, seed=1031, text_len=512)]
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + 1)]
+    losses, grads = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    events[0].record()
+    for i, b in enumerate(batches):
+        losses.append(float(step(b)))
+        events[i + 1].record()
+        grads.append(whole_trainable(model, trainable, mesh)[0])
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    seconds = [events[i].elapsed_time(events[i + 1]) / 1e3
+               for i in range(steps)]
+    return (losses, grads, seconds, torch.cuda.max_memory_allocated() / 1e9,
+            launches)
+
+
+def _full_mesh_train_rank(rank, shape, ulysses, depth, seed):
+    import torch
+    from fantasy_world_tpu_torch.parallel import sharding
+    dev = _rank_setup()
+    losses, grads, seconds, peak, launches = mesh_lora_steps(
+        dev, mesh_fusion_config(depth), seed, sharding.make_mesh(*shape),
+        ulysses)
+    if rank == 0:
+        torch.save(grads, mesh_path("train_grads.pt"))
+    _rank_record(rank, losses=losses, steps=seconds, peak_gb=peak,
+                 launches=launches)
+
+
+def check_full_mesh_train(cfg, ref, records):
+    """full_mesh_train's runs against the one-process run on the card
+    (``ref``: losses, gradients): the losses and each step's LoRA
+    gradients (relative L2 over all factors) within TRAIN_TOL, exact
+    launches per rank. Returns the launches, all ranks summed."""
+    import torch
+    height, width, frames = MESH_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    total = {}
+    for shape, uly in FULL_MESH_RUNS:
+        runs = records["train" + mesh_tag(shape)]
+        grads = torch.load(mesh_path("train_grads.pt",
+                                     "train" + mesh_tag(shape)))
+        names = sorted(ref["grads"][0])
+        errs = {}
+        for i in range(FULL_TRAIN_STEPS):
+            errs[f"loss{i}"] = (abs(runs[0]["losses"][i] - ref["losses"][i])
+                                / abs(ref["losses"][i]))
+            errs[f"lora_grads{i}"] = _rel_l2(
+                [grads[i][n] for n in names],
+                [ref["grads"][i][n] for n in names])
+        launch_err = [r for r in range(len(runs)) if runs[r]["launches"]
+                      != mesh_train_launches(
+                          cfg, fhw, shape, MESH_MODES["full", shape, uly], r,
+                          FULL_TRAIN_STEPS, 512)]
+        say("full_mesh_train", mesh="x".join(map(str, shape)), ulysses=uly,
+            blocks=f"{cfg.start_index}+{cfg.num_irg}", ranks=len(runs),
+            lora_rank=FULL_TRAIN_RANK,
+            losses="|".join(f"{x:.5f}" for x in runs[0]["losses"]),
+            one_process_losses="|".join(f"{x:.5f}" for x in ref["losses"]),
+            one_process_step_seconds="|".join(f"{s:.3f}"
+                                              for s in ref["seconds"]),
+            one_process_peak_gb=f"{ref['peak']:.2f}",
+            rank_step_seconds="|".join(
+                "/".join(f"{s:.3f}" for s in r["steps"]) for r in runs),
+            rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in runs),
+            card_vs_one_process_rel=json.dumps(
+                {k: float(f"{v:.3e}") for k, v in errs.items()}).replace(
+                    " ", ""),
+            rank0_launches=_nonzero(runs[0]["launches"]))
+        bad = {k: v for k, v in errs.items() if not v <= TRAIN_TOL}
+        if bad or len({tuple(r["losses"]) for r in runs}) != 1:
+            raise AssertionError(f"full_mesh_train {shape}: beyond "
+                                 f"{TRAIN_TOL} of one process: {bad}, or "
+                                 f"the ranks' losses differ")
+        if launch_err:
+            raise AssertionError(
+                f"full_mesh_train {shape}: ranks {launch_err} launched "
+                f"{[runs[r]['launches'] for r in launch_err]}")
+        for r in runs:
+            total = _add(total, r["launches"])
+    return total
+
+
+# the trainer CLI on a 1x1x2 mesh: the demo at dim 256 (2 DiT heads, so
+# the model splits), LoRA rank 4
+MESH_TRAIN_CLI_ARGS = ["--synthetic", "--mesh_model", "2", "--lora_rank",
+                       "4", "--demo_dim", "256", "--warmup", "1", "--lr",
+                       "1e-3", "--log_every", "1", "--device", "cuda"]
+
+
+TRAIN_CLI_MESH_DIR = os.path.join(REPO, "build", "train_cli_mesh")
+
+
+def _train_cli_rank(rank):
+    """``cli.train``'s ``run`` on this rank of a 1x1x2 mesh (the process
+    group open already, as ``distributed.spawn`` leaves it): 2 steps saved
+    into TRAIN_CLI_MESH_DIR, then resumed to step 3; each run's final loss
+    and launches."""
+    from fantasy_world_tpu_torch.cli.train import main as train_main
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    _rank_setup()
+    ckpt = TRAIN_CLI_MESH_DIR
+    runs = []
+    for steps in (2, 3):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = train_main(MESH_TRAIN_CLI_ARGS + [
+            "--steps", str(steps), "--checkpoint_dir", ckpt])
+        runs.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "launches": dict(fa.LAUNCHES)})
+    _rank_record(rank, runs=runs,
+                 checkpoints=sorted(os.listdir(ckpt)) if rank == 0 else None)
+
+
+def check_train_cli_mesh(records):
+    """The mesh CLI run: the same finite loss on both ranks, both
+    checkpoints, every stats-forward and backward route the demo takes
+    launched on every rank. Returns the launches, all ranks summed."""
+    routes = ("onekv_stats", "d64_stats", "bwd_dq_64", "bwd_dq_128",
+              "bwd_dkv_64", "bwd_dkv_128")
+    saved = records[0]["checkpoints"]
+    say("train_cli_mesh", mesh="1x1x2", ranks=len(records),
+        losses="|".join("/".join(f"{run['loss']:.5f}" for run in r["runs"])
+                        for r in records),
+        checkpoints="|".join(saved),
+        rank_seconds="|".join("/".join(f"{run['seconds']:.1f}"
+                                       for run in r["runs"])
+                              for r in records),
+        rank0_launches="|".join(_nonzero(run["launches"])
+                                for run in records[0]["runs"]))
+    total = {}
+    for i in range(2):
+        losses = {r["runs"][i]["loss"] for r in records}
+        if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train CLI on a mesh: run {i} losses "
+                                 f"{sorted(losses)}")
+        for r in records:
+            idle = [k for k in routes if r["runs"][i]["launches"][k] == 0]
+            if idle:
+                raise AssertionError(f"train CLI on a mesh: run {i} "
+                                     f"launched no {idle}")
+            total = _add(total, r["runs"][i]["launches"])
+    if saved != ["step_00000002", "step_00000003"]:
+        raise AssertionError(f"train CLI on a mesh: checkpoints {saved}")
     return total
 
 
@@ -3315,8 +3832,15 @@ def phase_small_meshes(device, cpu_outs):
     written, the ranks stopped through rank 0's shutdown (each rank exits
     0: the spawn raises otherwise).
 
-    Returns (small_mesh's launches, small_mesh_serving's), all ranks
-    summed."""
+    small_mesh_train: one step of the train step with per-block recompute
+    (``SMALL_MESH_TRAIN_RUNS``: LoRA rank 4 and full fine-tuning at 1x1x2,
+    LoRA at 1x2x1 with Ulysses, at 1x4x1 with the ring and at 2x2x2 on a
+    batch of 2), each against the CPU's one-process f32 step of the same
+    seeded model and batch (the background process's) within TRAIN_TOL,
+    with exact launches on every rank, the backward's included.
+
+    Returns (small_mesh's launches, small_mesh_serving's,
+    small_mesh_train's), all ranks summed."""
     import shutil
     t_phase = time.perf_counter()
     cpu = small_serving_prepare()
@@ -3326,12 +3850,17 @@ def phase_small_meshes(device, cpu_outs):
         jobs.setdefault(int(np.prod(shape)), []).append(
             ("mesh" + mesh_tag(shape), _small_mesh_rank,
              (shape, uly, shape == (1, 2, 1))))
+    for shape, uly, modes in SMALL_MESH_TRAIN_RUNS:
+        jobs.setdefault(int(np.prod(shape)), []).append(
+            ("train" + mesh_tag(shape), _small_mesh_train_rank,
+             (shape, uly, modes)))
     for shape, (uly, cases) in sorted(SMALL_SERVING_CASES.items(),
                                       key=lambda kv: "server" in kv[1][1]):
         jobs.setdefault(int(np.prod(shape)), []).append(
             ("serving" + mesh_tag(shape), _small_serving_rank,
              (shape, uly, cases)))
-    mesh, serving = {}, {}
+    mesh, serving, train = {}, {}, {}
+    train_cpu = None
     for world, world_jobs in sorted(jobs.items()):
         t0 = time.perf_counter()
         records = mesh_jobs(world, world_jobs)
@@ -3339,6 +3868,10 @@ def phase_small_meshes(device, cpu_outs):
             if tag.startswith("mesh"):
                 mesh = _add(mesh, check_small_mesh(shape, uly, records[tag],
                                                    cpu_outs))
+            elif tag.startswith("train"):
+                train_cpu = train_cpu or cpu_side("small_mesh_train")
+                train = _add(train, check_small_mesh_train(
+                    shape, uly, third, records[tag], train_cpu))
             else:
                 serving = _add(serving, check_small_serving(
                     shape, uly, third, records[tag], cpu))
@@ -3347,7 +3880,7 @@ def phase_small_meshes(device, cpu_outs):
             seconds=f"{time.perf_counter() - t0:.2f}")
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
     say("small_meshes_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return mesh, serving
+    return mesh, serving, train
 
 
 FULL_SERVING_DIR = os.path.join(REPO, "build", "mesh_serving_full")
@@ -5894,7 +6427,14 @@ def ti2v_reload_check(device, dit, latents, context, first):
 
 
 # the phases that ``--phases`` runs alone: each needs only the card
-ALONE = {"kernels": phase_kernels, "full_mesh": phase_full_mesh,
+def _train_kernels_alone(device):
+    """phase_train_kernels on its own (no forward phase before it)."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    phase_train_kernels(device, {k: {"max_abs_err": 0.0} for k in fa.ROUTES})
+
+
+ALONE = {"kernels": phase_kernels, "train_kernels": _train_kernels_alone,
+         "full_mesh": phase_full_mesh,
          "small_meshes": lambda device: phase_small_meshes(
              device, phase_small_slice(device)),
          "full_mesh_serving": phase_full_mesh_serving}
@@ -5964,8 +6504,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the mesh phases: ranks that share the card, before the full model
     # takes it
-    mesh, mesh_serving = phase_small_meshes(device, small_cpu)
-    mesh = _add(mesh, phase_full_mesh(device))
+    mesh, mesh_serving, mesh_train = phase_small_meshes(device, small_cpu)
+    full_mesh, full_mesh_train = phase_full_mesh(device)
+    mesh = _add(mesh, full_mesh)
+    mesh_train = _add(mesh_train, full_mesh_train)
     gc.collect()
     torch.cuda.empty_cache()
     mesh_serving = _add(mesh_serving, phase_full_mesh_serving(device))
@@ -6024,9 +6566,11 @@ def main(argv=None) -> int:
                          + ti2v[k] + verify[k] + track[k] + options[k]
                          + mesh.get(k, 0) + mesh.get(f"{k}_stats", 0)
                          + mesh_serving.get(k, 0)
-                         + mesh_serving.get(f"{k}_stats", 0)),
+                         + mesh_serving.get(f"{k}_stats", 0)
+                         + mesh_train.get(f"{k}_stats", 0)),
             "denoise_launches": denoise[k],
             "mesh_launches": mesh.get(k, 0) + mesh.get(f"{k}_stats", 0),
+            "mesh_train_launches": mesh_train.get(f"{k}_stats", 0),
             "mesh_serving_launches": (mesh_serving.get(k, 0)
                                       + mesh_serving.get(f"{k}_stats", 0)),
             "verify_launches": verify[k],
@@ -6042,7 +6586,8 @@ def main(argv=None) -> int:
             "launches_per_denoise_step": per_step[k],
             "stats_launches": (train[f"{k}_stats"] + data_train[f"{k}_stats"]
                                + mesh.get(f"{k}_stats", 0)
-                               + mesh_serving.get(f"{k}_stats", 0)),
+                               + mesh_serving.get(f"{k}_stats", 0)
+                               + mesh_train.get(f"{k}_stats", 0)),
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
             "stats_ms": pk["stats_ms"],
@@ -6059,13 +6604,17 @@ def main(argv=None) -> int:
         "launches": sum(train[f"{k}_stats"] + data_train[f"{k}_stats"]
                         + mesh.get(f"{k}_stats", 0)
                         + mesh_serving.get(f"{k}_stats", 0)
+                        + mesh_train.get(f"{k}_stats", 0)
                         for k in fa.ROUTES),
         "launches_by_route": {k: train[f"{k}_stats"]
                               + data_train[f"{k}_stats"]
                               + mesh.get(f"{k}_stats", 0)
                               + mesh_serving.get(f"{k}_stats", 0)
+                              + mesh_train.get(f"{k}_stats", 0)
                               for k in fa.ROUTES},
         "mesh_launches": sum(mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
+        "mesh_train_launches": sum(mesh_train.get(f"{k}_stats", 0)
+                                   for k in fa.ROUTES),
         "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
                            for k in fa.ROUTES),
         "ms": pk["stats_ms"], "plain_ms": pk["stats_plain_ms"],
@@ -6076,10 +6625,14 @@ def main(argv=None) -> int:
             "name": f"fa_{k}", "route": "cuda", "source": BWD_SOURCE,
             "replaces": REPLACES[k],
             "launches": sum(train[f"{k}_{d}"] + data_train[f"{k}_{d}"]
+                            + mesh_train.get(f"{k}_{d}", 0)
                             for d in fa.BWD_D),
             "launches_by_head_dim": {d: train[f"{k}_{d}"]
                                      + data_train[f"{k}_{d}"]
+                                     + mesh_train.get(f"{k}_{d}", 0)
                                      for d in fa.BWD_D},
+            "mesh_train_launches": sum(mesh_train.get(f"{k}_{d}", 0)
+                                       for d in fa.BWD_D),
             "data_train_launches": sum(data_train[f"{k}_{d}"]
                                        for d in fa.BWD_D),
             "launches_per_denoise_step": sum(per_step[f"{k}_{d}"]

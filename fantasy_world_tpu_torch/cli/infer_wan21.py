@@ -199,7 +199,7 @@ def check_mesh(args) -> None:
     """Exit for a mesh that cannot run: ``--ulysses`` without seq ranks,
     or a process count that is not the mesh's."""
     shape = mesh_shape(args)
-    if args.ulysses and args.mesh_seq == 1:
+    if getattr(args, "ulysses", False) and args.mesh_seq == 1:
         raise SystemExit("--ulysses: re-shards attention over the seq "
                          "ranks; give --mesh_seq > 1")
     n = shape[0] * shape[1] * shape[2]
@@ -210,9 +210,9 @@ def check_mesh(args) -> None:
         first = next(f for f, v in zip(("mesh_data", "mesh_seq",
                                         "mesh_model"), shape) if v > 1)
         raise SystemExit(f"--{first}: a {shape[0]}x{shape[1]}x{shape[2]} "
-                         f"mesh needs {n} processes, one per rank: launch "
-                         f"with torchrun --nproc_per_node {n} (WORLD_SIZE "
-                         f"is {world})")
+                         f"mesh needs {n} processes, one per rank (multi-GPU "
+                         f"runs under torchrun): launch with torchrun "
+                         f"--nproc_per_node {n} (WORLD_SIZE is {world})")
 
 
 def check_args(args) -> None:

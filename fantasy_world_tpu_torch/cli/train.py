@@ -36,9 +36,25 @@ Two data modes:
 The encoders stay on the card beside the fusion model. LoRA is what fits
 one 80 GB card at full width: full fine-tuning of the 18.5B model holds
 ~37 GB of bf16 weights, as much again in gradients and ~148 GB of f32
-AdamW moments, and runs out of memory. ``--pipe_stages`` and mesh axes
-above 1 exit: the mesh trainer and the pipeline-parallel one are later
-multi-GPU slices (ROADMAP queue A items 5(b) and 5(c)).
+AdamW moments, and runs out of memory.
+
+Multi-GPU: ``--mesh_data D --mesh_seq S --mesh_model M`` under torchrun,
+one process per rank (NCCL, a card each; gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node 2 -m fantasy_world_tpu_torch.cli.train \
+        --synthetic --mesh_model 2 --lora_rank 4 ...
+
+Each rank builds its part of the model (``FusionModel.shard``: the DiT's
+megatron splits; LoRA factors follow their layers), takes the whole batch
+and runs its rows ('data'), frames ('seq', the long attentions gathering
+their keys) and columns ('model') of the step (``training/step.py``);
+every rank sees the same loss. With ``--data_root`` and ``--mesh_data`` >
+1 a step stacks that many clips with a sigma each
+(``_stacked_data_batches``). Rank 0 saves the whole trainable tensors and
+AdamW moments under the one-process names, gathered over the model group;
+every rank resumes its part, so a checkpoint moves between a mesh and one
+process. ``--pipe_stages`` exits: the pipeline-parallel trainer is a later
+multi-GPU slice (ROADMAP queue A item 5(c)).
 """
 from __future__ import annotations
 
@@ -123,44 +139,106 @@ def _latest_step(root):
     return max(steps) if steps else None
 
 
-def _save_state(root, step, trainable, opt, sched):
+class _Run:
+    """What the loop saves and resumes: the trainable tensors by name, the
+    optimizer and schedule, and on a mesh the model (whose
+    ``param_parts`` say which tensors are split) and the mesh."""
+
+    def __init__(self, trainable, opt, sched, model=None, mesh=None):
+        self.trainable, self.opt, self.sched = trainable, opt, sched
+        self.model, self.mesh = model, mesh
+        self.device = next(iter(trainable.values())).device
+
+    def _moments(self, state, fn):
+        """``state`` (an optimizer state dict) with ``fn(name, t)`` applied
+        to every per-parameter tensor of its parameters' shapes."""
+        names = list(self.trainable)
+        # new dicts: an optimizer's state_dict() shares its live entries
+        return dict(state, state={
+            i: {key: (fn(names[int(i)], t)
+                      if torch.is_tensor(t) and t.dim() > 0 else t)
+                for key, t in entry.items()}
+            for i, entry in state["state"].items()})
+
+    def whole(self):
+        """(trainable, optimizer state) as one process holds them, gathered
+        over the model group on a mesh (every rank calls it)."""
+        from ..parallel.sharding import whole_tensor
+        if self.mesh is None:
+            return ({n: p.detach() for n, p in self.trainable.items()},
+                    self.opt.state_dict())
+
+        def gather(name, t):
+            return whole_tensor(t, name, self.model, self.mesh)
+        return ({n: gather(n, p) for n, p in self.trainable.items()},
+                self._moments(self.opt.state_dict(), gather))
+
+    def load(self, trainable, optimizer):
+        """Take this rank's part of the whole tensors of a checkpoint."""
+        from ..parallel.sharding import part_of_whole
+
+        def part(name, t):
+            return (t if self.model is None
+                    else part_of_whole(t, name, self.model))
+        for name, p in self.trainable.items():
+            p.copy_(part(name, trainable[name]))
+        self.opt.load_state_dict(self._moments(optimizer, part))
+
+
+def _save_state(root, step, run: _Run, extra=None):
+    """Rank 0 writes ``step_%08d/state.pt`` (every rank calls it: the
+    whole tensors are gathered first); returns its path."""
+    trainable, optimizer = run.whole()
     path = os.path.join(root, f"step_{step:08d}")
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, "state.pt.tmp")
-    torch.save({"trainable": {n: p.detach() for n, p in trainable.items()},
-                "optimizer": opt.state_dict(),
-                "scheduler": sched.state_dict(), "step": step}, tmp)
-    os.replace(tmp, os.path.join(path, "state.pt"))
+    if run.mesh is None or run.mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, "state.pt.tmp")
+        torch.save({"trainable": trainable, "optimizer": optimizer,
+                    "scheduler": run.sched.state_dict(), "step": step,
+                    **(extra or {})}, tmp)
+        os.replace(tmp, os.path.join(path, "state.pt"))
+    if run.mesh is not None:
+        from ..parallel.distributed import barrier
+        barrier()
     return path
 
 
 @torch.no_grad()
-def _resume_state(args, trainable, opt, sched, log):
+def _resume_state(args, run: _Run, log):
     """Restore the latest ``step_*`` of --checkpoint_dir into the trainable
-    parameters, the optimizer and the schedule; returns the step to start
-    from."""
+    parameters, the optimizer and the schedule (each rank its parts);
+    returns (the step to start from, the checkpoint's entries)."""
     if not args.checkpoint_dir:
-        return 0
+        return 0, {}
     root = os.path.abspath(args.checkpoint_dir)
     latest = _latest_step(root)
     if latest is None:
-        return 0
-    device = next(iter(trainable.values())).device
+        return 0, {}
     state = torch.load(os.path.join(root, f"step_{latest:08d}", "state.pt"),
-                       map_location=device, weights_only=True)
-    if set(state["trainable"]) != set(trainable):
+                       map_location=run.device, weights_only=True)
+    if set(state["trainable"]) != set(run.trainable):
         raise SystemExit(f"checkpoint {root} holds other parameters than "
                          f"this run trains")
-    for name, p in trainable.items():
-        p.copy_(state["trainable"][name])
-    opt.load_state_dict(state["optimizer"])
-    sched.load_state_dict(state["scheduler"])
+    run.load(state["trainable"], state["optimizer"])
+    run.sched.load_state_dict(state["scheduler"])
     log.info("resumed from %s at step %d", root, state["step"])
-    return int(state["step"])
+    return int(state["step"]), state
 
 
-def _train_loop(args, step_fn, batches, trainable, opt, sched, start,
-                log) -> float:
+def _nonfinite(loss_val: float, mesh, device) -> bool:
+    """Whether the loss is not finite on any rank: every rank stops
+    alike."""
+    bad = not np.isfinite(loss_val)
+    if mesh is None:
+        return bad
+    import torch.distributed as dist
+
+    from ..parallel.distributed import all_reduce_max
+    flag = torch.tensor([float(bad)], device=device)
+    return bool(all_reduce_max(flag, dist.group.WORLD).item())
+
+
+def _train_loop(args, step_fn, batches, run: _Run, start, log) -> float:
     """Step, host loss fetch (the barrier), metrics, non-finite guard,
     periodic save. Returns the final loss."""
     from ..utils.observability import Metrics, profile_trace
@@ -179,11 +257,14 @@ def _train_loop(args, step_fn, batches, trainable, opt, sched, start,
             metrics.observe("step", dt)
             if step % args.log_every == 0 or step == args.steps - 1:
                 log.info("step %d  loss %.5f  %.2fs", step, loss_val, dt)
-            if not np.isfinite(loss_val):
+            if _nonfinite(loss_val, run.mesh, run.device):
                 raise SystemExit(f"non-finite loss at step {step}")
             if root and ((step + 1) % args.save_every == 0
                          or step == args.steps - 1):
-                path = _save_state(root, step + 1, trainable, opt, sched)
+                position = getattr(batches, "position", None)
+                path = _save_state(
+                    root, step + 1, run,
+                    None if position is None else {"data_position": position})
                 log.info("saved %s", path)
     metrics.log_summary(log)
     return loss_val
@@ -268,17 +349,79 @@ def _data_batches(pipe, args, start: int = 0, stage_callback=None):
         step += 1
 
 
+class _stacked_data_batches:
+    """``B`` clips of ``_data_batches`` a step, stacked into one batch with
+    a sigma per clip, (B, 1, 1, 1, 1) (JAX ``cli/train.py:
+    _stacked_data_batches``, for ``--mesh_data`` > 1: the batch splits
+    over the data ranks). A clip whose latent shape is not the one of
+    --frames/--height/--width (shorter than --frames) is skipped, and a
+    whole cycle of clips without a match exits. ``start``: the position in
+    ``_data_batches``' stream to begin at; ``position`` is where the next
+    batch begins, which a checkpoint keeps (``data_position``), so a
+    resumed run continues as an unbroken one."""
+
+    KEYS = ("clean_latents", "noise", "context", "clip_feature", "y",
+            "plucker_fea")
+
+    def __init__(self, pipe, args, B: int, start: int = 0):
+        from ..utils.observability import get_logger
+        self.log = get_logger("train.batch")
+        self.B, self.position = B, start
+        self.inner = _data_batches(pipe, args, start)
+        self.ref_shape = (1, pipe.vae_cfg.z_dim, (args.frames - 1) // 4 + 1,
+                          args.height // 8, args.width // 8)
+        self.n_clips = len(_clip_dirs(args.data_root))
+        self.skipped = 0
+
+    def _next_uniform(self):
+        misses = 0
+        while True:
+            part = next(self.inner)
+            self.position += 1
+            shape = tuple(part["clean_latents"].shape)
+            if shape == self.ref_shape:
+                return part
+            self.skipped += 1
+            misses += 1
+            if self.skipped in (1, 10) or self.skipped % 100 == 0:
+                self.log.warning(
+                    "skipped %d clip(s) with latent shape %s != %s "
+                    "(shorter than --frames?)", self.skipped, shape,
+                    self.ref_shape)
+            if misses > self.n_clips:       # a whole cycle without a match
+                raise SystemExit(
+                    f"no clip under --data_root matches the --frames/"
+                    f"--height/--width latent shape {self.ref_shape} "
+                    f"(last seen {shape})")
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        parts = [self._next_uniform() for _ in range(self.B)]
+        batch = {}
+        for k in self.KEYS:
+            vals = [p.get(k) for p in parts]
+            if any(v is None for v in vals):
+                continue
+            batch[k] = torch.cat(vals, dim=0)
+        batch["timestep"] = torch.cat([p["timestep"] for p in parts])
+        batch["sigma"] = torch.tensor(
+            [float(p["sigma"]) for p in parts], dtype=torch.float32,
+            device=batch["clean_latents"].device).reshape(self.B, 1, 1, 1, 1)
+        return batch
+
+
 def _check_args(args) -> None:
-    """SystemExit for the modes that later multi-GPU slices bring, and for
-    a real-data run without its paths or clips."""
+    """SystemExit for the mode that a later multi-GPU slice brings, for a
+    mesh without its processes, and for a real-data run without its paths
+    or clips."""
+    from .infer_wan21 import check_mesh
     if args.pipe_stages > 0:
         raise SystemExit("--pipe_stages: the pipeline-parallel trainer is a "
                          "later multi-GPU slice of the port (ROADMAP queue "
                          "A item 5(c))")
-    if max(args.mesh_data, args.mesh_seq, args.mesh_model) > 1:
-        raise SystemExit("--mesh_data/--mesh_seq/--mesh_model > 1: the mesh "
-                         "trainer is a later multi-GPU slice of the port "
-                         "(ROADMAP queue A item 5(b))")
+    check_mesh(args)
     if args.synthetic:
         return
     if not (args.wan_ckpt_path and args.model_ckpt and args.data_root):
@@ -288,9 +431,10 @@ def _check_args(args) -> None:
         raise SystemExit(f"no clip subdirectories under {args.data_root}")
 
 
-def _model(args, device, dtype, log):
+def _model(args, device, dtype, log, mesh=None):
     """(fusion model, pipeline or None): the demo config from the seed
-    (--synthetic), else the reference checkpoints with their encoders."""
+    (--synthetic), else the reference checkpoints with their encoders; on
+    a ``mesh``, this rank's part of the model."""
     from ..core.params import build
     from ..models.fusion.model import FusionModel
     from ..utils.demo import demo_config
@@ -301,7 +445,7 @@ def _model(args, device, dtype, log):
                           agg_dim=max(32, args.demo_dim // 4))
         gen = torch.Generator(device).manual_seed(args.seed)
         return build(lambda: FusionModel(cfg), device=device, dtype=dtype,
-                     generator=gen), None
+                     generator=gen, mesh=mesh), None
     from ..convert.checkpoint import load_pipeline, missing_files
     missing = missing_files(args.wan_ckpt_path, args.model_ckpt)
     if missing:
@@ -311,24 +455,42 @@ def _model(args, device, dtype, log):
                          dtype=dtype, tokenizer_path=args.tokenizer_path)
     log.info("loaded %s + %s in %.1fs", args.wan_ckpt_path, args.model_ckpt,
              time.perf_counter() - t0)
+    if mesh is not None:
+        pipe.shard(mesh)
     return pipe.fusion, pipe
 
 
 def run(args) -> Optional[float]:
     """Train; returns the final loss (None when the checkpoint is already
     at --steps)."""
-    from ..training.lora import init_lora, lora_state, make_lora_train_step
-    from ..training.step import make_train_step
     from ..utils.observability import get_logger
+
+    from .infer_wan21 import start_mesh
 
     _check_args(args)
     log = get_logger("train")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the trainer runs on the card; "
                          "pass --device cpu to train on the CPU")
-    device = torch.device(args.device)
+    import torch.distributed as dist
+    # a caller that opened the process group (ranks spawned by
+    # ``distributed.spawn``) closes it; torchrun's ranks close it here
+    opened = not dist.is_initialized()
+    device, mesh = start_mesh(args)
+    try:
+        return _run(args, device, mesh, log)
+    finally:
+        if mesh is not None and opened:
+            from ..parallel import distributed
+            distributed.shutdown()
+
+
+def _run(args, device, mesh, log) -> Optional[float]:
+    from ..training.lora import init_lora, lora_state, make_lora_train_step
+    from ..training.step import make_train_step
+
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model, pipe = _model(args, device, dtype, log)
+    model, pipe = _model(args, device, dtype, log, mesh)
     if args.lora_rank > 0:
         targets = tuple(t for t in args.lora_targets.split(",") if t)
         factors = init_lora(model, args.lora_rank,
@@ -341,22 +503,28 @@ def run(args) -> Optional[float]:
     else:
         trainable = dict(model.named_parameters())
     opt, sched = _optimizer(args, list(trainable.values()))
-    start = _resume_state(args, trainable, opt, sched, log)
+    run = _Run(trainable, opt, sched, model, mesh)
+    start, saved = _resume_state(args, run, log)
     if start >= args.steps:
         print(f"train done: checkpoint already at step {start} "
               f">= --steps {args.steps}")
         return None
     make = make_lora_train_step if args.lora_rank > 0 else make_train_step
-    step_fn = make(model, opt, sched, remat=not args.no_remat)
+    step_fn = make(model, opt, sched, remat=not args.no_remat, mesh=mesh)
     if pipe is None:
         batches = _synthetic_batches(args, device)
         for _ in range(start):          # a resumed run continues the stream
             next(batches)
+    elif args.mesh_data > 1:
+        batches = _stacked_data_batches(
+            pipe, args, args.mesh_data,
+            int(saved.get("data_position", start * args.mesh_data)))
     else:
         batches = _data_batches(pipe, args, start)
-    loss_val = _train_loop(args, step_fn, batches, trainable, opt, sched,
-                           start, log)
-    print(f"train done: {args.steps - start} step(s), final loss "
+    loss_val = _train_loop(args, step_fn, batches, run, start, log)
+    where = ("" if mesh is None else
+             f" on {mesh.world} ranks ({'x'.join(map(str, mesh.shape))})")
+    print(f"train done: {args.steps - start} step(s){where}, final loss "
           f"{loss_val:.5f}")
     return loss_val
 

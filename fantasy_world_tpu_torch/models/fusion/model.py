@@ -25,6 +25,15 @@ stack and the DiT head; the long attentions gather or re-shard their keys
 (``ulysses``), and the head's tokens and the intermediates the geometry
 heads read are gathered after. The geometry heads run on rank 0 alone,
 which gets the prediction (None elsewhere).
+
+Training on a mesh differentiates ``joint_forward`` end to end: every rank
+computes the same loss on the whole gathered noise prediction, so the
+head's gathers pass each rank's part of that gradient back, and the
+collectives inside the blocks have the backwards of
+``parallel/distributed.py``; ``parallel.sharding.reduce_gradients`` then
+sums each rank's parameter gradients over the mesh. The block stack has
+no rank-dependent branch, so a block recomputed on the backward reissues
+the same collectives on every rank.
 """
 from __future__ import annotations
 
@@ -64,10 +73,21 @@ class FusionConfig:
 
 def _run(fn, *args, remat: bool):
     """fn(*args), recomputed on the backward pass under ``remat``. The
-    blocks draw no random numbers, so no RNG state is kept."""
+    blocks draw no random numbers, so no RNG state is kept. The recompute
+    re-enters the Ulysses context the block ran in (the backward runs
+    outside it, on another thread on the card) and, on a mesh, runs the
+    whole block: it reissues the block's collectives, and every rank must
+    reissue all of them, in the same order."""
     if not remat:
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
+    from ...parallel.ulysses import current_ulysses, ulysses_context
+    ctx = current_ulysses()
+
+    def again(*a):
+        with ulysses_context(ctx):
+            return fn(*a)
+
+    return checkpoint(again, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
@@ -238,12 +258,15 @@ class FusionModel(nn.Module):
         rank 0 (None on the others). ``ulysses``: the attentions whose keys
         are split over the seq group re-shard through Ulysses (or the ring)
         instead of gathering their keys."""
+        from torch.utils.checkpoint import set_checkpoint_early_stop
+
         from ...parallel.ulysses import ulysses_context
         mesh = mesh or sharding.single()
         p = self._mesh_prologue(latents, timestep, context, clip_feature, y,
                                 plucker_fea, control_tokens, mesh)
         keep = self.head_layers() if return_prediction else None
-        with ulysses_context(mesh if ulysses else None):
+        with ulysses_context(mesh if ulysses else None), \
+                set_checkpoint_early_stop(mesh.trivial):
             x, inters = self.run_stack(
                 p.x, p.ctx, p.t_mod, p.timestep, p.ropes, p.rope_bi_dit,
                 p.rope_bi_agg, p.local_fhw, p.plucker_fea, return_prediction,
@@ -291,9 +314,12 @@ class FusionModel(nn.Module):
 
     def _mesh_head(self, x, p, mesh):
         """The DiT head on this rank's tokens, the whole batch's tokens
-        gathered, unpatchified."""
-        out = sharding.gather_rows(p.s_dit.gather(self.dit.head(x, p.t)),
-                                   p.rows, mesh)
+        gathered, unpatchified. Every rank goes on alike from the whole
+        prediction (a loss, a scheduler step), so each gather's backward
+        keeps this rank's part of its gradient."""
+        out = sharding.gather_rows(
+            p.s_dit.gather(self.dit.head(x, p.t), grad="slice"), p.rows,
+            mesh, grad="slice")
         return self.dit.unpatchify(out, p.fhw)
 
     def head_layers(self) -> frozenset:

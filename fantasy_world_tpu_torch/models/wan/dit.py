@@ -29,8 +29,12 @@ heads, in the de-interleaved RoPE order, since the order permutes within a
 head -- and ``o`` and the FFN's second layer its input columns, summed over
 the group. The q/k RMS norms span the whole width, so their sums of squares
 are summed over the group too; a pose adapter sees the whole attention
-output. A block's ``seq`` is its tokens' split over the seq group, which
-the self-attention hands to the attention dispatch.
+output. For training, the whole input of a rank's column-parallel layers
+has its gradient summed over the group (``sharding.column_input``), the
+row-parallel sum passes its gradient on as it is, and LoRA adapters follow
+their layer's split (``sharding.PARAM_RULES``). A block's ``seq`` is its
+tokens' split over the seq group, which the self-attention hands to the
+attention dispatch.
 """
 from __future__ import annotations
 
@@ -47,8 +51,9 @@ from ...core.params import RMSNorm, linear, normal_
 from ...ops import rope as rope_ops
 from ...ops.attention import dot_product_attention
 from ...ops.norms import layer_norm, layer_norm_modulate, rms_norm
-from ...parallel.sharding import (gather_columns, local_columns,
-                                  sharded_rms_norm, row_linear)
+from ...parallel.sharding import (column_input, gather_columns,
+                                  local_columns, sharded_rms_norm,
+                                  row_linear)
 from .camera import SimpleAdapter
 
 
@@ -115,6 +120,7 @@ def _gelu_tanh_mlp(seq: nn.Sequential, x: torch.Tensor,
                    tp=None) -> torch.Tensor:
     """``tp``: the model axis its first layer's outputs and its second
     layer's inputs are split over."""
+    x = column_input(x, tp)
     return row_linear(F.gelu(linear(x, seq[0]), approximate="tanh"), seq[2],
                       tp)
 
@@ -145,6 +151,7 @@ class SelfAttention(nn.Module):
         seq group."""
         tp = self.tp
         n = self.num_heads // (1 if tp is None else tp.size)
+        x = column_input(x, tp)
         q = _norm(linear(x, self.q), self.norm_q.weight, self.eps, tp)
         k = _norm(linear(x, self.k), self.norm_k.weight, self.eps, tp)
         v = linear(x, self.v)
@@ -283,6 +290,7 @@ class CrossAttention(nn.Module):
         reference."""
         tp = self.tp
         n = self.num_heads // (1 if tp is None else tp.size)
+        x, context = column_input(x, tp), column_input(context, tp)
         if self.has_image_input:
             img, ctx = context[:, :CLIP_TOKENS], context[:, CLIP_TOKENS:]
         else:
@@ -301,11 +309,13 @@ class CrossAttention(nn.Module):
                 qh, _split_heads(k_img, n), _split_heads(v_img, n)))
         if apply_pose and self.processor is not None \
                 and plucker_fea is not None:
-            # the adapters are replicated: they see the whole width
-            o = gather_columns(o, tp)
+            # the adapters are replicated: they see the whole width, and
+            # each rank goes on with its own columns of their output
+            o = gather_columns(o, tp, grad="reduce_scatter")
             if isinstance(self.processor, LatentPoseAdapter):
-                o = self.processor(o, gather_columns(q, tp), plucker_fea,
-                                   self.num_heads, plucker_frames)
+                o = self.processor(o, gather_columns(
+                    q, tp, grad="reduce_scatter"), plucker_fea,
+                    self.num_heads, plucker_frames)
             else:
                 o = self.processor(o, plucker_fea)
             o = local_columns(o, tp)

@@ -41,6 +41,7 @@ def attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m2/l (B, Lq, H) f32 in the base-2 domain -- s2 = log2(e)*scale*(q.k),
     m2 = max_k s2, l = sum_k exp2(s2 - m2). Partial results over key shards
     merge exactly: m = max(m_a, m_b), w_x = l_x * exp2(m_x - m),
-    o = (w_a*o_a + w_b*o_b) / (w_a + w_b). Forward only; the primitive the
-    ring (``parallel/ring.py``) is built from."""
+    o = (w_a*o_a + w_b*o_b) / (w_a + w_b). Forward only: the primitive the
+    ring's forward (``parallel/ring.py``) is built from; the ring's
+    backward (``RingAttention``) runs the backward kernels per part."""
     return flash_attention_stats(q, k, v, scale=scale)

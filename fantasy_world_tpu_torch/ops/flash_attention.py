@@ -478,15 +478,31 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward(q, k, v, o, lse2, do, scale: float):
     """(dq, dk, dv) of ``sum(o * do)`` (``_flash_backward``)."""
+    return flash_attention_backward_part(q, k, v, o, lse2, do, scale)[:3]
+
+
+def flash_attention_backward_part(q, k, v, o, lse2, do, scale: float,
+                                  delta: Optional[torch.Tensor] = None):
+    """(dq, dk, dv, delta) over the keys ``k``/``v`` of an attention whose
+    output ``o`` and statistics ``lse2`` may span more keys (a ring's part:
+    the parts' dq sum to the whole attention's); ``fa_bwd_dq`` then
+    ``fa_bwd_dkv``. ``delta`` = rowsum(do * o), (B, Lq, H) f32: the one an
+    earlier part's call returned goes to ``fa_bwd_dkv`` in place of this
+    call's (the same values), and is returned; on the CPU (the plain
+    version) it is None."""
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, lse2, do, scale)
+        return (*attention_backward_plain(q, k, v, o, lse2, do, scale), None)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     H, D, Lk = q.shape[2], q.shape[3], k.shape[1]
     dk = kernel_dim(H, D, Lk)
-    grads = launch_backward(*_pad_d((q, k, v, o), D, dk), lse2,
-                            *_pad_d((do.contiguous(),), D, dk), scale)
-    return grads if dk == D else tuple(g[..., :D] for g in grads)
+    q, k, v, o, do = _pad_d((q, k, v, o, do.contiguous()), D, dk)
+    dq, own = launch_bwd_dq(q, k, v, o, lse2, do, scale)
+    delta = own if delta is None else delta
+    grads = (dq, *launch_bwd_dkv(q, k, v, lse2, do, delta, scale))
+    if dk != D:
+        grads = tuple(g[..., :D] for g in grads)
+    return (*grads, delta)
 
 
 class FlashAttention(torch.autograd.Function):

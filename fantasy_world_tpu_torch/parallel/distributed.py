@@ -21,6 +21,15 @@ NCCL, or gloo over CPU tensors, directly; gloo over CUDA tensors whose
 ranks share one card, through each rank's staging buffer mapped into the
 others by CUDA IPC, gloo only meeting them at barriers (``_SharedCard``).
 Gloo over CUDA tensors on different cards is refused: such ranks use NCCL.
+
+Training differentiates through them on either route: each collective of
+the mesh forward has an autograd Function whose backward is its conjugate
+collective. Where one collective needs two backwards, by whether the
+ranks go on alike from its result or each on work of its own, the caller
+names it (``grad=``): the all-reduce's identity or sum, the gather's
+slice or reduce-scatter. The all-to-all is its own inverse; ``sum_grad``
+(identity forward, summing backward) marks a whole tensor entering each
+rank's own part of the work.
 """
 from __future__ import annotations
 
@@ -218,11 +227,36 @@ class _SharedCard:
             self.bufs = self.bufs[self.me:self.me + 1]
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+def _differentiable(t: torch.Tensor, grad: Optional[str], choices,
+                    what: str) -> bool:
+    """Whether a collective on ``t`` goes through its autograd Function:
+    under grad mode, for a ``t`` that requires grad. Its caller must then
+    say which backward it needs (``grad``, one of ``choices``): that
+    depends on how the ranks use the result, which the collective cannot
+    see."""
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return False
+    if grad not in choices:
+        raise ValueError(f"{what} under autograd needs grad= one of "
+                         f"{choices}, got {grad!r}")
+    return True
+
+
+def all_reduce_sum(t: torch.Tensor, group, grad: Optional[str] = None
+                   ) -> torch.Tensor:
     """The sum of ``t`` over ``group`` (a new tensor where communication
-    happens, ``t`` itself otherwise); the same bits on every rank."""
+    happens, ``t`` itself otherwise); the same bits on every rank.
+
+    Differentiable when ``t`` requires grad, with the backward ``grad``
+    names: "identity" where every rank's work on the sum is the same (a
+    row-parallel layer's partial products: each rank's gradient is already
+    the whole one, and summing would count it once per rank), "sum" where
+    each rank uses the sum on work of its own (the sums of squares of a
+    norm over column parts): the ranks' gradients are summed."""
     if group_size(group) == 1:
         return t
+    if _differentiable(t, grad, ("identity", "sum"), "all_reduce_sum"):
+        return _AllReduceSum.apply(t, group, grad)
     if _route(t, group) == "card":
         parts = _SHARED[group].exchange(t, lambda r, x: x)
         # integers (int8 products' int32 partials) sum exactly as they are
@@ -289,14 +323,25 @@ def control_group():
 
 
 def all_gather_cat(t: torch.Tensor, group, dim: int,
-                   sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+                   sizes: Optional[Sequence[int]] = None,
+                   grad: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order.
     ``sizes``: each rank's extent along ``dim`` when they differ (each part
-    is zero-padded to the largest for the collective and cut back)."""
+    is zero-padded to the largest for the collective and cut back).
+
+    Differentiable when ``t`` requires grad, with the backward ``grad``
+    names: "slice" where every rank computes the same from the whole (the
+    loss on the gathered prediction): this rank's part of its own
+    gradient; "reduce_scatter" where each rank uses the whole on work of
+    its own (its queries against every rank's keys): the ranks' gradients
+    summed, this rank's part of the sum."""
     n = group_size(group)
     if n == 1:
         return t
     dim = dim % t.dim()
+    if _differentiable(t, grad, ("slice", "reduce_scatter"),
+                       "all_gather_cat"):
+        return _AllGatherCat.apply(t, group, dim, sizes, grad)
     big = t.shape[dim] if sizes is None else max(sizes)
     part = _pad_dim(t, dim, big)
     if sizes is None:
@@ -313,9 +358,12 @@ def all_gather_cat(t: torch.Tensor, group, dim: int,
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` (n, ...) -> (n, ...): block j goes to rank j, and block j of
-    the result came from rank j."""
+    the result came from rank j. Differentiable: the exchange is its own
+    inverse, so the backward is the same all-to-all of the gradient."""
     if group_size(group) == 1:
         return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllToAll.apply(t, group)
     if _route(t, group) == "card":
         me = dist.get_rank(group)
         return torch.stack(_SHARED[group].exchange(t, lambda r, x: x[me]))
@@ -323,6 +371,70 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
     return out
+
+
+def sum_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself, whose gradient is summed over ``group`` on the
+    backward: where a tensor every rank holds whole enters work that each
+    rank does on its own part (the input of a column-parallel layer), each
+    rank's gradient is one part of the whole."""
+    if group_size(group) == 1 or not (torch.is_grad_enabled()
+                                      and t.requires_grad):
+        return t
+    return _SumGrad.apply(t, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, grad):
+        ctx.group, ctx.grad = group, grad
+        return all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = all_reduce_sum(g, ctx.group)
+        return g, None, None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim, sizes, grad):
+        n = group_size(group)
+        ctx.group, ctx.dim, ctx.grad = group, dim, grad
+        ctx.sizes = list(sizes) if sizes is not None else [t.shape[dim]] * n
+        ctx.me = dist.get_rank(group)
+        return all_gather_cat(t, group, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "reduce_scatter":
+            g = all_reduce_sum(g, ctx.group)
+        start = sum(ctx.sizes[:ctx.me])
+        return (g.narrow(ctx.dim, start, ctx.sizes[ctx.me]).contiguous(),
+                None, None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
 
 
 class RingShift:

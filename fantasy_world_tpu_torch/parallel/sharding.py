@@ -54,7 +54,33 @@ PARAM_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     # is over the whole output axis and falls through to replicated)
     (_ATTN + r"o\.weight$", (None, "model")),
     (r"(.*\.)?ffn\.2\.weight$", (None, "model")),
+    # LoRA factors (``training/lora.py``: down (rank, in), up (out, rank))
+    # follow their layer's split: a column-parallel layer's up over its
+    # output features, a row-parallel layer's down over its input features;
+    # the other factor stays whole
+    (_ATTN + r"(q|k|v|k_img|v_img)\.lora\.up$", ("model", None)),
+    (r"(.*\.)?ffn\.0\.lora\.up$", ("model", None)),
+    (_ATTN + r"o\.lora\.down$", (None, "model")),
+    (r"(.*\.)?ffn\.2\.lora\.down$", (None, "model")),
     (r".*", ()),
+]
+
+# The whole (replicated) parameters whose gradient on a model rank is only
+# that rank's share, because each rank uses them on its own columns: the
+# q/k norms' scales (``sharded_rms_norm`` takes this rank's columns of
+# them), the pose adapters (they run on the whole width, and each rank
+# keeps its columns of their output), a column-parallel layer's LoRA down
+# (it feeds this rank's part of up) and a row-parallel layer's LoRA up (it
+# reads this rank's partial sum). ``reduce_gradients`` sums them over the
+# model group; every other whole parameter is used alike on every model
+# rank and has its whole gradient there already.
+MODEL_PARTIAL_RULES: List[str] = [
+    _ATTN + r"norm_(q|k|k_img)\.weight$",
+    r"(.*\.)?cross_attn\.processor\.",
+    _ATTN + r"(q|k|v|k_img|v_img)\.lora\.down$",
+    r"(.*\.)?ffn\.0\.lora\.down$",
+    _ATTN + r"o\.lora\.up$",
+    r"(.*\.)?ffn\.2\.lora\.up$",
 ]
 
 
@@ -258,10 +284,12 @@ class TokenSplit:
         """This rank's tokens of a whole sequence ``t``."""
         return t.narrow(dim, self.start, self.local)
 
-    def gather(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """The whole sequence from every rank's tokens ``t``."""
+    def gather(self, t: torch.Tensor, dim: int = 1,
+               grad: Optional[str] = None) -> torch.Tensor:
+        """The whole sequence from every rank's tokens ``t`` (``grad``: the
+        backward, as ``distributed.all_gather_cat`` takes it)."""
         from .distributed import all_gather_cat
-        return all_gather_cat(t, self.group, dim, self.sizes)
+        return all_gather_cat(t, self.group, dim, self.sizes, grad=grad)
 
     def scaled(self, per_unit: int) -> "TokenSplit":
         """The same split counted in units of ``per_unit`` tokens."""
@@ -301,13 +329,14 @@ def take_rows(t, rows: Optional[slice]):
     return t if (t is None or rows is None) else t[rows]
 
 
-def gather_rows(t: torch.Tensor, rows: Optional[slice], mesh: Mesh
-                ) -> torch.Tensor:
-    """The whole batch from this data rank's rows."""
+def gather_rows(t: torch.Tensor, rows: Optional[slice], mesh: Mesh,
+                grad: Optional[str] = None) -> torch.Tensor:
+    """The whole batch from this data rank's rows (``grad``: the backward,
+    as ``distributed.all_gather_cat`` takes it)."""
     if rows is None:
         return t
     from .distributed import all_gather_cat
-    return all_gather_cat(t, mesh.axis("data").group, 0)
+    return all_gather_cat(t, mesh.axis("data").group, 0, grad=grad)
 
 
 def token_split(batch: int, fhw: Sequence[int], mesh: Mesh
@@ -343,7 +372,9 @@ def sharded_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     ``weight`` is the whole (replicated) scale."""
     from .distributed import all_reduce_sum
     xf = x.float()
-    ss = all_reduce_sum(xf.square().sum(dim=-1, keepdim=True), axis.group)
+    # each rank scales its own columns by the sum: the backward sums
+    ss = all_reduce_sum(xf.square().sum(dim=-1, keepdim=True), axis.group,
+                        grad="sum")
     y = xf * torch.rsqrt(ss / (x.shape[-1] * axis.size) + eps)
     return (y.to(x.dtype) * local_columns(weight, axis)).to(x.dtype)
 
@@ -352,7 +383,10 @@ def row_linear(x: torch.Tensor, layer: nn.Linear,
                axis: Optional[Axis]) -> torch.Tensor:
     """``core.params.linear(x, layer)`` for a layer whose input features
     are split over ``axis`` (x holds this rank's): the partial products are
-    summed over the model group and the bias is added once, in f32. A
+    summed over the model group and the bias is added once, in f32. A LoRA
+    adapter's term, ``up (down_local x_local)`` with down split over the
+    input features, joins the partial product before the sum. Every rank
+    goes on from the same sum, so the sum's backward is the identity. A
     quantized layer takes ``core.quant.qlinear``'s row-parallel path (the
     int8 activation scale over the whole row, the int32 partials summed
     exactly)."""
@@ -366,22 +400,122 @@ def row_linear(x: torch.Tensor, layer: nn.Linear,
     w = layer.weight
     y = (torch.nn.functional.linear(x, w) if w.dtype == x.dtype else
          torch.nn.functional.linear(x.float(), w.float()).to(x.dtype))
-    y = all_reduce_sum(y, axis.group)
+    lora = layer._modules.get("lora")
+    if lora is not None:
+        y = y + lora(x)
+    y = all_reduce_sum(y, axis.group, grad="identity")
     if layer.bias is None:
         return y
     return (y.float() + layer.bias.float()).to(x.dtype)
 
 
-def gather_columns(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
-    """The whole width from every model rank's columns."""
+def gather_columns(x: torch.Tensor, axis: Optional[Axis],
+                   grad: Optional[str] = None) -> torch.Tensor:
+    """The whole width from every model rank's columns (``grad``: the
+    backward, as ``distributed.all_gather_cat`` takes it)."""
     if axis is None or axis.size == 1:
         return x
     from .distributed import all_gather_cat
-    return all_gather_cat(x, axis.group, -1)
+    return all_gather_cat(x, axis.group, -1, grad=grad)
 
 
 def local_columns(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
-    """This model rank's columns of a whole width."""
+    """This model rank's columns of a whole width (its backward gives the
+    whole width, zeros outside them: a whole parameter read so is one of
+    ``MODEL_PARTIAL_RULES``)."""
     if axis is None or axis.size == 1:
         return x
     return x.chunk(axis.size, dim=-1)[axis.index]
+
+
+def column_input(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """``x``, a tensor every model rank holds whole, as the input of this
+    rank's column-parallel layers: its gradient is summed over the model
+    group on the backward (each rank's covers its own columns)."""
+    if axis is None or axis.size == 1:
+        return x
+    from .distributed import sum_grad
+    return sum_grad(x, axis.group)
+
+
+# ---------------------------------------------------------------------------
+# training: gradients and whole tensors of a split model
+# ---------------------------------------------------------------------------
+
+def model_partial(name: str) -> bool:
+    """Whether a whole parameter's gradient on a model rank is that rank's
+    share only (``MODEL_PARTIAL_RULES``)."""
+    return any(re.match(pat, name) for pat in MODEL_PARTIAL_RULES)
+
+
+def _flat_reduce(grads: List[torch.Tensor], group, scale: float = 1.0,
+                 bucket: int = 1 << 26) -> None:
+    """Sum ``grads`` over ``group`` in place (then times ``scale``), a few
+    flat buckets of one dtype at a time, so a step makes a handful of
+    collectives rather than one a parameter."""
+    from .distributed import all_reduce_sum, group_size
+    if group_size(group) == 1 or not grads:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        i = 0
+        while i < len(same):
+            j, n = i, 0
+            while j < len(same) and (j == i or n + same[j].numel() <= bucket):
+                n += same[j].numel()
+                j += 1
+            flat = torch.cat([g.reshape(-1) for g in same[i:j]])
+            flat = all_reduce_sum(flat, group)
+            if scale != 1.0:
+                flat = flat * scale
+            off = 0
+            for g in same[i:j]:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+            i = j
+
+
+@torch.no_grad()
+def reduce_gradients(params: Mapping[str, torch.Tensor], mesh: Mesh,
+                     batch: int) -> None:
+    """After the backward of a loss every rank computed alike on the
+    gathered prediction, make each rank's ``.grad`` the one-process
+    gradient of the part it holds: summed over 'seq' (each rank ran its
+    frames) and over 'data' (its rows; where the ``batch`` does not divide
+    the data ranks, each ran all of it, and they are averaged instead), and
+    over 'model' for the whole parameters of ``MODEL_PARTIAL_RULES``.
+    ``params``: {state-dict name: parameter}, every one with a ``.grad``.
+    Every rank calls it with the same names."""
+    if mesh.trivial:
+        return
+    items = sorted(params.items())
+    grads = [p.grad for _, p in items]
+    _flat_reduce([g for (n, _), g in zip(items, grads) if model_partial(n)],
+                 mesh.axis("model").group)
+    _flat_reduce(grads, mesh.axis("seq").group)
+    data = mesh.axis("data")
+    _flat_reduce(grads, data.group, 1.0 if batch_rows(batch, mesh)
+                 else 1.0 / data.size)
+
+
+def whole_tensor(t: torch.Tensor, name: str, module: nn.Module,
+                 mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's part, when the
+    parameter ``name`` of ``module`` is split (``module.param_parts``),
+    gathered over the model group (every model rank calls it); else ``t``.
+    ``t``: the parameter or a tensor of its shape (an AdamW moment)."""
+    part = getattr(module, "param_parts", {}).get(name)
+    if part is None:
+        return t
+    from .distributed import all_gather_cat
+    return all_gather_cat(t.detach(), mesh.axis("model").group, part[0])
+
+
+def part_of_whole(t: torch.Tensor, name: str, module: nn.Module
+                  ) -> torch.Tensor:
+    """This rank's part of the whole tensor ``t`` of the parameter ``name``
+    of ``module`` (``t`` itself when the parameter is not split)."""
+    part = getattr(module, "param_parts", {}).get(name)
+    return t if part is None else shard_tensor(t, part)

@@ -30,6 +30,13 @@ every rank, so the JAX package's query-length threshold has nothing to
 keep local here and the port has none. Outside the context, a split
 attention gathers the keys and values of every rank instead -- what GSPMD
 does in the JAX package without Ulysses.
+
+Training differentiates all three: the all-to-all's backward is the same
+exchange of the gradients (``distributed.all_to_all``), the gather's sums
+the ranks' k/v gradients at their owner, and the ring has a backward ring
+of its own (``ring.RingAttention``). ``ulysses_context`` is a region of the
+forward; a block recomputed on the backward (``models/fusion/model.py:
+_run``) re-enters the context it ran in.
 """
 from __future__ import annotations
 
@@ -93,9 +100,10 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_split: TokenSplit,
                      scale: Optional[float] = None) -> torch.Tensor:
     """This rank's queries against every rank's keys and values, gathered
-    in one collective."""
+    in one collective (each rank's queries use them: the backward sums the
+    ranks' k/v gradients and keeps this rank's part)."""
     from ..ops.flash_attention import flash_attention
-    kv = kv_split.gather(torch.stack([k, v]), dim=2)
+    kv = kv_split.gather(torch.stack([k, v]), dim=2, grad="reduce_scatter")
     return flash_attention(q, kv[0], kv[1], scale=scale)
 
 

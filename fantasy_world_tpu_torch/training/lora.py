@@ -84,19 +84,38 @@ def init_lora(model: nn.Module, rank: int = 16, *,
     """Freeze every parameter of ``model`` and attach a rank-``rank``
     adapter with f32 factors to each targeted linear, on the layer's
     device. Returns the factors (the trainable parameters), down before up,
-    layer by layer."""
+    layer by layer.
+
+    On a model split over a mesh (``FusionModel.shard``) a factor follows
+    its layer's split (``parallel/sharding.py:PARAM_RULES``): a
+    column-parallel layer keeps its rows of up, a row-parallel one its
+    columns of down. down is drawn whole and this rank keeps its part, so a
+    seeded init gives every rank the values of the unsplit one; the parts
+    join ``model.param_parts``."""
     model.requires_grad_(False)
+    parts = getattr(model, "param_parts", None)
     factors: List[nn.Parameter] = []
     for name, layer in target_layers(model, targets):
         if type(layer) is not nn.Linear:
             raise ValueError(f"{name} is a {type(layer).__name__}: LoRA "
                              f"attaches to float linears only")
+        # the whole widths (a split layer keeps its nn.Linear attributes)
         lora = LoRA(layer.in_features, layer.out_features, rank, alpha,
                     layer.weight.device)
         with torch.no_grad():
             down = torch.randn(lora.down.shape, generator=generator,
                                device=generator.device)
             lora.down.copy_(down * layer.in_features ** -0.5)
+        part = (parts or {}).get(f"{name}.weight")
+        if part is not None:
+            # a column split (dim 0 of the weight) splits up's rows, a row
+            # split (dim 1) down's columns
+            factor = "up" if part[0] == 0 else "down"
+            whole = getattr(lora, factor)
+            setattr(lora, factor, nn.Parameter(
+                whole.detach().chunk(part[2], part[0])[part[1]].clone()))
+            getattr(lora, factor).part_of = part
+            parts[f"{name}.lora.{factor}"] = part
         layer.lora = lora
         factors += [lora.down, lora.up]
     if not factors:
@@ -124,14 +143,18 @@ def merge_lora_(model: nn.Module) -> nn.Module:
 
 
 def make_lora_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                         lr_schedule=None, *, remat: bool = True
+                         lr_schedule=None, *, remat: bool = True, mesh=None,
+                         ulysses: bool = False
                          ) -> Callable[[Dict], torch.Tensor]:
     """``make_train_step`` over the adapters of ``model``: the optimizer
-    holds the factors only, and the base must be frozen."""
+    holds the factors only, and the base must be frozen. ``mesh`` /
+    ``ulysses``: as ``make_train_step`` takes them (the factors split with
+    their layers, ``init_lora``)."""
     held = {id(p) for g in optimizer.param_groups for p in g["params"]}
     live = [n for n, p in model.named_parameters()
             if p.requires_grad and id(p) not in held]
     if live:
         raise ValueError(f"the base is not frozen: {live[:4]} ... require "
                          f"grad but the optimizer does not hold them")
-    return make_train_step(model, optimizer, lr_schedule, remat=remat)
+    return make_train_step(model, optimizer, lr_schedule, remat=remat,
+                           mesh=mesh, ulysses=ulysses)

@@ -454,3 +454,213 @@ def release_case(rank, out_file):
     second = distributed.all_reduce_max(torch.full((3,), float(rank)), group)
     if rank == 0:
         torch.save({"sum": first, "max": second}, out_file)
+
+
+# ---------------------------------------------------------------------------
+# the mesh trainer (test_torch_mesh_train.py)
+# ---------------------------------------------------------------------------
+
+def collective_inputs(world, seed=5):
+    """Each rank's input and upstream gradient of every differentiable
+    collective at ``world`` ranks (numpy, f32), drawn from ``seed``: the
+    parent test recomputes the expected gradients from the same arrays."""
+    rng = np.random.default_rng(seed + world)
+    sizes = [3 if r % 2 == 0 else 1 for r in range(world)]   # ragged parts
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return {
+        "sizes": sizes,
+        "x": [draw(4, 3) for _ in range(world)],
+        "g": [draw(4, 3) for _ in range(world)],
+        "xs": [draw(2, s, 3) for s in sizes],
+        "gs": [draw(2, sum(sizes), 3) for _ in range(world)],
+        "xa": [draw(world, 2, 3) for _ in range(world)],
+        "ga": [draw(world, 2, 3) for _ in range(world)],
+        "xc": draw(4, 2 * world),
+        "gc": [draw(4, 2) for _ in range(world)],
+    }
+
+
+def _collective_grads(rank, world):
+    """This rank's input gradient through each collective, the loss the
+    sum of its output times this rank's upstream gradient (``g[rank]``) or,
+    for a backward that assumes every rank goes on alike, rank 0's."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel import distributed as D
+    from fantasy_world_tpu_torch.parallel import sharding
+    inp = collective_inputs(world)
+    group = dist.group.WORLD
+    axis = sharding.Axis(group, world, rank)
+
+    def grad_of(x, fn, g):
+        x = torch.tensor(x, requires_grad=True)
+        (fn(x) * torch.from_numpy(g)).sum().backward()
+        return x.grad.numpy()
+
+    same, own = inp["g"][0], inp["g"][rank]
+    return {
+        "sum_identity": grad_of(inp["x"][rank], lambda x: D.all_reduce_sum(
+            x, group, grad="identity"), same),
+        "sum_sum": grad_of(inp["x"][rank], lambda x: D.all_reduce_sum(
+            x, group, grad="sum"), own),
+        "gather_slice": grad_of(inp["xs"][rank], lambda x: D.all_gather_cat(
+            x, group, 1, inp["sizes"], grad="slice"), inp["gs"][0]),
+        "gather_reduce_scatter": grad_of(
+            inp["xs"][rank], lambda x: D.all_gather_cat(
+                x, group, 1, inp["sizes"], grad="reduce_scatter"),
+            inp["gs"][rank]),
+        "all_to_all": grad_of(inp["xa"][rank], lambda x: D.all_to_all(
+            x, group), inp["ga"][rank]),
+        "sum_grad": grad_of(inp["x"][rank], lambda x: D.sum_grad(x, group),
+                            own),
+        "local_columns": grad_of(inp["xc"], lambda x: sharding.local_columns(
+            x, axis), inp["gc"][rank]),
+    }
+
+
+def _attention_grads(rank, case):
+    """dq, dk, dv of this rank's part of ``case`` (whole q, k, v, the
+    upstream gradient g, the kind and the key split) through the port's
+    Ulysses or ring attention, gathered whole."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel import ring, sharding, ulysses
+    world = dist.get_world_size()
+    axis = sharding.Axis(dist.group.WORLD, world, rank)
+    q, k, v, g = (torch.from_numpy(case[x]) for x in ("q", "k", "v", "g"))
+    qs = sharding.even_split(q.shape[1], axis)
+    ks = sharding.even_split(k.shape[1], axis)
+    if case.get("kv_sizes") is not None:
+        ks = sharding.TokenSplit(axis.group, tuple(case["kv_sizes"]), rank)
+    ql, kl, vl = (t.clone().requires_grad_(True)
+                  for t in (qs.take(q), ks.take(k), ks.take(v)))
+    if case["kind"] == "ulysses":
+        o = ulysses.ulysses_attention(ql, kl, vl, q_split=qs, kv_split=ks)
+    else:
+        o = ring.ring_attention(ql, kl, vl, kv_split=ks)
+    (o * qs.take(g)).sum().backward()
+    return {"dq": qs.gather(ql.grad).numpy(),
+            "dk": ks.gather(kl.grad).numpy(),
+            "dv": ks.gather(vl.grad).numpy()}
+
+
+def _train_case(rank, case, model_spec):
+    """Two AdamW steps of the port's trainer on a mesh from the whole
+    weights (and LoRA factors) of ``model_spec``: each step's loss, every
+    trainable tensor's gradient and value after it, gathered whole."""
+    import argparse
+
+    from fantasy_world_tpu_torch.cli.train import _optimizer
+    from fantasy_world_tpu_torch.core.params import build
+    from fantasy_world_tpu_torch.models.fusion.model import FusionModel
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.training.lora import (init_lora, lora_state,
+                                                       make_lora_train_step)
+    from fantasy_world_tpu_torch.training.step import make_train_step
+    mesh = sharding.make_mesh(*case["shape"])
+    cfg = model_spec["cfg"]
+    model = build(lambda: FusionModel(cfg), device="cpu",
+                  dtype=torch.float32, mesh=mesh)
+    model.load_state_dict(sharding.shard_state_dict(model_spec["sd"], mesh))
+    lora = case["mode"] == "lora"
+    if lora:
+        init_lora(model, model_spec["rank"],
+                  generator=torch.Generator().manual_seed(0))
+        trainable = lora_state(model)
+        with torch.no_grad():
+            for n, p in trainable.items():
+                p.copy_(sharding.part_of_whole(model_spec["lora"][n], n,
+                                               model))
+    else:
+        trainable = dict(model.named_parameters())
+    opt, sched = _optimizer(argparse.Namespace(
+        **model_spec["opt"][case["mode"]]), list(trainable.values()))
+    make = make_lora_train_step if lora else make_train_step
+    step = make(model, opt, sched, remat=True, mesh=mesh,
+                ulysses=case["ulysses"])
+    out = {}
+    for i, batch in enumerate(model_spec["batches"][case["batch"]]):
+        out[f"loss{i}"] = float(step(dict(batch)))
+        for n, p in trainable.items():
+            out[f"grad{i}/{n}"] = sharding.whole_tensor(
+                p.grad, n, model, mesh).clone()
+            out[f"param{i}/{n}"] = sharding.whole_tensor(
+                p.detach(), n, model, mesh).clone()
+    return out
+
+
+def _launch_contract(rank, case):
+    """The kernel launches one step of ``chip_smoke.py``'s small_mesh_train
+    on this rank would make, counted on the CPU by route and head dim at
+    the plain versions' calls (``case``: shape, Ulysses, mode and a latent
+    geometry), and ``chip_smoke.mesh_train_launches``' count."""
+    import chip_smoke
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel import sharding
+    seen = {k: 0 for k in fa.LAUNCHES}
+    forward, backward = fa._forward, fa.flash_attention_backward_part
+
+    def count_forward(q, k, v, scale, stats):
+        assert stats                     # training forwards keep stats
+        seen[fa.route(q.shape[2], q.shape[3], k.shape[1]) + "_stats"] += 1
+        return forward(q, k, v, scale, stats)
+
+    def count_backward(q, k, v, o, lse2, do, scale, delta=None):
+        d = fa.kernel_dim(q.shape[2], q.shape[3], k.shape[1])
+        seen[f"bwd_dq_{d}"] += 1
+        seen[f"bwd_dkv_{d}"] += 1
+        return backward(q, k, v, o, lse2, do, scale, delta)
+
+    shape, uly = case["shape"], case["ulysses"]
+    mesh = sharding.make_mesh(*shape)
+    setup = chip_smoke.small_train_setup()
+    height, width, frames = case["geometry"]
+    batches = chip_smoke.train_batches(setup[0].dit, height, width, frames,
+                                       shape[0], seed=0)
+    batch = (batches[0] if shape[0] == 1
+             else chip_smoke.stack_batches(batches))
+    model, trainable = chip_smoke.small_train_model(
+        setup, case["mode"], "cpu", torch.float32, mesh)
+    fa._forward, fa.flash_attention_backward_part = (count_forward,
+                                                     count_backward)
+    try:
+        chip_smoke.train_on(model, trainable, chip_smoke._to(batch, "cpu"),
+                            mesh, uly)
+    finally:
+        fa._forward, fa.flash_attention_backward_part = forward, backward
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    want = chip_smoke.mesh_train_launches(
+        setup[0], fhw, shape, chip_smoke.MESH_MODES["small", shape, uly],
+        rank, 1, 16)
+    return {"seen": seen, "want": want}
+
+
+def mesh_train_cases(rank, spec_file, out_file):
+    """The cases of ``spec_file`` (a ``torch.save``d dict) on this world:
+    ``collectives`` (True: every differentiable collective's input
+    gradient, each rank's), ``attention`` ({name: case} for
+    ``_attention_grads``), ``train`` ({tag: case} for ``_train_case``,
+    over ``model``) and ``contract`` ({tag: case} for
+    ``_launch_contract``). Rank 0 writes {case/key: value} to ``out_file``."""
+    import torch.distributed as dist
+    spec = torch.load(spec_file, weights_only=False)
+    world = dist.get_world_size()
+    out = {}
+    if spec.get("collectives"):
+        mine = _collective_grads(rank, world)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        out.update({f"coll/{k}": [e[k] for e in every] for k in mine})
+    for name, case in spec.get("attention", {}).items():
+        out.update({f"attn/{name}/{k}": v
+                    for k, v in _attention_grads(rank, case).items()})
+    for tag, case in spec.get("train", {}).items():
+        out.update({f"train/{tag}/{k}": v for k, v in
+                    _train_case(rank, case, spec["model"]).items()})
+    for tag, case in spec.get("contract", {}).items():
+        every = [None] * world
+        dist.all_gather_object(every, _launch_contract(rank, case))
+        out[f"contract/{tag}"] = every
+    out["foreign"] = foreign_modules()
+    if rank == 0:
+        torch.save(out, out_file)

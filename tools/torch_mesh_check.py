@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The multi-GPU path over NCCL, one rank per card, against one process.
 
-    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE] [--sections 4,5]
+    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE] [--sections 4,5,6]
 
 For a host with four cards (``chip_smoke.py``'s mesh phases run their
 ranks on its one card over gloo instead). Every rank, on its own card:
@@ -27,7 +27,13 @@ ranks on its one card over gloo instead). Every rank, on its own card:
      480x832x81, 2 steps: each rank's parts of both experts on its card
      (``DualModelDenoiser.place``: no swap), against the same seeded
      experts in one process on rank 0's card (the low one pinned on the
-     host, one swap).
+     host, one swap);
+  6. the mesh trainer at full width and depth: one LoRA rank-16 step with
+     per-block recompute (``chip_smoke.mesh_lora_steps``: 336x592x81,
+     batch 1) at (1, 1, 4) and at (1, 4, 1) with Ulysses, against the same
+     seeded model and batch stepped in one process on rank 0's card: the
+     loss and the LoRA gradients gathered whole within TRAIN_TOL, exact
+     launches on every rank, seconds and peak GB per rank.
 
 ``--sections`` runs only the numbered checks. Rank 0 prints one line per
 check, the cards' names and power limits, and a JSON line last (also
@@ -56,8 +62,9 @@ def rel_l2(got, ref):
             for k, r in ref.items()}
 
 
-def check(name, errs, launches, want, lead, out):
-    """Rank 0's errors within SLICE_TOL and every rank's launches exact."""
+def check(name, errs, launches, want, lead, out, tol=None):
+    """Rank 0's errors within ``tol`` (SLICE_TOL) and every rank's launches
+    exact."""
     import torch
     import torch.distributed as dist
     import chip_smoke as cs
@@ -71,7 +78,8 @@ def check(name, errs, launches, want, lead, out):
     cs.say("mesh_check", **{k: json.dumps(v).replace(" ", "")
                             if isinstance(v, dict) else v
                             for k, v in row.items()})
-    bad = {k: v for k, v in errs.items() if not v <= cs.SLICE_TOL}
+    bad = {k: v for k, v in errs.items()
+           if not v <= (cs.SLICE_TOL if tol is None else tol)}
     if bad or not ok.item():
         raise AssertionError(f"{name}: {bad or 'launch counts differ'}")
 
@@ -203,10 +211,65 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
                        rank_peak_gb=[r[-1].item() for r in rows])
 
 
+def mesh_train(dev, lead, world, out, seed=1024):
+    """Section 6: rank 0 steps the seeded model once in one process, then
+    every rank its part of each mesh of ``FULL_MESHES``."""
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from fantasy_world_tpu_torch.parallel import sharding
+    cfg = cs.mesh_fusion_config()
+    height, width, frames = cs.MESH_GEOMETRY
+    fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
+    ref = None
+    if lead:
+        losses, grads, seconds, peak, _ = cs.mesh_lora_steps(dev, cfg, seed,
+                                                             steps=1)
+        ref = {"loss": losses[0], "grads": grads[0]}
+        cs.say("mesh_check_train_one_process", loss=f"{losses[0]:.5f}",
+               step_seconds=f"{seconds[0]:.3f}", peak_gb=f"{peak:.2f}")
+        out.append({"check": "train_one_process", "loss": losses[0],
+                    "step_seconds": seconds, "peak_gb": peak})
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for shape, uly in FULL_MESHES:
+        mesh = sharding.make_mesh(*shape)
+        losses, grads, seconds, peak, launches = cs.mesh_lora_steps(
+            dev, cfg, seed, mesh, uly, steps=1)
+        stats = torch.tensor([*seconds, peak], device="cuda")
+        rows = [torch.empty_like(stats) for _ in range(world)]
+        dist.all_gather(rows, stats)
+        errs = None
+        if lead:
+            names = sorted(ref["grads"])
+            errs = {"loss": abs(losses[0] - ref["loss"]) / abs(ref["loss"]),
+                    "lora_grads": cs._rel_l2(
+                        [grads[0][n] for n in names],
+                        [ref["grads"][n] for n in names])}
+            cs.say("mesh_check_train", mesh="x".join(map(str, shape)),
+                   ulysses=uly, loss=f"{losses[0]:.5f}",
+                   rank_step_seconds="|".join(f"{r[0].item():.3f}"
+                                              for r in rows),
+                   rank_peak_gb="|".join(f"{r[-1].item():.2f}"
+                                         for r in rows))
+        check(f"train_{'x'.join(map(str, shape))}{'_ulysses' * uly}", errs,
+              launches, cs.mesh_train_launches(
+                  cfg, fhw, shape, cs.MESH_MODES["full", shape, uly],
+                  mesh.rank, 1, 512), lead, out, tol=cs.TRAIN_TOL)
+        if lead:
+            out[-1].update(rank_step_seconds=[r[0].item() for r in rows],
+                           rank_peak_gb=[r[-1].item() for r in rows])
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None)
-    p.add_argument("--sections", default="1,2,3,4,5",
+    p.add_argument("--sections", default="1,2,3,4,5,6",
                    help="the checks to run (comma-separated numbers)")
     args = p.parse_args(argv)
     sections = {int(x) for x in args.sections.split(",")}
@@ -325,6 +388,12 @@ def main(argv=None) -> int:
     # 5. the Wan2.2 dual denoise at full width, both experts resident
     if 5 in sections:
         wan22_full(dev, lead, world, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 6. the mesh trainer at full width and depth
+    if 6 in sections:
+        mesh_train(dev, lead, world, out)
 
     if lead:
         cs.say("mesh_check_done",
