@@ -201,9 +201,16 @@ every rank maps (CUDA IPC):
     against the same seeded model and batches stepped in this process
     (losses and LoRA gradients gathered whole within TRAIN_TOL, exact
     launches, seconds per step and peak GB per rank); and
-    ``train_cli_mesh``, the last job: ``cli.train``'s entry point on a
-    1x1x2 mesh (``--synthetic --mesh_model 2 --lora_rank 4``), 2 steps
-    saved, resumed to 3;
+    ``train_cli_mesh``: ``cli.train``'s entry point on a 1x1x2 mesh
+    (``--synthetic --mesh_model 2 --lora_rank 4``), 2 steps saved,
+    resumed to 3; then the pipeline trainer's jobs: ``full_pipe``, one
+    GPipe step of ``WanDiTConfig()`` cut to 4 blocks over 2 stages
+    (M = 2, Bm = 1 at 480x832x81, full fine-tuning) against the same step
+    in this process (the loss, every gradient within TRAIN_TOL, exact
+    launches, seconds and peak GB per rank), and ``train_cli_pipe``,
+    ``cli.train --synthetic --pipe_stages 2`` saved at 2 and resumed to
+    3 (small_meshes' 2-rank spawn runs ``small_pipe``, the reduced step
+    against the CPU's);
   * then ``full_mesh_serving``: the serve CLI's mesh at full width cut
     to 4 + 4 blocks, 1x1x2, through its entry points (rank 0 a
     ``GenerationServer`` over ``serve.make_batch_fn``, rank 1
@@ -454,7 +461,8 @@ TRAIN_SHAPES = [
 ]
 # the mesh trainer's backward shapes: Ulysses at 2 seq ranks (every head
 # group over the whole sequence) and the ring's hops at 3 seq ranks (21
-# latent frames, 7 a part), whose 40 DiT heads do not divide
+# latent frames, 7 a part), whose 40 DiT heads do not divide; and the
+# pipeline trainer's
 MESH_TRAIN_SHAPES = [
     ("ulysses_train_dit_self", (1, 16317, 20, 128), 16317, "generic"),
     ("ulysses_train_vggt_global", (1, 16422, 8, 64), 16422, "d64"),
@@ -462,6 +470,12 @@ MESH_TRAIN_SHAPES = [
      "generic"),
     ("ring_train_dit_self", (1, 7 * 777, 40, 128), 7 * 777, "generic"),
     ("ring_train_vggt_global", (1, 7 * 782, 16, 64), 7 * 782, "d64"),
+    # the pipeline trainer's microbatch, Bm = 1 at 480x832x81 (21 x 30 x 52
+    # tokens): the DiT's self-attention and its cross-attentions to umT5's
+    # 512 and CLIP's 257 keys
+    ("pipe_train_dit_self", (1, 32760, 40, 128), 32760, "generic"),
+    ("pipe_train_dit_cross_text", (1, 32760, 40, 128), 512, "onekv"),
+    ("pipe_train_dit_cross_clip", (1, 32760, 40, 128), 257, "onekv"),
 ]
 
 
@@ -1157,7 +1171,8 @@ def saved_as(path: str) -> str:
 # the CPU sides of the reduced clips (f32, the kernels' plain versions):
 # host work, run from the start in a process of its own beside the card's
 # phases (``start_cpu_sides``), each collected by its phase (``cpu_side``)
-CPU_SIDES = ("small_clip", "small_wan22", "small_ti2v", "small_mesh_train")
+CPU_SIDES = ("small_clip", "small_wan22", "small_ti2v", "small_mesh_train",
+             "small_pipe")
 _CPU_PENDING = {}
 
 
@@ -2865,9 +2880,14 @@ def phase_full_mesh(device, seed=1024):
     (1, 2, 1) with Ulysses, against the same seeded model and batches
     stepped in one process on the card (the losses and each step's LoRA
     gradients gathered whole within TRAIN_TOL, exact launches); and the
-    trainer's entry point on a 1x1x2 mesh (``train_cli_mesh``). All run as
+    trainer's entry point on a 1x1x2 mesh (``train_cli_mesh``); then the
+    pipeline trainer: ``full_pipe``, one GPipe step of ``WanDiTConfig()``
+    at 4 blocks over 2 stages, M = 2, Bm = 1 at 480x832x81, full
+    fine-tuning under AdamW, against the same step in one process on the
+    card (``check_full_pipe``), and its entry point, ``cli.train
+    --pipe_stages 2`` saved and resumed (``train_cli_pipe``). All run as
     jobs of one spawn of 2 ranks. Returns (the denoise runs' launches, the
-    training runs'), all ranks summed."""
+    mesh training runs', the pipeline's), all ranks summed."""
     import shutil
 
     import torch
@@ -2886,7 +2906,9 @@ def phase_full_mesh(device, seed=1024):
                  "peak": peak}
     gc.collect()
     torch.cuda.empty_cache()
+    pipe_ref = full_pipe_reference(device, seed)
     shutil.rmtree(TRAIN_CLI_MESH_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_CLI_PIPE_DIR, ignore_errors=True)
     t1 = time.perf_counter()
     records = mesh_jobs(2, [("attention_", _mesh_attention_rank, (3,))] + [
         (mesh_tag(shape), _full_mesh_rank, (shape, uly, MESH_DEPTH, seed))
@@ -2894,7 +2916,9 @@ def phase_full_mesh(device, seed=1024):
         ("train" + mesh_tag(shape), _full_mesh_train_rank,
          (shape, uly, MESH_DEPTH, seed))
         for shape, uly in FULL_MESH_RUNS] + [
-        ("train_cli_", _train_cli_rank, ())])
+        ("train_cli_", _train_cli_rank, ()),
+        ("pipe_full_", _full_pipe_rank, (seed,)),
+        ("train_cli_pipe_", _train_cli_pipe_rank, ())])
     mesh_s = time.perf_counter() - t1
     for row in records["attention_"][0]["calls"]:
         say("full_mesh_attention", ranks=2, **{
@@ -2946,10 +2970,14 @@ def phase_full_mesh(device, seed=1024):
             total = _add(total, r["launches"])
     train = _add(check_full_mesh_train(cfg, train_ref, records),
                  check_train_cli_mesh(records["train_cli_"]))
+    pipe = _add(check_full_pipe(pipe_ref, records["pipe_full_"]),
+                check_train_cli_pipe(records["train_cli_pipe_"]))
     shutil.rmtree(TRAIN_CLI_MESH_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_CLI_PIPE_DIR, ignore_errors=True)
+    os.remove(FULL_PIPE_REF)
     say("full_mesh_phase", seconds=f"{time.perf_counter() - t0:.2f}",
         mesh_seconds=f"{mesh_s:.2f}")
-    return total, train
+    return total, train, pipe
 
 
 # ---------------------------------------------------------------------------
@@ -3414,6 +3442,344 @@ def check_train_cli_mesh(records):
 
 
 # ---------------------------------------------------------------------------
+# the pipeline trainer: the GPipe step of the plain video DiT over 2 stages
+# on ranks sharing this card (as the other mesh jobs run: their times are
+# one card's), against one process
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = PIPE_MICROBATCHES = 2
+PIPE_LR = 1e-4
+# small_pipe: small_configs' DiT (2 heads of 128: self over 2304 tokens ->
+# generic, cross to 16 text and 257 CLIP keys -> onekv) at 4 blocks, 2 a
+# stage, without camera adapters, at SMALL_GEOMETRY
+SMALL_PIPE_SEED = 47
+SMALL_PIPE_DTYPE = "bfloat16"
+# full_pipe: WanDiTConfig() at full width (i2v) cut to 4 blocks, 2 a
+# stage, at 480x832x81 (21 x 30 x 52 = 32,760 tokens a sample, Bm = 1),
+# 512 text keys
+FULL_PIPE_DEPTH = 4
+FULL_PIPE_GEOMETRY = (480, 832, 81)
+FULL_PIPE_REF = os.path.join(REPO, "build", "full_pipe_grads.pt")
+
+
+def small_pipe_config():
+    import dataclasses
+    fcfg, _ = small_configs()
+    return dataclasses.replace(fcfg.dit, num_layers=4, camera_adapter_end=0)
+
+
+def full_pipe_config():
+    from fantasy_world_tpu_torch.models.wan.dit import WanDiTConfig
+    return WanDiTConfig(num_layers=FULL_PIPE_DEPTH)
+
+
+def pipe_batch(cfg, geometry, seed, text_len, n=PIPE_MICROBATCHES):
+    """``n`` seeded samples at ``geometry`` as one batch (numpy), a sigma
+    each; no Plucker features (the plain DiT takes none)."""
+    batch = stack_batches(train_batches(cfg, *geometry, n, seed=seed,
+                                        text_len=text_len))
+    batch.pop("plucker_fea")
+    return batch
+
+
+def pipe_tokens(geometry):
+    height, width, frames = geometry
+    return ((frames - 1) // 4 + 1) * (height // 16) * (width // 16)
+
+
+def pipe_train_launches(cfg, blocks, tokens, text_len,
+                        microbatches=PIPE_MICROBATCHES):
+    """Kernel launches of one pipeline step on a rank holding
+    ``blocks`` blocks: each block runs each of its data rank's
+    ``microbatches`` through its self-attention (``tokens`` keys) and its
+    cross-attentions (the text's and CLIP's keys), each a stats forward
+    twice under per-block recompute and one backward, dq and dk/dv, at
+    the head dim its kernel runs at."""
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    out = {k: 0 for k in fa.LAUNCHES}
+    n = blocks * microbatches
+    for lk in [tokens, text_len] + ([257] if cfg.has_image_input else []):
+        d = fa.kernel_dim(cfg.num_heads, cfg.head_dim, lk)
+        out[fa.route(cfg.num_heads, cfg.head_dim, lk) + "_stats"] += 2 * n
+        out[f"bwd_dq_{d}"] += n
+        out[f"bwd_dkv_{d}"] += n
+    return out
+
+
+def pipe_step(device, dtype, cfg, seed, batch, pipe=None, host_init=False,
+              microbatches=PIPE_MICROBATCHES):
+    """One AdamW step (lr PIPE_LR, no warm-up) of ``make_pp_train_step``
+    with per-block recompute, on this rank's stage of the plain DiT seeded
+    by ``init_stage_`` (the same values at any stage count) on ``device``
+    in ``dtype`` -- or, with ``host_init``, drawn in f32 on the CPU and
+    copied over, so that a card run starts from a CPU run's values -- over
+    ``pipe`` (one process when None) in ``microbatches``: (loss, the
+    stage's model, seconds, peak GB, launches)."""
+    import torch
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel.pipeline import single_pipe
+    from fantasy_world_tpu_torch.training.pp import (build_stage_dit,
+                                                     make_pp_train_step)
+    pipe = pipe or single_pipe()
+    if host_init:
+        model = build_stage_dit(cfg, pipe, device=device, dtype=dtype)
+        model.load_state_dict(build_stage_dit(
+            cfg, pipe, device="cpu", dtype=torch.float32,
+            seed=seed).state_dict())
+    else:
+        model = build_stage_dit(cfg, pipe, device=device, dtype=dtype,
+                                seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=PIPE_LR, eps=1e-8)
+    step = make_pp_train_step(model, opt, pipe=pipe,
+                              microbatches=microbatches)
+    batch = _to(batch, device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = float(step(batch))
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return loss, model, seconds, peak, dict(fa.LAUNCHES)
+
+
+def _grads_values(model):
+    return ({n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()},
+            {n: p.detach().float().cpu()
+             for n, p in model.named_parameters()})
+
+
+def small_pipe_run(dev, dtype):
+    """The CPU side of small_pipe: the step in one process. {loss, grads,
+    params}."""
+    cfg = small_pipe_config()
+    loss, model, _, _, _ = pipe_step(
+        dev, dtype, cfg, SMALL_PIPE_SEED,
+        pipe_batch(cfg, SMALL_GEOMETRY, SMALL_PIPE_SEED + 2, 16),
+        host_init=True)
+    grads, params = _grads_values(model)
+    return {"loss": loss, "grads": grads, "params": params}
+
+
+def _small_pipe_rank(rank):
+    """small_pipe on this rank (stage): the step's loss, seconds, peak and
+    launches; its gradients and updated values saved for the parent."""
+    import torch
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    dev = _rank_setup()
+    cfg = small_pipe_config()
+    loss, model, seconds, peak, launches = pipe_step(
+        dev, getattr(torch, SMALL_PIPE_DTYPE), cfg, SMALL_PIPE_SEED,
+        pipe_batch(cfg, SMALL_GEOMETRY, SMALL_PIPE_SEED + 2, 16),
+        make_pipe_mesh(PIPE_STAGES), host_init=True)
+    grads, params = _grads_values(model)
+    torch.save({"grads": grads, "params": params},
+               mesh_path(f"pipe{rank}.pt"))
+    _rank_record(rank, loss=loss, seconds=seconds, peak_gb=peak,
+                 launches=launches)
+
+
+def check_small_pipe(records, cpu):
+    """small_pipe against the CPU's one-process f32 step (``cpu``,
+    small_pipe_run's): the loss and, as relative L2, lite's gradients and
+    updated values and each stage's block gradients within TRAIN_TOL;
+    lite the same bits on both stages; every rank's launches exact.
+    Returns the launches, all ranks summed."""
+    import torch
+    cfg = small_pipe_config()
+    tag = "pipe_small_"
+    saved = [torch.load(mesh_path(f"pipe{r}.pt", tag))
+             for r in range(len(records))]
+    lite = sorted(n for n in cpu["grads"] if not n.startswith("blocks."))
+    checks = {"loss": abs(records[0]["loss"] - cpu["loss"])
+              / abs(cpu["loss"]),
+              "lite_grads": _rel_l2([saved[0]["grads"][n] for n in lite],
+                                    [cpu["grads"][n] for n in lite]),
+              "lite_params": _rel_l2([saved[0]["params"][n] for n in lite],
+                                     [cpu["params"][n] for n in lite])}
+    for r, s in enumerate(saved):
+        blocks = sorted(n for n in s["grads"] if n.startswith("blocks."))
+        checks[f"stage{r}_block_grads"] = _rel_l2(
+            [s["grads"][n] for n in blocks],
+            [cpu["grads"][n] for n in blocks])
+    lite_equal = all(torch.equal(s["params"][n], saved[0]["params"][n])
+                     for s in saved for n in lite)
+    want = pipe_train_launches(cfg, cfg.num_layers // PIPE_STAGES,
+                               pipe_tokens(SMALL_GEOMETRY), 16)
+    launch_err = [r for r, rec in enumerate(records)
+                  if rec["launches"] != want]
+    say("small_pipe", stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
+        blocks=cfg.num_layers,
+        loss=f"{records[0]['loss']:.5f}|{cpu['loss']:.5f}",
+        device_vs_cpu_rel=json.dumps({k: float(f"{v:.3e}") for k, v in
+                                      checks.items()}).replace(" ", ""),
+        lite_bit_equal=lite_equal,
+        rank_step_seconds="|".join(f"{r['seconds']:.2f}" for r in records),
+        rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in records),
+        rank0_launches=_nonzero(records[0]["launches"]))
+    bad = {k: v for k, v in checks.items() if not v <= TRAIN_TOL}
+    if bad or len({r["loss"] for r in records}) != 1 or not lite_equal:
+        raise AssertionError(f"small_pipe: beyond {TRAIN_TOL} of the CPU: "
+                             f"{bad}; the ranks' losses "
+                             f"{[r['loss'] for r in records]}; lite equal "
+                             f"on both stages: {lite_equal}")
+    if launch_err:
+        raise AssertionError(f"small_pipe: ranks {launch_err} launched "
+                             f"{[records[r]['launches'] for r in launch_err]}"
+                             f", not {want}")
+    return _add(*(r["launches"] for r in records))
+
+
+def full_pipe_reference(device, seed):
+    """full_pipe's step in one process on the card (the whole 4-block
+    model): its loss, seconds, peak GB and launches; its gradients saved to
+    FULL_PIPE_REF for the ranks."""
+    import torch
+    cfg = full_pipe_config()
+    loss, model, seconds, peak, launches = pipe_step(
+        device, torch.bfloat16, cfg, seed,
+        pipe_batch(cfg, FULL_PIPE_GEOMETRY, seed + 7, 512))
+    os.makedirs(os.path.dirname(FULL_PIPE_REF), exist_ok=True)
+    torch.save({n: p.grad.detach().cpu()
+                for n, p in model.named_parameters()}, FULL_PIPE_REF)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "seconds": seconds, "peak": peak,
+            "launches": launches}
+
+
+def _full_pipe_rank(rank, seed):
+    """full_pipe on this rank (stage): the step, then the relative L2 of
+    each of its gradients against the one-process run's."""
+    import torch
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    dev = _rank_setup()
+    cfg = full_pipe_config()
+    loss, model, seconds, peak, launches = pipe_step(
+        dev, torch.bfloat16, cfg, seed,
+        pipe_batch(cfg, FULL_PIPE_GEOMETRY, seed + 7, 512),
+        make_pipe_mesh(PIPE_STAGES))
+    ref = torch.load(FULL_PIPE_REF, mmap=True, weights_only=True)
+    errs = {}
+    for n, p in model.named_parameters():
+        want = ref[n].to(dev).float()
+        errs[n] = ((p.grad.float() - want).norm()
+                   / want.norm().clamp_min(1e-30)).item()
+    _rank_record(rank, loss=loss, seconds=seconds, peak_gb=peak,
+                 launches=launches, grad_rel_l2=errs,
+                 blocks=sorted({n.split(".")[1] for n in errs
+                                if n.startswith("blocks.")}, key=int))
+
+
+def check_full_pipe(ref, records):
+    """full_pipe's ranks against the one-process step on the card
+    (``ref``): the same loss on both ranks, within TRAIN_TOL of one
+    process's, every gradient's relative L2 within TRAIN_TOL, exact
+    launches per rank. Returns the launches, all ranks summed."""
+    cfg = full_pipe_config()
+    worst = {r: max(rec["grad_rel_l2"].items(), key=lambda kv: kv[1])
+             for r, rec in enumerate(records)}
+    loss_err = abs(records[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    want = pipe_train_launches(cfg, cfg.num_layers // PIPE_STAGES,
+                               pipe_tokens(FULL_PIPE_GEOMETRY), 512)
+    say("full_pipe", stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
+        blocks=cfg.num_layers, geometry="x".join(map(str,
+                                                      FULL_PIPE_GEOMETRY)),
+        loss=f"{records[0]['loss']:.5f}|{ref['loss']:.5f}",
+        loss_rel=f"{loss_err:.3e}",
+        rank_blocks="|".join(",".join(r["blocks"]) for r in records),
+        worst_grad_rel_l2="|".join(f"{n}:{v:.3e}"
+                                   for n, v in worst.values()),
+        one_process_step_seconds=f"{ref['seconds']:.3f}",
+        one_process_peak_gb=f"{ref['peak']:.2f}",
+        rank_step_seconds="|".join(f"{r['seconds']:.3f}" for r in records),
+        rank_peak_gb="|".join(f"{r['peak_gb']:.2f}" for r in records),
+        rank0_launches=_nonzero(records[0]["launches"]))
+    bad = {n: v for r in records for n, v in r["grad_rel_l2"].items()
+           if not v <= TRAIN_TOL}
+    if (bad or not loss_err <= TRAIN_TOL
+            or len({r["loss"] for r in records}) != 1):
+        raise AssertionError(f"full_pipe: beyond {TRAIN_TOL} of one "
+                             f"process: gradients {bad}, loss {loss_err}, "
+                             f"the ranks' losses "
+                             f"{[r['loss'] for r in records]}")
+    launch_err = [r for r, rec in enumerate(records)
+                  if rec["launches"] != want]
+    if launch_err:
+        raise AssertionError(f"full_pipe: ranks {launch_err} launched "
+                             f"{[records[r]['launches'] for r in launch_err]}"
+                             f", not {want}")
+    return _add(*(r["launches"] for r in records))
+
+
+# the trainer CLI's pipeline mode on 2 stages: the JAX trainer's demo DiT at
+# dim 256 (8 heads of 32 -> d64, D zero-padded to 64), 4 blocks
+PIPE_TRAIN_CLI_ARGS = ["--synthetic", "--pipe_stages", "2", "--demo_dim",
+                       "256", "--demo_layers", "4", "--warmup", "1", "--lr",
+                       "1e-3", "--log_every", "1", "--device", "cuda"]
+TRAIN_CLI_PIPE_DIR = os.path.join(REPO, "build", "train_cli_pipe")
+
+
+def _train_cli_pipe_rank(rank):
+    """``cli.train``'s ``run`` on this stage of a 2-stage pipeline (the
+    process group open already): 2 steps saved into TRAIN_CLI_PIPE_DIR,
+    then resumed to step 3; each run's final loss, seconds and
+    launches."""
+    from fantasy_world_tpu_torch.cli.train import main as train_main
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    _rank_setup()
+    runs = []
+    for steps in (2, 3):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = train_main(PIPE_TRAIN_CLI_ARGS + [
+            "--steps", str(steps), "--checkpoint_dir", TRAIN_CLI_PIPE_DIR])
+        runs.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "launches": dict(fa.LAUNCHES)})
+    _rank_record(rank, runs=runs,
+                 checkpoints=(sorted(os.listdir(TRAIN_CLI_PIPE_DIR))
+                              if rank == 0 else None))
+
+
+def check_train_cli_pipe(records):
+    """The pipeline CLI run: the same finite loss on both stages, both
+    checkpoints, the d64 stats forward and both backward kernels launched
+    on every rank in every run. Returns the launches, all ranks summed."""
+    routes = ("d64_stats", "bwd_dq_64", "bwd_dkv_64")
+    saved = records[0]["checkpoints"]
+    say("train_cli_pipe", stages=PIPE_STAGES, ranks=len(records),
+        losses="|".join("/".join(f"{run['loss']:.5f}" for run in r["runs"])
+                        for r in records),
+        checkpoints="|".join(saved),
+        rank_seconds="|".join("/".join(f"{run['seconds']:.1f}"
+                                       for run in r["runs"])
+                              for r in records),
+        rank0_launches="|".join(_nonzero(run["launches"])
+                                for run in records[0]["runs"]))
+    total = {}
+    for i in range(2):
+        losses = {r["runs"][i]["loss"] for r in records}
+        if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train CLI on a pipeline: run {i} losses "
+                                 f"{sorted(losses)}")
+        for r in records:
+            idle = [k for k in routes if r["runs"][i]["launches"][k] == 0]
+            if idle:
+                raise AssertionError(f"train CLI on a pipeline: run {i} "
+                                     f"launched no {idle}")
+            total = _add(total, r["runs"][i]["launches"])
+    if saved != ["step_00000002", "step_00000003"]:
+        raise AssertionError(f"train CLI on a pipeline: checkpoints {saved}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # the serving options on a mesh: int8 / fp8, TeaCache, the sliding window,
 # the Wan2.2 dual-expert denoise and the server, on ranks sharing this card
 # (as small_mesh and full_mesh run them: their times are one card's)
@@ -3839,8 +4205,12 @@ def phase_small_meshes(device, cpu_outs):
     seeded model and batch (the background process's) within TRAIN_TOL,
     with exact launches on every rank, the backward's included.
 
+    small_pipe (a job of the 2-rank spawn): one GPipe step of the reduced
+    plain DiT over 2 stages, M = 2, against the CPU's one-process f32 step
+    (``check_small_pipe``).
+
     Returns (small_mesh's launches, small_mesh_serving's,
-    small_mesh_train's), all ranks summed."""
+    small_mesh_train's, small_pipe's), all ranks summed."""
     import shutil
     t_phase = time.perf_counter()
     cpu = small_serving_prepare()
@@ -3854,17 +4224,23 @@ def phase_small_meshes(device, cpu_outs):
         jobs.setdefault(int(np.prod(shape)), []).append(
             ("train" + mesh_tag(shape), _small_mesh_train_rank,
              (shape, uly, modes)))
+    jobs[PIPE_STAGES].append(("pipe_small_", _small_pipe_rank, ()))
     for shape, (uly, cases) in sorted(SMALL_SERVING_CASES.items(),
                                       key=lambda kv: "server" in kv[1][1]):
         jobs.setdefault(int(np.prod(shape)), []).append(
             ("serving" + mesh_tag(shape), _small_serving_rank,
              (shape, uly, cases)))
-    mesh, serving, train = {}, {}, {}
+    mesh, serving, train, pipe = {}, {}, {}, {}
     train_cpu = None
     for world, world_jobs in sorted(jobs.items()):
         t0 = time.perf_counter()
         records = mesh_jobs(world, world_jobs)
-        for tag, _, (shape, uly, third) in world_jobs:
+        for tag, _, args in world_jobs:
+            if tag == "pipe_small_":
+                pipe = check_small_pipe(records[tag],
+                                        cpu_side("small_pipe"))
+                continue
+            shape, uly, third = args
             if tag.startswith("mesh"):
                 mesh = _add(mesh, check_small_mesh(shape, uly, records[tag],
                                                    cpu_outs))
@@ -3880,7 +4256,7 @@ def phase_small_meshes(device, cpu_outs):
             seconds=f"{time.perf_counter() - t0:.2f}")
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
     say("small_meshes_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return mesh, serving, train
+    return mesh, serving, train, pipe
 
 
 FULL_SERVING_DIR = os.path.join(REPO, "build", "mesh_serving_full")
@@ -6504,10 +6880,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the mesh phases: ranks that share the card, before the full model
     # takes it
-    mesh, mesh_serving, mesh_train = phase_small_meshes(device, small_cpu)
-    full_mesh, full_mesh_train = phase_full_mesh(device)
+    # (pipe_train: the pipeline trainer's launches; ``pipe`` below is the
+    # full model's pipeline)
+    mesh, mesh_serving, mesh_train, pipe_train = phase_small_meshes(
+        device, small_cpu)
+    full_mesh, full_mesh_train, full_pipe = phase_full_mesh(device)
     mesh = _add(mesh, full_mesh)
     mesh_train = _add(mesh_train, full_mesh_train)
+    pipe_train = _add(pipe_train, full_pipe)
     gc.collect()
     torch.cuda.empty_cache()
     mesh_serving = _add(mesh_serving, phase_full_mesh_serving(device))
@@ -6567,10 +6947,12 @@ def main(argv=None) -> int:
                          + mesh.get(k, 0) + mesh.get(f"{k}_stats", 0)
                          + mesh_serving.get(k, 0)
                          + mesh_serving.get(f"{k}_stats", 0)
-                         + mesh_train.get(f"{k}_stats", 0)),
+                         + mesh_train.get(f"{k}_stats", 0)
+                         + pipe_train.get(f"{k}_stats", 0)),
             "denoise_launches": denoise[k],
             "mesh_launches": mesh.get(k, 0) + mesh.get(f"{k}_stats", 0),
             "mesh_train_launches": mesh_train.get(f"{k}_stats", 0),
+            "pipe_train_launches": pipe_train.get(f"{k}_stats", 0),
             "mesh_serving_launches": (mesh_serving.get(k, 0)
                                       + mesh_serving.get(f"{k}_stats", 0)),
             "verify_launches": verify[k],
@@ -6587,7 +6969,8 @@ def main(argv=None) -> int:
             "stats_launches": (train[f"{k}_stats"] + data_train[f"{k}_stats"]
                                + mesh.get(f"{k}_stats", 0)
                                + mesh_serving.get(f"{k}_stats", 0)
-                               + mesh_train.get(f"{k}_stats", 0)),
+                               + mesh_train.get(f"{k}_stats", 0)
+                               + pipe_train.get(f"{k}_stats", 0)),
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], **{n: pk[n] for n in yard},
             "stats_ms": pk["stats_ms"],
@@ -6605,15 +6988,19 @@ def main(argv=None) -> int:
                         + mesh.get(f"{k}_stats", 0)
                         + mesh_serving.get(f"{k}_stats", 0)
                         + mesh_train.get(f"{k}_stats", 0)
+                        + pipe_train.get(f"{k}_stats", 0)
                         for k in fa.ROUTES),
         "launches_by_route": {k: train[f"{k}_stats"]
                               + data_train[f"{k}_stats"]
                               + mesh.get(f"{k}_stats", 0)
                               + mesh_serving.get(f"{k}_stats", 0)
                               + mesh_train.get(f"{k}_stats", 0)
+                              + pipe_train.get(f"{k}_stats", 0)
                               for k in fa.ROUTES},
         "mesh_launches": sum(mesh.get(f"{k}_stats", 0) for k in fa.ROUTES),
         "mesh_train_launches": sum(mesh_train.get(f"{k}_stats", 0)
+                                   for k in fa.ROUTES),
+        "pipe_train_launches": sum(pipe_train.get(f"{k}_stats", 0)
                                    for k in fa.ROUTES),
         "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
                            for k in fa.ROUTES),
@@ -6626,12 +7013,16 @@ def main(argv=None) -> int:
             "replaces": REPLACES[k],
             "launches": sum(train[f"{k}_{d}"] + data_train[f"{k}_{d}"]
                             + mesh_train.get(f"{k}_{d}", 0)
+                            + pipe_train.get(f"{k}_{d}", 0)
                             for d in fa.BWD_D),
             "launches_by_head_dim": {d: train[f"{k}_{d}"]
                                      + data_train[f"{k}_{d}"]
                                      + mesh_train.get(f"{k}_{d}", 0)
+                                     + pipe_train.get(f"{k}_{d}", 0)
                                      for d in fa.BWD_D},
             "mesh_train_launches": sum(mesh_train.get(f"{k}_{d}", 0)
+                                       for d in fa.BWD_D),
+            "pipe_train_launches": sum(pipe_train.get(f"{k}_{d}", 0)
                                        for d in fa.BWD_D),
             "data_train_launches": sum(data_train[f"{k}_{d}"]
                                        for d in fa.BWD_D),

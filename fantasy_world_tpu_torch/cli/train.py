@@ -53,8 +53,35 @@ every rank sees the same loss. With ``--data_root`` and ``--mesh_data`` >
 (``_stacked_data_batches``). Rank 0 saves the whole trainable tensors and
 AdamW moments under the one-process names, gathered over the model group;
 every rank resumes its part, so a checkpoint moves between a mesh and one
-process. ``--pipe_stages`` exits: the pipeline-parallel trainer is a later
-multi-GPU slice (ROADMAP queue A item 5(c)).
+process.
+
+Pipeline parallelism: ``--pipe_stages S [--pipe_microbatches M]
+[--mesh_data D]`` fine-tunes the PLAIN Wan video DiT (a homogeneous block
+stack, unlike the fusion model's PCB/IRG mix) with the blocks split over
+S stages of a ('pipe', 'data') mesh, S * D processes under torchrun
+(one process for S = D = 1):
+
+    torchrun --nproc_per_node 2 -m fantasy_world_tpu_torch.cli.train \
+        --synthetic --pipe_stages 2 --pipe_microbatches 2 ...
+
+Each rank builds the whole embeddings and head and only its stage's
+blocks, with their gradients and AdamW moments (``training/pp.py``), and
+M microbatches of a batch of M * D march through the stages
+(``parallel/pipeline.py``; bubble (S - 1) / (M + S - 1)). At full width
+(5120 wide, 40 heads, FFN 13824) a block is 403.8M parameters, ~3.2 GB
+with bf16 weights, gradients and AdamW moments (8 bytes a parameter:
+torch keeps a bf16 parameter's moments in bf16), the embeddings and head
+241M (~1.9 GB), so 2 blocks a stage hold ~8.4 GB of state a rank before
+the step's activations. ``--synthetic``
+runs the JAX trainer's demo DiT (``--demo_dim``, ``--demo_layers``) on
+its numpy stream; with ``--data_root`` the plain DiT loads from the
+shards of ``--wan_ckpt_path`` (each rank reads its blocks) beside umT5,
+CLIP and the VAE (no fusion model, no pose encoder: no Plucker
+conditioning), M * D clips a step with a sigma each. Rank 0 saves the
+whole tensors under the plain DiT's one-process names, gathered over the
+stages, and every rank resumes its part, so a checkpoint moves between
+stage counts. ``--pipe_stages`` does not combine with ``--lora_rank``,
+``--mesh_seq`` or ``--mesh_model``.
 """
 from __future__ import annotations
 
@@ -110,8 +137,14 @@ def parse_args(argv=None):
                    help="write a torch.profiler Chrome trace of the train "
                         "loop into this directory")
     p.add_argument("--pipe_stages", type=int, default=0,
-                   help="GPipe stages (not in the port yet: multi-GPU)")
-    p.add_argument("--pipe_microbatches", type=int, default=2)
+                   help="GPipe pipeline-parallel stages for plain video-DiT "
+                        "training (training/pp.py): the block stack splits "
+                        "over the stages, dividing its weights, gradients "
+                        "and optimizer state by the stage count. 0 (the "
+                        "default) = the fusion trainer")
+    p.add_argument("--pipe_microbatches", type=int, default=2,
+                   help="microbatches marching through the pipeline per "
+                        "step (bubble fraction = (S-1)/(M+S-1))")
     # synthetic-mode model scale (kept tiny so CPU smoke tests are cheap)
     p.add_argument("--demo_dim", type=int, default=128)
     p.add_argument("--demo_layers", type=int, default=2)
@@ -148,6 +181,14 @@ class _Run:
         self.trainable, self.opt, self.sched = trainable, opt, sched
         self.model, self.mesh = model, mesh
         self.device = next(iter(trainable.values())).device
+        # where a checkpoint's whole tensors are read to, and whether they
+        # are mapped from the file rather than read whole
+        self.map_location, self.mmap = self.device, False
+
+    def accepts(self, names) -> bool:
+        """Whether a checkpoint of the trainable tensors ``names`` is this
+        run's."""
+        return set(names) == set(self.trainable)
 
     def _moments(self, state, fn):
         """``state`` (an optimizer state dict) with ``fn(name, t)`` applied
@@ -215,8 +256,9 @@ def _resume_state(args, run: _Run, log):
     if latest is None:
         return 0, {}
     state = torch.load(os.path.join(root, f"step_{latest:08d}", "state.pt"),
-                       map_location=run.device, weights_only=True)
-    if set(state["trainable"]) != set(run.trainable):
+                       map_location=run.map_location, mmap=run.mmap,
+                       weights_only=True)
+    if not run.accepts(state["trainable"]):
         raise SystemExit(f"checkpoint {root} holds other parameters than "
                          f"this run trains")
     run.load(state["trainable"], state["optimizer"])
@@ -303,11 +345,13 @@ def _clip_dirs(root):
                   if os.path.isdir(d))
 
 
-def read_clip(clip: str, height: int, width: int, frames: int):
+def read_clip(clip: str, height: int, width: int, frames: int,
+              with_plucker: bool = True):
     """One clip directory -> (frames (n, height, width, 3) uint8, prompt,
     Plucker rays (1, n, height, width, 6) or None), n = min(its frames,
     ``frames``); the rays are first-frame-relative with frame 0 at the
-    origin, one per frame, from ``poses.txt``."""
+    origin, one per frame, from ``poses.txt`` (not read without
+    ``with_plucker``)."""
     from ..data.re10k import re10k_plucker
     from ..data.video import VideoData
     src = os.path.join(clip, "video.mp4")
@@ -322,15 +366,18 @@ def read_clip(clip: str, height: int, width: int, frames: int):
         prompt = fh.read().strip()
     pose_file = os.path.join(clip, "poses.txt")
     plucker = (re10k_plucker(pose_file, n, (height, width))
-               if os.path.exists(pose_file) else None)
+               if with_plucker and os.path.exists(pose_file) else None)
     return clip_frames, prompt, plucker
 
 
-def _data_batches(pipe, args, start: int = 0, stage_callback=None):
+def _data_batches(pipe, args, start: int = 0, stage_callback=None,
+                  with_plucker: bool = True):
     """Step ``start``, ``start`` + 1, ... -> ``build_train_batch`` of clip
     step mod the clip count, its noise drawn from a generator seeded by
     (--seed, step); ``stage_callback(name)`` runs after the clip is read
-("read_clip") and after each stage of the build."""
+("read_clip") and after each stage of the build. ``with_plucker=False``
+    skips the camera poses (the pipeline trainer's plain DiT takes none,
+    and its encoders have no pose encoder)."""
     from ..training.data import build_train_batch
 
     clips = _clip_dirs(args.data_root)
@@ -338,7 +385,7 @@ def _data_batches(pipe, args, start: int = 0, stage_callback=None):
     while True:
         frames, prompt, plucker = read_clip(clips[step % len(clips)],
                                             args.height, args.width,
-                                            args.frames)
+                                            args.frames, with_plucker)
         if stage_callback is not None:
             stage_callback("read_clip")
         gen = torch.Generator(pipe.device).manual_seed(int(
@@ -358,16 +405,20 @@ class _stacked_data_batches:
     whole cycle of clips without a match exits. ``start``: the position in
     ``_data_batches``' stream to begin at; ``position`` is where the next
     batch begins, which a checkpoint keeps (``data_position``), so a
-    resumed run continues as an unbroken one."""
+    resumed run continues as an unbroken one. ``with_plucker=False``: no
+    Plucker features (the pipeline trainer's batches)."""
 
     KEYS = ("clean_latents", "noise", "context", "clip_feature", "y",
             "plucker_fea")
 
-    def __init__(self, pipe, args, B: int, start: int = 0):
+    def __init__(self, pipe, args, B: int, start: int = 0,
+                 with_plucker: bool = True):
         from ..utils.observability import get_logger
         self.log = get_logger("train.batch")
         self.B, self.position = B, start
-        self.inner = _data_batches(pipe, args, start)
+        self.keys = self.KEYS if with_plucker else self.KEYS[:-1]
+        self.inner = _data_batches(pipe, args, start,
+                                   with_plucker=with_plucker)
         self.ref_shape = (1, pipe.vae_cfg.z_dim, (args.frames - 1) // 4 + 1,
                           args.height // 8, args.width // 8)
         self.n_clips = len(_clip_dirs(args.data_root))
@@ -400,7 +451,7 @@ class _stacked_data_batches:
     def __next__(self):
         parts = [self._next_uniform() for _ in range(self.B)]
         batch = {}
-        for k in self.KEYS:
+        for k in self.keys:
             vals = [p.get(k) for p in parts]
             if any(v is None for v in vals):
                 continue
@@ -413,22 +464,260 @@ class _stacked_data_batches:
 
 
 def _check_args(args) -> None:
-    """SystemExit for the mode that a later multi-GPU slice brings, for a
-    mesh without its processes, and for a real-data run without its paths
-    or clips."""
+    """SystemExit for a mesh without its processes, for a real-data run
+    without its paths or clips and, with --pipe_stages, for what the
+    pipeline trainer does not run (``_check_pipe``)."""
     from .infer_wan21 import check_mesh
     if args.pipe_stages > 0:
-        raise SystemExit("--pipe_stages: the pipeline-parallel trainer is a "
-                         "later multi-GPU slice of the port (ROADMAP queue "
-                         "A item 5(c))")
-    check_mesh(args)
+        _check_pipe(args)
+    else:
+        check_mesh(args)
     if args.synthetic:
         return
     if not (args.wan_ckpt_path and args.model_ckpt and args.data_root):
-        raise SystemExit("real-data mode needs --wan_ckpt_path, "
-                         "--model_ckpt and --data_root (or --synthetic)")
+        need = ("real-data PP mode needs --wan_ckpt_path (DiT shards; the "
+                "conditioning encoders load from the same bundle), "
+                if args.pipe_stages > 0 else
+                "real-data mode needs --wan_ckpt_path, ")
+        raise SystemExit(need + "--model_ckpt and --data_root (or "
+                                "--synthetic)")
     if not (os.path.isdir(args.data_root) and _clip_dirs(args.data_root)):
         raise SystemExit(f"no clip subdirectories under {args.data_root}")
+
+
+def _pipe_config(args):
+    """The plain DiT the pipeline trainer fine-tunes: the JAX trainer's
+    demo config (--synthetic), else ``WanDiTConfig()`` -- or the DiT of a
+    ``configs.json`` beside the checkpoints, without camera adapters."""
+    import dataclasses
+
+    from ..models.wan.dit import WanDiTConfig
+    if args.synthetic:
+        dim = args.demo_dim
+        return WanDiTConfig(dim=dim, in_dim=16, ffn_dim=dim * 2, out_dim=16,
+                            text_dim=4096, freq_dim=128, patch_size=(1, 2, 2),
+                            num_heads=max(2, dim // 32),
+                            num_layers=args.demo_layers,
+                            has_image_input=False)
+    if not args.wan_ckpt_path:
+        return WanDiTConfig()
+    from ..convert.checkpoint import read_configs
+    return dataclasses.replace(read_configs(args.wan_ckpt_path)["fusion"].dit,
+                               camera_adapter_end=0)
+
+
+def _check_pipe(args) -> None:
+    """The JAX trainer's exits for --pipe_stages, in its order, all before
+    any checkpoint is read: LoRA, a seq or model axis, a process count
+    other than pipe x data, and a block count the stages do not divide."""
+    if args.lora_rank:
+        raise SystemExit("--pipe_stages does not compose with --lora_rank")
+    if args.mesh_seq != 1 or args.mesh_model != 1:
+        raise SystemExit("the PP trainer wires a ('pipe','data') mesh; "
+                         "seq/model axes compose at the library level "
+                         "(parallel/pipeline.py) but are not CLI-wired")
+    S, D = args.pipe_stages, max(1, args.mesh_data)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != S * D:
+        raise SystemExit(f"--pipe_stages: pipe={S} x data={D} needs "
+                         f"{S * D} processes, one per rank (multi-GPU runs "
+                         f"under torchrun): launch with torchrun "
+                         f"--nproc_per_node {S * D} (WORLD_SIZE is {world})")
+    layers = _pipe_config(args).num_layers
+    if layers % S:
+        raise SystemExit(f"{layers} blocks not divisible by {S} stages")
+
+
+def _pp_batches(cfg, args, device):
+    """Infinite random DiT flow-matching batches of M x D samples: the JAX
+    trainer's numpy stream (``default_rng(seed)``), f32 on ``device``;
+    every rank takes the whole batch, the data ranks their rows of it."""
+    from ..schedulers.flow_match import FlowMatchScheduler
+
+    B = args.pipe_microbatches * max(1, args.mesh_data)
+    f, h2, w2 = 2, 8, 8
+    sched = FlowMatchScheduler().set_timesteps(1000)
+    rng = np.random.default_rng(args.seed)
+    while True:
+        idx = int(rng.integers(0, len(sched.sigmas)))
+        batch = {
+            "clean_latents": rng.standard_normal((B, cfg.in_dim, f, h2, w2)),
+            "noise": rng.standard_normal((B, cfg.in_dim, f, h2, w2)),
+            "sigma": np.float32(sched.sigmas[idx]),
+            "timestep": np.full((B,), float(sched.timesteps[idx]),
+                                np.float32),
+            "context": rng.standard_normal((B, 64, cfg.text_dim)) * 0.02,
+        }
+        yield {k: (torch.as_tensor(np.asarray(v, np.float32), device=device)
+                   if np.ndim(v) > 0 else float(v))
+               for k, v in batch.items()}
+
+
+def _pp_data_batches(pipe, args, start: int = 0):
+    """Real-clip pipeline batches: M x D clips a step, a sigma each, no
+    Plucker features (``_stacked_data_batches``)."""
+    return _stacked_data_batches(
+        pipe, args, args.pipe_microbatches * max(1, args.mesh_data), start,
+        with_plucker=False)
+
+
+class _PipeRun(_Run):
+    """What the pipeline trainer saves and resumes: a checkpoint holds the
+    plain DiT's whole tensors and AdamW moments under its one-process
+    names, in its order; a rank holds its stage's blocks and lite (its
+    part of them on a model split)."""
+
+    def __init__(self, trainable, opt, sched, model, pipe):
+        super().__init__(trainable, opt, sched, model,
+                         pipe if pipe.world > 1 else None)
+        from ..core.params import build
+        from ..models.wan.dit import WanDiT
+        self.pipe = pipe
+        self.names = [n for n, _ in build(
+            lambda: WanDiT(model.cfg), device="meta",
+            dtype=torch.float32).named_parameters()]
+        # mapped: a rank pages in only its stage's tensors of the file
+        self.map_location, self.mmap = torch.device("cpu"), True
+
+    def accepts(self, names) -> bool:
+        return set(names) == set(self.names)
+
+    def whole(self):
+        """Every rank calls it; the whole tensors on rank 0 (empty dicts
+        elsewhere): gathered over the model group, then over the stages."""
+        from ..parallel.pipeline import gather_stages
+        from ..parallel.sharding import whole_tensor
+        inner = self.pipe.inner
+        state = self.opt.state_dict()
+        own = list(self.trainable)
+        entries = {}
+        for i, name in enumerate(own):
+            entries[f"param/{name}"] = whole_tensor(
+                self.trainable[name].detach(), name, self.model, inner)
+            for key, t in state["state"].get(i, {}).items():
+                if torch.is_tensor(t) and t.dim() > 0:
+                    t = whole_tensor(t, name, self.model, inner)
+                # AdamW's step count lives on the host: it crosses on the
+                # device, as NCCL takes only device tensors
+                entries[f"{key}/{name}"] = torch.as_tensor(t).to(
+                    self.device)
+        if inner.rank != 0:
+            return {}, {}
+        got = gather_stages(entries, self.pipe, self.device)
+        if got is None:
+            return {}, {}
+        trainable = {n: got[f"param/{n}"] for n in self.names}
+        keys = sorted({k.split("/", 1)[0] for k in got} - {"param"})
+        group = {k: v for k, v in state["param_groups"][0].items()
+                 if k != "params"}
+        return trainable, {
+            "state": {i: {k: got[f"{k}/{n}"] for k in keys
+                          if f"{k}/{n}" in got}
+                      for i, n in enumerate(self.names)},
+            "param_groups": [dict(group, params=list(range(
+                len(self.names))))]}
+
+    def load(self, trainable, optimizer):
+        from ..parallel.sharding import part_of_whole
+        index = {n: i for i, n in enumerate(trainable)}
+        own = list(self.trainable)
+
+        def part(name, t):
+            if not (torch.is_tensor(t) and t.dim() > 0):
+                return t
+            return part_of_whole(t, name, self.model).to(self.device)
+        for name, p in self.trainable.items():
+            p.copy_(part(name, trainable[name]))
+        group = {k: v for k, v in optimizer["param_groups"][0].items()
+                 if k != "params"}
+        self.opt.load_state_dict({
+            "state": {j: {k: part(n, t) for k, t in
+                          optimizer["state"][index[n]].items()}
+                      for j, n in enumerate(own)
+                      if index[n] in optimizer["state"]},
+            "param_groups": [dict(group, params=list(range(len(own))))]})
+
+
+def _start_pipe(args):
+    """(this rank's device, its pipe mesh): the process group opened from
+    torchrun's environment (or by the caller) for pipe x data > 1."""
+    from ..parallel import distributed
+    from ..parallel.pipeline import make_pipe_mesh, single_pipe
+    device = torch.device(args.device)
+    S, D = args.pipe_stages, max(1, args.mesh_data)
+    if S * D == 1:
+        return device, single_pipe()
+    distributed.initialize(device)
+    device = distributed.rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device, make_pipe_mesh(S, data=D)
+
+
+def _pipe_model(args, cfg, pipe, device, dtype, log):
+    """(this rank's ``StageDiT``, the encoder pipeline or None): seeded
+    (--synthetic), else the plain DiT's blocks of this stage from the
+    shards and umT5, CLIP and the VAE of the same checkpoint directory."""
+    from ..training.pp import build_stage_dit
+    if args.synthetic:
+        return build_stage_dit(cfg, pipe, device=device, dtype=dtype,
+                               seed=args.seed), None
+    from ..convert.checkpoint import (dit_shards, load_into, load_pipeline,
+                                      missing_files, plain_dit_state_dict)
+    if not dit_shards(args.wan_ckpt_path):
+        raise SystemExit(f"no DiT shards under {args.wan_ckpt_path}")
+    encoders = ("t5", "clip", "vae")
+    missing = missing_files(args.wan_ckpt_path, None, encoders)
+    if missing:
+        raise SystemExit("checkpoint files missing: " + ", ".join(missing))
+    t0 = time.perf_counter()
+    enc = load_pipeline(args.wan_ckpt_path, None, device=device, dtype=dtype,
+                        tokenizer_path=args.tokenizer_path,
+                        components=encoders)
+    model = build_stage_dit(cfg, pipe, device=device, dtype=dtype)
+    load_into(model, plain_dit_state_dict(args.wan_ckpt_path, cfg,
+                                          model.state_dict()), "dit")
+    log.info("loaded the encoders and blocks %s of %s in %.1fs",
+             ",".join(model.blocks), args.wan_ckpt_path,
+             time.perf_counter() - t0)
+    return model, enc
+
+
+def _run_pipe(args, device, pipe, log) -> Optional[float]:
+    """--pipe_stages S: the GPipe trainer of the plain video DiT
+    (``training/pp.py``) on this rank's stage."""
+    from ..training.pp import make_pp_train_step
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    cfg = _pipe_config(args)
+    model, enc = _pipe_model(args, cfg, pipe, device, dtype, log)
+    S, D, M = pipe.stages, pipe.inner.size("data"), args.pipe_microbatches
+    log.info("PP trainer: %d blocks over %d stages x data=%d, "
+             "M=%d microbatches (bubble %.0f%%), batch %d",
+             cfg.num_layers, S, D, M, 100 * (S - 1) / (M + S - 1), M * D)
+    trainable = dict(model.named_parameters())
+    opt, sched = _optimizer(args, list(trainable.values()))
+    run = _PipeRun(trainable, opt, sched, model, pipe)
+    start, saved = _resume_state(args, run, log)
+    if start >= args.steps:
+        print(f"train done: checkpoint already at step {start} "
+              f">= --steps {args.steps}")
+        return None
+    step_fn = make_pp_train_step(model, opt, sched, pipe=pipe,
+                                 microbatches=M, remat=not args.no_remat)
+    if enc is None:
+        batches = _pp_batches(cfg, args, device)
+        for _ in range(start):          # a resumed run continues the stream
+            next(batches)
+    else:
+        batches = _pp_data_batches(
+            enc, args, int(saved.get("data_position", start * M * D)))
+    loss_val = _train_loop(args, step_fn, batches, run, start, log)
+    where = "" if pipe.world == 1 else (
+        f" on {pipe.world} ranks (pipe {S} x data {D})")
+    print(f"train done: {args.steps - start} step(s){where}, final loss "
+          f"{loss_val:.5f}")
+    return loss_val
 
 
 def _model(args, device, dtype, log, mesh=None):
@@ -476,11 +765,18 @@ def run(args) -> Optional[float]:
     # a caller that opened the process group (ranks spawned by
     # ``distributed.spawn``) closes it; torchrun's ranks close it here
     opened = not dist.is_initialized()
-    device, mesh = start_mesh(args)
+    if args.pipe_stages > 0:
+        device, pipe = _start_pipe(args)
+        ranks = pipe.world
+    else:
+        device, mesh = start_mesh(args)
+        ranks = 1 if mesh is None else mesh.world
     try:
+        if args.pipe_stages > 0:
+            return _run_pipe(args, device, pipe, log)
         return _run(args, device, mesh, log)
     finally:
-        if mesh is not None and opened:
+        if ranks > 1 and opened:
             from ..parallel import distributed
             distributed.shutdown()
 

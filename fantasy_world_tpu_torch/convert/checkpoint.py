@@ -56,7 +56,7 @@ import glob
 import json
 import os
 import re
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -191,19 +191,23 @@ def _missing_components(wan_ckpt_path: str, want) -> List[str]:
             if c not in have]
 
 
-def missing_files(wan_ckpt_path: str, model_ckpt: Optional[str]
+def missing_files(wan_ckpt_path: str, model_ckpt: Optional[str],
+                  components: Sequence[str] = WAN21_COMPONENTS
                   ) -> List[str]:
-    """The checkpoint files that ``load_pipeline`` needs and cannot find
-    (of a bundle: its components; ``model_ckpt`` is then not read)."""
+    """The checkpoint files that ``load_pipeline`` needs for
+    ``components`` and cannot find (of a bundle: its components;
+    ``model_ckpt`` is then not read)."""
     if is_bundle(wan_ckpt_path):
-        return _missing_components(wan_ckpt_path, WAN21_COMPONENTS)
-    missing = [] if dit_shards(wan_ckpt_path) else [
-        os.path.join(wan_ckpt_path, DIT_SHARDS)]
-    missing += [p for p in [model_ckpt] + [
-        os.path.join(wan_ckpt_path, f) for f in (VAE_FILE, CLIP_FILE,
-                                                  T5_FILE)]
-        if not os.path.isfile(p)]
-    return missing
+        return _missing_components(wan_ckpt_path, components)
+    missing, files = [], []
+    if "fusion" in components:
+        if not dit_shards(wan_ckpt_path):
+            missing.append(os.path.join(wan_ckpt_path, DIT_SHARDS))
+        files.append(model_ckpt)
+    files += [os.path.join(wan_ckpt_path, f) for c, f in (
+        ("vae", VAE_FILE), ("clip", CLIP_FILE), ("t5", T5_FILE))
+        if c in components]
+    return missing + [p for p in files if not os.path.isfile(p)]
 
 
 def missing_files_wan22(wan_ckpt_path: str, model_ckpt_high: str,
@@ -321,6 +325,19 @@ def dit_state_dict_from(sd: Mapping[str, torch.Tensor], cfg: WanDiTConfig
         if name in out:
             out[name] = _permute(out[name], head_dim)
     return out
+
+
+def plain_dit_state_dict(wan_ckpt_path: str, cfg: WanDiTConfig,
+                         names=None) -> Dict[str, torch.Tensor]:
+    """The plain Wan DiT of the reference layout's shards as the
+    standalone ``WanDiT``'s state dict (``dit_state_dict_from``): of
+    ``names`` only when given -- a pipeline stage reads its own blocks, the
+    rest of the mapped files is never read."""
+    sd = read_shards(dit_shards(wan_ckpt_path))
+    if names is not None:
+        names = set(names)
+        sd = {k: v for k, v in sd.items() if k in names}
+    return dit_state_dict_from(sd, cfg)
 
 
 def dit_reference_state_dict(sd: Mapping[str, torch.Tensor],
@@ -476,26 +493,32 @@ def _encoder_state_dicts(wan_ckpt_path: str, names) -> Dict[str, Dict]:
 
 
 def pipeline_state_dicts(wan_ckpt_path: str, model_ckpt: Optional[str],
-                         cfg: FusionConfig, encoders: bool = True
+                         cfg: FusionConfig, encoders: bool = True,
+                         components: Sequence[str] = WAN21_COMPONENTS
                          ) -> Dict[str, Dict]:
     """The Wan2.1 reference layout (or bundle) -> {"fusion", "pose" (when
-    the fusion file holds one), "t5", "clip", "vae" (unless ``encoders``
-    is False)}: each a state dict in the port's names, tensors mapped from
-    the files."""
-    enc = ("t5", "clip", "vae") if encoders else ()
+    the fusion file holds one), "t5", "clip", "vae"} of ``components``
+    (the encoders left out when ``encoders`` is False): each a state dict
+    in the port's names, tensors mapped from the files. Without "fusion"
+    neither ``model_ckpt`` nor the DiT shards are read (the pipeline
+    trainer's encoders)."""
+    want = [c for c in components
+            if encoders or c not in ("t5", "clip", "vae")]
     if is_bundle(wan_ckpt_path):
         have = bundle_components(wan_ckpt_path)
         return load_bundle(wan_ckpt_path, [
-            c for c in (*WAN21_COMPONENTS, "pose")
-            if c in have and (c in enc or c not in ("t5", "clip", "vae"))])
-    fusion_sd = read_pth(model_ckpt)
-    out = {"fusion": fusion_state_dict_from(
-        read_shards(dit_shards(wan_ckpt_path)), fusion_sd, cfg)}
-    pose_sd = {k[len(POSE_PREFIX):]: v for k, v in fusion_sd.items()
-               if k.startswith(POSE_PREFIX)}
-    if pose_sd:
-        out["pose"] = pose_sd
-    out.update(_encoder_state_dicts(wan_ckpt_path, enc))
+            c for c in (*WAN21_COMPONENTS, "pose") if c in have
+            and (c in want or (c == "pose" and "fusion" in want))])
+    out = {}
+    if "fusion" in want:
+        fusion_sd = read_pth(model_ckpt)
+        out["fusion"] = fusion_state_dict_from(
+            read_shards(dit_shards(wan_ckpt_path)), fusion_sd, cfg)
+        pose_sd = {k[len(POSE_PREFIX):]: v for k, v in fusion_sd.items()
+                   if k.startswith(POSE_PREFIX)}
+        if pose_sd:
+            out["pose"] = pose_sd
+    out.update(_encoder_state_dicts(wan_ckpt_path, want))
     return out
 
 
@@ -535,20 +558,23 @@ def load_pipeline(wan_ckpt_path: str, model_ckpt: Optional[str], *, device,
                   dtype: torch.dtype = torch.bfloat16,
                   tokenizer_path: Optional[str] = None,
                   configs: Optional[Mapping[str, object]] = None,
-                  encoders: bool = True):
+                  encoders: bool = True,
+                  components: Sequence[str] = WAN21_COMPONENTS):
     """The reference layout, or a bundle (``convert/bundle.py``; then
     ``model_ckpt`` is not read) -> a ``FantasyWorldPipeline`` with the
     fusion model, the pose encoder, umT5, CLIP and the VAE built on
     ``device`` in ``dtype``; without umT5, CLIP and the VAE when
     ``encoders`` is False (a mesh rank other than 0, which neither
-    conditions nor decodes). ``configs`` override ``read_configs``'."""
+    conditions nor decodes); of ``components`` only (("t5", "clip",
+    "vae"): the encoders alone, ``model_ckpt`` not read). ``configs``
+    override ``read_configs``'."""
     cfgs = {**read_configs(wan_ckpt_path), **(configs or {})}
-    missing = missing_files(wan_ckpt_path, model_ckpt)
+    missing = missing_files(wan_ckpt_path, model_ckpt, components)
     if missing:
         raise FileNotFoundError(f"checkpoint files missing: {missing}")
     return pipeline_from_state_dicts(
         pipeline_state_dicts(wan_ckpt_path, model_ckpt, cfgs["fusion"],
-                             encoders),
+                             encoders, components),
         cfgs, device=device, dtype=dtype,
         tokenizer_path=_tokenizer(wan_ckpt_path, tokenizer_path))
 

@@ -439,25 +439,31 @@ class _SumGrad(torch.autograd.Function):
 
 class RingShift:
     """One hop of the ring: this rank's tensor goes to the previous rank of
-    ``group`` and the next rank's arrives (``wait()`` returns it). Started
-    at construction, so that work queued before ``wait`` overlaps it; on
-    ranks that share one card the staging buffers are the hop, done by the
-    time the constructor returns."""
+    ``group`` and the next rank's arrives (``wait()`` returns it); with
+    ``to="next"`` the mirror hop, to the next rank and from the previous
+    one. Every rank of the group takes part, with a tensor of one shape and
+    dtype. Started at construction, so that work queued before ``wait``
+    overlaps it; on ranks that share one card the staging buffers are the
+    hop, done by the time the constructor returns."""
 
-    def __init__(self, t: torch.Tensor, group):
+    def __init__(self, t: torch.Tensor, group, to: str = "previous"):
+        if to not in ("previous", "next"):
+            raise ValueError(f"to= 'previous' or 'next', got {to!r}")
         n, r = group_size(group), dist.get_rank(group)
+        step = -1 if to == "previous" else 1
+        dst, src = (r + step) % n, (r - step) % n
         self.reqs = []
         if _route(t, group) == "card":
             self.out = _SHARED[group].exchange(
-                t, lambda q, x: x if q == (r + 1) % n else None)[(r + 1) % n]
+                t, lambda q, x: x if q == src else None)[src]
             return
         self.src = t.contiguous()
         self.out = torch.empty_like(self.src)
-        prev = dist.get_global_rank(group, (r - 1) % n)
-        nxt = dist.get_global_rank(group, (r + 1) % n)
         self.reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, self.src, prev, group),
-            dist.P2POp(dist.irecv, self.out, nxt, group)])
+            dist.P2POp(dist.isend, self.src,
+                       dist.get_global_rank(group, dst), group),
+            dist.P2POp(dist.irecv, self.out,
+                       dist.get_global_rank(group, src), group)])
 
     def wait(self) -> torch.Tensor:
         for req in self.reqs:

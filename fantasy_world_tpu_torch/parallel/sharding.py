@@ -448,8 +448,8 @@ def model_partial(name: str) -> bool:
     return any(re.match(pat, name) for pat in MODEL_PARTIAL_RULES)
 
 
-def _flat_reduce(grads: List[torch.Tensor], group, scale: float = 1.0,
-                 bucket: int = 1 << 26) -> None:
+def flat_reduce(grads: List[torch.Tensor], group, scale: float = 1.0,
+                bucket: int = 1 << 26) -> None:
     """Sum ``grads`` over ``group`` in place (then times ``scale``), a few
     flat buckets of one dtype at a time, so a step makes a handful of
     collectives rather than one a parameter."""
@@ -492,11 +492,11 @@ def reduce_gradients(params: Mapping[str, torch.Tensor], mesh: Mesh,
         return
     items = sorted(params.items())
     grads = [p.grad for _, p in items]
-    _flat_reduce([g for (n, _), g in zip(items, grads) if model_partial(n)],
+    flat_reduce([g for (n, _), g in zip(items, grads) if model_partial(n)],
                  mesh.axis("model").group)
-    _flat_reduce(grads, mesh.axis("seq").group)
+    flat_reduce(grads, mesh.axis("seq").group)
     data = mesh.axis("data")
-    _flat_reduce(grads, data.group, 1.0 if batch_rows(batch, mesh)
+    flat_reduce(grads, data.group, 1.0 if batch_rows(batch, mesh)
                  else 1.0 / data.size)
 
 

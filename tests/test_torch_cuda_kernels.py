@@ -7,7 +7,7 @@ so run these without the suite's conftest:
 import pytest
 import torch
 
-from chip_smoke import SHAPES, grad_tol
+from chip_smoke import MESH_TRAIN_SHAPES, SHAPES, grad_tol
 from fantasy_world_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -433,4 +433,28 @@ def test_backward_one_key_last_tile(device):
     """DiT cross-attention against CLIP's 257 keys at 40 heads: the last key
     tile of dq and the last key block of dk/dv hold one key."""
     got, ref = _backward_case(device, 1, 300, 257, 40, 128, seed=8)
+    assert _bwd_err(got, ref) <= 1
+
+
+PIPE_TRAIN = [(name, shape, lk, kernel) for name, shape, lk, kernel
+              in MESH_TRAIN_SHAPES if name.startswith("pipe_")]
+
+
+@pytest.mark.parametrize("name,shape,Lk,kernel", PIPE_TRAIN,
+                         ids=[c[0] for c in PIPE_TRAIN])
+def test_backward_kernels_at_pipe_train_shapes(device, name, shape, Lk,
+                                               kernel):
+    """The pipeline trainer's microbatch (Bm = 1 at 480x832x81): the stats
+    forward and dq, dk/dv against their plain versions."""
+    B, Lq, H, D = shape
+    assert fa.route(H, D, Lk) == kernel
+    q, k, v = _qkv(shape, Lk, device, seed=5)
+    do = torch.randn(shape, device=device).bfloat16()
+    o, m2, l = fa.flash_attention_stats(q, k, v)
+    ro, rm2, rl = fa.attention_plain_stats(q, k, v, D ** -0.5)
+    assert _out_err(o, ro) <= 1
+    torch.testing.assert_close(m2, rm2, rtol=STATS_RTOL, atol=STATS_RTOL)
+    lse2 = m2 + torch.log2(l)
+    got = fa.flash_attention_backward(q, k, v, o, lse2, do, D ** -0.5)
+    ref = fa.attention_backward_plain(q, k, v, o, lse2, do, D ** -0.5)
     assert _bwd_err(got, ref) <= 1

@@ -1,8 +1,9 @@
 """The port's training CLI on the CPU: a synthetic run, save and resume, the
-LoRA mode, the mode that a later multi-GPU slice brings, the mesh trainer
-under torchrun (saved and resumed on the mesh and in one process), the
-batch streams shared with the JAX trainer, and that the trainer imports
-nothing of JAX. The real-data mode: tests/test_torch_train_data.py."""
+LoRA mode, the mesh trainer under torchrun (saved and resumed on the mesh
+and in one process), the batch streams shared with the JAX trainer, and
+that the trainer imports nothing of JAX. The real-data mode:
+tests/test_torch_train_data.py; the pipeline trainer (``--pipe_stages``):
+tests/test_torch_pp.py."""
 import argparse
 import contextlib
 import logging
@@ -88,15 +89,6 @@ def test_train_cli_lora_mode(tmp_path, capsys):
     assert "train done: 1 step(s)" in capsys.readouterr().out
     assert any(t.any() for n, t in state["trainable"].items()
                if n.endswith(".up"))
-
-
-@pytest.mark.parametrize("extra,slice_name", [
-    (["--pipe_stages", "2"], "multi-GPU"),
-])
-def test_unported_modes_exit(tmp_path, extra, slice_name):
-    with pytest.raises(SystemExit, match=slice_name) as exited:
-        main(_args(tmp_path / "x", 1) + extra)
-    assert "ROADMAP queue A item 5(c)" in str(exited.value)
 
 
 def test_mesh_flags_need_their_processes(tmp_path):
@@ -308,8 +300,9 @@ def test_trainer_never_imports_jax():
         "import fantasy_world_tpu_torch.training.lora\n"
         "import fantasy_world_tpu_torch.utils.observability\n"
         "import fantasy_world_tpu_torch.cli.infer_wan21\n"
-        "from fantasy_world_tpu_torch.parallel import (distributed, ring,\n"
-        "    sharding, ulysses)\n"
+        "import fantasy_world_tpu_torch.training.pp\n"
+        "from fantasy_world_tpu_torch.parallel import (distributed, pipeline,\n"
+        "    ring, sharding, ulysses)\n"
         "t._check_args(t.parse_args(['--synthetic']))\n"
         "t._stacked_data_batches\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -11,7 +11,8 @@ weights on both sides):
   * two LoRA steps on one such batch: losses within 1e-4;
   * ``cli.train --data_root`` on the reference layout in a fresh
     interpreter (no JAX): 2 steps saved, a resume to step 3 equal to an
-    unbroken 3-step run; its exits; and ``--profile_dir`` on
+    unbroken 3-step run; its exits; the pipeline trainer's data mode
+    (``--pipe_stages 1``), saved and resumed; and ``--profile_dir`` on
     ``cli.infer_wan21``."""
 import copy
 import json
@@ -39,6 +40,8 @@ from fantasy_world_tpu.training.data import (
 from fantasy_world_tpu_torch.cli import infer_wan21
 from fantasy_world_tpu_torch.cli import train as train_cli
 from fantasy_world_tpu_torch.convert.from_jax import lora_state_dict
+from fantasy_world_tpu_torch.core.params import build
+from fantasy_world_tpu_torch.models.wan.dit import WanDiT
 from fantasy_world_tpu_torch.data.video import save_frames
 from fantasy_world_tpu_torch.pipelines.wan_video import FantasyWorldPipeline
 from fantasy_world_tpu_torch.schedulers.flow_match import FlowMatchScheduler
@@ -271,12 +274,43 @@ def test_train_cli_on_clips_and_resume(env, tmp_path):
                if n.endswith(".up"))
 
 
+def test_train_cli_pipe_on_clips_and_resume(env, tmp_path, capsys):
+    """``cli.train --pipe_stages 1 --data_root``: the plain DiT read from the
+    layout's shards beside umT5, CLIP and the VAE (no fusion model, no pose
+    encoder), 2 clips a step with a sigma each and no Plucker features; a
+    step saved and resumed to step 2 equals an unbroken 2-step run, whose
+    checkpoint holds the plain DiT's tensors."""
+    def argv(ckpt, steps):
+        a = _train_argv(env, ckpt, steps, "--pipe_stages", "1")
+        i = a.index("--lora_rank")
+        return a[:i] + a[i + 2:]
+
+    def final(out):
+        return float(out.split("final loss ")[-1].split()[0])
+
+    train_cli.main(argv(tmp_path / "ckpt", 1))
+    assert "train done: 1 step(s)" in capsys.readouterr().out
+    train_cli.main(argv(tmp_path / "ckpt", 2))
+    resumed = final(capsys.readouterr().out)
+    train_cli.main(argv(tmp_path / "straight", 2))
+    assert final(capsys.readouterr().out) == resumed
+    state = torch.load(tmp_path / "ckpt" / "step_00000002" / "state.pt",
+                       weights_only=True)
+    assert state["data_position"] == 4
+    cfg = train_cli._pipe_config(train_cli.parse_args(argv("x", 1)))
+    assert cfg.camera_adapter_end == 0 and cfg.has_image_input
+    names = [n for n, _ in build(lambda: WanDiT(cfg), device="meta",
+                                 dtype=torch.float32).named_parameters()]
+    assert list(state["trainable"]) == names
+
+
 @pytest.mark.parametrize("drop,extra,message", [
     ("--wan_ckpt_path", (), "needs --wan_ckpt_path, --model_ckpt and "
                             "--data_root"),
     ("--data_root", (), "needs --wan_ckpt_path"),
     (None, ("--mesh_data", "2"), "multi-GPU"),
-    (None, ("--pipe_stages", "2"), "multi-GPU"),
+    # the pipeline trainer's first exit, in the JAX trainer's order
+    (None, ("--pipe_stages", "2"), "does not compose with --lora_rank"),
 ])
 def test_train_cli_data_mode_exits(env, tmp_path, drop, extra, message):
     argv = _train_argv(env, tmp_path / "x", 1, *extra)

@@ -664,3 +664,208 @@ def mesh_train_cases(rank, spec_file, out_file):
     out["foreign"] = foreign_modules()
     if rank == 0:
         torch.save(out, out_file)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-parallel trainer (test_torch_pp.py)
+# ---------------------------------------------------------------------------
+
+class ToyStage(torch.nn.Module):
+    """The toy stage of JAX ``tests/test_pipeline_parallel.py``: each of its
+    blocks h -> tanh(h @ k + b) * (1 + sc) + h."""
+
+    def __init__(self, kernel, bias):
+        super().__init__()
+        self.kernel = torch.nn.Parameter(torch.as_tensor(kernel))
+        self.bias = torch.nn.Parameter(torch.as_tensor(bias))
+
+
+def toy_stage(stage, h, sc):
+    for k, b in zip(stage.kernel, stage.bias):
+        h = torch.tanh(h @ k + b) * (1.0 + sc) + h
+    return h
+
+
+def _gather_all(obj):
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, obj)
+    return every
+
+
+def _pp_toy(rank, case):
+    """The toy stack through the port's ``pipeline_apply`` at S = world:
+    the output (the last stage's; empty on the others) and each stage's
+    parameter gradients of sum(out^2), computed on the last stage, every
+    stage backpropagating from its result."""
+    from fantasy_world_tpu_torch.parallel.pipeline import (make_pipe_mesh,
+                                                           pipeline_apply,
+                                                           stage_range)
+    pipe = make_pipe_mesh(case["stages"])
+    blocks = stage_range(case["kernel"].shape[0], pipe)
+    sl = slice(blocks.start, blocks.stop)
+    stage = ToyStage(case["kernel"][sl], case["bias"][sl])
+    out = pipeline_apply(toy_stage, stage, torch.as_tensor(case["x"]),
+                         (torch.as_tensor(case["scale"]),), pipe=pipe,
+                         microbatches=case["M"])
+    out.square().sum().backward()       # 0 from the others' empty output
+    return {"out": out.detach().numpy(), "blocks": (sl.start, sl.stop),
+            "kernel": stage.kernel.grad.numpy(),
+            "bias": stage.bias.grad.numpy()}
+
+
+def _pp_hop(rank, case):
+    """The pipeline's forward hop (``RingShift(to="next")``) of this rank's
+    x, and the mirror hop (``to="previous"``) that carries its gradient
+    back: of sum(out * g[rank]) over every rank, the gradient by x is the
+    next rank's g."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel.distributed import RingShift
+    group = dist.group.WORLD
+    y = RingShift(torch.as_tensor(case["x"][rank]), group, "next").wait()
+    dx = RingShift(torch.as_tensor(case["g"][rank]), group,
+                   "previous").wait()
+    return {"y": y.numpy(), "dx": dx.numpy()}
+
+
+def _stage_model(cfg, sd, pipe):
+    """This rank's ``StageDiT`` holding its part of the whole state dict
+    ``sd``."""
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.training.pp import build_stage_dit
+    model = build_stage_dit(cfg, pipe, device="cpu", dtype=torch.float32)
+    own = {k: sd[k] for k in model.state_dict()}
+    model.load_state_dict(sharding.shard_state_dict(own, pipe.inner))
+    return model
+
+
+def _pp_dit_blocks(rank, case, cfg, sd):
+    """The port's ``pipeline_dit_blocks`` at S = world on the whole inputs
+    (the output on the last stage)."""
+    from fantasy_world_tpu_torch.ops import rope as rope_ops
+    from fantasy_world_tpu_torch.parallel.pipeline import (
+        make_pipe_mesh, pipeline_dit_blocks)
+    pipe = make_pipe_mesh(case["stages"])
+    model = _stage_model(cfg, sd, pipe)
+    cos, sin = rope_ops.cos_sin_half_from_angles(
+        rope_ops.build_angles_3d(cfg.head_dim, *case["grid"]), "cpu")
+    with torch.no_grad():
+        out = pipeline_dit_blocks(
+            model.blocks, *(torch.as_tensor(case[k])
+                            for k in ("x", "context", "t_mod")),
+            cos, sin, pipe=pipe, microbatches=case["M"])
+    return {"out": out.numpy()}
+
+
+def _pp_steps(rank, case, cfg, sd, batch):
+    """``case["steps"]`` steps of the port's ``make_pp_train_step`` on a
+    pipe x (data, 1, model) mesh under SGD or AdamW: each step's loss, and
+    this rank's gradients and values after it, gathered whole over the
+    model group ({name: array})."""
+    import argparse
+
+    from fantasy_world_tpu_torch.cli.train import _optimizer
+    from fantasy_world_tpu_torch.parallel import sharding
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    from fantasy_world_tpu_torch.training.pp import make_pp_train_step
+    S, D, Mo = case["mesh"]
+    pipe = make_pipe_mesh(S, data=D, model=Mo)
+    model = _stage_model(cfg, sd, pipe)
+    params = dict(model.named_parameters())
+    if case["opt"] == "sgd":
+        opt, sched = torch.optim.SGD(params.values(), lr=case["lr"]), None
+    else:
+        opt, sched = _optimizer(argparse.Namespace(
+            lr=case["lr"], warmup=1, weight_decay=0.1), params.values())
+    step = make_pp_train_step(model, opt, sched, pipe=pipe,
+                              microbatches=case["M"])
+    out = {}
+    for i in range(case["steps"]):
+        out[f"loss{i}"] = float(step(dict(batch)))
+        for n, p in params.items():
+            for what, t in (("grad", p.grad), ("param", p.detach())):
+                out[f"{what}{i}/{n}"] = sharding.whole_tensor(
+                    t, n, model, pipe.inner).clone().numpy()
+    return out
+
+
+def _pp_i2v(rank, case, cfg, sd, batch):
+    """The i2v-conditioned ``pp_flow_match_loss`` at S = world."""
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    from fantasy_world_tpu_torch.training.pp import pp_flow_match_loss
+    pipe = make_pipe_mesh(case["stages"])
+    model = _stage_model(cfg, sd, pipe)
+    with torch.no_grad():
+        loss = pp_flow_match_loss(model, pipe=pipe, microbatches=case["M"],
+                                  **batch)
+    return {"loss": float(loss)}
+
+
+def pp_cases(rank, spec_file, out_file):
+    """The pipeline cases of ``spec_file`` on this world: "toy", "hop",
+    "dit_blocks", "i2v", "contract" and {tag: step case} under "steps";
+    every rank's
+    results gathered, rank 0 writes {case: [each rank's]} to
+    ``out_file``."""
+    spec = torch.load(spec_file, weights_only=False)
+    out = {}
+    if "toy" in spec:
+        out["toy"] = _gather_all(_pp_toy(rank, spec["toy"]))
+    if "hop" in spec:
+        out["hop"] = _gather_all(_pp_hop(rank, spec["hop"]))
+    if "dit_blocks" in spec:
+        c = spec["dit_blocks"]
+        out["dit_blocks"] = _gather_all(_pp_dit_blocks(rank, c, c["cfg"],
+                                                       c["sd"]))
+    if "i2v" in spec:
+        c = spec["i2v"]
+        out["i2v"] = _gather_all(_pp_i2v(rank, c, c["cfg"], c["sd"],
+                                         c["batch"]))
+    if "contract" in spec:
+        out["contract"] = _gather_all(_pp_contract(rank, spec["contract"]))
+    for tag, c in spec.get("steps", {}).items():
+        out[tag] = _gather_all(_pp_steps(rank, c, spec["model"]["cfg"],
+                                         spec["model"]["sd"],
+                                         spec["model"]["batch"]))
+    out["foreign"] = foreign_modules()
+    if rank == 0:
+        torch.save(out, out_file)
+
+
+def _pp_contract(rank, case):
+    """The kernel launches one small_pipe step of ``chip_smoke.py`` makes on
+    this rank (its reduced DiT at ``case["geometry"]``), counted on the CPU
+    by route and head dim at the plain versions' calls, and
+    ``chip_smoke.pipe_train_launches``' count."""
+    import chip_smoke
+    from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    seen = {k: 0 for k in fa.LAUNCHES}
+    forward, backward = fa._forward, fa.flash_attention_backward_part
+
+    def count_forward(q, k, v, scale, stats):
+        assert stats                     # training forwards keep stats
+        seen[fa.route(q.shape[2], q.shape[3], k.shape[1]) + "_stats"] += 1
+        return forward(q, k, v, scale, stats)
+
+    def count_backward(q, k, v, o, lse2, do, scale, delta=None):
+        d = fa.kernel_dim(q.shape[2], q.shape[3], k.shape[1])
+        seen[f"bwd_dq_{d}"] += 1
+        seen[f"bwd_dkv_{d}"] += 1
+        return backward(q, k, v, o, lse2, do, scale, delta)
+
+    cfg = chip_smoke.small_pipe_config()
+    geometry = case["geometry"]
+    batch = chip_smoke.pipe_batch(cfg, geometry, 3, 16)
+    pipe = make_pipe_mesh(chip_smoke.PIPE_STAGES)
+    fa._forward, fa.flash_attention_backward_part = (count_forward,
+                                                     count_backward)
+    try:
+        chip_smoke.pipe_step(torch.device("cpu"), torch.float32, cfg, 3,
+                             batch, pipe)
+    finally:
+        fa._forward, fa.flash_attention_backward_part = forward, backward
+    want = chip_smoke.pipe_train_launches(
+        cfg, cfg.num_layers // pipe.stages, chip_smoke.pipe_tokens(geometry),
+        16)
+    return {"seen": seen, "want": want}

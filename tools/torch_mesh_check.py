@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The multi-GPU path over NCCL, one rank per card, against one process.
 
-    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE] [--sections 4,5,6]
+    torchrun --standalone --nproc_per_node 4 tools/torch_mesh_check.py [--json FILE] [--sections 4,5,6,7]
 
 For a host with four cards (``chip_smoke.py``'s mesh phases run their
 ranks on its one card over gloo instead). Every rank, on its own card:
@@ -33,7 +33,17 @@ ranks on its one card over gloo instead). Every rank, on its own card:
      batch 1) at (1, 1, 4) and at (1, 4, 1) with Ulysses, against the same
      seeded model and batch stepped in one process on rank 0's card: the
      loss and the LoRA gradients gathered whole within TRAIN_TOL, exact
-     launches on every rank, seconds and peak GB per rank.
+     launches on every rank, seconds and peak GB per rank;
+  7. the pipeline trainer at full width (``WanDiTConfig()``), one step
+     of ``chip_smoke.pipe_step`` on the same batch of 4 samples at
+     480x832x81: at PIPE_REF_DEPTH = 8 blocks as 4 stages of 2 (M = 4)
+     against the same step in one process on rank 0's card; then cut to
+     PIPE_DEPTH = 24 blocks, whose weights, gradients and AdamW moments
+     (~80 GB) one card does not hold, as 4 stages of 6 blocks (M = 4) and
+     as 2 stages of 12 blocks x 2 data ranks (M = 2), the second against
+     the first. Each: the loss, every gradient's relative L2 within
+     TRAIN_TOL (each block's between the ranks that hold it), lite the
+     same on every rank, exact launches, seconds and peak GB per rank.
 
 ``--sections`` runs only the numbered checks. Rank 0 prints one line per
 check, the cards' names and power limits, and a JSON line last (also
@@ -55,6 +65,13 @@ SMALL_MESHES = (((1, 4, 1), True), ((2, 1, 2), False), ((1, 2, 2), True),
 SERVING_MESHES = (((2, 1, 2), False, ("int8", "fp8", "wan22")),
                   ((1, 2, 2), True, ("tea", "window")))
 FULL_MESHES = (((1, 1, 4), False), ((1, 4, 1), True))
+# section 7: the pipeline trainer's depth and its two layouts of 4 ranks,
+# (stages, data ranks, microbatches), each on a batch of 4 samples; the
+# depth at which one process on a card steps the same batch, held against
+# the first layout
+PIPE_DEPTH = 24
+PIPE_LAYOUTS = ((4, 1, 4), (2, 2, 2))
+PIPE_REF_DEPTH = 8
 
 
 def rel_l2(got, ref):
@@ -266,10 +283,164 @@ def mesh_train(dev, lead, world, out, seed=1024):
         torch.cuda.empty_cache()
 
 
+def _block_holder(block, layout, layers):
+    """The rank of ``layout`` (stages, data, _) that holds ``block`` at data
+    index 0."""
+    stages, data, _ = layout
+    return (block // (layers // stages)) * data
+
+
+def _grad_rel_l2(dev, ref, ref_layout, got, got_layout, layers):
+    """The relative L2 of this rank's gradients ``got`` against ``ref``'s
+    (this rank's; None where it ran no reference): lite's where the rank
+    holds both, each block's sent from the rank that holds it in
+    ``ref_layout`` to the one that holds it in ``got_layout``. Every rank
+    calls it; {name: error} of this rank's comparisons."""
+    import torch
+    import torch.distributed as dist
+    me = dist.get_rank()
+
+    def rel(g, r):
+        r = r.float().cpu()
+        return ((g.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+    errs = ({} if ref is None else
+            {n: rel(g, ref[n]) for n, g in got.items()
+             if not n.startswith("blocks.")})
+    suffixes = sorted({n.split(".", 2)[2] for n in got
+                       if n.startswith("blocks.")})
+    for i in range(layers):
+        src = _block_holder(i, ref_layout, layers)
+        dst = _block_holder(i, got_layout, layers)
+        for suffix in suffixes:
+            n = f"blocks.{i}.{suffix}"
+            if me == src == dst:
+                errs[n] = rel(got[n], ref[n])
+            elif me == src:
+                dist.send(ref[n].to(dev), dst)
+            elif me == dst:
+                r = torch.empty_like(got[n], device=dev)
+                dist.recv(r, src)
+                errs[n] = rel(got[n], r)
+    return errs
+
+
+def pipe_train(dev, lead, world, out, seed=1024):
+    """Section 7 (module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
+    geometry, text_len = cs.FULL_PIPE_GEOMETRY, 512
+
+    def run(layers, layout, batch):
+        """One step of ``layout`` at ``layers`` blocks on every rank:
+        {loss, grads, launches, want}."""
+        S, D, M = layout
+        cfg = dataclasses.replace(cs.full_pipe_config(), num_layers=layers)
+        loss, model, seconds, peak, launches = cs.pipe_step(
+            dev, torch.bfloat16, cfg, seed, batch,
+            make_pipe_mesh(S, data=D), microbatches=M)
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
+        # lite is the same bits on every rank where its elementwise maximum
+        # over the ranks is its minimum
+        lite = torch.cat([p.detach().flatten() for n, p in
+                          sorted(model.named_parameters())
+                          if not n.startswith("blocks.")])
+        hi, lo = lite.clone(), lite.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        same = bool(torch.equal(hi, lo))
+        stats = torch.tensor([seconds, peak], device=dev)
+        rows = [torch.empty_like(stats) for _ in range(world)]
+        dist.all_gather(rows, stats)
+        if lead:
+            name = f"pipe_{S}x{D}_m{M}_{layers}"
+            cs.say("mesh_check_pipe", layout=name, blocks=layers,
+                   loss=f"{loss:.5f}", lite_bit_equal=same,
+                   rank_step_seconds="|".join(f"{r[0].item():.3f}"
+                                              for r in rows),
+                   rank_peak_gb="|".join(f"{r[1].item():.2f}"
+                                         for r in rows))
+            out.append({"check": name, "loss": loss, "lite_bit_equal": same,
+                        "rank_step_seconds": [r[0].item() for r in rows],
+                        "rank_peak_gb": [r[1].item() for r in rows]})
+            if not same:
+                raise AssertionError(f"{name}: lite differs between ranks")
+        want = cs.pipe_train_launches(cfg, layers // S, cs.pipe_tokens(
+            geometry), text_len, microbatches=M)
+        del model, lite, hi, lo
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"loss": loss, "grads": grads, "launches": launches,
+                "want": want}
+
+    def compare(name, ref, ref_layout, got, got_layout, layers):
+        """``got`` against ``ref`` (None off the ranks that ran it; its
+        loss broadcast from rank 0): the loss and every gradient within
+        TRAIN_TOL, exact launches on every rank."""
+        errs = _grad_rel_l2(dev, ref and ref["grads"], ref_layout,
+                            got["grads"], got_layout, layers)
+        every = [None] * world
+        dist.all_gather_object(every, errs)
+        ok = torch.tensor([int(got["launches"] == got["want"])], device=dev)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        if not lead:
+            return
+        errs = {n: v for e in every for n, v in e.items()}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        row = {"check": name, "blocks": layers, "grads_compared": len(errs),
+               "worst_grad_rel_l2": list(worst), "loss_rel": loss_rel,
+               "launches_exact": bool(ok.item()),
+               "rank0_launches": {k: v for k, v in got["launches"].items()
+                                  if v}}
+        out.append(row)
+        cs.say("mesh_check", **{k: json.dumps(v).replace(" ", "")
+                                if isinstance(v, (dict, list)) else v
+                                for k, v in row.items()})
+        if not (worst[1] <= cs.TRAIN_TOL and loss_rel <= cs.TRAIN_TOL
+                and ok.item()):
+            raise AssertionError(f"{name}: {row}")
+
+    batch = cs.pipe_batch(cs.full_pipe_config(), geometry, seed + 7,
+                          text_len, n=4)
+    # the first layout at PIPE_REF_DEPTH against one process on rank 0
+    one = (1, 1, PIPE_LAYOUTS[0][2])
+    ref = None
+    if lead:
+        cfg = dataclasses.replace(cs.full_pipe_config(),
+                                  num_layers=PIPE_REF_DEPTH)
+        loss, model, seconds, peak, _ = cs.pipe_step(
+            dev, torch.bfloat16, cfg, seed, batch, microbatches=one[2])
+        ref = {"loss": loss, "grads": {n: p.grad.detach().cpu()
+                                       for n, p in model.named_parameters()}}
+        cs.say("mesh_check_pipe_one_process", blocks=PIPE_REF_DEPTH,
+               loss=f"{loss:.5f}", step_seconds=f"{seconds:.3f}",
+               peak_gb=f"{peak:.2f}")
+        out.append({"check": "pipe_one_process", "blocks": PIPE_REF_DEPTH,
+                    "loss": loss, "step_seconds": seconds, "peak_gb": peak})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    got = run(PIPE_REF_DEPTH, PIPE_LAYOUTS[0], batch)
+    compare("pipe_one_process", ref, one, got, PIPE_LAYOUTS[0],
+            PIPE_REF_DEPTH)
+    del ref, got
+    # both layouts at PIPE_DEPTH, the second against the first
+    first, second = (run(PIPE_DEPTH, layout, batch)
+                     for layout in PIPE_LAYOUTS)
+    compare("pipe_layouts", first, PIPE_LAYOUTS[0], second, PIPE_LAYOUTS[1],
+            PIPE_DEPTH)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None)
-    p.add_argument("--sections", default="1,2,3,4,5,6",
+    p.add_argument("--sections", default="1,2,3,4,5,6,7",
                    help="the checks to run (comma-separated numbers)")
     args = p.parse_args(argv)
     sections = {int(x) for x in args.sections.split(",")}
@@ -394,6 +565,12 @@ def main(argv=None) -> int:
     # 6. the mesh trainer at full width and depth
     if 6 in sections:
         mesh_train(dev, lead, world, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 7. the pipeline trainer at full width, more blocks than one card holds
+    if 7 in sections:
+        pipe_train(dev, lead, world, out)
 
     if lead:
         cs.say("mesh_check_done",
