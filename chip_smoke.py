@@ -210,7 +210,13 @@ every rank maps (CUDA IPC):
     launches, seconds and peak GB per rank), and ``train_cli_pipe``,
     ``cli.train --synthetic --pipe_stages 2`` saved at 2 and resumed to
     3 (small_meshes' 2-rank spawn runs ``small_pipe``, the reduced step
-    against the CPU's);
+    against the CPU's; its 4-rank spawn ``small_pipe_seq``, the same step
+    on 2 stages x 2 seq ranks, the self-attention gathered and through
+    Ulysses, against the same CPU step, and ``full_pipe_seq``, one step of
+    ``WanDiTConfig()`` cut to 2 blocks on 2 stages x 2 seq ranks with
+    Ulysses, M = 2, Bm = 1 at 480x832x81, against the same step in this
+    process: the loss, every gradient within TRAIN_TOL, exact launches,
+    seconds and peak GB per rank);
   * then ``full_mesh_serving``: the serve CLI's mesh at full width cut
     to 4 + 4 blocks, 1x1x2, through its entry points (rank 0 a
     ``GenerationServer`` over ``serve.make_batch_fn``, rank 1
@@ -230,7 +236,10 @@ every rank maps (CUDA IPC):
     ``ulysses_train_*`` (the backward at the Ulysses head groups over the
     whole sequence) and ``ring_train_*`` (one hop of the ring's backward
     at 3 seq ranks, where 40 DiT heads do not divide: 7 latent frames a
-    part).
+    part), ``pipe_train_*`` (the pipeline's microbatch, Bm = 1 at
+    480x832x81) and ``pipe_seq_train_*`` (its Ulysses head group of 20
+    over the 32,760 tokens, and the cross-attentions of a seq rank's
+    17,160 queries).
 Then one JSON line with the kernels' numbers, and the device JSON line last.
 Imports nothing of JAX.
 
@@ -476,6 +485,12 @@ MESH_TRAIN_SHAPES = [
     ("pipe_train_dit_self", (1, 32760, 40, 128), 32760, "generic"),
     ("pipe_train_dit_cross_text", (1, 32760, 40, 128), 512, "onekv"),
     ("pipe_train_dit_cross_clip", (1, 32760, 40, 128), 257, "onekv"),
+    # 'seq' inside a stage (full_pipe_seq, 2 seq ranks): Ulysses's head
+    # group over the microbatch's 32,760 tokens, and the cross-attentions
+    # of the rank holding 11 of the 21 latent frames (17,160 queries)
+    ("pipe_seq_train_dit_self", (1, 32760, 20, 128), 32760, "generic"),
+    ("pipe_seq_train_dit_cross_text", (1, 17160, 40, 128), 512, "onekv"),
+    ("pipe_seq_train_dit_cross_clip", (1, 17160, 40, 128), 257, "onekv"),
 ]
 
 
@@ -3460,6 +3475,16 @@ SMALL_PIPE_DTYPE = "bfloat16"
 FULL_PIPE_DEPTH = 4
 FULL_PIPE_GEOMETRY = (480, 832, 81)
 FULL_PIPE_REF = os.path.join(REPO, "build", "full_pipe_grads.pt")
+# 'seq' inside a stage, jobs of small_meshes' 4-rank spawn, 2 stages x 2
+# seq ranks: small_pipe_seq, small_pipe's model and batch (6 latent frames,
+# 3 | 3) with the self-attention gathered and through Ulysses (1 of 2
+# heads a rank); full_pipe_seq, WanDiTConfig() cut to 2 blocks (1 a
+# stage) at full_pipe's geometry (21 latent frames, 11 | 10: 17,160 |
+# 15,600 tokens), Ulysses (20 of 40 heads a rank)
+PIPE_SEQ = 2
+SMALL_PIPE_SEQ_RUNS = (False, True)
+FULL_PIPE_SEQ_DEPTH = 2
+FULL_PIPE_SEQ_REF = os.path.join(REPO, "build", "full_pipe_seq_grads.pt")
 
 
 def small_pipe_config():
@@ -3468,9 +3493,34 @@ def small_pipe_config():
     return dataclasses.replace(fcfg.dit, num_layers=4, camera_adapter_end=0)
 
 
-def full_pipe_config():
+def full_pipe_config(depth=FULL_PIPE_DEPTH):
     from fantasy_world_tpu_torch.models.wan.dit import WanDiTConfig
-    return WanDiTConfig(num_layers=FULL_PIPE_DEPTH)
+    return WanDiTConfig(num_layers=depth)
+
+
+def pipe_seq_split(geometry, seq, rank):
+    """The tokens of ``rank``'s frames (a ``TokenSplit``) on a (stages, 1,
+    ``seq``, 1) pipe mesh at ``geometry``."""
+    from fantasy_world_tpu_torch.parallel.sharding import TokenSplit
+    height, width, frames = geometry
+    f, hw = (frames - 1) // 4 + 1, (height // 16) * (width // 16)
+    sizes = tuple(len(c) * hw for c in np.array_split(np.arange(f), seq))
+    return TokenSplit(None, sizes, rank % seq)
+
+
+def pipe_launches_of(cfg, geometry, text_len, rank, seq=1, ulysses=False,
+                     stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES):
+    """``pipe_train_launches`` of ``rank`` of a (``stages``, data, ``seq``,
+    1) pipe mesh: the gather, or Ulysses under ``ulysses``, on seq
+    ranks."""
+    blocks = cfg.num_layers // stages
+    if seq == 1:
+        return pipe_train_launches(cfg, blocks, pipe_tokens(geometry),
+                                   text_len, microbatches)
+    return pipe_train_launches(
+        cfg, blocks, None, text_len, microbatches,
+        mode="ulysses" if ulysses else "gather",
+        split=pipe_seq_split(geometry, seq, rank))
 
 
 def pipe_batch(cfg, geometry, seed, text_len, n=PIPE_MICROBATCHES):
@@ -3488,33 +3538,48 @@ def pipe_tokens(geometry):
 
 
 def pipe_train_launches(cfg, blocks, tokens, text_len,
-                        microbatches=PIPE_MICROBATCHES):
+                        microbatches=PIPE_MICROBATCHES, mode="local",
+                        split=None):
     """Kernel launches of one pipeline step on a rank holding
     ``blocks`` blocks: each block runs each of its data rank's
     ``microbatches`` through its self-attention (``tokens`` keys) and its
     cross-attentions (the text's and CLIP's keys), each a stats forward
     twice under per-block recompute and one backward, dq and dk/dv, at
-    the head dim its kernel runs at."""
+    the head dim its kernel runs at. ``split``: where the stage splits its
+    frames over seq ranks, this rank's tokens (a ``TokenSplit``) and
+    ``mode`` how the self-attention runs over them ("gather", "ulysses" or
+    "ring", as ``attention_mode_launches`` counts them); the
+    cross-attentions take the rank's queries against the whole keys."""
     from fantasy_world_tpu_torch.ops import flash_attention as fa
+    from fantasy_world_tpu_torch.parallel.sharding import TokenSplit
+
+    def whole(n):
+        return TokenSplit(None, (n,), 0)
+
+    split = split or whole(tokens)
     out = {k: 0 for k in fa.LAUNCHES}
     n = blocks * microbatches
-    for lk in [tokens, text_len] + ([257] if cfg.has_image_input else []):
-        d = fa.kernel_dim(cfg.num_heads, cfg.head_dim, lk)
-        out[fa.route(cfg.num_heads, cfg.head_dim, lk) + "_stats"] += 2 * n
-        out[f"bwd_dq_{d}"] += n
-        out[f"bwd_dkv_{d}"] += n
+    H, D = cfg.num_heads, cfg.head_dim
+    attentions = [(mode, split), ("local", whole(text_len))] + (
+        [("local", whole(257))] if cfg.has_image_input else [])
+    for how, keys in attentions:
+        for k, v in attention_mode_launches(how, H, D, split, keys).items():
+            out[k if k.endswith("_stats") else k + "_stats"] += 2 * n * v
+        for k, v in attention_mode_backward(how, H, D, split, keys).items():
+            out[k] += n * v
     return out
 
 
 def pipe_step(device, dtype, cfg, seed, batch, pipe=None, host_init=False,
-              microbatches=PIPE_MICROBATCHES):
+              microbatches=PIPE_MICROBATCHES, ulysses=False):
     """One AdamW step (lr PIPE_LR, no warm-up) of ``make_pp_train_step``
     with per-block recompute, on this rank's stage of the plain DiT seeded
     by ``init_stage_`` (the same values at any stage count) on ``device``
     in ``dtype`` -- or, with ``host_init``, drawn in f32 on the CPU and
     copied over, so that a card run starts from a CPU run's values -- over
-    ``pipe`` (one process when None) in ``microbatches``: (loss, the
-    stage's model, seconds, peak GB, launches)."""
+    ``pipe`` (one process when None) in ``microbatches``, with Ulysses on
+    seq ranks under ``ulysses``: (loss, the stage's model, seconds, peak
+    GB, launches)."""
     import torch
     from fantasy_world_tpu_torch.ops import flash_attention as fa
     from fantasy_world_tpu_torch.parallel.pipeline import single_pipe
@@ -3531,7 +3596,7 @@ def pipe_step(device, dtype, cfg, seed, batch, pipe=None, host_init=False,
                                 seed=seed)
     opt = torch.optim.AdamW(model.parameters(), lr=PIPE_LR, eps=1e-8)
     step = make_pp_train_step(model, opt, pipe=pipe,
-                              microbatches=microbatches)
+                              microbatches=microbatches, ulysses=ulysses)
     batch = _to(batch, device)
     cuda = device.type == "cuda"
     if cuda:
@@ -3566,9 +3631,10 @@ def small_pipe_run(dev, dtype):
     return {"loss": loss, "grads": grads, "params": params}
 
 
-def _small_pipe_rank(rank):
-    """small_pipe on this rank (stage): the step's loss, seconds, peak and
-    launches; its gradients and updated values saved for the parent."""
+def _small_pipe_rank(rank, seq=1, ulysses=False):
+    """small_pipe on this rank (its stage, and its frames on ``seq``
+    ranks): the step's loss, seconds, peak and launches; its gradients and
+    updated values saved for the parent."""
     import torch
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
     dev = _rank_setup()
@@ -3576,7 +3642,8 @@ def _small_pipe_rank(rank):
     loss, model, seconds, peak, launches = pipe_step(
         dev, getattr(torch, SMALL_PIPE_DTYPE), cfg, SMALL_PIPE_SEED,
         pipe_batch(cfg, SMALL_GEOMETRY, SMALL_PIPE_SEED + 2, 16),
-        make_pipe_mesh(PIPE_STAGES), host_init=True)
+        make_pipe_mesh(PIPE_STAGES, seq=seq), host_init=True,
+        ulysses=ulysses)
     grads, params = _grads_values(model)
     torch.save({"grads": grads, "params": params},
                mesh_path(f"pipe{rank}.pt"))
@@ -3584,15 +3651,23 @@ def _small_pipe_rank(rank):
                  launches=launches)
 
 
-def check_small_pipe(records, cpu):
-    """small_pipe against the CPU's one-process f32 step (``cpu``,
-    small_pipe_run's): the loss and, as relative L2, lite's gradients and
-    updated values and each stage's block gradients within TRAIN_TOL;
-    lite the same bits on both stages; every rank's launches exact.
-    Returns the launches, all ranks summed."""
+def small_pipe_tag(seq=1, ulysses=False) -> str:
+    return ("pipe_small_" if seq == 1 else
+            f"pipe_seq_{'ulysses' if ulysses else 'gather'}_small_")
+
+
+def check_small_pipe(records, cpu, seq=1, ulysses=False):
+    """small_pipe (or, on ``seq`` ranks a stage, small_pipe_seq) against
+    the CPU's one-process f32 step (``cpu``, small_pipe_run's): the loss
+    and, as relative L2, lite's gradients and updated values and each
+    rank's block gradients within TRAIN_TOL; lite the same bits on every
+    rank; every rank's launches exact. Returns the launches, all ranks
+    summed."""
     import torch
     cfg = small_pipe_config()
-    tag = "pipe_small_"
+    tag = small_pipe_tag(seq, ulysses)
+    name = ("small_pipe" if seq == 1 else
+            f"small_pipe_seq_{'ulysses' if ulysses else 'gather'}")
     saved = [torch.load(mesh_path(f"pipe{r}.pt", tag))
              for r in range(len(records))]
     lite = sorted(n for n in cpu["grads"] if not n.startswith("blocks."))
@@ -3604,17 +3679,17 @@ def check_small_pipe(records, cpu):
                                      [cpu["params"][n] for n in lite])}
     for r, s in enumerate(saved):
         blocks = sorted(n for n in s["grads"] if n.startswith("blocks."))
-        checks[f"stage{r}_block_grads"] = _rel_l2(
+        checks[f"rank{r}_block_grads"] = _rel_l2(
             [s["grads"][n] for n in blocks],
             [cpu["grads"][n] for n in blocks])
     lite_equal = all(torch.equal(s["params"][n], saved[0]["params"][n])
                      for s in saved for n in lite)
-    want = pipe_train_launches(cfg, cfg.num_layers // PIPE_STAGES,
-                               pipe_tokens(SMALL_GEOMETRY), 16)
+    want = [pipe_launches_of(cfg, SMALL_GEOMETRY, 16, r, seq, ulysses)
+            for r in range(len(records))]
     launch_err = [r for r, rec in enumerate(records)
-                  if rec["launches"] != want]
-    say("small_pipe", stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
-        blocks=cfg.num_layers,
+                  if rec["launches"] != want[r]]
+    say(name, stages=PIPE_STAGES, seq=seq, ulysses=ulysses,
+        microbatches=PIPE_MICROBATCHES, blocks=cfg.num_layers,
         loss=f"{records[0]['loss']:.5f}|{cpu['loss']:.5f}",
         device_vs_cpu_rel=json.dumps({k: float(f"{v:.3e}") for k, v in
                                       checks.items()}).replace(" ", ""),
@@ -3624,29 +3699,30 @@ def check_small_pipe(records, cpu):
         rank0_launches=_nonzero(records[0]["launches"]))
     bad = {k: v for k, v in checks.items() if not v <= TRAIN_TOL}
     if bad or len({r["loss"] for r in records}) != 1 or not lite_equal:
-        raise AssertionError(f"small_pipe: beyond {TRAIN_TOL} of the CPU: "
+        raise AssertionError(f"{name}: beyond {TRAIN_TOL} of the CPU: "
                              f"{bad}; the ranks' losses "
                              f"{[r['loss'] for r in records]}; lite equal "
-                             f"on both stages: {lite_equal}")
+                             f"on every rank: {lite_equal}")
     if launch_err:
-        raise AssertionError(f"small_pipe: ranks {launch_err} launched "
+        raise AssertionError(f"{name}: ranks {launch_err} launched "
                              f"{[records[r]['launches'] for r in launch_err]}"
-                             f", not {want}")
+                             f", not {[want[r] for r in launch_err]}")
     return _add(*(r["launches"] for r in records))
 
 
-def full_pipe_reference(device, seed):
-    """full_pipe's step in one process on the card (the whole 4-block
-    model): its loss, seconds, peak GB and launches; its gradients saved to
-    FULL_PIPE_REF for the ranks."""
+def full_pipe_reference(device, seed, depth=FULL_PIPE_DEPTH,
+                        path=FULL_PIPE_REF):
+    """full_pipe's step in one process on the card (the whole model of
+    ``depth`` blocks): its loss, seconds, peak GB and launches; its
+    gradients saved to ``path`` for the ranks."""
     import torch
-    cfg = full_pipe_config()
+    cfg = full_pipe_config(depth)
     loss, model, seconds, peak, launches = pipe_step(
         device, torch.bfloat16, cfg, seed,
         pipe_batch(cfg, FULL_PIPE_GEOMETRY, seed + 7, 512))
-    os.makedirs(os.path.dirname(FULL_PIPE_REF), exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({n: p.grad.detach().cpu()
-                for n, p in model.named_parameters()}, FULL_PIPE_REF)
+                for n, p in model.named_parameters()}, path)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3654,48 +3730,87 @@ def full_pipe_reference(device, seed):
             "launches": launches}
 
 
-def _full_pipe_rank(rank, seed):
-    """full_pipe on this rank (stage): the step, then the relative L2 of
-    each of its gradients against the one-process run's."""
+def _full_pipe_rank(rank, seed, depth=FULL_PIPE_DEPTH, seq=1,
+                    ulysses=False, path=FULL_PIPE_REF):
+    """full_pipe (or full_pipe_seq: ``seq`` ranks a stage) on this rank:
+    the step, then the relative L2 of each of its gradients against the
+    one-process run's (saved at ``path``)."""
     import torch
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
     dev = _rank_setup()
-    cfg = full_pipe_config()
+    cfg = full_pipe_config(depth)
     loss, model, seconds, peak, launches = pipe_step(
         dev, torch.bfloat16, cfg, seed,
         pipe_batch(cfg, FULL_PIPE_GEOMETRY, seed + 7, 512),
-        make_pipe_mesh(PIPE_STAGES))
-    ref = torch.load(FULL_PIPE_REF, mmap=True, weights_only=True)
-    errs = {}
-    for n, p in model.named_parameters():
-        want = ref[n].to(dev).float()
-        errs[n] = ((p.grad.float() - want).norm()
-                   / want.norm().clamp_min(1e-30)).item()
+        make_pipe_mesh(PIPE_STAGES, seq=seq), ulysses=ulysses)
+    ref = torch.load(path, mmap=True, weights_only=True)
+    errs, alone = pipe_grad_rel_l2(
+        {n: p.grad for n, p in model.named_parameters()}, ref, dev,
+        joint=seq > 1)
     _rank_record(rank, loss=loss, seconds=seconds, peak_gb=peak,
-                 launches=launches, grad_rel_l2=errs,
+                 launches=launches, grad_rel_l2=errs, cancelled=alone,
                  blocks=sorted({n.split(".")[1] for n in errs
                                 if n.startswith("blocks.")}, key=int))
 
 
-def check_full_pipe(ref, records):
-    """full_pipe's ranks against the one-process step on the card
-    (``ref``): the same loss on both ranks, within TRAIN_TOL of one
-    process's, every gradient's relative L2 within TRAIN_TOL, exact
-    launches per rank. Returns the launches, all ranks summed."""
-    cfg = full_pipe_config()
+# a cross-attention's key bias: its gradient, the sum over the keys of
+# dk, nearly cancels (a softmax does not see a bias added to every key;
+# only the key norm lets it through), so the bf16 rounding of dk dominates
+# it in any run. Where a layout splits the queries (seq ranks) its partial
+# dk round apart from one process's, and the bias is held to the
+# reference together with its layer's weight, as one tensor
+SOFTMAX_CANCELLED = re.compile(r".*cross_attn\.k(_img)?\.bias$")
+
+
+def pipe_grad_rel_l2(grads, ref, device, joint=False):
+    """(the relative L2 of each gradient of ``grads`` ({name: tensor})
+    against ``ref``'s, each SOFTMAX_CANCELLED bias under ``joint`` together
+    with its layer's weight, named "{bias}+weight"; those biases' own
+    relative L2, which ``joint`` leaves ungated)."""
+    def rel(names):
+        want = [ref[n].to(device).float() for n in names]
+        num = sum((grads[n].to(device).float() - w).norm() ** 2
+                  for n, w in zip(names, want))
+        den = sum(w.norm() ** 2 for w in want)
+        return (num.sqrt() / den.sqrt().clamp_min(1e-30)).item()
+    errs, alone = {}, {}
+    for n in grads:
+        if joint and SOFTMAX_CANCELLED.match(n):
+            alone[n] = rel([n])
+            errs[n + "+weight"] = rel([n, n[:-len("bias")] + "weight"])
+        else:
+            errs[n] = rel([n])
+    return errs, alone
+
+
+def check_full_pipe(ref, records, depth=FULL_PIPE_DEPTH, seq=1,
+                    ulysses=False):
+    """full_pipe's (full_pipe_seq's: ``seq`` ranks a stage) ranks against
+    the one-process step on the card (``ref``): the same loss on every
+    rank, within TRAIN_TOL of one process's, every gradient's relative L2
+    within TRAIN_TOL (``pipe_grad_rel_l2``: on seq ranks each
+    cross-attention key bias with its weight), exact launches per rank.
+    Returns the launches, all ranks summed."""
+    cfg = full_pipe_config(depth)
+    name = "full_pipe" if seq == 1 else "full_pipe_seq"
     worst = {r: max(rec["grad_rel_l2"].items(), key=lambda kv: kv[1])
              for r, rec in enumerate(records)}
     loss_err = abs(records[0]["loss"] - ref["loss"]) / abs(ref["loss"])
-    want = pipe_train_launches(cfg, cfg.num_layers // PIPE_STAGES,
-                               pipe_tokens(FULL_PIPE_GEOMETRY), 512)
-    say("full_pipe", stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
-        blocks=cfg.num_layers, geometry="x".join(map(str,
-                                                      FULL_PIPE_GEOMETRY)),
+    want = [pipe_launches_of(cfg, FULL_PIPE_GEOMETRY, 512, r, seq, ulysses)
+            for r in range(len(records))]
+    say(name, stages=PIPE_STAGES, seq=seq, ulysses=ulysses,
+        microbatches=PIPE_MICROBATCHES, blocks=cfg.num_layers,
+        geometry="x".join(map(str, FULL_PIPE_GEOMETRY)),
         loss=f"{records[0]['loss']:.5f}|{ref['loss']:.5f}",
         loss_rel=f"{loss_err:.3e}",
         rank_blocks="|".join(",".join(r["blocks"]) for r in records),
         worst_grad_rel_l2="|".join(f"{n}:{v:.3e}"
                                    for n, v in worst.values()),
+        **({"cancelled_alone_rel_l2": "|".join(
+            f"{n}:{v:.3e}" for n, v in sorted(
+                {n: v for r in records
+                 for n, v in r["cancelled"].items()}.items()))}
+           if seq > 1 else {}),
         one_process_step_seconds=f"{ref['seconds']:.3f}",
         one_process_peak_gb=f"{ref['peak']:.2f}",
         rank_step_seconds="|".join(f"{r['seconds']:.3f}" for r in records),
@@ -3705,16 +3820,16 @@ def check_full_pipe(ref, records):
            if not v <= TRAIN_TOL}
     if (bad or not loss_err <= TRAIN_TOL
             or len({r["loss"] for r in records}) != 1):
-        raise AssertionError(f"full_pipe: beyond {TRAIN_TOL} of one "
+        raise AssertionError(f"{name}: beyond {TRAIN_TOL} of one "
                              f"process: gradients {bad}, loss {loss_err}, "
                              f"the ranks' losses "
                              f"{[r['loss'] for r in records]}")
     launch_err = [r for r, rec in enumerate(records)
-                  if rec["launches"] != want]
+                  if rec["launches"] != want[r]]
     if launch_err:
-        raise AssertionError(f"full_pipe: ranks {launch_err} launched "
+        raise AssertionError(f"{name}: ranks {launch_err} launched "
                              f"{[records[r]['launches'] for r in launch_err]}"
-                             f", not {want}")
+                             f", not {[want[r] for r in launch_err]}")
     return _add(*(r["launches"] for r in records))
 
 
@@ -4178,7 +4293,7 @@ def check_small_serving(shape, uly, cases, records, cpu):
     return total
 
 
-def phase_small_meshes(device, cpu_outs):
+def phase_small_meshes(device, cpu_outs, seed=1024):
     """small_mesh and small_mesh_serving at reduced widths, on meshes of
     ranks sharing this card, one spawn of ranks per world size running
     each mesh of that size as a job (``mesh_jobs``).
@@ -4207,12 +4322,22 @@ def phase_small_meshes(device, cpu_outs):
 
     small_pipe (a job of the 2-rank spawn): one GPipe step of the reduced
     plain DiT over 2 stages, M = 2, against the CPU's one-process f32 step
-    (``check_small_pipe``).
+    (``check_small_pipe``); small_pipe_seq (jobs of the 4-rank spawn): the
+    same step over 2 stages x 2 seq ranks, the self-attention gathered and
+    through Ulysses, against the same CPU step.
+
+    full_pipe_seq (a job of the 4-rank spawn): one GPipe step of
+    ``WanDiTConfig()`` cut to 2 blocks over 2 stages x 2 seq ranks with
+    Ulysses (M = 2, Bm = 1 at 480x832x81, full fine-tuning), against the
+    same step in this process, run first (``check_full_pipe``).
 
     Returns (small_mesh's launches, small_mesh_serving's,
-    small_mesh_train's, small_pipe's), all ranks summed."""
+    small_mesh_train's, small_pipe's, small_pipe_seq's and
+    full_pipe_seq's), all ranks summed."""
     import shutil
     t_phase = time.perf_counter()
+    pipe_seq_ref = full_pipe_reference(device, seed, FULL_PIPE_SEQ_DEPTH,
+                                       FULL_PIPE_SEQ_REF)
     cpu = small_serving_prepare()
     # the 2-rank server case last: it stops the ranks' serving loop
     jobs = {}
@@ -4225,20 +4350,35 @@ def phase_small_meshes(device, cpu_outs):
             ("train" + mesh_tag(shape), _small_mesh_train_rank,
              (shape, uly, modes)))
     jobs[PIPE_STAGES].append(("pipe_small_", _small_pipe_rank, ()))
+    pipe_seq = PIPE_STAGES * PIPE_SEQ
+    for uly in SMALL_PIPE_SEQ_RUNS:
+        jobs[pipe_seq].append((small_pipe_tag(PIPE_SEQ, uly),
+                               _small_pipe_rank, (PIPE_SEQ, uly)))
+    jobs[pipe_seq].append(("pipe_seq_full_", _full_pipe_rank,
+                           (seed, FULL_PIPE_SEQ_DEPTH, PIPE_SEQ, True,
+                            FULL_PIPE_SEQ_REF)))
     for shape, (uly, cases) in sorted(SMALL_SERVING_CASES.items(),
                                       key=lambda kv: "server" in kv[1][1]):
         jobs.setdefault(int(np.prod(shape)), []).append(
             ("serving" + mesh_tag(shape), _small_serving_rank,
              (shape, uly, cases)))
-    mesh, serving, train, pipe = {}, {}, {}, {}
+    mesh, serving, train, pipe, pipe_seq = {}, {}, {}, {}, {}
     train_cpu = None
     for world, world_jobs in sorted(jobs.items()):
         t0 = time.perf_counter()
         records = mesh_jobs(world, world_jobs)
-        for tag, _, args in world_jobs:
-            if tag == "pipe_small_":
-                pipe = check_small_pipe(records[tag],
-                                        cpu_side("small_pipe"))
+        for tag, fn, args in world_jobs:
+            if fn is _small_pipe_rank:
+                got = check_small_pipe(records[tag], cpu_side("small_pipe"),
+                                       *args)
+                if args:
+                    pipe_seq = _add(pipe_seq, got)
+                else:
+                    pipe = got
+                continue
+            if fn is _full_pipe_rank:
+                pipe_seq = _add(pipe_seq, check_full_pipe(
+                    pipe_seq_ref, records[tag], *args[1:4]))
                 continue
             shape, uly, third = args
             if tag.startswith("mesh"):
@@ -4255,8 +4395,9 @@ def phase_small_meshes(device, cpu_outs):
             meshes="|".join(tag.rstrip("_") for tag, _, _ in world_jobs),
             seconds=f"{time.perf_counter() - t0:.2f}")
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    os.remove(FULL_PIPE_SEQ_REF)
     say("small_meshes_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return mesh, serving, train, pipe
+    return mesh, serving, train, pipe, pipe_seq
 
 
 FULL_SERVING_DIR = os.path.join(REPO, "build", "mesh_serving_full")
@@ -6882,12 +7023,13 @@ def main(argv=None) -> int:
     # takes it
     # (pipe_train: the pipeline trainer's launches; ``pipe`` below is the
     # full model's pipeline)
-    mesh, mesh_serving, mesh_train, pipe_train = phase_small_meshes(
-        device, small_cpu)
+    (mesh, mesh_serving, mesh_train, pipe_train,
+     pipe_seq) = phase_small_meshes(device, small_cpu)
     full_mesh, full_mesh_train, full_pipe = phase_full_mesh(device)
     mesh = _add(mesh, full_mesh)
     mesh_train = _add(mesh_train, full_mesh_train)
-    pipe_train = _add(pipe_train, full_pipe)
+    # pipe_train: every pipeline launch; pipe_seq: those with seq ranks
+    pipe_train = _add(pipe_train, full_pipe, pipe_seq)
     gc.collect()
     torch.cuda.empty_cache()
     mesh_serving = _add(mesh_serving, phase_full_mesh_serving(device))
@@ -6953,6 +7095,7 @@ def main(argv=None) -> int:
             "mesh_launches": mesh.get(k, 0) + mesh.get(f"{k}_stats", 0),
             "mesh_train_launches": mesh_train.get(f"{k}_stats", 0),
             "pipe_train_launches": pipe_train.get(f"{k}_stats", 0),
+            "pipe_seq_train_launches": pipe_seq.get(f"{k}_stats", 0),
             "mesh_serving_launches": (mesh_serving.get(k, 0)
                                       + mesh_serving.get(f"{k}_stats", 0)),
             "verify_launches": verify[k],
@@ -7002,6 +7145,8 @@ def main(argv=None) -> int:
                                    for k in fa.ROUTES),
         "pipe_train_launches": sum(pipe_train.get(f"{k}_stats", 0)
                                    for k in fa.ROUTES),
+        "pipe_seq_train_launches": sum(pipe_seq.get(f"{k}_stats", 0)
+                                       for k in fa.ROUTES),
         "max_abs_err": max(per_kernel[k]["stats_max_abs_err"]
                            for k in fa.ROUTES),
         "ms": pk["stats_ms"], "plain_ms": pk["stats_plain_ms"],
@@ -7024,6 +7169,8 @@ def main(argv=None) -> int:
                                        for d in fa.BWD_D),
             "pipe_train_launches": sum(pipe_train.get(f"{k}_{d}", 0)
                                        for d in fa.BWD_D),
+            "pipe_seq_train_launches": sum(pipe_seq.get(f"{k}_{d}", 0)
+                                           for d in fa.BWD_D),
             "data_train_launches": sum(data_train[f"{k}_{d}"]
                                        for d in fa.BWD_D),
             "launches_per_denoise_step": sum(per_step[f"{k}_{d}"]

@@ -81,7 +81,10 @@ conditioning), M * D clips a step with a sigma each. Rank 0 saves the
 whole tensors under the plain DiT's one-process names, gathered over the
 stages, and every rank resumes its part, so a checkpoint moves between
 stage counts. ``--pipe_stages`` does not combine with ``--lora_rank``,
-``--mesh_seq`` or ``--mesh_model``.
+``--mesh_seq`` or ``--mesh_model`` on the command line (the JAX trainer's
+exits); as a library, ``training/pp.py`` composes both inside a stage:
+the megatron splits over 'model' and the latent frames over 'seq', with
+the gather, Ulysses or the ring for the self-attention.
 """
 from __future__ import annotations
 
@@ -349,10 +352,12 @@ def read_clip(clip: str, height: int, width: int, frames: int,
               with_plucker: bool = True):
     """One clip directory -> (frames (n, height, width, 3) uint8, prompt,
     Plucker rays (1, n, height, width, 6) or None), n = min(its frames,
-    ``frames``); the rays are first-frame-relative with frame 0 at the
-    origin, one per frame, from ``poses.txt`` (not read without
-    ``with_plucker``)."""
-    from ..data.re10k import re10k_plucker
+    ``frames``). The rays come from ``poses.txt`` (not read without
+    ``with_plucker``) through ``data/re10k.py:RealEstate10KPoseProcessor``
+    as the JAX trainer sets it up: stride 1 (the first n cameras, one per
+    frame, in order), poses relative to the first, which sits at the
+    origin; a file with fewer than n cameras raises ValueError."""
+    from ..data.re10k import RealEstate10KPoseProcessor
     from ..data.video import VideoData
     src = os.path.join(clip, "video.mp4")
     if os.path.exists(src):
@@ -365,8 +370,12 @@ def read_clip(clip: str, height: int, width: int, frames: int,
     with open(os.path.join(clip, "prompt.txt")) as fh:
         prompt = fh.read().strip()
     pose_file = os.path.join(clip, "poses.txt")
-    plucker = (re10k_plucker(pose_file, n, (height, width))
-               if with_plucker and os.path.exists(pose_file) else None)
+    plucker = None
+    if with_plucker and os.path.exists(pose_file):
+        plucker = RealEstate10KPoseProcessor(
+            sample_stride=1, sample_n_frames=n, sample_size=(height, width),
+            relative_pose=True, zero_t_first_frame=True,
+            is_i2v=True).get_plucker_embedding(pose_file)
     return clip_frames, prompt, plucker
 
 

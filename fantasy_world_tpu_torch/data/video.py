@@ -1,9 +1,9 @@
 """Video and image-folder IO on the host (``data/video.py``): lazy frame
 readers for video files (imageio) and image folders (PIL) in natural
 order, an aspect-preserving centre crop and resize to a target shape, and
-a PNG writer. Frames are (H, W, 3) uint8 numpy arrays. Without imageio a
-video file cannot be read: the reader raises, and an image folder is the
-way in."""
+PNG and video writers. Frames are (H, W, 3) uint8 numpy arrays. Without
+imageio a video file cannot be read or written: the reader raises, and an
+image folder is the way in."""
 from __future__ import annotations
 
 import os
@@ -110,10 +110,25 @@ class VideoData:
             self.data = LowMemoryImageFolder(image_folder)
         else:
             raise ValueError("Cannot open video or image folder")
+        self.length = None
+        self.height, self.width = height, width
+
+    def set_length(self, length):
+        """Use only the first ``length`` frames (None: all of them)."""
+        self.length = length
+
+    def set_shape(self, height, width):
         self.height, self.width = height, width
 
     def __len__(self):
-        return len(self.data)
+        return len(self.data) if self.length is None else self.length
+
+    def shape(self):
+        """(height, width) of the frames served: the target's when one is
+        set, else the first frame's."""
+        if self.height is not None and self.width is not None:
+            return self.height, self.width
+        return self[0].shape[:2]
 
     def __getitem__(self, item) -> np.ndarray:
         frame = self.data[item]
@@ -121,6 +136,24 @@ class VideoData:
             if frame.shape[:2] != (self.height, self.width):
                 frame = crop_and_resize(frame, self.height, self.width)
         return frame
+
+    def raw_data(self) -> List[np.ndarray]:
+        """Every frame served, in order."""
+        return [self[i] for i in range(len(self))]
+
+    def save_images(self, folder):
+        """Every frame served -> ``folder/{i}.png``."""
+        save_frames(self.raw_data(), folder)
+
+
+def save_video(frames, save_path, fps, quality=9, ffmpeg_params=None):
+    """Frames -> a video file through imageio's writer (``fps``,
+    ``quality`` and ``ffmpeg_params`` as its ffmpeg plugin takes them)."""
+    writer = _imageio().get_writer(save_path, fps=fps, quality=quality,
+                                   ffmpeg_params=ffmpeg_params)
+    for frame in frames:
+        writer.append_data(np.asarray(frame))
+    writer.close()
 
 
 def save_frames(frames, save_path):

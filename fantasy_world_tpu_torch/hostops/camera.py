@@ -1,8 +1,10 @@
 """Cameras -> Plucker ray video, on the host in numpy (``hostops/camera.py``
 and ``hostops/geometry.py``): camera JSON and 19-float camera entries,
 the inference path's pose-encoding round trip, first-frame-relative poses
-with zero translation and per-pixel [o x d, d] rays. The quaternion
-functions live in ``hostops/rotation.py`` and are re-exported here."""
+and per-pixel [o x d, d] rays; the camera controller's direction paths
+(``generate_camera_coordinates``) and its entries' rays
+(``process_pose_file``). The quaternion functions live in
+``hostops/rotation.py`` and are re-exported here."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,9 +93,14 @@ def cameras_from_extri_intri(extrinsics: np.ndarray,
     return cams
 
 
-def get_relative_pose(cams: List[Camera]) -> np.ndarray:
-    """First-frame-centric c2w poses, zero translation on frame 0."""
+def get_relative_pose(cams: List[Camera], zero_t_first_frame: bool = True
+                      ) -> np.ndarray:
+    """First-frame-centric c2w poses: frame 0 at the origin, or, without
+    ``zero_t_first_frame``, moved along -y by its camera's distance from
+    the world origin (the norm of its c2w translation)."""
     target = np.eye(4)
+    if not zero_t_first_frame:
+        target[1, 3] = -float(np.linalg.norm(cams[0].c2w_mat[:3, 3]))
     abs2rel = target @ cams[0].w2c_mat
     poses = [target] + [abs2rel @ c.c2w_mat for c in cams[1:]]
     return np.asarray(poses, np.float32)
@@ -118,6 +125,77 @@ def ray_condition(K: np.ndarray, c2w: np.ndarray, H: int, W: int
                              ).astype(np.float32)
     plucker = np.concatenate([np.cross(rays_o, rays_d), rays_d], axis=-1)
     return plucker.reshape(V, H, W, 6)
+
+
+DEFAULT_CAMERA_ORIGIN = (0, 0.532139961, 0.946026558, 0.5, 0.5, 0, 0,
+                         1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0)
+
+# a direction's per-frame moves: (index into the 19-float entry, multiple
+# of the speed); the w2c translation is at 10, 14 and 18
+_DIRECTION_UPDATES = {
+    "push_in": [(18, -2.0)],
+    "pull_out": [(18, +2.0)],
+    "move_left": [(10, +2.0)],
+    "move_right": [(10, -2.0)],
+    "pan_left": [(9, +1.0)],
+    "pan_right": [(9, -1.0)],
+    "orbit_left": [(9, +1.0), (15, -1.0)],
+    "orbit_right": [(9, -1.0), (15, +1.0)],
+}
+
+
+def generate_camera_coordinates(direction: str, length: int,
+                                speed: float = 1 / 54,
+                                origin=DEFAULT_CAMERA_ORIGIN,
+                                cameras_interp=None) -> List[list]:
+    """A camera-controller direction -> ``length`` 19-float camera entries:
+    each frame the previous one moved by ``_DIRECTION_UPDATES[direction]``
+    times ``speed``. With ``cameras_interp`` (``length`` 12-float w2c rows)
+    entry i keeps the origin's header and takes row i's w2c instead."""
+    if direction not in _DIRECTION_UPDATES and cameras_interp is None:
+        raise ValueError(f"unknown camera direction {direction!r}")
+    coordinates = [list(origin)]
+    if cameras_interp is None:
+        while len(coordinates) < length:
+            coor = coordinates[-1].copy()
+            for idx, mult in _DIRECTION_UPDATES[direction]:
+                coor[idx] += speed * mult
+            coordinates.append(coor)
+    else:
+        if len(cameras_interp) != length:
+            raise ValueError(f"{len(cameras_interp)} cameras for {length} "
+                             f"frames")
+        for i in range(1, length):
+            coor = np.array(coordinates[0], np.float64)
+            coor[-12:] = np.asarray(cameras_interp[i], np.float64)
+            coordinates.append(coor.tolist())
+    return coordinates
+
+
+def process_pose_file(cam_entries, width: int = 672, height: int = 384,
+                      original_pose_width: int = 1280,
+                      original_pose_height: int = 720,
+                      return_poses: bool = False):
+    """19-float camera entries -> Plucker video (1, V, height, width, 6):
+    fx (or fy) corrected where the poses' aspect ratio differs from the
+    sample's, first-frame-relative poses with frame 0 at the origin.
+    ``return_poses`` returns the entries as they came."""
+    if return_poses:
+        return cam_entries
+    cams = [Camera.from_entry(e) for e in cam_entries]
+    sample_ratio = width / height
+    pose_ratio = original_pose_width / original_pose_height
+    if pose_ratio > sample_ratio:
+        resized_w = height * pose_ratio
+        for c in cams:
+            c.fx = resized_w * c.fx / width
+    else:
+        resized_h = width / pose_ratio
+        for c in cams:
+            c.fy = resized_h * c.fy / height
+    K = np.asarray([[c.fx * width, c.fy * height, c.cx * width,
+                     c.cy * height] for c in cams], np.float32)
+    return ray_condition(K, get_relative_pose(cams), height, width)[None]
 
 
 def plucker_from_pose_encoding(pose_enc: np.ndarray,

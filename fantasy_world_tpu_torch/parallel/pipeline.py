@@ -239,26 +239,38 @@ def pipeline_dit_blocks(blocks: nn.Module, x: torch.Tensor,
                         context: torch.Tensor, t_mod: torch.Tensor,
                         rope_cos: torch.Tensor, rope_sin: torch.Tensor, *,
                         pipe: PipeMesh, microbatches: int,
-                        remat: bool = False) -> torch.Tensor:
+                        remat: bool = False, seq=None) -> torch.Tensor:
     """The Wan DiT block stack as a GPipe pipeline (JAX
     ``pipeline_dit_blocks``): ``blocks`` are this stage's ``DiTBlock``s in
     order, each run on a microbatch of tokens with its context and t_mod;
-    the RoPE tables go whole to every block. ``remat``: each block is
-    recomputed on the backward, so a stage keeps only its blocks' inputs
-    (with the checkpoint's early stop off where the blocks are split over
-    the model group: every model rank then reissues each collective)."""
+    the RoPE tables of x's tokens go whole to every block. ``seq``: x's
+    token split over the stage's seq group (``sharding.TokenSplit``),
+    which each block's self-attention takes -- the Ulysses context the
+    call runs in goes with it, into the recompute too. ``remat``: each
+    block is recomputed on the backward, so a stage keeps only its blocks'
+    inputs (with the checkpoint's early stop off where the blocks are
+    split over the model or the seq group: every rank of the group then
+    reissues each collective)."""
     from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+    from .ulysses import current_ulysses, ulysses_context
+    uly = current_ulysses()
+
+    def run(blk, h, ctx_mb, tmod_mb):
+        with ulysses_context(uly):
+            return blk(h, ctx_mb, tmod_mb, rope_cos, rope_sin, seq=seq)
+
     def stage(mods, h, ctx_mb, tmod_mb):
-        tp = any(getattr(b, "tp", None) is not None for b in mods)
-        with set_checkpoint_early_stop(not tp):
+        split = (seq is not None and seq.n > 1) or any(
+            getattr(b, "tp", None) is not None for b in mods)
+        with set_checkpoint_early_stop(not split):
             for blk in mods:
                 if remat:
-                    h = checkpoint(blk, h, ctx_mb, tmod_mb, rope_cos,
-                                   rope_sin, use_reentrant=False,
+                    h = checkpoint(run, blk, h, ctx_mb, tmod_mb,
+                                   use_reentrant=False,
                                    preserve_rng_state=False)
                 else:
-                    h = blk(h, ctx_mb, tmod_mb, rope_cos, rope_sin)
+                    h = run(blk, h, ctx_mb, tmod_mb)
         return h
 
     mods = nn.ModuleList(list(blocks.values()) if isinstance(

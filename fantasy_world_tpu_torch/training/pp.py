@@ -19,8 +19,16 @@ backward the stage's gradients are summed over its data ranks (each took
 its rows, a 1/D share of the loss) and lite's over the pipe group; every
 stage then takes the same AdamW step on lite, which stays bit-equal
 everywhere. On a ('pipe', 'model') mesh a stage's blocks take the
-megatron splits of ``parallel/sharding.py`` (``StageDiT.shard``); 'seq'
-inside a stage is not ported.
+megatron splits of ``parallel/sharding.py`` (``StageDiT.shard``). On a
+stage mesh with seq ranks the latent frames split over 'seq' as in the
+fusion forward (``sharding.frame_split``): a rank's microbatches enter the
+pipeline as its frames' tokens (a hop joins ranks of one seq index, so
+every hop carries one shape even where the frames split unevenly), the
+self-attention goes through ``parallel/ulysses.py`` (the gather, or
+Ulysses / the ring under ``ulysses``), the cross-attentions keep the whole
+text and CLIP keys, and the last stage runs the head on the rank's tokens
+before it gathers the prediction. Each rank's gradients are then its
+frames' share, which ``sharding.reduce_gradients`` sums over 'seq'.
 """
 from __future__ import annotations
 
@@ -56,7 +64,6 @@ class StageDiT(WanDiT):
         """Keep this rank's column / row parts of the blocks' projections
         (``sharding.PARAM_RULES``; lite matches no rule and stays whole)
         and give the blocks the model group; in place, once."""
-        check_stage_mesh(mesh)
         axis = mesh.axis("model")
         blocks = list(self.blocks.values())
         if axis.size == 1 or blocks[0].tp is not None:
@@ -69,14 +76,6 @@ class StageDiT(WanDiT):
         for blk in blocks:
             blk.set_tensor_parallel(axis)
         return self
-
-
-def check_stage_mesh(mesh) -> None:
-    """A stage splits over 'data' and 'model'; 'seq' inside a stage is not
-    ported."""
-    if mesh.size("seq") > 1:
-        raise ValueError("'seq' inside a pipeline stage is not ported "
-                         "(ROADMAP queue A item 7)")
 
 
 def _generator(device, seed: int, index: int) -> torch.Generator:
@@ -136,17 +135,21 @@ def pp_flow_match_loss(model: WanDiT, clean_latents: torch.Tensor,
                        noise: torch.Tensor, sigma, timestep: torch.Tensor,
                        context: torch.Tensor, clip_feature=None, y=None, *,
                        pipe: PipeMesh, microbatches: int,
-                       remat: bool = False) -> torch.Tensor:
+                       remat: bool = False,
+                       ulysses: bool = False) -> torch.Tensor:
     """The rectified-flow MSE of ``training/step.py`` with the DiT's blocks
     run as a GPipe pipeline (JAX ``pp_flow_match_loss``): noisy = (1 -
     sigma) clean + sigma noise, the embeddings, the pipelined blocks, the
     head, unpatchify, the f32 MSE against noise - clean. ``sigma`` is a
     scalar or a per-sample (B, 1, 1, 1, 1) tensor; ``clip_feature`` and
     ``y`` carry the i2v conditioning. Every rank passes the whole batch and
-    runs its data rows of it, split into ``microbatches``; returns the
-    whole batch's loss on every rank (the head and the MSE run on the last
-    stage). ``remat``: per-block recompute inside the stage."""
-    check_stage_mesh(pipe.inner)
+    runs its data rows of it, split into ``microbatches``, and its seq
+    rank's latent frames; returns the whole batch's loss on every rank (the
+    head and the MSE run on the last stage). ``remat``: per-block
+    recompute inside the stage. ``ulysses``: on seq ranks, the
+    self-attention re-shards heads (Ulysses, or the ring where the heads
+    do not divide) instead of gathering the keys."""
+    from ..parallel.ulysses import ulysses_context
     cfg = model.cfg
     dtype = model.patch_embedding.weight.dtype
     B = clean_latents.shape[0]
@@ -171,13 +174,20 @@ def pp_flow_match_loss(model: WanDiT, clean_latents: torch.Tensor,
         ctx = torch.cat([model.img_emb(mine(clip_feature).to(dtype)), ctx],
                         dim=1)
     tokens, grid = model.patchify(x)
-    cos, sin = rope_ops.cos_sin_half_from_angles(
-        rope_ops.build_angles_3d(cfg.head_dim, *grid), tokens.device)
-    out = pipeline_dit_blocks(model.blocks, tokens, ctx, t_mod, cos, sin,
-                              pipe=pipe, microbatches=microbatches,
-                              remat=remat)
+    f, h, w = grid
+    split = sharding.frame_split(f, pipe.inner).scaled(h * w)
+    cos, sin = (split.take(r, 0) for r in rope_ops.cos_sin_half_from_angles(
+        rope_ops.build_angles_3d(cfg.head_dim, f, h, w), tokens.device))
+    with ulysses_context(pipe.inner if ulysses else None):
+        out = pipeline_dit_blocks(model.blocks, split.take(tokens), ctx,
+                                  t_mod, cos, sin, pipe=pipe,
+                                  microbatches=microbatches, remat=remat,
+                                  seq=split)
     if pipe.last:
-        pred = model.unpatchify(model.head(out, t), grid)
+        # the head on this rank's tokens: gathering first would give every
+        # seq rank the whole head gradient, which the 'seq' sum multiplies
+        pred = model.unpatchify(split.gather(model.head(out, t),
+                                             grad="slice"), grid)
         # each data rank's rows are a 1/D share of the batch's mean; every
         # rank goes on from the sum, so its backward passes 1 to each share
         mse = torch.mean(torch.square(pred.float() - (noise - clean)))
@@ -190,7 +200,8 @@ def pp_flow_match_loss(model: WanDiT, clean_latents: torch.Tensor,
 
 def make_pp_train_step(model: WanDiT, optimizer: torch.optim.Optimizer,
                        lr_schedule=None, *, pipe: PipeMesh,
-                       microbatches: int, remat: bool = True
+                       microbatches: int, remat: bool = True,
+                       ulysses: bool = False
                        ) -> Callable[[Dict], torch.Tensor]:
     """Returns ``step(batch) -> loss`` (JAX ``make_pp_train_step``): the
     pipelined loss and its backward, the gradients reduced (the module
@@ -199,7 +210,7 @@ def make_pp_train_step(model: WanDiT, optimizer: torch.optim.Optimizer,
     arguments, the whole batch on every rank; the loss returned is the
     whole batch's, the same on every rank. A parameter the rank's graph
     does not reach gets a zero gradient, so AdamW's weight decay still
-    applies to it."""
+    applies to it. ``ulysses``: as ``pp_flow_match_loss`` takes it."""
     lite, _ = split_dit_trainable(model)
     held = {id(p) for g in optimizer.param_groups for p in g["params"]}
     named = {n: p for n, p in model.named_parameters() if id(p) in held}
@@ -213,7 +224,7 @@ def make_pp_train_step(model: WanDiT, optimizer: torch.optim.Optimizer,
             p.grad = None
         loss = pp_flow_match_loss(model, pipe=pipe,
                                   microbatches=microbatches, remat=remat,
-                                  **batch)
+                                  ulysses=ulysses, **batch)
         loss.backward()
         for p in named.values():
             if p.grad is None:

@@ -444,8 +444,9 @@ PIPE_TRAIN = [(name, shape, lk, kernel) for name, shape, lk, kernel
                          ids=[c[0] for c in PIPE_TRAIN])
 def test_backward_kernels_at_pipe_train_shapes(device, name, shape, Lk,
                                                kernel):
-    """The pipeline trainer's microbatch (Bm = 1 at 480x832x81): the stats
-    forward and dq, dk/dv against their plain versions."""
+    """The pipeline trainer's microbatch (Bm = 1 at 480x832x81), and with 2
+    seq ranks a stage its Ulysses head group and a rank's queries: the
+    stats forward and dq, dk/dv against their plain versions."""
     B, Lq, H, D = shape
     assert fa.route(H, D, Lk) == kernel
     q, k, v = _qkv(shape, Lk, device, seed=5)

@@ -216,15 +216,24 @@ def test_load_re10k_cameras_matches_jax(tmp_path):
             np.testing.assert_array_equal(a.w2c_mat, b.w2c_mat)
 
 
+def _trainer_rays(path, n, size):
+    """The port's processor as ``cli/train.py:read_clip`` sets it up."""
+    return re10k.RealEstate10KPoseProcessor(
+        sample_stride=1, sample_n_frames=n, sample_size=size,
+        relative_pose=True, zero_t_first_frame=True,
+        is_i2v=True).get_plucker_embedding(path)
+
+
 @pytest.mark.parametrize("n,size,url", [
     (9, (24, 40), True), (20, (24, 40), False), (5, (16, 24), True),
     (1, (12, 20), True)])
 def test_re10k_plucker_matches_jax(tmp_path, n, size, url):
-    """The trainer's rays: the first n cameras of a 20-row file, as JAX's
-    processor gives them with the JAX trainer's settings (stride 1,
-    relative poses, frame 0 at the origin), within 1e-6."""
+    """The trainer's rays: the first n cameras of a 20-row file through the
+    port's processor, as JAX's gives them, both with the JAX trainer's
+    settings (stride 1, relative poses, frame 0 at the origin), within
+    1e-6."""
     path = _write_poses(tmp_path / "poses.txt", _pose_rows(20, 1), url)
-    got = re10k.re10k_plucker(path, n, size)
+    got = _trainer_rays(path, n, size)
     want = jre10k.RealEstate10KPoseProcessor(
         sample_stride=1, sample_n_frames=n, sample_size=size,
         relative_pose=True, zero_t_first_frame=True,
@@ -236,7 +245,7 @@ def test_re10k_plucker_matches_jax(tmp_path, n, size, url):
 def test_re10k_plucker_needs_a_camera_per_frame(tmp_path):
     path = _write_poses(tmp_path / "poses.txt", _pose_rows(4, 1))
     with pytest.raises(ValueError, match="4 cameras for 5 frames"):
-        re10k.re10k_plucker(path, 5, (12, 20))
+        _trainer_rays(path, 5, (12, 20))
 
 
 def test_re10k_trainer_rays_are_the_pose_files(tmp_path):
@@ -247,7 +256,7 @@ def test_re10k_trainer_rays_are_the_pose_files(tmp_path):
     rows = _pose_rows(9, 4)
     path = _write_poses(tmp_path / "poses.txt", rows)
     H, W = 12, 20
-    out = re10k.re10k_plucker(path, 9, (H, W))[0]
+    out = _trainer_rays(path, 9, (H, W))[0]
     assert out.shape == (9, H, W, 6)
     np.testing.assert_allclose(out[0, ..., :3], 0.0, atol=1e-6)
     cam = camera.Camera.from_entry(rows[0])

@@ -13,10 +13,15 @@ and shared between the test processes):
     JAX's sequential gradients, as JAX ``tests/test_pp_train.py`` checks
     it; on a ('pipe', 'model') 2 x 2 mesh against the sequential step;
     lite bit-equal on every stage after two AdamW steps;
+  * 'seq' inside a stage: the step on (pipe 2, seq 2), its 3 latent frames
+    split 2 | 1, with the self-attention gathered, through Ulysses, and
+    through the ring (3 heads, which 2 seq ranks do not divide), each
+    against JAX ``make_pp_train_step`` on a ('pipe', 'data', 'seq',
+    'model') (2, 1, 2, 1) mesh; lite bit-equal on all four ranks; each
+    rank's launches exactly ``chip_smoke.pipe_train_launches``';
   * the i2v-conditioned loss with a sigma per sample; the rejection of a
-    heterogeneous stack and of 'seq' inside a stage; the forward hop and
-    its gradient, the mirror hop, at world 2 and 4; the launch count of
-    ``chip_smoke.py``'s small_pipe;
+    heterogeneous stack; the forward hop and its gradient, the mirror hop,
+    at world 2 and 4; the launch count of ``chip_smoke.py``'s small_pipe;
   * ``cli.train --pipe_stages``: under torchrun, saved and resumed at S = 2
     and at S = 1 against an unbroken run; ``_pp_batches`` and
     ``_pp_data_batches`` against the JAX trainer's; the mode's exits in
@@ -63,10 +68,9 @@ from fantasy_world_tpu_torch.core.params import build
 from fantasy_world_tpu_torch.models.wan.dit import WanDiT, WanDiTConfig
 from fantasy_world_tpu_torch.parallel import sharding
 from fantasy_world_tpu_torch.parallel.distributed import spawn
-from fantasy_world_tpu_torch.parallel.pipeline import PipeMesh, single_pipe
+from fantasy_world_tpu_torch.parallel.pipeline import single_pipe
 from fantasy_world_tpu_torch.training.pp import (HETEROGENEOUS,
                                                  build_stage_dit,
-                                                 pp_flow_match_loss,
                                                  split_dit_trainable)
 
 torch.set_num_threads(1)
@@ -77,13 +81,22 @@ REL_L2 = 1e-4
 TOY_L, TOY_M = 8, 2          # the JAX toy test's blocks and microbatches
 L, B, FHW = 4, 4, (3, 4, 6)  # the JAX PP-step test's model and batch
 SGD_LR, ADAM_LR = 1e-2, 1e-3
+SEQ_AXES = ("pipe", "data", "seq", "model")
 # chip_smoke.py's small_pipe launches are checked at its model on 6 latent
 # frames of 4 x 6 tokens (the CPU's plain versions, counted)
 CONTRACT_GEOMETRY = (64, 96, 21)
-# tag: ((pipe, data, model), optimizer, steps)
-STEPS = {"pipe_data": ((2, 2, 1), "sgd", 1),
-         "pipe_model": ((2, 1, 2), "sgd", 1),
-         "pipe_data_adamw": ((2, 2, 1), "adamw", 2)}
+# tag: ((pipe, data, seq, model), optimizer, steps, the model's heads,
+# Ulysses)
+STEPS = {"pipe_data": ((2, 2, 1, 1), "sgd", 1, 4, False),
+         "pipe_model": ((2, 1, 1, 2), "sgd", 1, 4, False),
+         "pipe_data_adamw": ((2, 2, 1, 1), "adamw", 2, 4, False),
+         "pipe_seq_gather": ((2, 1, 2, 1), "sgd", 1, 4, False),
+         "pipe_seq_ulysses": ((2, 1, 2, 1), "sgd", 1, 4, True),
+         "pipe_seq_ring": ((2, 1, 2, 1), "sgd", 1, 3, True)}
+# how each seq case's self-attention runs (chip_smoke's MESH_MODES words)
+SEQ_MODES = {"pipe_seq_gather": "gather", "pipe_seq_ulysses": "ulysses",
+             "pipe_seq_ring": "ring"}
+TEXT_LEN = 20                # the batch's context tokens
 
 
 # ---------------------------------------------------------------------------
@@ -172,23 +185,22 @@ def _to_jax(b):
     return {k: jnp.asarray(v) for k, v in b.items()}
 
 
-def _step_setup():
-    """JAX ``tests/test_pp_train.py``'s model (seed 0, 4 blocks) and batch
-    (seed 0)."""
-    jcfg = _tiny_jcfg(L)
+def _step_setup(heads=4):
+    """JAX ``tests/test_pp_train.py``'s model (seed 0, 4 blocks, of
+    ``heads`` heads) and batch (seed 0)."""
+    jcfg = _tiny_jcfg(L, num_heads=heads)
     params = jdit.init_wan_dit(0, jcfg, jnp.float32)
     return jcfg, params, _np32(_jbatch(jcfg, np.random.default_rng(0)))
 
 
-def _jax_steps():
-    """The JAX step on ('pipe', 'data') 2 x 2 under SGD: its loss and
+def _jax_steps(heads=4, axes=("pipe", "data"), shape=(2, 2)):
+    """The JAX step on a ``shape`` mesh of ``axes`` under SGD: its loss and
     updated parameters; JAX's sequential loss and gradients; all in the
     port's names."""
-    jcfg, params, batch = _step_setup()
+    jcfg, params, batch = _step_setup(heads)
     _, m_sd = _port_model(jcfg, params)
     trainable = jpp.split_dit_trainable(params)
-    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
-                ("pipe", "data"))
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(shape), axes)
     opt = optax.sgd(SGD_LR)
     step = jax.jit(jpp.make_pp_train_step(jcfg, opt, mesh=mesh,
                                           microbatches=2))
@@ -294,7 +306,12 @@ def refs(tmp_path_factory):
         if name not in cache:
             make = {"toy2": lambda: _jax_toy(2), "toy4": lambda: _jax_toy(4),
                     "steps": _jax_steps, "dit_blocks": _dit_blocks_case,
-                    "i2v": _i2v_case}[name]
+                    "i2v": _i2v_case,
+                    # JAX's stage interior stays GSPMD over 'seq'
+                    "seq_steps4": lambda: _jax_steps(4, SEQ_AXES,
+                                                     (2, 1, 2, 1)),
+                    "seq_steps3": lambda: _jax_steps(3, SEQ_AXES,
+                                                     (2, 1, 2, 1))}[name]
             cache[name] = _shared(tmp_path_factory, f"pp_{name}", make)
         return cache[name]
     return get
@@ -308,14 +325,19 @@ def _spec(world, refs):
         spec["contract"] = {"geometry": CONTRACT_GEOMETRY}
     if world == 4:
         spec["dit_blocks"] = refs("dit_blocks")[0]
-        jcfg, _, batch = _step_setup()
-        spec["model"] = {"cfg": encoder_config_from(WanDiTConfig, jcfg),
-                         "sd": refs("steps")["sd"],
-                         "batch": _to_torch(batch)}
+        spec["contract_seq"] = {"geometry": CONTRACT_GEOMETRY, "seq": 2,
+                                "ulysses": (False, True)}
+        spec["models"] = {}
+        for heads, ref in ((4, "steps"), (3, "seq_steps3")):
+            jcfg, _, batch = _step_setup(heads)
+            spec["models"][heads] = {
+                "cfg": encoder_config_from(WanDiTConfig, jcfg),
+                "sd": refs(ref)["sd"], "batch": _to_torch(batch)}
         spec["steps"] = {
             tag: {"mesh": mesh, "opt": opt, "steps": n, "M": 2,
-                  "lr": SGD_LR if opt == "sgd" else ADAM_LR}
-            for tag, (mesh, opt, n) in STEPS.items()}
+                  "lr": SGD_LR if opt == "sgd" else ADAM_LR,
+                  "model": heads, "ulysses": uly}
+            for tag, (mesh, opt, n, heads, uly) in STEPS.items()}
     return spec
 
 
@@ -441,6 +463,49 @@ def test_lite_stays_bit_equal_on_every_stage(worlds):
                                   ranks[0][f"param0/{n}"]) for n in lite)
 
 
+@pytest.mark.parametrize("tag", sorted(SEQ_MODES))
+def test_pp_step_seq_inside_a_stage_matches_jax(worlds, refs, tag):
+    """(pipe 2, seq 2), the 3 latent frames split 2 | 1 over the seq ranks
+    of each stage, SGD 1e-2: the loss of JAX ``make_pp_train_step`` on the
+    (2, 1, 2, 1) mesh, JAX's sequential gradients and the parameters
+    JAX's step leaves; every parameter, lite and the blocks, the same
+    bits on the ranks that hold it (``_merged``), lite on all four."""
+    want = refs("seq_steps3" if STEPS[tag][3] == 3 else "seq_steps4")
+    ranks = worlds(4)[tag]
+    assert want["pp_loss"] == pytest.approx(want["seq_loss"], rel=LOSS_RTOL)
+    assert len({r["loss0"] for r in ranks}) == 1
+    for r in ranks:
+        assert r["loss0"] == pytest.approx(want["pp_loss"], rel=LOSS_RTOL)
+    grads, params = _merged(ranks, "grad0"), _merged(ranks, "param0")
+    assert sorted(grads) == sorted(want["seq_grads"])
+    lite = [n for n in grads if not n.startswith("blocks.")]
+    assert lite and all(f"param0/{n}" in r for n in lite for r in ranks)
+    for n, g in grads.items():
+        assert _rel_l2(g, want["seq_grads"][n]) <= REL_L2, n
+        assert _rel_l2(params[n], want["pp_params"][n]) <= REL_L2, n
+
+
+@pytest.mark.parametrize("tag", sorted(SEQ_MODES))
+def test_pp_seq_launches_are_exact(worlds, tag):
+    """Each rank of the (pipe 2, seq 2) step launches what
+    ``chip_smoke.pipe_train_launches`` reckons for its frames (2 | 1 of 3)
+    and its stage's 2 blocks, the self-attention as gathered keys, as
+    Ulysses's head groups or as the ring's hops (the CPU's plain
+    versions, counted); the cross-attention on its queries."""
+    import chip_smoke
+    mesh, _, _, heads, _ = STEPS[tag]
+    cfg = encoder_config_from(WanDiTConfig, _tiny_jcfg(L, num_heads=heads))
+    f, h, w = FHW
+    sizes = tuple(len(c) * h * w for c in np.array_split(np.arange(f), 2))
+    for rank, r in enumerate(worlds(4)[tag]):
+        seq_index = np.unravel_index(rank, mesh)[2]
+        want = chip_smoke.pipe_train_launches(
+            cfg, L // mesh[0], None, TEXT_LEN, mode=SEQ_MODES[tag],
+            split=sharding.TokenSplit(None, sizes, int(seq_index)))
+        assert r["launches0"] == want, (rank, r["launches0"], want)
+        assert any(v for k, v in want.items() if k.startswith("bwd_"))
+
+
 def test_i2v_loss_matches_jax(worlds, refs):
     want = refs("i2v")[1]
     for r in worlds(2)["i2v"]:
@@ -454,6 +519,20 @@ def test_small_pipe_launch_contract(worlds):
     twice under recompute, dq and dk/dv once."""
     ranks = worlds(2)["contract"]
     assert len(ranks) == 2
+    for r, counts in enumerate(ranks):
+        assert counts["seen"] == counts["want"], (r, counts)
+        assert any(v for k, v in counts["seen"].items()
+                   if k.startswith("bwd_"))
+
+
+@pytest.mark.parametrize("ulysses", [False, True])
+def test_small_pipe_seq_launch_contract(worlds, ulysses):
+    """``chip_smoke.py``'s expected launches of a small_pipe_seq step on
+    each of its 4 ranks (2 stages x 2 seq ranks, the 6 latent frames 3 |
+    3; ``pipe_launches_of``) are the kernels the step calls, the
+    self-attention gathered or through Ulysses."""
+    ranks = worlds(4)[f"contract_seq_{ulysses}"]
+    assert len(ranks) == 4
     for r, counts in enumerate(ranks):
         assert counts["seen"] == counts["want"], (r, counts)
         assert any(v for k, v in counts["seen"].items()
@@ -484,18 +563,6 @@ def test_split_rejects_a_heterogeneous_stack():
     lite, blocks = split_dit_trainable(model)
     assert len(blocks) == L and "patch_embedding.weight" in lite
     assert not any(n.startswith("blocks.") for n in lite)
-
-
-def test_seq_inside_a_stage_raises():
-    """A stage splits over 'data' and 'model'; a seq axis inside it is not
-    ported and raises, naming the ROADMAP item, before any work."""
-    inner = sharding.Mesh((1, 2, 1), 0, (sharding.Axis(None, 1, 0),
-                                         sharding.Axis(None, 2, 0),
-                                         sharding.Axis(None, 1, 0)))
-    pipe = PipeMesh(sharding.Axis(None, 1, 0), inner, 0)
-    with pytest.raises(ValueError, match="ROADMAP queue A item 7"):
-        pp_flow_match_loss(None, None, None, 0.5, None, None, pipe=pipe,
-                           microbatches=1)
 
 
 # ---------------------------------------------------------------------------

@@ -128,8 +128,9 @@ def test_port_never_imports_jax(tmp_path):
     the registry, ModelManager, bundles and local resolution, the track
     head, the DDIM and continuous-ODE schedules, and the fusion, bicross,
     aggregator and DiT modules of the single-card options, and the mesh
-    layer (``parallel.distributed``, ``sharding``, ``ulysses``, ``ring``)
-    among the modules, chip_smoke's option set-up and the CLIs' argument
+    layer (``parallel.distributed``, ``sharding``, ``ulysses``, ``ring``,
+    ``pipeline``), ``training.pp``, the RE10K pose processor and
+    ``hostops.geometry_train`` among the modules, chip_smoke's option set-up and the CLIs' argument
     checks run (their mesh checks too, the serve CLI's among them); and a
     rank it spawns (two gloo processes, the collectives of the mesh
     serving path, with the serve CLI, the samplers and the Wan2.2 pipeline
@@ -153,7 +154,8 @@ def test_port_never_imports_jax(tmp_path):
         " 'models.fusion.bicross', 'models.fusion.model',"
         " 'models.vggt.aggregator', 'models.wan.dit',"
         " 'parallel.distributed', 'parallel.sharding', 'parallel.ulysses',"
-        " 'parallel.ring'):\n"
+        " 'parallel.ring', 'hostops.geometry_train', 'training.pp',"
+        " 'parallel.pipeline'):\n"
         "    assert 'fantasy_world_tpu_torch.' + m in sys.modules, m\n"
         "from fantasy_world_tpu_torch.cli import infer_wan21, infer_wan22\n"
         "for main, extra in ((infer_wan21.main, ['--model_ckpt', 'n.pth']),"

@@ -6,6 +6,7 @@ This module imports torch and the port only -- never JAX, never the JAX
 package -- so a rank loads neither; each rank reports what it loaded. The
 parent test runs the JAX side and compares.
 """
+import contextlib
 import sys
 
 import numpy as np
@@ -37,6 +38,27 @@ def _mesh_groups_ok(mesh):
         assert got == want, (name, got, want)
         assert axis.index == coords[a]
     assert rank_of(coords, mesh.shape) == mesh.rank
+
+
+def _pipe_groups_ok(pipe, shape):
+    """On a (pipe, data, seq, model) ``shape`` grid of global ranks, each
+    axis group holds the ranks on that axis with this rank's other
+    coordinates, in axis order (the pipe group too), and the stage mesh's
+    rank is ``sharding.rank_of`` its (data, seq, model) coordinates."""
+    import torch.distributed as dist
+    from fantasy_world_tpu_torch.parallel.sharding import AXES, rank_of
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    coords = np.unravel_index(pipe.rank, shape)
+    axes = [pipe.pipe] + [pipe.inner.axis(name) for name in AXES]
+    for a, axis in enumerate(axes):
+        idx = list(coords)
+        idx[a] = slice(None)
+        want = [int(r) for r in grid[tuple(idx)]]
+        got = ([pipe.rank] if axis.group is None
+               else dist.get_process_group_ranks(axis.group))
+        assert got == want, (a, got, want)
+        assert axis.index == coords[a]
+    assert rank_of(coords[1:], shape[1:]) == pipe.inner.rank
 
 
 def attention_cases(rank, case_file, out_file):
@@ -589,19 +611,18 @@ def _train_case(rank, case, model_spec):
     return out
 
 
-def _launch_contract(rank, case):
-    """The kernel launches one step of ``chip_smoke.py``'s small_mesh_train
-    on this rank would make, counted on the CPU by route and head dim at
-    the plain versions' calls (``case``: shape, Ulysses, mode and a latent
-    geometry), and ``chip_smoke.mesh_train_launches``' count."""
-    import chip_smoke
+@contextlib.contextmanager
+def counted_launches():
+    """{launch key: count} of the kernels the training calls inside the
+    block would launch on the card, counted on the CPU by route and head
+    dim at the plain versions' calls (every training forward keeps its
+    stats)."""
     from fantasy_world_tpu_torch.ops import flash_attention as fa
-    from fantasy_world_tpu_torch.parallel import sharding
     seen = {k: 0 for k in fa.LAUNCHES}
     forward, backward = fa._forward, fa.flash_attention_backward_part
 
     def count_forward(q, k, v, scale, stats):
-        assert stats                     # training forwards keep stats
+        assert stats
         seen[fa.route(q.shape[2], q.shape[3], k.shape[1]) + "_stats"] += 1
         return forward(q, k, v, scale, stats)
 
@@ -611,6 +632,21 @@ def _launch_contract(rank, case):
         seen[f"bwd_dkv_{d}"] += 1
         return backward(q, k, v, o, lse2, do, scale, delta)
 
+    fa._forward, fa.flash_attention_backward_part = (count_forward,
+                                                     count_backward)
+    try:
+        yield seen
+    finally:
+        fa._forward, fa.flash_attention_backward_part = forward, backward
+
+
+def _launch_contract(rank, case):
+    """The kernel launches one step of ``chip_smoke.py``'s small_mesh_train
+    on this rank would make (``counted_launches``; ``case``: shape,
+    Ulysses, mode and a latent geometry), and
+    ``chip_smoke.mesh_train_launches``' count."""
+    import chip_smoke
+    from fantasy_world_tpu_torch.parallel import sharding
     shape, uly = case["shape"], case["ulysses"]
     mesh = sharding.make_mesh(*shape)
     setup = chip_smoke.small_train_setup()
@@ -621,13 +657,9 @@ def _launch_contract(rank, case):
              else chip_smoke.stack_batches(batches))
     model, trainable = chip_smoke.small_train_model(
         setup, case["mode"], "cpu", torch.float32, mesh)
-    fa._forward, fa.flash_attention_backward_part = (count_forward,
-                                                     count_backward)
-    try:
+    with counted_launches() as seen:
         chip_smoke.train_on(model, trainable, chip_smoke._to(batch, "cpu"),
                             mesh, uly)
-    finally:
-        fa._forward, fa.flash_attention_backward_part = forward, backward
     fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
     want = chip_smoke.mesh_train_launches(
         setup[0], fhw, shape, chip_smoke.MESH_MODES["small", shape, uly],
@@ -759,17 +791,19 @@ def _pp_dit_blocks(rank, case, cfg, sd):
 
 def _pp_steps(rank, case, cfg, sd, batch):
     """``case["steps"]`` steps of the port's ``make_pp_train_step`` on a
-    pipe x (data, 1, model) mesh under SGD or AdamW: each step's loss, and
-    this rank's gradients and values after it, gathered whole over the
-    model group ({name: array})."""
+    pipe x (data, seq, model) mesh under SGD or AdamW, with Ulysses where
+    ``case["ulysses"]``: each step's loss, and this rank's gradients and
+    values after it, gathered whole over the model group ({name: array});
+    the launches of every step (``counted_launches``)."""
     import argparse
 
     from fantasy_world_tpu_torch.cli.train import _optimizer
     from fantasy_world_tpu_torch.parallel import sharding
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
     from fantasy_world_tpu_torch.training.pp import make_pp_train_step
-    S, D, Mo = case["mesh"]
-    pipe = make_pipe_mesh(S, data=D, model=Mo)
+    S, D, Sq, Mo = case["mesh"]
+    pipe = make_pipe_mesh(S, data=D, seq=Sq, model=Mo)
+    _pipe_groups_ok(pipe, case["mesh"])
     model = _stage_model(cfg, sd, pipe)
     params = dict(model.named_parameters())
     if case["opt"] == "sgd":
@@ -778,10 +812,13 @@ def _pp_steps(rank, case, cfg, sd, batch):
         opt, sched = _optimizer(argparse.Namespace(
             lr=case["lr"], warmup=1, weight_decay=0.1), params.values())
     step = make_pp_train_step(model, opt, sched, pipe=pipe,
-                              microbatches=case["M"])
+                              microbatches=case["M"],
+                              ulysses=case["ulysses"])
     out = {}
     for i in range(case["steps"]):
-        out[f"loss{i}"] = float(step(dict(batch)))
+        with counted_launches() as seen:
+            out[f"loss{i}"] = float(step(dict(batch)))
+        out[f"launches{i}"] = seen
         for n, p in params.items():
             for what, t in (("grad", p.grad), ("param", p.detach())):
                 out[f"{what}{i}/{n}"] = sharding.whole_tensor(
@@ -803,10 +840,10 @@ def _pp_i2v(rank, case, cfg, sd, batch):
 
 def pp_cases(rank, spec_file, out_file):
     """The pipeline cases of ``spec_file`` on this world: "toy", "hop",
-    "dit_blocks", "i2v", "contract" and {tag: step case} under "steps";
-    every rank's
-    results gathered, rank 0 writes {case: [each rank's]} to
-    ``out_file``."""
+    "dit_blocks", "i2v", "contract", "contract_seq" (its seq ranks and
+    Ulysses settings) and {tag: step case} under "steps" (each naming its
+    entry of "models"); every rank's results gathered,
+    rank 0 writes {case: [each rank's]} to ``out_file``."""
     spec = torch.load(spec_file, weights_only=False)
     out = {}
     if "toy" in spec:
@@ -823,49 +860,33 @@ def pp_cases(rank, spec_file, out_file):
                                          c["batch"]))
     if "contract" in spec:
         out["contract"] = _gather_all(_pp_contract(rank, spec["contract"]))
+    for uly in spec.get("contract_seq", {}).get("ulysses", ()):
+        c = spec["contract_seq"]
+        out[f"contract_seq_{uly}"] = _gather_all(_pp_contract(
+            rank, c, c["seq"], uly))
     for tag, c in spec.get("steps", {}).items():
-        out[tag] = _gather_all(_pp_steps(rank, c, spec["model"]["cfg"],
-                                         spec["model"]["sd"],
-                                         spec["model"]["batch"]))
+        model = spec["models"][c["model"]]
+        out[tag] = _gather_all(_pp_steps(rank, c, model["cfg"], model["sd"],
+                                         model["batch"]))
     out["foreign"] = foreign_modules()
     if rank == 0:
         torch.save(out, out_file)
 
 
-def _pp_contract(rank, case):
+def _pp_contract(rank, case, seq=1, ulysses=False):
     """The kernel launches one small_pipe step of ``chip_smoke.py`` makes on
-    this rank (its reduced DiT at ``case["geometry"]``), counted on the CPU
-    by route and head dim at the plain versions' calls, and
-    ``chip_smoke.pipe_train_launches``' count."""
+    this rank (its reduced DiT at ``case["geometry"]``; on ``seq`` ranks a
+    stage, small_pipe_seq's, with Ulysses under ``ulysses``), counted on
+    the CPU (``counted_launches``), and ``chip_smoke.pipe_launches_of``'s
+    count."""
     import chip_smoke
-    from fantasy_world_tpu_torch.ops import flash_attention as fa
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
-    seen = {k: 0 for k in fa.LAUNCHES}
-    forward, backward = fa._forward, fa.flash_attention_backward_part
-
-    def count_forward(q, k, v, scale, stats):
-        assert stats                     # training forwards keep stats
-        seen[fa.route(q.shape[2], q.shape[3], k.shape[1]) + "_stats"] += 1
-        return forward(q, k, v, scale, stats)
-
-    def count_backward(q, k, v, o, lse2, do, scale, delta=None):
-        d = fa.kernel_dim(q.shape[2], q.shape[3], k.shape[1])
-        seen[f"bwd_dq_{d}"] += 1
-        seen[f"bwd_dkv_{d}"] += 1
-        return backward(q, k, v, o, lse2, do, scale, delta)
-
     cfg = chip_smoke.small_pipe_config()
     geometry = case["geometry"]
     batch = chip_smoke.pipe_batch(cfg, geometry, 3, 16)
-    pipe = make_pipe_mesh(chip_smoke.PIPE_STAGES)
-    fa._forward, fa.flash_attention_backward_part = (count_forward,
-                                                     count_backward)
-    try:
+    pipe = make_pipe_mesh(chip_smoke.PIPE_STAGES, seq=seq)
+    with counted_launches() as seen:
         chip_smoke.pipe_step(torch.device("cpu"), torch.float32, cfg, 3,
-                             batch, pipe)
-    finally:
-        fa._forward, fa.flash_attention_backward_part = forward, backward
-    want = chip_smoke.pipe_train_launches(
-        cfg, cfg.num_layers // pipe.stages, chip_smoke.pipe_tokens(geometry),
-        16)
+                             batch, pipe, ulysses=ulysses)
+    want = chip_smoke.pipe_launches_of(cfg, geometry, 16, rank, seq, ulysses)
     return {"seen": seen, "want": want}

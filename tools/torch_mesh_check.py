@@ -41,9 +41,12 @@ ranks on its one card over gloo instead). Every rank, on its own card:
      PIPE_DEPTH = 24 blocks, whose weights, gradients and AdamW moments
      (~80 GB) one card does not hold, as 4 stages of 6 blocks (M = 4) and
      as 2 stages of 12 blocks x 2 data ranks (M = 2), the second against
-     the first. Each: the loss, every gradient's relative L2 within
-     TRAIN_TOL (each block's between the ranks that hold it), lite the
-     same on every rank, exact launches, seconds and peak GB per rank.
+     the first; and 'seq' inside a stage: at PIPE_REF_DEPTH as 2 stages
+     of 4 blocks x 2 seq ranks (M = 4; the 21 latent frames 11 | 10) with
+     Ulysses (20 of the 40 heads a rank), against the same one-process
+     step. Each: the loss, every gradient's relative L2 within TRAIN_TOL
+     (each block's between the ranks that hold it), lite the same on
+     every rank, exact launches, seconds and peak GB per rank.
 
 ``--sections`` runs only the numbered checks. Rank 0 prints one line per
 check, the cards' names and power limits, and a JSON line last (also
@@ -66,12 +69,14 @@ SERVING_MESHES = (((2, 1, 2), False, ("int8", "fp8", "wan22")),
                   ((1, 2, 2), True, ("tea", "window")))
 FULL_MESHES = (((1, 1, 4), False), ((1, 4, 1), True))
 # section 7: the pipeline trainer's depth and its two layouts of 4 ranks,
-# (stages, data ranks, microbatches), each on a batch of 4 samples; the
-# depth at which one process on a card steps the same batch, held against
-# the first layout
+# (stages, data ranks, seq ranks, microbatches), each on a batch of 4
+# samples; the depth at which one process on a card steps the same batch,
+# held against the first layout and against 2 stages x 2 seq ranks with
+# Ulysses
 PIPE_DEPTH = 24
-PIPE_LAYOUTS = ((4, 1, 4), (2, 2, 2))
+PIPE_LAYOUTS = ((4, 1, 1, 4), (2, 2, 1, 2))
 PIPE_REF_DEPTH = 8
+PIPE_SEQ_LAYOUT = (2, 1, 2, 4)
 
 
 def rel_l2(got, ref):
@@ -284,50 +289,53 @@ def mesh_train(dev, lead, world, out, seed=1024):
 
 
 def _block_holder(block, layout, layers):
-    """The rank of ``layout`` (stages, data, _) that holds ``block`` at data
-    index 0."""
-    stages, data, _ = layout
-    return (block // (layers // stages)) * data
+    """The rank of ``layout`` (stages, data, seq, _) that holds ``block``
+    at data and seq index 0."""
+    stages, data, seq, _ = layout
+    return (block // (layers // stages)) * data * seq
 
 
-def _grad_rel_l2(dev, ref, ref_layout, got, got_layout, layers):
+def _grad_rel_l2(dev, ref, ref_layout, got, got_layout, layers,
+                 joint=False):
     """The relative L2 of this rank's gradients ``got`` against ``ref``'s
-    (this rank's; None where it ran no reference): lite's where the rank
-    holds both, each block's sent from the rank that holds it in
-    ``ref_layout`` to the one that holds it in ``got_layout``. Every rank
-    calls it; {name: error} of this rank's comparisons."""
+    (this rank's; None where it ran no reference), by
+    ``chip_smoke.pipe_grad_rel_l2`` (``joint``: a cross-attention key bias
+    with its weight): lite's where the rank holds both, each block's sent
+    from the rank that holds it in ``ref_layout`` to the one that holds it
+    in ``got_layout``. Every rank calls it; {name: error} of this rank's
+    comparisons."""
     import torch
     import torch.distributed as dist
+    import chip_smoke as cs
     me = dist.get_rank()
 
-    def rel(g, r):
-        r = r.float().cpu()
-        return ((g.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+    def rel(names, theirs):
+        return cs.pipe_grad_rel_l2({n: got[n] for n in names}, theirs,
+                                   "cpu", joint)[0]
     errs = ({} if ref is None else
-            {n: rel(g, ref[n]) for n, g in got.items()
-             if not n.startswith("blocks.")})
+            rel([n for n in got if not n.startswith("blocks.")], ref))
     suffixes = sorted({n.split(".", 2)[2] for n in got
                        if n.startswith("blocks.")})
     for i in range(layers):
         src = _block_holder(i, ref_layout, layers)
         dst = _block_holder(i, got_layout, layers)
-        for suffix in suffixes:
-            n = f"blocks.{i}.{suffix}"
-            if me == src == dst:
-                errs[n] = rel(got[n], ref[n])
-            elif me == src:
+        names = [f"blocks.{i}.{suffix}" for suffix in suffixes]
+        if me == src == dst:
+            errs.update(rel(names, ref))
+        elif me == src:
+            for n in names:
                 dist.send(ref[n].to(dev), dst)
-            elif me == dst:
-                r = torch.empty_like(got[n], device=dev)
-                dist.recv(r, src)
-                errs[n] = rel(got[n], r)
+        elif me == dst:
+            theirs = {}
+            for n in names:
+                theirs[n] = torch.empty_like(got[n], device=dev)
+                dist.recv(theirs[n], src)
+            errs.update(rel(names, theirs))
     return errs
 
 
 def pipe_train(dev, lead, world, out, seed=1024):
     """Section 7 (module docstring)."""
-    import dataclasses
-
     import torch
     import torch.distributed as dist
     import chip_smoke as cs
@@ -335,13 +343,14 @@ def pipe_train(dev, lead, world, out, seed=1024):
     geometry, text_len = cs.FULL_PIPE_GEOMETRY, 512
 
     def run(layers, layout, batch):
-        """One step of ``layout`` at ``layers`` blocks on every rank:
-        {loss, grads, launches, want}."""
-        S, D, M = layout
-        cfg = dataclasses.replace(cs.full_pipe_config(), num_layers=layers)
+        """One step of ``layout`` at ``layers`` blocks on every rank, with
+        Ulysses on seq ranks: {loss, grads, launches, want}."""
+        S, D, Sq, M = layout
+        cfg = cs.full_pipe_config(layers)
         loss, model, seconds, peak, launches = cs.pipe_step(
             dev, torch.bfloat16, cfg, seed, batch,
-            make_pipe_mesh(S, data=D), microbatches=M)
+            make_pipe_mesh(S, data=D, seq=Sq), microbatches=M,
+            ulysses=Sq > 1)
         grads = {n: p.grad.detach().cpu()
                  for n, p in model.named_parameters()}
         # lite is the same bits on every rank where its elementwise maximum
@@ -357,7 +366,7 @@ def pipe_train(dev, lead, world, out, seed=1024):
         rows = [torch.empty_like(stats) for _ in range(world)]
         dist.all_gather(rows, stats)
         if lead:
-            name = f"pipe_{S}x{D}_m{M}_{layers}"
+            name = f"pipe_{S}x{D}x{Sq}_m{M}_{layers}"
             cs.say("mesh_check_pipe", layout=name, blocks=layers,
                    loss=f"{loss:.5f}", lite_bit_equal=same,
                    rank_step_seconds="|".join(f"{r[0].item():.3f}"
@@ -369,8 +378,9 @@ def pipe_train(dev, lead, world, out, seed=1024):
                         "rank_peak_gb": [r[1].item() for r in rows]})
             if not same:
                 raise AssertionError(f"{name}: lite differs between ranks")
-        want = cs.pipe_train_launches(cfg, layers // S, cs.pipe_tokens(
-            geometry), text_len, microbatches=M)
+        want = cs.pipe_launches_of(cfg, geometry, text_len,
+                                   dist.get_rank(), Sq, Sq > 1, stages=S,
+                                   microbatches=M)
         del model, lite, hi, lo
         gc.collect()
         torch.cuda.empty_cache()
@@ -382,7 +392,8 @@ def pipe_train(dev, lead, world, out, seed=1024):
         loss broadcast from rank 0): the loss and every gradient within
         TRAIN_TOL, exact launches on every rank."""
         errs = _grad_rel_l2(dev, ref and ref["grads"], ref_layout,
-                            got["grads"], got_layout, layers)
+                            got["grads"], got_layout, layers,
+                            joint=got_layout[2] > 1)
         every = [None] * world
         dist.all_gather_object(every, errs)
         ok = torch.tensor([int(got["launches"] == got["want"])], device=dev)
@@ -407,14 +418,14 @@ def pipe_train(dev, lead, world, out, seed=1024):
 
     batch = cs.pipe_batch(cs.full_pipe_config(), geometry, seed + 7,
                           text_len, n=4)
-    # the first layout at PIPE_REF_DEPTH against one process on rank 0
-    one = (1, 1, PIPE_LAYOUTS[0][2])
+    # the first layout and 'seq' inside a stage at PIPE_REF_DEPTH against
+    # one process on rank 0
+    one = (1, 1, 1, PIPE_LAYOUTS[0][-1])
     ref = None
     if lead:
-        cfg = dataclasses.replace(cs.full_pipe_config(),
-                                  num_layers=PIPE_REF_DEPTH)
+        cfg = cs.full_pipe_config(PIPE_REF_DEPTH)
         loss, model, seconds, peak, _ = cs.pipe_step(
-            dev, torch.bfloat16, cfg, seed, batch, microbatches=one[2])
+            dev, torch.bfloat16, cfg, seed, batch, microbatches=one[-1])
         ref = {"loss": loss, "grads": {n: p.grad.detach().cpu()
                                        for n, p in model.named_parameters()}}
         cs.say("mesh_check_pipe_one_process", blocks=PIPE_REF_DEPTH,
@@ -428,6 +439,10 @@ def pipe_train(dev, lead, world, out, seed=1024):
     dist.barrier()
     got = run(PIPE_REF_DEPTH, PIPE_LAYOUTS[0], batch)
     compare("pipe_one_process", ref, one, got, PIPE_LAYOUTS[0],
+            PIPE_REF_DEPTH)
+    del got
+    got = run(PIPE_REF_DEPTH, PIPE_SEQ_LAYOUT, batch)
+    compare("pipe_seq_one_process", ref, one, got, PIPE_SEQ_LAYOUT,
             PIPE_REF_DEPTH)
     del ref, got
     # both layouts at PIPE_DEPTH, the second against the first
