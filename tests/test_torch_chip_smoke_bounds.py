@@ -8,7 +8,32 @@ import sys
 
 import pytest
 
-import chip_smoke as cs
+from fantasy_world_tpu_torch.chipcheck.common import (BWD_RTOL, GRAD_ATOL,
+                                                      KERNEL_TOL, PEAK_BYTES,
+                                                      PEAK_FLOPS, SERVE_CLIPS,
+                                                      SHAPES, TRACK_FRAMES,
+                                                      TRACK_POINTS,
+                                                      attention_bound,
+                                                      grad_tol, out_tol,
+                                                      ptxas_summary,
+                                                      qlinear_bound,
+                                                      yardsticks)
+from fantasy_world_tpu_torch.chipcheck.inputs import (NEG_PROMPT, PROMPT,
+                                                      clip_inputs,
+                                                      conditioning,
+                                                      install_tokenizer,
+                                                      small_clip_configs,
+                                                      small_configs,
+                                                      small_wan22_configs,
+                                                      tea_threshold)
+from fantasy_world_tpu_torch.chipcheck.launches import (
+    encoder_launches, expected_launches, expected_window_launches,
+    joint_launches, layers_per_step, moge_tokens, pose_dit_launches,
+    small_option_launches, temporal_launches, ti2v_launches, track_launches)
+from fantasy_world_tpu_torch.chipcheck.profile import family
+from fantasy_world_tpu_torch.chipcheck.small import (scheduler_ladders,
+                                                     small_option_runs,
+                                                     small_options_setup)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +63,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ])
 def test_attention_bound_matches_hand_numbers(kind, dims, tflop, bound_ms,
                                                bound_by):
-    b = cs.attention_bound(kind, *dims)
+    b = attention_bound(kind, *dims)
     assert b["flop"] / 1e12 == pytest.approx(tflop, rel=1e-4)
     assert b["bound_ms"] == pytest.approx(bound_ms, rel=1e-4)
     assert b["bound_by"] == bound_by
@@ -53,10 +78,10 @@ def test_attention_bound_counts_each_tensor_once():
     want = {"fwd": 2 * q + 2 * kv, "stats": 2 * q + 2 * kv + 2 * row,
             "dq": 4 * q + 2 * kv + 2 * row, "dkv": 2 * q + 4 * kv + 2 * row}
     for kind, nbytes in want.items():
-        b = cs.attention_bound(kind, B, Lq, Lk, H, D)
+        b = attention_bound(kind, B, Lq, Lk, H, D)
         assert b["bytes"] == nbytes, kind
         assert b["bound_ms"] == pytest.approx(max(
-            b["flop"] / cs.PEAK_FLOPS, nbytes / cs.PEAK_BYTES) * 1e3)
+            b["flop"] / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3)
 
 
 def test_shape_launches_agree_with_expected_launches():
@@ -64,11 +89,11 @@ def test_shape_launches_agree_with_expected_launches():
     what one more step adds to ``expected_launches``."""
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     cfg = FusionConfig()
-    per_shape = cs.layers_per_step(cfg)
-    assert set(per_shape) == {name for name, *_ in cs.SHAPES}
-    one, two = cs.expected_launches(cfg, 1), cs.expected_launches(cfg, 2)
+    per_shape = layers_per_step(cfg)
+    assert set(per_shape) == {name for name, *_ in SHAPES}
+    one, two = expected_launches(cfg, 1), expected_launches(cfg, 2)
     for kernel in ("generic", "onekv", "d64"):
-        got = sum(per_shape[name] for name, _, _, k in cs.SHAPES
+        got = sum(per_shape[name] for name, _, _, k in SHAPES
                   if k == kernel)
         assert got == two[kernel] - one[kernel], kernel
     assert per_shape["dit_self"] == 40 and per_shape["vggt_global"] == 24
@@ -81,15 +106,15 @@ def test_ti2v_shapes_and_launches():
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.models.wan.dit import TI2V_5B
     from fantasy_world_tpu_torch.ops import flash_attention as fa
-    shapes = {name: rest for name, *rest in cs.SHAPES
+    shapes = {name: rest for name, *rest in SHAPES
               if name.startswith("ti2v_")}
     assert set(shapes) == {"ti2v_dit_self", "ti2v_dit_cross_text"}
     for (b, lq, h, d), lk, kernel in shapes.values():
         assert (b, lq, h, d) == (2, 31 * 22 * 40, TI2V_5B.num_heads,
                                  TI2V_5B.head_dim)
         assert fa.route(h, d, lk) == kernel
-    assert cs.layers_per_step(FusionConfig())["ti2v_dit_self"] == 0
-    two = cs.ti2v_launches(TI2V_5B, 2)
+    assert layers_per_step(FusionConfig())["ti2v_dit_self"] == 0
+    two = ti2v_launches(TI2V_5B, 2)
     assert {k: v for k, v in two.items() if v} == {"generic": 60,
                                                    "onekv": 60}
 
@@ -103,12 +128,12 @@ def test_flf2v_and_track_cells():
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.models.vggt.model import VGGTConfig
     from fantasy_world_tpu_torch.ops import flash_attention as fa
-    shapes = {name: rest for name, *rest in cs.SHAPES
+    shapes = {name: rest for name, *rest in SHAPES
               if name.startswith(("flf2v_", "track_"))}
     assert shapes["flf2v_dit_cross_text"] == [(2, 16317, 40, 128),
                                               257 + 512, "onekv"]
     tc = VGGTConfig().track
-    assert cs.TRACK_FRAMES == 81 and cs.TRACK_POINTS == 256
+    assert TRACK_FRAMES == 81 and TRACK_POINTS == 256
     nv, hd = tc.num_virtual_tracks, tc.hidden_size // tc.num_heads
     assert hd == 48 and fa.kernel_dim(tc.num_heads, hd, 81) == 64
     assert shapes["track_time"] == [(256 + nv, 81, 8, 48), 81, "d64"]
@@ -117,8 +142,8 @@ def test_flf2v_and_track_cells():
     assert shapes["track_point_to_virtual"] == [(81, 256, 8, 48), nv, "d64"]
     for (b, lq, h, d), lk, kernel in shapes.values():
         assert fa.route(h, d, lk) == kernel
-    assert cs.track_launches(tc)["d64"] == 96
-    per_step = cs.layers_per_step(FusionConfig())
+    assert track_launches(tc)["d64"] == 96
+    per_step = layers_per_step(FusionConfig())
     assert all(per_step[name] == 0 for name in shapes)
 
 
@@ -138,7 +163,7 @@ def test_option_cells_and_launches():
     cfg = FusionConfig()
     f, tokens = 21, 21 * 21 * 37
     M = tokens // f + cfg.vggt.aggregator.patch_start_idx
-    shapes = {name: rest for name, *rest in cs.SHAPES
+    shapes = {name: rest for name, *rest in SHAPES
               if name.startswith(("pose_", "bicross_temporal_"))}
     hd = cfg.bicross.head_dim
     assert shapes == {
@@ -150,22 +175,22 @@ def test_option_cells_and_launches():
     for (b, lq, h, d), lk, kernel in shapes.values():
         assert fa.route(h, d, lk) == kernel
         assert fa.kernel_dim(h, d, lk) == 128
-    per_step = cs.layers_per_step(cfg)
+    per_step = layers_per_step(cfg)
     assert all(per_step[name] == 0 for name in shapes)
     plain = {"generic": 88, "onekv": 80, "d64": 48}
 
     def nonzero(counts):
         return {k: v for k, v in counts.items() if v}
-    assert nonzero(cs.joint_launches(cfg)) == plain
-    assert nonzero(cs.joint_launches(cfg, uncond=True)) == dict(
+    assert nonzero(joint_launches(cfg)) == plain
+    assert nonzero(joint_launches(cfg, uncond=True)) == dict(
         plain, generic=40)
     import dataclasses
     for method, want in (("latent_split", {"generic": 40, "onekv": 105}),
                          ("latent_overall", {"generic": 65, "onekv": 80})):
         dcfg = dataclasses.replace(cfg.dit, pose_inject_method=method)
-        assert nonzero(cs.pose_dit_launches(dcfg, tokens, f)) == want
-    assert nonzero(cs.temporal_launches(cfg.bicross, f, tokens // f, f,
-                                        M)) == {"onekv": 2}
+        assert nonzero(pose_dit_launches(dcfg, tokens, f)) == want
+    assert nonzero(temporal_launches(cfg.bicross, f, tokens // f, f,
+                                     M)) == {"onekv": 2}
 
 
 def test_small_options_launch_contract(monkeypatch):
@@ -186,13 +211,13 @@ def test_small_options_launch_contract(monkeypatch):
     threads = torch.get_num_threads()
     torch.set_num_threads(4)
     try:
-        fusion, dits, inputs = cs.small_options_setup()
-        runs = cs.small_option_runs(fusion, dits, inputs, "cpu",
-                                    torch.float32)
-        ladders = cs.scheduler_ladders("cpu")
+        fusion, dits, inputs = small_options_setup()
+        runs = small_option_runs(fusion, dits, inputs, "cpu",
+                                 torch.float32)
+        ladders = scheduler_ladders("cpu")
     finally:
         torch.set_num_threads(threads)
-    want = cs.small_option_launches(fusion, dits, inputs)
+    want = small_option_launches(fusion, dits, inputs)
     assert set(runs) == set(want) == {"camera_token", "uncond", "temporal",
                                       "latent_split", "latent_overall"}
     for name, (outs, launches) in runs.items():
@@ -215,11 +240,11 @@ def test_window_launches_agree_with_expected_launches():
     frames take the same routes."""
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     cfg = FusionConfig()
-    whole = cs.expected_window_launches(cfg, [(0, 21)], 336, 592, 2)
-    want = cs.expected_launches(cfg, 2)
+    whole = expected_window_launches(cfg, [(0, 21)], 336, 592, 2)
+    want = expected_launches(cfg, 2)
     want["onekv"] -= 4 * cfg.vggt.camera_head.trunk_depth
     assert whole == want
-    two = cs.expected_window_launches(cfg, [(0, 11), (10, 21)], 336, 592, 1)
+    two = expected_window_launches(cfg, [(0, 11), (10, 21)], 336, 592, 1)
     assert two == whole
 
 
@@ -229,13 +254,13 @@ def test_serve_shapes_are_the_denoise_shapes_at_the_serve_batch():
     full_serve's batch) on the same kernel; no step of the CFG pair's
     denoise counts them."""
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
-    shapes = {name: rest for name, *rest in cs.SHAPES}
-    per_step = cs.layers_per_step(FusionConfig())
+    shapes = {name: rest for name, *rest in SHAPES}
+    per_step = layers_per_step(FusionConfig())
     denoise = [n for n, c in per_step.items() if c]
-    assert cs.SERVE_CLIPS == 2 and len(denoise) == 7
+    assert SERVE_CLIPS == 2 and len(denoise) == 7
     for name in denoise + ["camera_trunk"]:
         (b, lq, h, d), lk, kernel = shapes[name]
-        assert shapes["serve_" + name] == [(b * cs.SERVE_CLIPS, lq, h, d),
+        assert shapes["serve_" + name] == [(b * SERVE_CLIPS, lq, h, d),
                                            lk, kernel], name
         assert per_step["serve_" + name] == 0
     assert shapes["serve_vggt_frame"][0] == (84, 782, 16, 64)
@@ -243,9 +268,11 @@ def test_serve_shapes_are_the_denoise_shapes_at_the_serve_batch():
 
 
 def test_chip_smoke_imports_no_torch_at_module_level():
-    """The yardstick arithmetic runs without torch (and without JAX)."""
-    code = ("import sys, chip_smoke as c\n"
-            "c.attention_bound('fwd', 1, 8, 8, 1, 64)\n"
+    """``chip_smoke.py`` and the yardstick arithmetic run without torch (and
+    without JAX)."""
+    code = ("import sys, chip_smoke\n"
+            "from fantasy_world_tpu_torch.chipcheck import common\n"
+            "common.attention_bound('fwd', 1, 8, 8, 1, 64)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'fantasy_world_tpu')]\n"
             "assert not bad, bad\nprint('clean')\n")
@@ -270,9 +297,9 @@ def test_ptxas_summary_reads_registers_and_spills():
         "_22_flash_attention_bwd_cu_fb55a1a516fa_bwd_dq_kernelILi64EEEvNS_9"
         "BwdParamsE' for 'sm_90a'",
         "ptxas info    : Used 72 registers, used 1 barriers"])
-    assert cs.ptxas_summary(log) == ("fa_fwd_wgmma<96>:168:12|"
-                                     "fa_bwd_dq_kernel<64>:72:0")
-    assert cs.ptxas_summary("") == ""
+    assert ptxas_summary(log) == ("fa_fwd_wgmma<96>:168:12|"
+                                  "fa_bwd_dq_kernel<64>:72:0")
+    assert ptxas_summary("") == ""
 
 
 def test_best_library_takes_the_fastest_backend_that_ran():
@@ -280,7 +307,7 @@ def test_best_library_takes_the_fastest_backend_that_ran():
     for library, want in (({"flash": 30.5, "cudnn": 19.0}, 19.0),
                           ({"flash": 2.0, "cudnn": None}, 2.0),
                           ({"flash": None, "cudnn": None}, None)):
-        y = cs.yardsticks("fwd", dims, 20.0, library)
+        y = yardsticks("fwd", dims, 20.0, library)
         assert y["library_ms"] == want
         assert y["library_ms_by_backend"] == library
     # 10.905 TFLOP in 20 ms; the bound 11.027 ms
@@ -291,12 +318,12 @@ def test_best_library_takes_the_fastest_backend_that_ran():
 @pytest.mark.parametrize("peak,tol", [
     (0.078125, 0.078125 / 64),   # many keys: |o| small, two ulps of it
     (0.5, 0.5 / 64),
-    (4.0, cs.KERNEL_TOL),   # few keys: never more than the absolute bound
+    (4.0, KERNEL_TOL),   # few keys: never more than the absolute bound
 ])
 def test_out_tol_is_two_ulps_of_the_largest_output(peak, tol):
     import torch
     ref = torch.tensor([[0.001, -peak], [peak / 3, 0.0]], dtype=torch.bfloat16)
-    assert cs.out_tol(ref) == pytest.approx(tol)
+    assert out_tol(ref) == pytest.approx(tol)
 
 
 @pytest.mark.parametrize("fault", ["tail_dropped", "v_panel_swapped"])
@@ -324,21 +351,21 @@ def test_out_tol_catches_key_and_value_faults(fault):
         v2[:, 640:768, :, 64:] = v[:, 768:896, :, 64:]
         bad = attention(k, v2)
     err = (bad.float() - ref.float()).abs().max().item()
-    assert err < cs.KERNEL_TOL
-    assert err > 2 * cs.out_tol(ref)
+    assert err < KERNEL_TOL
+    assert err > 2 * out_tol(ref)
 
 
 @pytest.mark.parametrize("peak,tol", [
     (0.078125, 0.078125 / 64),   # long shapes: two ulps of the largest
     (0.5, 0.5 / 64),
-    (4.0, 4.0 * cs.BWD_RTOL),    # never looser than 1e-2 of max(1, peak)
-    (1e-7, cs.GRAD_ATOL),        # a vanishing gradient: f32 noise floor
+    (4.0, 4.0 * BWD_RTOL),    # never looser than 1e-2 of max(1, peak)
+    (1e-7, GRAD_ATOL),        # a vanishing gradient: f32 noise floor
 ])
 def test_grad_tol_is_two_ulps_of_the_largest_gradient(peak, tol):
     import torch
     ref = torch.tensor([[0.001 * peak, -peak], [peak / 3, 0.0]],
                        dtype=torch.bfloat16)
-    assert cs.grad_tol(ref) == pytest.approx(tol, rel=1e-2)
+    assert grad_tol(ref) == pytest.approx(tol, rel=1e-2)
 
 
 @pytest.mark.parametrize("largest,err", [(0.13, 4.9e-4), (2.0, 1.6e-2)])
@@ -346,7 +373,7 @@ def test_grad_tol_holds_one_ulp_kernel_errors(largest, err):
     """The kernels' errors are one bf16 ulp of the largest gradient: 4.9e-4
     at DiT self-attention (largest ~0.13), 1.6e-2 where it is ~2."""
     import torch
-    assert err <= cs.grad_tol(torch.tensor([largest, -largest / 2]))
+    assert err <= grad_tol(torch.tensor([largest, -largest / 2]))
 
 
 @pytest.fixture(scope="module")
@@ -405,7 +432,7 @@ def test_grad_tol_catches_tile_faults(long_backward, fault):
     for name in hit:
         ref = long_backward["ref"][name]
         err = (bad[name].float() - ref.float()).abs().max().item()
-        assert err > 4 * cs.grad_tol(ref), (name, err, cs.grad_tol(ref))
+        assert err > 4 * grad_tol(ref), (name, err, grad_tol(ref))
 
 
 @pytest.mark.parametrize("mangled,want", [
@@ -433,10 +460,10 @@ def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
         "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
         "ptxas info    : Used 168 registers, used 2 barriers, 8 bytes "
         "cumulative stack size"])
-    assert cs.ptxas_summary(log) == want
+    assert ptxas_summary(log) == want
 
 
-@pytest.mark.parametrize("name,family", [
+@pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::fa_bwd_dkv_wgmma<128>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
      "namespace)::BwdParams)", "attention bwd dkv"),
@@ -451,8 +478,8 @@ def test_ptxas_summary_reads_the_wgmma_backward(mangled, want):
      "namespace)::Params)", "attention fwd wgmma (onekv)"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "matmul (cuBLAS)"),
 ])
-def test_profile_families_attribute_the_attention_kernels(name, family):
-    assert cs.family(name) == family
+def test_profile_families_attribute_the_attention_kernels(name, want):
+    assert family(name) == want
 
 
 def test_attention_bound_at_clip_self_attention():
@@ -462,15 +489,15 @@ def test_attention_bound_at_clip_self_attention():
     4,210,688 bytes (1.2569 us at 3.35 TB/s): bound by bytes. At the
     function's own D 80, which chip_smoke reports: 338,170,880 FLOP and
     2,631,680 bytes, 0.7856 us."""
-    b = cs.attention_bound("fwd", 1, 257, 257, 16, 128)
+    b = attention_bound("fwd", 1, 257, 257, 16, 128)
     assert b["flop"] == 541_073_408 and b["bytes"] == 4_210_688
     assert b["bound_ms"] == pytest.approx(4_210_688 / 3.35e12 * 1e3)
     assert b["bound_ms"] == pytest.approx(1.2569e-3, rel=1e-4)
     assert b["bound_by"] == "bytes"
-    b80 = cs.attention_bound("fwd", 1, 257, 257, 16, 80)
+    b80 = attention_bound("fwd", 1, 257, 257, 16, 80)
     assert b80["flop"] == 338_170_880 and b80["bytes"] == 2_631_680
     assert b80["bound_ms"] == pytest.approx(7.8558e-4, rel=1e-4)
-    assert ("clip_self", (1, 257, 16, 80), 257, "onekv") in cs.SHAPES
+    assert ("clip_self", (1, 257, 16, 80), 257, "onekv") in SHAPES
 
 
 def test_expected_launches_count_clip():
@@ -479,8 +506,8 @@ def test_expected_launches_count_clip():
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
     cfg = FusionConfig()
-    plain = cs.expected_launches(cfg, 2)
-    with_clip = cs.expected_launches(cfg, 2, clip=CLIPVisionConfig())
+    plain = expected_launches(cfg, 2)
+    with_clip = expected_launches(cfg, 2, clip=CLIPVisionConfig())
     assert with_clip == dict(plain, onekv=plain["onekv"] + 31)
     assert with_clip["onekv"] == 2 * 80 + 16 + 31
 
@@ -490,15 +517,15 @@ def test_small_clip_configs_route_clip_to_onekv():
     as the full one does, and its tokens are the width the DiT takes."""
     from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
     from fantasy_world_tpu_torch.ops import flash_attention as fa
-    fusion, _, t5, clip, vae = cs.small_clip_configs()
+    fusion, _, t5, clip, vae = small_clip_configs()
     for c in (clip, CLIPVisionConfig()):
         assert c.dim // c.num_heads == 80 and c.num_patches + 1 == 257
         assert fa.route(c.num_heads, 80, 257) == "onekv"
         assert fa.kernel_dim(c.num_heads, 80, 257) == 128
     assert fusion.dit.clip_feature_dim == clip.dim
     assert fusion.dit.text_dim == t5.dim and vae.z_dim == fusion.dit.out_dim
-    assert cs.expected_launches(fusion, 2, clip=clip)["onekv"] == \
-        cs.expected_launches(fusion, 2)["onekv"] + clip.num_layers - 1
+    assert expected_launches(fusion, 2, clip=clip)["onekv"] == \
+        expected_launches(fusion, 2)["onekv"] + clip.num_layers - 1
 
 
 def test_small_clip_launch_contract(monkeypatch, tmp_path):
@@ -535,7 +562,7 @@ def _small_clip_on_cpu(seen, workdir):
     from fantasy_world_tpu_torch.pipelines.wan_video import (
         FantasyWorldPipeline)
     from fantasy_world_tpu_torch.sampler import FantasyWorldSampler
-    fcfg, pcfg, t5c, clipc, vaec = cs.small_clip_configs()
+    fcfg, pcfg, t5c, clipc, vaec = small_clip_configs()
     g = torch.Generator().manual_seed(0)
     mods = [build(lambda: c(cfg), device="cpu", dtype=torch.float32,
                   generator=g)
@@ -545,15 +572,15 @@ def _small_clip_on_cpu(seen, workdir):
     pipe = FantasyWorldPipeline(mods[0], mods[1], t5=mods[2], clip=mods[3],
                                 vae=mods[4])
     # the pipeline's own tokenize, through transformers' AutoTokenizer
-    assert cs.install_tokenizer(pipe, t5c.vocab, workdir) == \
+    assert install_tokenizer(pipe, t5c.vocab, workdir) == \
         "transformers-wordlevel"
     h, w, nf = 256, 384, 21
-    image, cams = cs.clip_inputs(h, w, nf)
+    image, cams = clip_inputs(h, w, nf)
     video, pred = FantasyWorldSampler(pipe).generate_video(
-        cs.PROMPT, cs.NEG_PROMPT, image=image, camera_params=cams, seed=0,
+        PROMPT, NEG_PROMPT, image=image, camera_params=cams, seed=0,
         height=h, width=w, num_frames=nf, sample_steps=1)
     assert video.shape == (nf, h, w, 3)
-    assert seen == cs.expected_launches(fcfg, 1, clip=clipc)
+    assert seen == expected_launches(fcfg, 1, clip=clipc)
     assert all(seen[r] for r in fa.ROUTES)
 
 
@@ -563,13 +590,13 @@ def test_wan22_shape_launches_agree_with_expected_launches():
     step adds to ``expected_launches``."""
     from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
     cfg = wan22_fusion_config()
-    per_shape = cs.layers_per_step(cfg)
-    assert set(per_shape) == {name for name, *_ in cs.SHAPES}
+    per_shape = layers_per_step(cfg)
+    assert set(per_shape) == {name for name, *_ in SHAPES}
     assert all(v == 0 for k, v in per_shape.items()
                if not k.startswith("wan22_"))
-    one, two = cs.expected_launches(cfg, 1), cs.expected_launches(cfg, 2)
+    one, two = expected_launches(cfg, 1), expected_launches(cfg, 2)
     for kernel in ("generic", "onekv", "d64"):
-        got = sum(per_shape[name] for name, _, _, k in cs.SHAPES
+        got = sum(per_shape[name] for name, _, _, k in SHAPES
                   if k == kernel)
         assert got == two[kernel] - one[kernel], kernel
     assert two == dict(one, generic=2 * 88, onekv=2 * 40 + 16, d64=2 * 48)
@@ -582,12 +609,12 @@ def test_moge_tokens_and_launches():
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     from fantasy_world_tpu_torch.models.moge.model import MoGeConfig
     m = MoGeConfig()
-    assert cs.moge_tokens(m, (336, 592)) == 45 * 79 + 1 == 3556
-    assert ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64") in cs.SHAPES
-    plain = cs.expected_launches(FusionConfig(), 2)
-    assert cs.expected_launches(FusionConfig(), 2, moge=(m, 3556)) == dict(
+    assert moge_tokens(m, (336, 592)) == 45 * 79 + 1 == 3556
+    assert ("moge_dinov2", (1, 3556, 16, 64), 3556, "d64") in SHAPES
+    plain = expected_launches(FusionConfig(), 2)
+    assert expected_launches(FusionConfig(), 2, moge=(m, 3556)) == dict(
         plain, d64=plain["d64"] + 24)
-    b = cs.attention_bound("fwd", 1, 3556, 3556, 16, 64)
+    b = attention_bound("fwd", 1, 3556, 3556, 16, 64)
     assert b["flop"] == 4 * 16 * 3556 ** 2 * 64 and b["bound_by"] == \
         "operations"
 
@@ -620,7 +647,7 @@ def test_small_wan22_launch_contract(monkeypatch, tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(4)
     try:
-        fcfg, t5c, vaec, mcfg = cs.small_wan22_configs()
+        fcfg, t5c, vaec, mcfg = small_wan22_configs()
         g = torch.Generator().manual_seed(0)
         high, low, t5, vae, moge = (
             build(lambda: c(cfg), device="cpu", dtype=torch.float32,
@@ -630,19 +657,19 @@ def test_small_wan22_launch_contract(monkeypatch, tmp_path):
         assert fcfg.dit.text_dim == t5c.dim and vaec.z_dim == \
             fcfg.dit.out_dim
         pipe = FantasyWorldPipeline(t5=t5, vae=vae)
-        cs.install_tokenizer(pipe, t5c.vocab, str(tmp_path))
+        install_tokenizer(pipe, t5c.vocab, str(tmp_path))
         h, w, nf = 256, 384, 21
-        image, cams = cs.clip_inputs(h, w, nf)
+        image, cams = clip_inputs(h, w, nf)
         video, pred = Wan22Sampler(pipe, DualModelDenoiser(high, low),
                                    moge).generate_video(
-            cs.PROMPT, cs.NEG_PROMPT, image=image, end_image=image[::-1],
+            PROMPT, NEG_PROMPT, image=image, end_image=image[::-1],
             camera_params=cams, seed=0, height=h, width=w, num_frames=nf,
             sample_steps=1)
     finally:
         torch.set_num_threads(threads)
     assert video.shape == (nf, h, w, 3)
-    assert seen == cs.expected_launches(
-        fcfg, 1, moge=(mcfg, cs.moge_tokens(mcfg, image.shape[:2])))
+    assert seen == expected_launches(
+        fcfg, 1, moge=(mcfg, moge_tokens(mcfg, image.shape[:2])))
     assert all(seen[r] for r in fa.ROUTES)
 
 
@@ -656,7 +683,7 @@ def test_small_wan22_launch_contract(monkeypatch, tmp_path):
 ])
 def test_qlinear_bound_matches_hand_numbers(rows, k, n, mode, bound_ms,
                                             bound_by):
-    got, by = cs.qlinear_bound(rows, k, n, mode)
+    got, by = qlinear_bound(rows, k, n, mode)
     assert got == pytest.approx(bound_ms, rel=1e-3) and by == bound_by
 
 
@@ -669,14 +696,14 @@ def test_expected_launches_add_encoders_and_drop_skipped_steps():
     from fantasy_world_tpu_torch.models.wan.clip import CLIPVisionConfig
     cfg, clip, moge = FusionConfig(), CLIPVisionConfig(), (MoGeConfig(),
                                                            3556)
-    enc = cs.encoder_launches(clip, moge)
+    enc = encoder_launches(clip, moge)
     assert enc == {"onekv": 31, "d64": 24}
-    both = cs.expected_launches(cfg, 2, clip=clip, moge=moge)
-    plain = cs.expected_launches(cfg, 2)
+    both = expected_launches(cfg, 2, clip=clip, moge=moge)
+    plain = expected_launches(cfg, 2)
     assert both == dict(plain, onekv=plain["onekv"] + 31,
                         d64=plain["d64"] + 24)
-    assert cs.expected_launches(cfg, 4, skipped=2) == plain
-    assert cs.expected_launches(cfg, 1, skipped=1) == dict(
+    assert expected_launches(cfg, 4, skipped=2) == plain
+    assert expected_launches(cfg, 1, skipped=1) == dict(
         plain, generic=0, onekv=16, d64=0)
 
 
@@ -701,17 +728,17 @@ def test_tea_serve_launch_contract(monkeypatch):
         return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
 
     monkeypatch.setattr(att, "flash_attention", record)
-    fcfg, pcfg = cs.small_configs()
+    fcfg, pcfg = small_configs()
     g = torch.Generator().manual_seed(0)
     pipe = FantasyWorldPipeline(
         build(lambda: FusionModel(fcfg), device="cpu", dtype=torch.float32,
               generator=g),
         build(lambda: CameraPoseEncoder(pcfg), device="cpu",
               dtype=torch.float32, generator=g))
-    thresh, plan = cs.tea_threshold(pipe.fusion.dit, 4)
+    thresh, plan = tea_threshold(pipe.fusion.dit, 4)
     assert plan.tolist() == [False, True, False, False]
     h, w, nf = 128, 192, 9
-    cond = cs.conditioning(fcfg.dit, h, w, nf, g, 16)
+    cond = conditioning(fcfg.dit, h, w, nf, g, 16)
     counts = []
     for steps, tea in ((4, thresh), (3, None)):
         for k in seen:

@@ -7,7 +7,8 @@ so run these without the suite's conftest:
 import pytest
 import torch
 
-from chip_smoke import MESH_TRAIN_SHAPES, SHAPES, grad_tol
+from fantasy_world_tpu_torch.chipcheck.common import (MESH_TRAIN_SHAPES,
+                                                      SHAPES, grad_tol)
 from fantasy_world_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -22,7 +23,7 @@ OUT_RTOL = 2 ** -6
 # Statistics are f32 on both sides from the same bf16 logits: only the
 # summation order of l and exp2 differ (relative, l >= 1).
 STATS_RTOL = 1e-4
-# Gradients are held to chip_smoke.grad_tol: two bf16 ulps of the largest
+# Gradients are held to chipcheck.common.grad_tol: two bf16 ulps of the largest
 # |gradient| (the kernels and the plain version round ds and p to bf16 at
 # the same points), never looser than 1e-2 of max(1, largest).
 

@@ -21,7 +21,7 @@ import torch
 import conftest  # noqa: F401  (JAX on the CPU)
 import jax.numpy as jnp
 
-import chip_smoke
+from fantasy_world_tpu_torch.chipcheck.inputs import tea_threshold
 from __graft_entry__ import _demo_config
 from fantasy_world_tpu.core.quant import quantize_tree
 from fantasy_world_tpu.models.fusion.model import (init_fusion,
@@ -94,7 +94,7 @@ def model(tmp_path_factory):
     sd = fusion_state_dict(params, port)
     port.load_state_dict(sd)
     torch.save(sd, tmp / "sd.pt")
-    thresh, plan = chip_smoke.tea_threshold(port.dit, TEA_STEPS)
+    thresh, plan = tea_threshold(port.dit, TEA_STEPS)
     assert plan.any() and not plan.all()
     rng = np.random.default_rng(1)
     B = 2

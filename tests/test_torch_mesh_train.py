@@ -48,7 +48,7 @@ from fantasy_world_tpu.training import lora as jlora
 from fantasy_world_tpu.training.step import flow_match_loss as jax_loss
 from fantasy_world_tpu.utils.demo import demo_config as jax_demo_config
 
-import chip_smoke
+from fantasy_world_tpu_torch.chipcheck.mesh import SMALL_MESH_TRAIN_RUNS
 import torch_mesh_workers as workers
 from test_torch_ring import CASES as RING_CASES
 from test_torch_training import _check_update, _unscan, _wake, small_heads
@@ -289,7 +289,7 @@ def _spec(world, setup):
         "x".join(map(str, shape)): {"shape": shape, "ulysses": uly,
                                     "mode": modes[-1],
                                     "geometry": CONTRACT_GEOMETRY}
-        for shape, uly, modes in chip_smoke.SMALL_MESH_TRAIN_RUNS
+        for shape, uly, modes in SMALL_MESH_TRAIN_RUNS
         if int(np.prod(shape)) == world}
     spec["model"] = {
         "cfg": fusion_config_from(setup["cfg"]), "sd": setup["sd"],
@@ -445,7 +445,7 @@ def test_mesh_train_step_matches_jax(setup, worlds, jax_train, tag):
 
 @pytest.mark.parametrize("shape", [
     "x".join(map(str, shape)) for shape, _, _ in
-    chip_smoke.SMALL_MESH_TRAIN_RUNS])
+    SMALL_MESH_TRAIN_RUNS])
 def test_mesh_train_launch_count_contract(worlds, shape):
     """chip_smoke.py's expected launches of a small_mesh_train step on each
     rank (``mesh_train_launches``) are the kernels the step calls: every

@@ -18,7 +18,7 @@ and shared between the test processes):
     through the ring (3 heads, which 2 seq ranks do not divide), each
     against JAX ``make_pp_train_step`` on a ('pipe', 'data', 'seq',
     'model') (2, 1, 2, 1) mesh; lite bit-equal on all four ranks; each
-    rank's launches exactly ``chip_smoke.pipe_train_launches``';
+    rank's launches exactly ``chipcheck.launches.pipe_train_launches``';
   * the i2v-conditioned loss with a sigma per sample; the rejection of a
     heterogeneous stack; the forward hop and its gradient, the mirror hop,
     at world 2 and 4; the launch count of ``chip_smoke.py``'s small_pipe;
@@ -488,18 +488,18 @@ def test_pp_step_seq_inside_a_stage_matches_jax(worlds, refs, tag):
 @pytest.mark.parametrize("tag", sorted(SEQ_MODES))
 def test_pp_seq_launches_are_exact(worlds, tag):
     """Each rank of the (pipe 2, seq 2) step launches what
-    ``chip_smoke.pipe_train_launches`` reckons for its frames (2 | 1 of 3)
-    and its stage's 2 blocks, the self-attention as gathered keys, as
+    ``chipcheck.launches.pipe_train_launches`` reckons for its frames (2 |
+    1 of 3) and its stage's 2 blocks, the self-attention as gathered keys, as
     Ulysses's head groups or as the ring's hops (the CPU's plain
     versions, counted); the cross-attention on its queries."""
-    import chip_smoke
+    from fantasy_world_tpu_torch.chipcheck.launches import pipe_train_launches
     mesh, _, _, heads, _ = STEPS[tag]
     cfg = encoder_config_from(WanDiTConfig, _tiny_jcfg(L, num_heads=heads))
     f, h, w = FHW
     sizes = tuple(len(c) * h * w for c in np.array_split(np.arange(f), 2))
     for rank, r in enumerate(worlds(4)[tag]):
         seq_index = np.unravel_index(rank, mesh)[2]
-        want = chip_smoke.pipe_train_launches(
+        want = pipe_train_launches(
             cfg, L // mesh[0], None, TEXT_LEN, mode=SEQ_MODES[tag],
             split=sharding.TokenSplit(None, sizes, int(seq_index)))
         assert r["launches0"] == want, (rank, r["launches0"], want)

@@ -20,7 +20,9 @@ from fantasy_world_tpu.models.fusion.model import (
     prepare_scan_params)
 from fantasy_world_tpu.parallel import sharding as jsh
 
-import chip_smoke
+from fantasy_world_tpu_torch.chipcheck.inputs import small_configs
+from fantasy_world_tpu_torch.chipcheck.launches import (MESH_MODES,
+                                                        mesh_mode_frames)
 from fantasy_world_tpu_torch.convert import from_jax
 from fantasy_world_tpu_torch.core.params import build
 from fantasy_world_tpu_torch.models.fusion.model import (FusionConfig,
@@ -178,7 +180,7 @@ def test_full_width_shard_keeps_whole_heads(model_ranks):
 def test_seeded_sharded_build_draws_the_unsharded_values(index):
     """build(mesh=...) with a seed: each part holds what the unsharded
     seeded build holds there, and the replicated tensors are equal."""
-    fcfg, _ = chip_smoke.small_configs()
+    fcfg, _ = small_configs()
     whole = build(lambda: FusionModel(fcfg), device="cpu",
                   dtype=torch.float32,
                   generator=torch.Generator().manual_seed(4))
@@ -254,7 +256,7 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
         distributed.initialize("cuda")
 
 
-@pytest.mark.parametrize("key", sorted(chip_smoke.MESH_MODES),
+@pytest.mark.parametrize("key", sorted(MESH_MODES),
                          ids=lambda k: f"{k[0]}_{'x'.join(map(str, k[1]))}"
                          f"{'_ulysses' * k[2]}")
 def test_dispatch_matches_the_chip_check_mode_table(key):
@@ -265,9 +267,9 @@ def test_dispatch_matches_the_chip_check_mode_table(key):
     for the windowed denoise's entries)."""
     from fantasy_world_tpu_torch.parallel import ulysses
     name, (d, s, m), uly = key
-    cfg = (chip_smoke.small_configs()[0] if name.startswith("small")
+    cfg = (small_configs()[0] if name.startswith("small")
            else FusionConfig())
-    frames = chip_smoke.mesh_mode_frames(name)
+    frames = mesh_mode_frames(name)
     split = sharding.TokenSplit(
         None, tuple(len(c) for c in np.array_split(np.arange(frames), s)),
         0)
@@ -279,4 +281,4 @@ def test_dispatch_matches_the_chip_check_mode_table(key):
         with ulysses.ulysses_context(object() if uly else None):
             got = tuple(ulysses.attention_mode(h, split, split)
                         for h in heads)
-    assert got == chip_smoke.MESH_MODES[key]
+    assert got == MESH_MODES[key]

@@ -20,7 +20,10 @@ from fantasy_world_tpu.hostops.geometry import extri_intri_to_pose_encoding
 from fantasy_world_tpu.models.fusion.model import init_fusion
 from fantasy_world_tpu.pipelines.wan_video import FantasyWorldPipeline as JPipe
 
-import chip_smoke
+from fantasy_world_tpu_torch.chipcheck.inputs import (check_outputs,
+                                                      conditioning,
+                                                      small_configs)
+from fantasy_world_tpu_torch.chipcheck.launches import expected_launches
 from fantasy_world_tpu_torch.convert.from_jax import (fusion_config_from,
                                                       fusion_state_dict)
 from fantasy_world_tpu_torch.core.params import build
@@ -130,7 +133,8 @@ def test_port_never_imports_jax(tmp_path):
     aggregator and DiT modules of the single-card options, and the mesh
     layer (``parallel.distributed``, ``sharding``, ``ulysses``, ``ring``,
     ``pipeline``), ``training.pp``, the RE10K pose processor and
-    ``hostops.geometry_train`` among the modules, chip_smoke's option set-up and the CLIs' argument
+    ``hostops.geometry_train`` among the modules, the card check's
+    option set-up (``chipcheck``) and the CLIs' argument
     checks run (their mesh checks too, the serve CLI's among them); and a
     rank it spawns (two gloo processes, the collectives of the mesh
     serving path, with the serve CLI, the samplers and the Wan2.2 pipeline
@@ -180,12 +184,13 @@ def test_port_never_imports_jax(tmp_path):
         "except SystemExit as e:\n"
         "    assert 'needs 2 processes' in str(e), e\n"
         "import chip_smoke\n"
-        "chip_smoke.small_configs()\n"
-        "chip_smoke.small_clip_configs()\n"
-        "chip_smoke.small_wan22_configs()\n"
-        "chip_smoke.small_ti2v_configs()\n"
-        "chip_smoke.small_options_setup()\n"
-        "chip_smoke.pose_encodings(64, 96, 9)\n"
+        "from fantasy_world_tpu_torch.chipcheck import inputs, small\n"
+        "inputs.small_configs()\n"
+        "inputs.small_clip_configs()\n"
+        "inputs.small_wan22_configs()\n"
+        "inputs.small_ti2v_configs()\n"
+        "small.small_options_setup()\n"
+        "inputs.pose_encodings(64, 96, 9)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fantasy_world_tpu' or m.startswith('fantasy_world_tpu.')]"
         "\n"
@@ -235,7 +240,7 @@ def test_launch_count_contract(monkeypatch):
         return fa.attention_plain(q, k, v, scale or q.shape[-1] ** -0.5)
 
     monkeypatch.setattr(att, "flash_attention", record)
-    fcfg, pcfg = chip_smoke.small_configs()
+    fcfg, pcfg = small_configs()
     from fantasy_world_tpu_torch.models.wan.camera import CameraPoseEncoder
     g = torch.Generator().manual_seed(0)
     pipe = FantasyWorldPipeline(
@@ -244,14 +249,14 @@ def test_launch_count_contract(monkeypatch):
         build(lambda: CameraPoseEncoder(pcfg), device="cpu",
               dtype=torch.float32, generator=g))
     h, w, nf = 256, 384, 21
-    cond = chip_smoke.conditioning(fcfg.dit, h, w, nf, g, 16)
+    cond = conditioning(fcfg.dit, h, w, nf, g, 16)
     lat, pred = pipe.denoise(*cond[:4], h, w, num_frames=nf,
                              num_inference_steps=1, seed=0,
                              plucker_fea=pipe.encode_plucker(cond[4]))
-    chip_smoke.check_outputs(fcfg, lat, pred, h, w, nf)
-    assert seen == chip_smoke.expected_launches(fcfg, 1)
+    check_outputs(fcfg, lat, pred, h, w, nf)
+    assert seen == expected_launches(fcfg, 1)
     assert all(seen[r] for r in fa.ROUTES)
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
-    assert chip_smoke.expected_launches(FusionConfig(), 3) == dict(
+    assert expected_launches(FusionConfig(), 3) == dict(
         {k: 0 for k in fa.LAUNCHES}, generic=3 * 88, onekv=3 * 80 + 16,
         d64=3 * 48)

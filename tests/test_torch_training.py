@@ -378,7 +378,11 @@ def test_train_launch_count_contract(monkeypatch):
     forwards plus 216 dq and 216 dk/dv (120 at D 128, 48 at 96, 48 at 64)
     per step at full size, less the last bicross's geometry-side backward
     (its output feeds only the heads): 215 dq and 215 dk/dv, 47 at D 96."""
-    import chip_smoke
+    from fantasy_world_tpu_torch.chipcheck.common import to_device
+    from fantasy_world_tpu_torch.chipcheck.inputs import (small_configs,
+                                                          train_batches)
+    from fantasy_world_tpu_torch.chipcheck.launches import (
+        expected_train_launches)
     from fantasy_world_tpu_torch.models.fusion.model import FusionConfig
     seen = {k: 0 for k in fa.LAUNCHES}
     forward, backward = fa._forward, fa.flash_attention_backward
@@ -396,19 +400,19 @@ def test_train_launch_count_contract(monkeypatch):
 
     monkeypatch.setattr(fa, "_forward", count_forward)
     monkeypatch.setattr(fa, "flash_attention_backward", count_backward)
-    fcfg, _ = chip_smoke.small_configs()
+    fcfg, _ = small_configs()
     model = build(lambda: FusionModel(fcfg), device="cpu",
                   dtype=torch.float32,
                   generator=torch.Generator().manual_seed(0))
     factors = init_lora(model, 2, generator=torch.Generator().manual_seed(1))
     opt = torch.optim.AdamW(factors, lr=1e-3)
-    batch = chip_smoke._to(chip_smoke.train_batches(fcfg.dit, 256, 384, 21,
-                                                    1, seed=0)[0], "cpu")
+    batch = to_device(train_batches(fcfg.dit, 256, 384, 21,
+                                    1, seed=0)[0], "cpu")
     loss = make_lora_train_step(model, opt, remat=True)(batch)
     assert torch.isfinite(loss)
-    assert seen == chip_smoke.expected_train_launches(fcfg, 1)
+    assert seen == expected_train_launches(fcfg, 1)
     assert all(v for k, v in seen.items() if k not in fa.ROUTES)
-    full = chip_smoke.expected_train_launches(FusionConfig(), 2)
+    full = expected_train_launches(FusionConfig(), 2)
     assert full == dict({k: 0 for k in fa.LAUNCHES},
                         generic_stats=2 * 2 * 88, onekv_stats=2 * 2 * 80,
                         d64_stats=2 * 2 * 48, bwd_dq_128=240, bwd_dq_96=94,

@@ -1,6 +1,6 @@
 """The port's ``cli.convert`` and ``cli.verify_weights`` end to end with
 ``--device cpu`` (f32, the kernels' plain versions), on reduced reference
-layouts written from a seed (``chip_smoke.py:write_reference_layout`` and
+layouts written from a seed (``chipcheck.inputs.write_reference_layout`` and
 ``write_wan22_layout``): the raw layout, a converted bundle, and
 ``--config_from``, for Wan2.1 and Wan2.2; the report's schema, which is
 JAX ``cli/verify_weights.py``'s; a checkpoint missing a fusion tensor
@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as cs
+from fantasy_world_tpu_torch.chipcheck.inputs import (write_reference_layout,
+                                                      write_wan22_layout)
 from fantasy_world_tpu_torch.cli import convert as cconv
 from fantasy_world_tpu_torch.cli import verify_weights as vw
 from fantasy_world_tpu_torch.convert import bundle, checkpoint as ckpt
@@ -33,7 +34,7 @@ WAN21_PHASES = ["load", "census:fusion", "finite", "bundle", "denoise",
 @pytest.fixture(scope="module")
 def wan21(tmp_path_factory):
     root = tmp_path_factory.mktemp("wan21")
-    wan, model = cs.write_reference_layout(str(root))
+    wan, model = write_reference_layout(str(root))
     out = cconv.main(["--variant", "wan21", "--wan_ckpt_path", wan,
                       "--model_ckpt", model, "--out",
                       str(root / "wan21.bundle"), "--dtype", "float32"])
@@ -43,7 +44,7 @@ def wan21(tmp_path_factory):
 @pytest.fixture(scope="module")
 def wan22(tmp_path_factory):
     root = tmp_path_factory.mktemp("wan22")
-    wan, high, low = cs.write_wan22_layout(str(root))
+    wan, high, low = write_wan22_layout(str(root))
     out = cconv.main(["--variant", "wan22", "--wan_ckpt_path", wan,
                       "--model_ckpt_high", high, "--model_ckpt_low", low,
                       "--out", str(root / "wan22.bundle"),

@@ -194,14 +194,14 @@ def sampler_case(rank, shape, wan, model, tok, image_path, cams, kw,
 
 
 def norm_check_case(rank, per_shard, out_file):
-    """``chip_smoke.mesh_norm_check`` over this process group at 64 tokens;
+    """``chipcheck.mesh.mesh_norm_check`` over this process group at 64 tokens;
     ``per_shard``: the DiT's blocks given a norm over each rank's own
     columns (the fault the check is there to catch). Rank 0 writes (max
     abs error, bound) to ``out_file``."""
     import json
 
     import torch.distributed as dist
-    import chip_smoke
+    from fantasy_world_tpu_torch.chipcheck.mesh import mesh_norm_check
     from fantasy_world_tpu_torch.models.wan import dit
     from fantasy_world_tpu_torch.ops.norms import rms_norm
     from fantasy_world_tpu_torch.parallel import sharding
@@ -209,7 +209,7 @@ def norm_check_case(rank, per_shard, out_file):
         dit.sharded_rms_norm = lambda x, w, eps, axis: rms_norm(
             x, sharding.local_columns(w, axis), eps)
     axis = sharding.Axis(dist.group.WORLD, dist.get_world_size(), rank)
-    err, bound = chip_smoke.mesh_norm_check(torch.device("cpu"), axis, 64)
+    err, bound = mesh_norm_check(torch.device("cpu"), axis, 64)
     if rank == 0:
         with open(out_file, "w") as fh:
             json.dump([err, bound], fh)
@@ -644,25 +644,32 @@ def _launch_contract(rank, case):
     """The kernel launches one step of ``chip_smoke.py``'s small_mesh_train
     on this rank would make (``counted_launches``; ``case``: shape,
     Ulysses, mode and a latent geometry), and
-    ``chip_smoke.mesh_train_launches``' count."""
-    import chip_smoke
+    ``chipcheck.launches.mesh_train_launches``' count."""
+    from fantasy_world_tpu_torch.chipcheck.common import to_device
+    from fantasy_world_tpu_torch.chipcheck.inputs import (stack_batches,
+                                                          train_batches)
+    from fantasy_world_tpu_torch.chipcheck.launches import (
+        MESH_MODES, mesh_train_launches)
+    from fantasy_world_tpu_torch.chipcheck.mesh import (small_train_model,
+                                                        small_train_setup,
+                                                        train_on)
     from fantasy_world_tpu_torch.parallel import sharding
     shape, uly = case["shape"], case["ulysses"]
     mesh = sharding.make_mesh(*shape)
-    setup = chip_smoke.small_train_setup()
+    setup = small_train_setup()
     height, width, frames = case["geometry"]
-    batches = chip_smoke.train_batches(setup[0].dit, height, width, frames,
-                                       shape[0], seed=0)
+    batches = train_batches(setup[0].dit, height, width, frames,
+                            shape[0], seed=0)
     batch = (batches[0] if shape[0] == 1
-             else chip_smoke.stack_batches(batches))
-    model, trainable = chip_smoke.small_train_model(
+             else stack_batches(batches))
+    model, trainable = small_train_model(
         setup, case["mode"], "cpu", torch.float32, mesh)
     with counted_launches() as seen:
-        chip_smoke.train_on(model, trainable, chip_smoke._to(batch, "cpu"),
-                            mesh, uly)
+        train_on(model, trainable, to_device(batch, "cpu"),
+                 mesh, uly)
     fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
-    want = chip_smoke.mesh_train_launches(
-        setup[0], fhw, shape, chip_smoke.MESH_MODES["small", shape, uly],
+    want = mesh_train_launches(
+        setup[0], fhw, shape, MESH_MODES["small", shape, uly],
         rank, 1, 16)
     return {"seen": seen, "want": want}
 
@@ -877,16 +884,19 @@ def _pp_contract(rank, case, seq=1, ulysses=False):
     """The kernel launches one small_pipe step of ``chip_smoke.py`` makes on
     this rank (its reduced DiT at ``case["geometry"]``; on ``seq`` ranks a
     stage, small_pipe_seq's, with Ulysses under ``ulysses``), counted on
-    the CPU (``counted_launches``), and ``chip_smoke.pipe_launches_of``'s
-    count."""
-    import chip_smoke
+    the CPU (``counted_launches``), and
+    ``chipcheck.launches.pipe_launches_of``'s count."""
+    from fantasy_world_tpu_torch.chipcheck.inputs import PIPE_STAGES
+    from fantasy_world_tpu_torch.chipcheck.launches import pipe_launches_of
+    from fantasy_world_tpu_torch.chipcheck.pipe import (pipe_batch, pipe_step,
+                                                        small_pipe_config)
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
-    cfg = chip_smoke.small_pipe_config()
+    cfg = small_pipe_config()
     geometry = case["geometry"]
-    batch = chip_smoke.pipe_batch(cfg, geometry, 3, 16)
-    pipe = make_pipe_mesh(chip_smoke.PIPE_STAGES, seq=seq)
+    batch = pipe_batch(cfg, geometry, 3, 16)
+    pipe = make_pipe_mesh(PIPE_STAGES, seq=seq)
     with counted_launches() as seen:
-        chip_smoke.pipe_step(torch.device("cpu"), torch.float32, cfg, 3,
-                             batch, pipe, ulysses=ulysses)
-    want = chip_smoke.pipe_launches_of(cfg, geometry, 16, rank, seq, ulysses)
+        pipe_step(torch.device("cpu"), torch.float32, cfg, 3,
+                  batch, pipe, ulysses=ulysses)
+    want = pipe_launches_of(cfg, geometry, 16, rank, seq, ulysses)
     return {"seen": seen, "want": want}

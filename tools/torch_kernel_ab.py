@@ -60,7 +60,10 @@ def main(argv=None) -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import (SHAPES, TRAIN_SHAPES,
+                                                          grad_tol, out_tol,
+                                                          ptxas_summary, say,
+                                                          time_ms)
     from fantasy_world_tpu_torch.ops import flash_attention as fa
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -72,7 +75,7 @@ def main(argv=None) -> int:
     def build(csrc: Path):
         fa.CSRC, fa._ENTRY_POINTS, fa._BUILD_LOG = csrc, None, ""
         libs = fa.build_kernels()
-        return libs, cs.ptxas_summary(fa.build_log()) or "cached"
+        return libs, ptxas_summary(fa.build_log()) or "cached"
 
     own_csrc = fa.CSRC
     base, base_regs = build(args.baseline / "fantasy_world_tpu_torch" / "csrc")
@@ -88,7 +91,7 @@ def main(argv=None) -> int:
 
     def turns(fn):
         """baseline, this tree, this tree, baseline: (times, ratio)."""
-        ts = [cs.time_ms(on(libs, fn), args.reps)
+        ts = [time_ms(on(libs, fn), args.reps)
               for libs in (base, new, new, base)]
         return ts, (ts[0] + ts[3]) / (ts[1] + ts[2])
 
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=device).manual_seed(11)
     results = []
-    for name, (B, Lq, H, D), Lk, kernel in kept(cs.TRAIN_SHAPES):
+    for name, (B, Lq, H, D), Lk, kernel in kept(TRAIN_SHAPES):
         q, k, v, do = (torch.randn((B, n, H, D), generator=g, device=device
                                    ).bfloat16() for n in (Lq, Lk, Lk, Lq))
         scale = D ** -0.5
@@ -114,8 +117,8 @@ def main(argv=None) -> int:
         grads["new"] = on(new, lambda: fa.launch_backward(q, k, v, o, lse2,
                                                           do, scale))()
         o_new = on(new, lambda: fa.flash_attention_stats(q, k, v))()[0]
-        check = {"o": err_over_bound(o_new, o, cs.out_tol)}
-        check.update({n: err_over_bound(a, b, cs.grad_tol) for n, a, b in
+        check = {"o": err_over_bound(o_new, o, out_tol)}
+        check.update({n: err_over_bound(a, b, grad_tol) for n, a, b in
                       zip(("dq", "dk", "dv"), grads["new"], grads["base"])})
         row = {"shape": name, "kind": "train", "B": B, "Lq": Lq, "Lk": Lk,
                "H": H, "D": D, "err_over_bound_vs_baseline": check}
@@ -129,7 +132,7 @@ def main(argv=None) -> int:
         new_bwd = row["dq"][1] + row["dkv"][1] + row["dq"][2] + row["dkv"][2]
         row["bwd_speedup"] = base_bwd / new_bwd
         results.append(row)
-        cs.say("ab_train", shape=name, D=D, **{
+        say("ab_train", shape=name, D=D, **{
             part: "|".join(f"{t:.3f}" for t in row[part])
             for part in ("stats", "dq", "dkv")},
             speedup="|".join(f"{part}:{row[f'{part}_speedup']:.3f}"
@@ -141,20 +144,20 @@ def main(argv=None) -> int:
         del q, k, v, do, o, m2, l, lse2, dq, delta, grads, o_new
         torch.cuda.empty_cache()
 
-    for name, (B, Lq, H, D), Lk, kernel in kept(cs.SHAPES):
+    for name, (B, Lq, H, D), Lk, kernel in kept(SHAPES):
         q, k, v = (torch.randn((B, n, H, D), generator=g, device=device
                                ).bfloat16() for n in (Lq, Lk, Lk))
         check = err_over_bound(on(new, lambda: fa.flash_attention(q, k, v))(),
                                on(base, lambda: fa.flash_attention(q, k, v))(),
-                               cs.out_tol)
+                               out_tol)
         ts, ratio = turns(lambda: fa.flash_attention(q, k, v))
         results.append({"shape": name, "kind": "denoise", "kernel": kernel,
                         "B": B, "Lq": Lq, "Lk": Lk, "H": H, "D": D,
                         "fwd": ts, "fwd_speedup": ratio,
                         "err_over_bound_vs_baseline": {"o": check}})
-        cs.say("ab_denoise", shape=name, kernel=kernel,
-               fwd="|".join(f"{t:.3f}" for t in ts), speedup=f"{ratio:.3f}",
-               err_over_bound=f"o:{check:.3f}")
+        say("ab_denoise", shape=name, kernel=kernel,
+            fwd="|".join(f"{t:.3f}" for t in ts), speedup=f"{ratio:.3f}",
+            err_over_bound=f"o:{check:.3f}")
         if not check <= 1:
             raise AssertionError(f"{name}: this tree's forward disagrees "
                                  f"with the baseline's ({check})")
@@ -162,7 +165,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     if args.denoise_steps:
-        results.append(time_denoise(cs, on, base, new, device,
+        results.append(time_denoise(on, base, new, device,
                                     args.denoise_steps))
 
     if args.json:
@@ -176,11 +179,13 @@ def main(argv=None) -> int:
     return 0
 
 
-def time_denoise(cs, on, base, new, device, steps):
+def time_denoise(on, base, new, device, steps):
     """Seconds per step of a ``steps``-step denoise of ``chip_smoke.py``'s
     full-depth model (random weights, seed 1024) on the baseline's kernels
     and this tree's, in turns after a warm-up run on each."""
     import torch
+    from fantasy_world_tpu_torch.chipcheck.common import say
+    from fantasy_world_tpu_torch.chipcheck.inputs import conditioning
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import (FusionConfig,
                                                              FusionModel)
@@ -195,8 +200,8 @@ def time_denoise(cs, on, base, new, device, steps):
               generator=g),
         build(lambda: CameraPoseEncoder(CameraPoseEncoderConfig()),
               device=device, dtype=torch.bfloat16, generator=g))
-    cond = cs.conditioning(cfg.dit, height, width, frames,
-                           torch.Generator("cpu").manual_seed(1024), 512)
+    cond = conditioning(cfg.dit, height, width, frames,
+                        torch.Generator("cpu").manual_seed(1024), 512)
     plucker = pipe.encode_plucker(cond[4])
 
     def denoise():
@@ -212,7 +217,7 @@ def time_denoise(cs, on, base, new, device, steps):
     on(base, denoise)()
     on(new, denoise)()
     runs = [on(libs, denoise)() for libs in (base, new, new, base)]
-    cs.say("ab_step", steps=steps, seconds="|".join(
+    say("ab_step", steps=steps, seconds="|".join(
         ",".join(f"{t:.3f}" for t in r) for r in runs))
     return {"kind": "denoise_step", "steps": steps, "seconds": runs,
             "order": "baseline, this tree, this tree, baseline"}

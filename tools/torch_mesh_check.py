@@ -6,7 +6,7 @@
 For a host with four cards (``chip_smoke.py``'s mesh phases run their
 ranks on its one card over gloo instead). Every rank, on its own card:
 
-  1. the reduced slice's 2-step denoise (``chip_smoke.small_mesh_denoise``)
+  1. the reduced slice's 2-step denoise (``chipcheck.mesh.small_mesh_denoise``)
      on 4-rank meshes -- (1, 4, 1) with Ulysses (2 heads over 4 ranks: the
      ring), (2, 1, 2), (1, 2, 2) with Ulysses, (4, 1, 1) -- each against
      the one-process run on rank 0's card within SLICE_TOL, with exact
@@ -17,7 +17,8 @@ ranks on its one card over gloo instead). Every rank, on its own card:
   3. the full-width 2-step denoise with the heads at (1, 1, 4), all 40
      blocks, and at (1, 4, 1) with Ulysses, against the same seeded model
      run in one process on rank 0's card: seconds per step, peak GB;
-  4. the serving options at reduced widths (``chip_smoke.serving_case``):
+  4. the serving options at reduced widths
+     (``chipcheck.serving.serving_case``):
      int8 and fp8 at (2, 1, 2), TeaCache (a skipped step, cut after a
      segment and resumed from rank 0's partial state) and the windowed
      denoise at (1, 2, 2) with Ulysses, the Wan2.2 dual denoise at
@@ -29,13 +30,13 @@ ranks on its one card over gloo instead). Every rank, on its own card:
      experts in one process on rank 0's card (the low one pinned on the
      host, one swap);
   6. the mesh trainer at full width and depth: one LoRA rank-16 step with
-     per-block recompute (``chip_smoke.mesh_lora_steps``: 336x592x81,
+     per-block recompute (``chipcheck.mesh.mesh_lora_steps``: 336x592x81,
      batch 1) at (1, 1, 4) and at (1, 4, 1) with Ulysses, against the same
      seeded model and batch stepped in one process on rank 0's card: the
      loss and the LoRA gradients gathered whole within TRAIN_TOL, exact
      launches on every rank, seconds and peak GB per rank;
   7. the pipeline trainer at full width (``WanDiTConfig()``), one step
-     of ``chip_smoke.pipe_step`` on the same batch of 4 samples at
+     of ``chipcheck.pipe.pipe_step`` on the same batch of 4 samples at
      480x832x81: at PIPE_REF_DEPTH = 8 blocks as 4 stages of 2 (M = 4)
      against the same step in one process on rank 0's card; then cut to
      PIPE_DEPTH = 24 blocks, whose weights, gradients and AdamW moments
@@ -79,17 +80,12 @@ PIPE_REF_DEPTH = 8
 PIPE_SEQ_LAYOUT = (2, 1, 2, 4)
 
 
-def rel_l2(got, ref):
-    return {k: ((got[k] - r).norm() / r.norm().clamp_min(1e-12)).item()
-            for k, r in ref.items()}
-
-
 def check(name, errs, launches, want, lead, out, tol=None):
     """Rank 0's errors within ``tol`` (SLICE_TOL) and every rank's launches
     exact."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import SLICE_TOL, say
     ok = torch.tensor([int(launches == want)], device="cuda")
     dist.all_reduce(ok, op=dist.ReduceOp.MIN)
     if not lead:
@@ -97,11 +93,11 @@ def check(name, errs, launches, want, lead, out, tol=None):
     row = {"check": name, "rel_l2": errs, "launches_exact": bool(ok.item()),
            "rank0_launches": {k: v for k, v in launches.items() if v}}
     out.append(row)
-    cs.say("mesh_check", **{k: json.dumps(v).replace(" ", "")
-                            if isinstance(v, dict) else v
-                            for k, v in row.items()})
+    say("mesh_check", **{k: json.dumps(v).replace(" ", "")
+                         if isinstance(v, dict) else v
+                         for k, v in row.items()})
     bad = {k: v for k, v in errs.items()
-           if not v <= (cs.SLICE_TOL if tol is None else tol)}
+           if not v <= (SLICE_TOL if tol is None else tol)}
     if bad or not ok.item():
         raise AssertionError(f"{name}: {bad or 'launch counts differ'}")
 
@@ -111,25 +107,31 @@ def serving(dev, lead, out):
     each case in one process on its card first."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import SERVING_DIR, rel_l2
+    from fantasy_world_tpu_torch.chipcheck.inputs import (small_configs,
+                                                          tea_threshold)
+    from fantasy_world_tpu_torch.chipcheck.launches import serving_launches
+    from fantasy_world_tpu_torch.chipcheck.serving import (
+        serving_case, small_serving_inputs)
     from fantasy_world_tpu_torch.models.fusion.model import FusionModel
     from fantasy_world_tpu_torch.parallel import sharding
-    os.makedirs(cs.SERVING_DIR, exist_ok=True)
-    inputs = cs.small_serving_inputs()
-    cpu_f = FusionModel(cs.small_configs()[0])
+    os.makedirs(SERVING_DIR, exist_ok=True)
+    inputs = small_serving_inputs()
+    cpu_f = FusionModel(small_configs()[0])
     cpu_f.load_state_dict(inputs["sds"]["fusion"])
-    inputs["thresh"], _ = cs.tea_threshold(cpu_f.dit, 4)
+    inputs["thresh"], _ = tea_threshold(cpu_f.dit, 4)
     del cpu_f
     for shape, uly, cases in SERVING_MESHES:
         mesh = sharding.make_mesh(*shape)
         for case in cases:
-            ref = (cs.serving_case(case, inputs, dev)[0] if lead else None)
+            ref = (serving_case(case, inputs, dev)[0] if lead else None)
             dist.barrier()
-            got, launches = cs.serving_case(case, inputs, dev, mesh, uly)
+            got, launches = serving_case(case, inputs, dev, mesh, uly)
             check(f"serving_{case}_{'x'.join(map(str, shape))}"
                   f"{'_ulysses' * uly}",
-                  rel_l2(got, ref) if lead else None, launches,
-                  cs.serving_launches(case, shape, uly, mesh.rank), lead,
+                  rel_l2({k: got[k] for k in ref}, ref) if lead else None,
+                  launches, serving_launches(case, shape, uly, mesh.rank),
+                  lead,
                   out)
             gc.collect()
             torch.cuda.empty_cache()
@@ -141,7 +143,11 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
     rank)."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import rel_l2, say
+    from fantasy_world_tpu_torch.chipcheck.inputs import (check_outputs,
+                                                          wake_zero_inits)
+    from fantasy_world_tpu_torch.chipcheck.launches import (MESH_MODES,
+                                                            mesh_launches)
     from fantasy_world_tpu_torch.convert.checkpoint import wan22_fusion_config
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import FusionModel
@@ -165,7 +171,7 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
         for _ in range(2):
             m = build(lambda: FusionModel(cfg), device=dev,
                       dtype=torch.bfloat16, generator=g, mesh=mesh)
-            cs.wake_zero_inits(m, g)
+            wake_zero_inits(m, g)
             experts.append(m)
         den = DualModelDenoiser(*experts)
         if mesh is None:
@@ -189,7 +195,7 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
         torch.cuda.synchronize()
         out = None
         if pred is not None:
-            out = {k: v.float().cpu() for k, v in cs.check_outputs(
+            out = {k: v.float().cpu() for k, v in check_outputs(
                 cfg, lat, pred, h, w, n).items()}
         step_s = [events[i].elapsed_time(events[i + 1]) / 1e3
                   for i in range(steps)]
@@ -199,7 +205,7 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
     ref = None
     if lead:
         ref, step_s, peak, _, devices, stages = run()
-        cs.say("mesh_check_wan22_one_process", step_seconds="|".join(
+        say("mesh_check_wan22_one_process", step_seconds="|".join(
             f"{s:.3f}" for s in step_s), peak_gb=f"{peak:.2f}",
             devices=devices, stages=stages)
         out.append({"check": "wan22_one_process", "step_seconds": step_s,
@@ -214,20 +220,20 @@ def wan22_full(dev, lead, world, out, steps=2, seed=1024):
     rows = [torch.empty_like(stats) for _ in range(world)]
     dist.all_gather(rows, stats)
     if lead:
-        cs.say("mesh_check_wan22", mesh="x".join(map(str, shape)),
-               devices=devices, stages=stages, rank_step_seconds="|".join(
+        say("mesh_check_wan22", mesh="x".join(map(str, shape)),
+            devices=devices, stages=stages, rank_step_seconds="|".join(
                    "/".join(f"{s:.3f}" for s in r[:-1].tolist())
                    for r in rows),
-               rank_peak_gb="|".join(f"{r[-1].item():.2f}" for r in rows))
+            rank_peak_gb="|".join(f"{r[-1].item():.2f}" for r in rows))
     if "swap" in stages or "cpu" in devices:
         raise AssertionError(f"Wan2.2 on {shape}: devices {devices}, "
                              f"stages {stages}")
     fhw = (21, h // 16, w // 16)
     check(f"wan22_full_{'x'.join(map(str, shape))}",
-          rel_l2(got, ref) if lead else None, launches,
-          cs.mesh_launches(cfg, fhw, shape,
-                           cs.MESH_MODES["full", (1, 1, 4), False], steps,
-                           mesh.rank, 512), lead, out)
+          rel_l2({k: got[k] for k in ref}, ref) if lead else None, launches,
+          mesh_launches(cfg, fhw, shape,
+                        MESH_MODES["full", (1, 1, 4), False], steps,
+                        mesh.rank, 512), lead, out)
     if lead:
         out[-1].update(rank_step_seconds=[r[:-1].tolist() for r in rows],
                        rank_peak_gb=[r[-1].item() for r in rows])
@@ -238,18 +244,23 @@ def mesh_train(dev, lead, world, out, seed=1024):
     every rank its part of each mesh of ``FULL_MESHES``."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import TRAIN_TOL, rel_l2, say
+    from fantasy_world_tpu_torch.chipcheck.inputs import (MESH_GEOMETRY,
+                                                          mesh_fusion_config)
+    from fantasy_world_tpu_torch.chipcheck.launches import (
+        MESH_MODES, mesh_train_launches)
+    from fantasy_world_tpu_torch.chipcheck.mesh import mesh_lora_steps
     from fantasy_world_tpu_torch.parallel import sharding
-    cfg = cs.mesh_fusion_config()
-    height, width, frames = cs.MESH_GEOMETRY
+    cfg = mesh_fusion_config()
+    height, width, frames = MESH_GEOMETRY
     fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
     ref = None
     if lead:
-        losses, grads, seconds, peak, _ = cs.mesh_lora_steps(dev, cfg, seed,
-                                                             steps=1)
+        losses, grads, seconds, peak, _ = mesh_lora_steps(dev, cfg, seed,
+                                                          steps=1)
         ref = {"loss": losses[0], "grads": grads[0]}
-        cs.say("mesh_check_train_one_process", loss=f"{losses[0]:.5f}",
-               step_seconds=f"{seconds[0]:.3f}", peak_gb=f"{peak:.2f}")
+        say("mesh_check_train_one_process", loss=f"{losses[0]:.5f}",
+            step_seconds=f"{seconds[0]:.3f}", peak_gb=f"{peak:.2f}")
         out.append({"check": "train_one_process", "loss": losses[0],
                     "step_seconds": seconds, "peak_gb": peak})
         del grads
@@ -258,7 +269,7 @@ def mesh_train(dev, lead, world, out, seed=1024):
     dist.barrier()
     for shape, uly in FULL_MESHES:
         mesh = sharding.make_mesh(*shape)
-        losses, grads, seconds, peak, launches = cs.mesh_lora_steps(
+        losses, grads, seconds, peak, launches = mesh_lora_steps(
             dev, cfg, seed, mesh, uly, steps=1)
         stats = torch.tensor([*seconds, peak], device="cuda")
         rows = [torch.empty_like(stats) for _ in range(world)]
@@ -267,19 +278,19 @@ def mesh_train(dev, lead, world, out, seed=1024):
         if lead:
             names = sorted(ref["grads"])
             errs = {"loss": abs(losses[0] - ref["loss"]) / abs(ref["loss"]),
-                    "lora_grads": cs._rel_l2(
+                    "lora_grads": rel_l2(
                         [grads[0][n] for n in names],
                         [ref["grads"][n] for n in names])}
-            cs.say("mesh_check_train", mesh="x".join(map(str, shape)),
-                   ulysses=uly, loss=f"{losses[0]:.5f}",
-                   rank_step_seconds="|".join(f"{r[0].item():.3f}"
-                                              for r in rows),
-                   rank_peak_gb="|".join(f"{r[-1].item():.2f}"
-                                         for r in rows))
+            say("mesh_check_train", mesh="x".join(map(str, shape)),
+                ulysses=uly, loss=f"{losses[0]:.5f}",
+                rank_step_seconds="|".join(f"{r[0].item():.3f}"
+                                           for r in rows),
+                rank_peak_gb="|".join(f"{r[-1].item():.2f}"
+                                      for r in rows))
         check(f"train_{'x'.join(map(str, shape))}{'_ulysses' * uly}", errs,
-              launches, cs.mesh_train_launches(
-                  cfg, fhw, shape, cs.MESH_MODES["full", shape, uly],
-                  mesh.rank, 1, 512), lead, out, tol=cs.TRAIN_TOL)
+              launches, mesh_train_launches(
+                  cfg, fhw, shape, MESH_MODES["full", shape, uly],
+                  mesh.rank, 1, 512), lead, out, tol=TRAIN_TOL)
         if lead:
             out[-1].update(rank_step_seconds=[r[0].item() for r in rows],
                            rank_peak_gb=[r[-1].item() for r in rows])
@@ -299,19 +310,18 @@ def _grad_rel_l2(dev, ref, ref_layout, got, got_layout, layers,
                  joint=False):
     """The relative L2 of this rank's gradients ``got`` against ``ref``'s
     (this rank's; None where it ran no reference), by
-    ``chip_smoke.pipe_grad_rel_l2`` (``joint``: a cross-attention key bias
+    ``chipcheck.common.rel_l2`` (``joint``: a cross-attention key bias
     with its weight): lite's where the rank holds both, each block's sent
     from the rank that holds it in ``ref_layout`` to the one that holds it
     in ``got_layout``. Every rank calls it; {name: error} of this rank's
     comparisons."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import rel_l2
     me = dist.get_rank()
 
     def rel(names, theirs):
-        return cs.pipe_grad_rel_l2({n: got[n] for n in names}, theirs,
-                                   "cpu", joint)[0]
+        return rel_l2({n: got[n] for n in names}, theirs, joint)
     errs = ({} if ref is None else
             rel([n for n in got if not n.startswith("blocks.")], ref))
     suffixes = sorted({n.split(".", 2)[2] for n in got
@@ -338,16 +348,20 @@ def pipe_train(dev, lead, world, out, seed=1024):
     """Section 7 (module docstring)."""
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import TRAIN_TOL, say
+    from fantasy_world_tpu_torch.chipcheck.launches import pipe_launches_of
+    from fantasy_world_tpu_torch.chipcheck.pipe import (FULL_PIPE_GEOMETRY,
+                                                        full_pipe_config,
+                                                        pipe_batch, pipe_step)
     from fantasy_world_tpu_torch.parallel.pipeline import make_pipe_mesh
-    geometry, text_len = cs.FULL_PIPE_GEOMETRY, 512
+    geometry, text_len = FULL_PIPE_GEOMETRY, 512
 
     def run(layers, layout, batch):
         """One step of ``layout`` at ``layers`` blocks on every rank, with
         Ulysses on seq ranks: {loss, grads, launches, want}."""
         S, D, Sq, M = layout
-        cfg = cs.full_pipe_config(layers)
-        loss, model, seconds, peak, launches = cs.pipe_step(
+        cfg = full_pipe_config(layers)
+        loss, model, seconds, peak, launches = pipe_step(
             dev, torch.bfloat16, cfg, seed, batch,
             make_pipe_mesh(S, data=D, seq=Sq), microbatches=M,
             ulysses=Sq > 1)
@@ -367,20 +381,20 @@ def pipe_train(dev, lead, world, out, seed=1024):
         dist.all_gather(rows, stats)
         if lead:
             name = f"pipe_{S}x{D}x{Sq}_m{M}_{layers}"
-            cs.say("mesh_check_pipe", layout=name, blocks=layers,
-                   loss=f"{loss:.5f}", lite_bit_equal=same,
-                   rank_step_seconds="|".join(f"{r[0].item():.3f}"
-                                              for r in rows),
-                   rank_peak_gb="|".join(f"{r[1].item():.2f}"
-                                         for r in rows))
+            say("mesh_check_pipe", layout=name, blocks=layers,
+                loss=f"{loss:.5f}", lite_bit_equal=same,
+                rank_step_seconds="|".join(f"{r[0].item():.3f}"
+                                           for r in rows),
+                rank_peak_gb="|".join(f"{r[1].item():.2f}"
+                                      for r in rows))
             out.append({"check": name, "loss": loss, "lite_bit_equal": same,
                         "rank_step_seconds": [r[0].item() for r in rows],
                         "rank_peak_gb": [r[1].item() for r in rows]})
             if not same:
                 raise AssertionError(f"{name}: lite differs between ranks")
-        want = cs.pipe_launches_of(cfg, geometry, text_len,
-                                   dist.get_rank(), Sq, Sq > 1, stages=S,
-                                   microbatches=M)
+        want = pipe_launches_of(cfg, geometry, text_len,
+                                dist.get_rank(), Sq, Sq > 1, stages=S,
+                                microbatches=M)
         del model, lite, hi, lo
         gc.collect()
         torch.cuda.empty_cache()
@@ -409,28 +423,28 @@ def pipe_train(dev, lead, world, out, seed=1024):
                "rank0_launches": {k: v for k, v in got["launches"].items()
                                   if v}}
         out.append(row)
-        cs.say("mesh_check", **{k: json.dumps(v).replace(" ", "")
-                                if isinstance(v, (dict, list)) else v
-                                for k, v in row.items()})
-        if not (worst[1] <= cs.TRAIN_TOL and loss_rel <= cs.TRAIN_TOL
+        say("mesh_check", **{k: json.dumps(v).replace(" ", "")
+                             if isinstance(v, (dict, list)) else v
+                             for k, v in row.items()})
+        if not (worst[1] <= TRAIN_TOL and loss_rel <= TRAIN_TOL
                 and ok.item()):
             raise AssertionError(f"{name}: {row}")
 
-    batch = cs.pipe_batch(cs.full_pipe_config(), geometry, seed + 7,
-                          text_len, n=4)
+    batch = pipe_batch(full_pipe_config(), geometry, seed + 7,
+                       text_len, n=4)
     # the first layout and 'seq' inside a stage at PIPE_REF_DEPTH against
     # one process on rank 0
     one = (1, 1, 1, PIPE_LAYOUTS[0][-1])
     ref = None
     if lead:
-        cfg = cs.full_pipe_config(PIPE_REF_DEPTH)
-        loss, model, seconds, peak, _ = cs.pipe_step(
+        cfg = full_pipe_config(PIPE_REF_DEPTH)
+        loss, model, seconds, peak, _ = pipe_step(
             dev, torch.bfloat16, cfg, seed, batch, microbatches=one[-1])
         ref = {"loss": loss, "grads": {n: p.grad.detach().cpu()
                                        for n, p in model.named_parameters()}}
-        cs.say("mesh_check_pipe_one_process", blocks=PIPE_REF_DEPTH,
-               loss=f"{loss:.5f}", step_seconds=f"{seconds:.3f}",
-               peak_gb=f"{peak:.2f}")
+        say("mesh_check_pipe_one_process", blocks=PIPE_REF_DEPTH,
+            loss=f"{loss:.5f}", step_seconds=f"{seconds:.3f}",
+            peak_gb=f"{peak:.2f}")
         out.append({"check": "pipe_one_process", "blocks": PIPE_REF_DEPTH,
                     "loss": loss, "step_seconds": seconds, "peak_gb": peak})
         del model
@@ -462,7 +476,19 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import rel_l2, say
+    from fantasy_world_tpu_torch.chipcheck.inputs import (MESH_GEOMETRY,
+                                                          MESH_STEPS,
+                                                          SMALL_GEOMETRY,
+                                                          SMALL_STEPS,
+                                                          check_outputs,
+                                                          mesh_fusion_config,
+                                                          small_configs)
+    from fantasy_world_tpu_torch.chipcheck.launches import (MESH_MODES,
+                                                            mesh_launches)
+    from fantasy_world_tpu_torch.chipcheck.mesh import (mesh_attention_calls,
+                                                        mesh_denoise,
+                                                        small_mesh_denoise)
     from fantasy_world_tpu_torch.parallel import distributed, sharding
     if not distributed.is_multiprocess_env():
         raise SystemExit("run under torchrun, one process per card")
@@ -482,33 +508,34 @@ def main(argv=None) -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
-        cs.say("mesh_check_backend", backend=dist.get_backend(),
-               world=world, torch=torch.__version__)
+        say("mesh_check_backend", backend=dist.get_backend(),
+            world=world, torch=torch.__version__)
 
     # 1. the reduced slice on every mesh of the world
     if 1 in sections:
         ref = None
         if lead:
-            ref, _, _ = cs.small_mesh_denoise(dev, sharding.single(), False)
-        fcfg, _ = cs.small_configs()
-        height, width, frames = cs.SMALL_GEOMETRY
+            ref, _, _ = small_mesh_denoise(dev, sharding.single(), False)
+        fcfg, _ = small_configs()
+        height, width, frames = SMALL_GEOMETRY
         fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
         for shape, uly in SMALL_MESHES:
             mesh = sharding.make_mesh(*shape)
-            got, launches, seconds = cs.small_mesh_denoise(dev, mesh, uly)
+            got, launches, seconds = small_mesh_denoise(dev, mesh, uly)
             check(f"small_{'x'.join(map(str, shape))}{'_ulysses' * uly}",
-                  rel_l2(got, ref) if lead else None, launches,
-                  cs.mesh_launches(fcfg, fhw, shape,
-                                   cs.MESH_MODES["small", shape, uly],
-                                   cs.SMALL_STEPS, mesh.rank, 16), lead, out)
+                  rel_l2({k: got[k] for k in ref}, ref) if lead else None,
+                  launches,
+                  mesh_launches(fcfg, fhw, shape,
+                                MESH_MODES["small", shape, uly],
+                                SMALL_STEPS, mesh.rank, 16), lead, out)
 
     # 2. the sequence-parallel attentions at full width
     if 2 in sections:
         axis = sharding.Axis(dist.group.WORLD, world, dist.get_rank())
-        for row in cs.mesh_attention_calls(dev, axis, 5):
+        for row in mesh_attention_calls(dev, axis, 5):
             row = dict(row, ranks=world)
             out.append(row)
-            cs.say("mesh_check_attention", **{
+            say("mesh_check_attention", **{
                 k: (f"{v:.3e}" if k in ("max_abs_err", "err_bound") else
                     f"{v:.3f}" if isinstance(v, float) else v)
                 for k, v in row.items()})
@@ -519,14 +546,14 @@ def main(argv=None) -> int:
 
     # 3. the full-width denoise
     if 3 in sections:
-        height, width, frames = cs.MESH_GEOMETRY
+        height, width, frames = MESH_GEOMETRY
         fhw = ((frames - 1) // 4 + 1, height // 16, width // 16)
-        cfg = cs.mesh_fusion_config()
+        cfg = mesh_fusion_config()
         if lead:
-            lat, pred, steps, peak, _ = cs.mesh_denoise(dev, cfg, 1024)
-            ref = {k: v.float().cpu() for k, v in cs.check_outputs(
+            lat, pred, steps, peak, _ = mesh_denoise(dev, cfg, 1024)
+            ref = {k: v.float().cpu() for k, v in check_outputs(
                 cfg, lat, pred, height, width, frames).items()}
-            cs.say("mesh_check_one_process", step_seconds="|".join(
+            say("mesh_check_one_process", step_seconds="|".join(
                 f"{s:.3f}" for s in steps), peak_gb=f"{peak:.2f}")
             out.append({"check": "full_one_process", "step_seconds": steps,
                         "peak_gb": peak})
@@ -536,26 +563,26 @@ def main(argv=None) -> int:
         dist.barrier()
         for shape, uly in FULL_MESHES:
             mesh = sharding.make_mesh(*shape)
-            lat, pred, steps, peak, launches = cs.mesh_denoise(dev, cfg, 1024,
-                                                               mesh, uly)
+            lat, pred, steps, peak, launches = mesh_denoise(dev, cfg, 1024,
+                                                            mesh, uly)
             stats = torch.tensor([*steps, peak], device="cuda")
             rows = [torch.empty_like(stats) for _ in range(world)]
             dist.all_gather(rows, stats)
             errs = None
             if lead:
-                got = {k: v.float().cpu() for k, v in cs.check_outputs(
+                got = {k: v.float().cpu() for k, v in check_outputs(
                     cfg, lat, pred, height, width, frames).items()}
-                errs = rel_l2(got, ref)
-                cs.say("mesh_check_full", mesh="x".join(map(str, shape)),
-                       ulysses=uly, rank_step_seconds="|".join(
+                errs = rel_l2({k: got[k] for k in ref}, ref)
+                say("mesh_check_full", mesh="x".join(map(str, shape)),
+                    ulysses=uly, rank_step_seconds="|".join(
                            "/".join(f"{s:.3f}" for s in r[:-1].tolist())
                            for r in rows),
-                       rank_peak_gb="|".join(f"{r[-1].item():.2f}"
-                                             for r in rows))
+                    rank_peak_gb="|".join(f"{r[-1].item():.2f}"
+                                          for r in rows))
             check(f"full_{'x'.join(map(str, shape))}{'_ulysses' * uly}", errs,
-                  launches, cs.mesh_launches(cfg, fhw, shape,
-                                             cs.MESH_MODES["full", shape, uly],
-                                             cs.MESH_STEPS, mesh.rank, 512),
+                  launches, mesh_launches(cfg, fhw, shape,
+                                          MESH_MODES["full", shape, uly],
+                                          MESH_STEPS, mesh.rank, 512),
                   lead, out)
             if lead:
                 out[-1].update(
@@ -588,8 +615,8 @@ def main(argv=None) -> int:
         pipe_train(dev, lead, world, out)
 
     if lead:
-        cs.say("mesh_check_done",
-               seconds=f"{time.perf_counter() - t_all:.1f}")
+        say("mesh_check_done",
+            seconds=f"{time.perf_counter() - t_all:.1f}")
         line = json.dumps({"mesh_check": out})
         print(line, flush=True)
         if args.json:

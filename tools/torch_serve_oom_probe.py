@@ -69,7 +69,12 @@ def run_variant(name: str) -> dict:
     """The phases in process with the variant's changes; the result."""
     import torch
     sys.path.insert(0, REPO)
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.kernels import phase_build
+    from fantasy_world_tpu_torch.chipcheck.full import (phase_full_clip,
+                                                        phase_full_serve,
+                                                        phase_full_slice,
+                                                        phase_full_verify,
+                                                        phase_full_windowed)
     from fantasy_world_tpu_torch.models.wan import vae as vae_mod
     changes, _ = VARIANTS[name]
     if "vae_inplace" in changes:
@@ -86,14 +91,14 @@ def run_variant(name: str) -> dict:
            "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
     t0 = time.perf_counter()
     try:
-        cs.phase_build()
-        _, _, pipe, cond, plucker_fea = cs.phase_full_slice(device)
-        cs.phase_full_verify(device, pipe)
+        phase_build()
+        _, _, pipe, cond, plucker_fea = phase_full_slice(device)
+        phase_full_verify(device, pipe)
         if "windowed_first" in changes:
-            cs.phase_full_windowed(device, pipe, cond, plucker_fea)
-        _, cpipe, moge = cs.phase_full_clip(device, pipe)
+            phase_full_windowed(device, pipe, cond, plucker_fea)
+        _, cpipe, moge = phase_full_clip(device, pipe)
         out["before_serve"] = allocator_state()
-        _, batches, _ = cs.phase_full_serve(device, cpipe, moge)
+        _, batches, _, _ = phase_full_serve(device, cpipe, moge)
         out["batches"] = [{"jobs": b["jobs"], "steps": b["steps"],
                            "seconds": round(b["seconds"], 3),
                            "peak_gb": round(b["peak_gb"], 2)}

@@ -37,7 +37,7 @@ def main(argv=None) -> int:
         print("torch_serve_probe: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.inputs import conditioning
     from fantasy_world_tpu_torch.core.params import build
     from fantasy_world_tpu_torch.models.fusion.model import (FusionConfig,
                                                              FusionModel)
@@ -70,8 +70,8 @@ def main(argv=None) -> int:
         vae=make(WanVAE, VAEConfig()))
     moge = make(MoGe, MoGeConfig())  # noqa: F841  (held, as the server does)
     height, width, frames = 336, 592, 81
-    cond = cs.conditioning(cfg.dit, height, width, frames,
-                           torch.Generator("cpu").manual_seed(1024), 512)
+    cond = conditioning(cfg.dit, height, width, frames,
+                        torch.Generator("cpu").manual_seed(1024), 512)
     plucker = pipe.encode_plucker(cond[4])
     results = []
     for mode in ("bf16", "int8"):

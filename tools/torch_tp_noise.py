@@ -19,7 +19,7 @@ in one process on the card (relative L2 per output):
                   whole 5120.
 
 Each variant's ranks first run full_mesh's q/k norm check
-(``chip_smoke.py:mesh_norm_check``): max abs error beside its bound.
+(``chipcheck.mesh.mesh_norm_check``): max abs error beside its bound.
 
 The variants are applied in the spawned ranks by rebinding the helpers
 ``models/wan/dit.py`` calls; nothing in the package changes. Prints the
@@ -69,16 +69,19 @@ def apply_variant(variant: str) -> None:
 
 def _variant_rank(rank, variant):
     import torch.distributed as dist
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import MESH_DIR
+    from fantasy_world_tpu_torch.chipcheck.jobs import rank_setup
+    from fantasy_world_tpu_torch.chipcheck.mesh import (full_mesh_rank,
+                                                        mesh_norm_check)
     from fantasy_world_tpu_torch.parallel import sharding
-    dev = cs._rank_setup()
+    dev = rank_setup()
     apply_variant(variant)
     axis = sharding.Axis(dist.group.WORLD, dist.get_world_size(), rank)
-    err, bound = cs.mesh_norm_check(dev, axis)
+    err, bound = mesh_norm_check(dev, axis)
     if rank == 0:
-        with open(os.path.join(cs.MESH_DIR, "norm.json"), "w") as fh:
+        with open(os.path.join(MESH_DIR, "norm.json"), "w") as fh:
             json.dump({"max_abs_err": err, "err_bound": bound}, fh)
-    cs._full_mesh_rank(rank, (1, 1, 2), False, None, SEED)
+    full_mesh_rank(rank, (1, 1, 2), False, None, SEED)
 
 
 def main(argv=None) -> int:
@@ -88,31 +91,37 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    import chip_smoke as cs
+    from fantasy_world_tpu_torch.chipcheck.common import MESH_DIR, say
+    from fantasy_world_tpu_torch.chipcheck.inputs import (MESH_GEOMETRY,
+                                                          check_outputs,
+                                                          mesh_fusion_config)
+    from fantasy_world_tpu_torch.chipcheck.jobs import mesh_run
+    from fantasy_world_tpu_torch.chipcheck.kernels import phase_build
+    from fantasy_world_tpu_torch.chipcheck.mesh import mesh_denoise
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    cs.phase_build()
+    phase_build()
     dev = torch.device("cuda", 0)
-    cfg = cs.mesh_fusion_config()
-    lat, pred, steps, peak, _ = cs.mesh_denoise(dev, cfg, SEED)
-    ref = {k: v.float().cpu() for k, v in cs.check_outputs(
-        cfg, lat, pred, *cs.MESH_GEOMETRY).items()}
+    cfg = mesh_fusion_config()
+    lat, pred, steps, peak, _ = mesh_denoise(dev, cfg, SEED)
+    ref = {k: v.float().cpu() for k, v in check_outputs(
+        cfg, lat, pred, *MESH_GEOMETRY).items()}
     del lat, pred
     gc.collect()
     torch.cuda.empty_cache()
-    cs.say("tp_noise_one_process",
-           step_seconds="|".join(f"{s:.3f}" for s in steps),
-           peak_gb=f"{peak:.2f}")
+    say("tp_noise_one_process",
+        step_seconds="|".join(f"{s:.3f}" for s in steps),
+        peak_gb=f"{peak:.2f}")
     rows = []
     for variant in VARIANTS:
         t0 = time.perf_counter()
-        records = cs.mesh_run(_variant_rank, 2, variant)
-        got = torch.load(os.path.join(cs.MESH_DIR, "outputs.pt"))
-        with open(os.path.join(cs.MESH_DIR, "norm.json")) as fh:
+        records = mesh_run(_variant_rank, 2, variant)
+        got = torch.load(os.path.join(MESH_DIR, "outputs.pt"))
+        with open(os.path.join(MESH_DIR, "norm.json")) as fh:
             norm = json.load(fh)
         errs = {k: ((got[k] - r).norm() / r.norm().clamp_min(1e-12)).item()
                 for k, r in ref.items()}
@@ -122,13 +131,13 @@ def main(argv=None) -> int:
                "rank_step_seconds": [r["steps"] for r in records],
                "seconds": time.perf_counter() - t0}
         rows.append(row)
-        cs.say("tp_noise", variant=variant,
-               norm_max_abs_err=f"{norm['max_abs_err']:.3e}",
-               norm_err_bound=f"{norm['err_bound']:.3e}",
-               rel_l2=json.dumps({k: float(f"{v:.3e}")
-                                  for k, v in errs.items()}).replace(" ", ""),
-               seconds=f"{row['seconds']:.1f}")
-    cs.say("tp_noise_done", seconds=f"{time.perf_counter() - t_all:.1f}")
+        say("tp_noise", variant=variant,
+            norm_max_abs_err=f"{norm['max_abs_err']:.3e}",
+            norm_err_bound=f"{norm['err_bound']:.3e}",
+            rel_l2=json.dumps({k: float(f"{v:.3e}")
+                               for k, v in errs.items()}).replace(" ", ""),
+            seconds=f"{row['seconds']:.1f}")
+    say("tp_noise_done", seconds=f"{time.perf_counter() - t_all:.1f}")
     line = json.dumps({"tp_noise": rows})
     print(line, flush=True)
     if args.json:
